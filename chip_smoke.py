@@ -2,21 +2,21 @@
 """Chip smoke test of the PyTorch + CUDA port (pilosa_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--slices 960]
+    python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc;
   3. kernels: every wrapper on the card at the main path's shapes, held
      exactly against its plain PyTorch version, and timed;
-  4. the slice: a Holder of `--slices` slices (960 = 1,006,632,960
-     columns) with 8 dense random rows, one partial row and one row in
+  4. the slice: a Holder of 960 slices (1,006,632,960 columns) with 8 dense random rows, one partial row and one row in
      odd slices only, served over HTTP on 127.0.0.1: the Quickstart
      requests, a lone Count(Intersect), the 28 row pairs from 16
      concurrent clients (twice), Count(Union) / Count(Difference), and
      counts over the partial rows. Every answer is checked against
-     np.bitwise_count on the host words, and every kernel's launch
-     counter must move during this phase;
+     np.bitwise_count on the host words, every kernel's launch counter
+     must move during this phase, and torch.profiler measures the card's
+     busy share of the second 16-client round;
   5. a `kernels` JSON line, the card line, and the final
      {"ok": true, "device": ...} line.
 
@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+SLICES = 960
 DENSE_ROWS = 8
 PARTIAL_ROW = 8      # blocks 0-7 of even slices only: gathers per container
 ODD_ROW = 9          # all 16 blocks of odd slices only: coarse, not uniform
@@ -60,6 +61,12 @@ KERNELS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def check(ok: bool, what) -> None:
+    """A check that survives python -O: failing it fails the run."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
 
 
 # -- data ----------------------------------------------------------------------
@@ -136,13 +143,15 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
     import torch
 
     from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.ops.pool import pack_bitmap
     from pilosa_tpu_torch.parallel.mesh import (build_sharded_index,
                                                 dense_row, leaf_layout)
 
     s = words.shape[0]
     frags = [holder.fragment("i", "general", "standard", i) for i in range(s)]
     t0 = time.monotonic()
-    staged = build_sharded_index([f.storage for f in frags], device)
+    staged = build_sharded_index([pack_bitmap(f.storage) for f in frags],
+                                 device)
     torch.cuda.synchronize()
     log(f"kernel phase: staged {staged.words.numel() * 4 / 1e9:.3f} GB "
         f"pool (S={s}, cap={staged.capacity}) in "
@@ -207,8 +216,8 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err != 0 or got.shape != want.shape:
-            raise AssertionError(f"{name}: kernel != plain (max err {err})")
+        check(err == 0 and got.shape == want.shape,
+              f"{name}: kernel != plain (max err {err})")
         ms = time_ms(run, 20)
         plain_ms = time_ms(plain, 3)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -221,8 +230,7 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
     # The wrapper total over the same per-slice vector.
     total = int(tk.tree_count_pallas(pool, idx, hit, pair_and))
     want = host_count(words, "and", PARTIAL_ROW, 0)
-    if total != want:
-        raise AssertionError(f"tree_count_pallas {total} != host {want}")
+    check(total == want, f"tree_count_pallas {total} != host {want}")
     del staged, pool
     torch.cuda.empty_cache()
     return results
@@ -239,9 +247,7 @@ class Client:
         self.conn.request(method, path, body=body.encode())
         resp = self.conn.getresponse()
         doc = json.loads(resp.read())
-        if resp.status != 200:
-            raise AssertionError(f"{method} {path} {body!r}: {resp.status} "
-                                 f"{doc}")
+        check(resp.status == 200, (method, path, body, resp.status, doc))
         return doc
 
     def count(self, pql: str) -> int:
@@ -265,15 +271,16 @@ def quickstart(c: Client) -> None:
         c.call("POST", "/index/q/query", f"SetBit(rowID=1, frame=f, columnID={col})")
     c.call("POST", "/index/q/query", "SetBit(rowID=2, frame=f, columnID=7)")
     q = "Count(Intersect(Bitmap(rowID=1, frame=f), Bitmap(rowID=2, frame=f)))"
-    assert c.call("POST", "/index/q/query", q) == {"results": [1]}
-    assert c.call("POST", "/index/q/query",
-                  "ClearBit(rowID=2, frame=f, columnID=7)") == {"results": [True]}
-    assert c.call("POST", "/index/q/query", q) == {"results": [0]}
-    assert c.call("POST", "/index/q/query", "Bitmap(rowID=1, frame=f)") == {
-        "results": [{"attrs": {}, "bits": [7, 1_050_000]}]}
-    schema = c.call("GET", "/schema")
-    names = [i["name"] for i in schema["indexes"]]
-    assert names == ["i", "q"], names
+    for body, want in (
+            (q, [1]),
+            ("ClearBit(rowID=2, frame=f, columnID=7)", [True]),
+            (q, [0]),
+            ("Bitmap(rowID=1, frame=f)",
+             [{"attrs": {}, "bits": [7, 1_050_000]}])):
+        got = c.call("POST", "/index/q/query", body)
+        check(got == {"results": want}, (body, got))
+    names = [i["name"] for i in c.call("GET", "/schema")["indexes"]]
+    check(names == ["i", "q"], names)
 
 
 def concurrent(host, port, queries, want, rounds: int = 1) -> float:
@@ -303,9 +310,28 @@ def concurrent(host, port, queries, want, rounds: int = 1) -> float:
     for t in threads:
         t.join()
     dt = time.monotonic() - t0
-    if errors:
-        raise AssertionError(f"concurrent answers wrong: {errors[:5]}")
+    check(not errors, f"concurrent answers: {errors[:5]}")
     return CLIENTS * rounds * len(queries) / dt
+
+
+def profiled(fn) -> dict:
+    """Run fn under torch.profiler (CUDA activity only) and report the
+    device time of every kernel against the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = {e.key: e.self_device_time_total
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(kernels.values()) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "device_us_by_kernel": kernels}
 
 
 def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
@@ -331,25 +357,30 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
         t0 = time.monotonic()
         c.count(pql("and", 0, 1))  # stages the view
         torch.cuda.synchronize()
-        log(f"slice phase: first query (staging) {time.monotonic() - t0:.2f} s")
+        first_s = time.monotonic() - t0
+        log(f"slice phase: first query (staging) {first_s:.2f} s")
+        mgr = ex.mesh_manager()
+        before = dict(mgr.stats)
         tk.reset_launches()
         quickstart(c)
-        assert c.count(pql("and", 0, 1)) == want[("and", 0, 1)]
-        for key in [("or", 0, 1), ("andnot", 1, 0), ("and", PARTIAL_ROW, 0),
+        for key in [("and", 0, 1)] + [("or", 0, 1), ("andnot", 1, 0), ("and", PARTIAL_ROW, 0),
                     ("or", PARTIAL_ROW, 1), ("and", ODD_ROW, 2),
                     ("and", ODD_ROW, PARTIAL_ROW)]:
             got = c.count(pql(*key))
-            assert got == want[key], (key, got, want[key])
+            check(got == want[key], (key, got, want[key]))
         # Lone throughput: one client, distinct pairs back to back.
         lone_q = [pql("and", a, b) for a, b in pairs]
         lone_w = [want[("and", a, b)] for a, b in pairs]
         t0 = time.monotonic()
         for q, w in zip(lone_q * 2, lone_w * 2):
-            assert c.count(q) == w
+            got = c.count(q)
+            check(got == w, (q, got, w))
         lone_qps = 2 * len(lone_q) / (time.monotonic() - t0)
         # The 28 pairs from 16 clients, twice: the batch thread coalesces
         # them and repeated leaves take the shared-read kernel.
-        conc_qps = [concurrent(host, port, lone_q, lone_w) for _ in range(2)]
+        conc_qps = [concurrent(host, port, lone_q, lone_w)]
+        busy = profiled(lambda: conc_qps.append(
+            concurrent(host, port, lone_q, lone_w)))
         # Non-uniform coarse and per-container rows under concurrency.
         mixed = [("and", ODD_ROW, 2), ("and", 3, ODD_ROW),
                  ("and", PARTIAL_ROW, 0), ("or", PARTIAL_ROW, 1)]
@@ -357,20 +388,26 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
                    [want[k] for k in mixed])
         torch.cuda.synchronize()
         launches = dict(tk.LAUNCHES)
-        stats = dict(ex.mesh_manager().stats)
+        stats = dict(mgr.stats)
+        by_wrapper = {k.split(":", 1)[1]: n - before.get(k, 0)
+                      for k, n in stats.items() if k.startswith("kernel:")}
     finally:
         c.close()
         srv.close()
     log(f"slice phase on {card}: lone {lone_qps:.1f} QPS, "
         f"{CLIENTS} clients {conc_qps[0]:.1f} / {conc_qps[1]:.1f} QPS")
-    log(f"slice phase launches {launches}")
+    log(f"slice phase launches {launches}, by wrapper {by_wrapper}")
+    log(f"slice phase profile (second {CLIENTS}-client round): device "
+        f"busy {busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s "
+        f"wall = {busy['device_busy_share']:.4f}")
     log(f"slice phase stats {json.dumps(stats, sort_keys=True)}")
     for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
-    if stats.get("batched", 0) <= 0 or stats.get("shared_batch", 0) <= 0:
-        raise AssertionError("concurrent counts did not coalesce / share")
-    return {"launches": launches, "stats": stats, "lone_qps": lone_qps,
+        check(n > 0, f"kernel {k} launched on the main path")
+    check(stats.get("batched", 0) > 0 and stats.get("shared_batch", 0) > 0,
+          "concurrent counts coalesced and shared reads")
+    return {"launches": launches, "launches_by_wrapper": by_wrapper,
+            "stats": stats, "first_query_s": first_s, "lone_qps": lone_qps,
+            "profile": busy,
             "concurrent_qps": conc_qps, "clients": CLIENTS}
 
 
@@ -380,7 +417,6 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--slices", type=int, default=960)
     args = ap.parse_args(argv)
 
     import torch
@@ -406,12 +442,11 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     t0 = time.monotonic()
-    words = make_words(args.slices, args.seed)
+    words = make_words(SLICES, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         holder = build_holder(tmp, words)
         try:
-            log(f"data: {args.slices} slices "
-                f"({args.slices << 20} columns) in "
+            log(f"data: {SLICES} slices ({SLICES << 20} columns) in "
                 f"{time.monotonic() - t0:.2f} s")
             kern = kernel_phase(holder, words, device)
             sl = slice_phase(holder, words, card, device)
@@ -433,7 +468,7 @@ def main(argv=None) -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "slices": args.slices,
+         "cuda": torch.version.cuda, "slices": SLICES,
          "seed": args.seed, "build_s": cuda_build.BUILD_SECONDS,
          "wrappers": kern, "slice": sl, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -14,7 +14,7 @@ from __future__ import annotations
 import fcntl
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 

@@ -9,11 +9,8 @@ import json
 import os
 import re
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
-import numpy as np
-
-from .. import SLICE_WIDTH
 from .view import VIEW_INVERSE, VIEW_STANDARD, View
 
 DEFAULT_ROW_LABEL = "rowID"
@@ -115,21 +112,6 @@ class Frame:
         if self.inverse_enabled and iv is not None:
             changed |= iv.clear_bit(column_id, row_id)
         return changed
-
-    def import_bits(self, row_ids: Sequence[int], column_ids: Sequence[int]):
-        """Bulk import split by (view, slice)."""
-        rows = np.asarray(row_ids, dtype=np.uint64)
-        cols = np.asarray(column_ids, dtype=np.uint64)
-        buckets = {VIEW_STANDARD: (rows, cols)}
-        if self.inverse_enabled:
-            buckets[VIEW_INVERSE] = (cols, rows)
-        for vname, (rs, cs) in buckets.items():
-            view = self.create_view_if_not_exists(vname)
-            slices = cs // np.uint64(SLICE_WIDTH)
-            for s in np.unique(slices):
-                m = slices == s
-                view.create_fragment_if_not_exists(int(s)).import_bits(
-                    rs[m], cs[m])
 
     def to_dict(self) -> dict:
         return {"name": self.name, "meta": dict(self.meta),

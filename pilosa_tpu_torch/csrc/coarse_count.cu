@@ -12,8 +12,9 @@
 // Design: one block per (slice s, query b). The row-run start comes
 // from a (B*L, S) table or, for the uniform layout, one scalar per
 // (query, leaf); a negative start is an absent leaf that reads nothing.
-// Each thread walks the run with 16-byte loads, neighbouring threads on
-// neighbouring addresses, folds the leaves in registers and popcounts;
+// The block's leaf pointers sit in shared memory. Each thread walks the
+// run with 16-byte loads, neighbouring threads on neighbouring addresses,
+// folds the leaves in a register accumulator and popcounts;
 // a block reduction writes out[b, s]. No atomics, so the result is the
 // same from run to run. The TPU kernel's multi-slice blocks and scalar
 // prefetch tables are TPU artefacts and have no counterpart here.
@@ -26,20 +27,23 @@ coarse_count_kernel(const __grid_constant__ Pools pools,
                     const __grid_constant__ Prog prog,
                     int* __restrict__ out) {
   __shared__ int red[32];
+  __shared__ const uint4* run[PILOSA_MAX_LEAVES];
   const int s = blockIdx.x;
   const int b = blockIdx.y;
-  const uint4* run[PILOSA_MAX_LEAVES];
-  for (int l = 0; l < num_leaves; ++l) {
+  if (threadIdx.x < num_leaves) {
+    const int l = threadIdx.x;
     const long long slot = (long long)b * num_leaves + l;
     const int st = uniform ? starts[slot] : starts[slot * num_slices + s];
     run[l] = st < 0 ? nullptr
                     : pools.base[l] + s * pools.slice_stride[l] +
                           (long long)st * PILOSA_RUN_VEC;
   }
+  __syncthreads();
   int count = 0;
   for (int i = threadIdx.x; i < PILOSA_RUN_VEC; i += blockDim.x) {
     count += popc4(fold(prog, [&](int l) {
-      return run[l] != nullptr ? __ldg(run[l] + i) : zero4();
+      const uint4* r = run[l];
+      return r != nullptr ? __ldg(r + i) : zero4();
     }));
   }
   count = block_sum(count, red);

@@ -9,15 +9,35 @@
 // 1.01 GB pool once: 0.30 ms at 3.35 TB/s, where K1 would read 4.03 GB.
 //
 // Design: one block per slice. At each 16-byte position a thread loads
-// the U unique words once, then evaluates all B folds from them through
-// the static leaf map (query b, leaf position l) -> unique index, with B
-// per-thread counters; one block reduction per query writes out[b, s].
+// the U unique words once into registers, then evaluates all B folds
+// from them through the leaf map (query b, leaf position l) -> unique
+// index, with B per-thread counters; one block reduction per query
+// writes out[b, s]. The map is uniform across the block, so picking a
+// unique word is a uniform branch, not an indexed (local memory) load.
 // B <= 16 and U <= 16; the wrapper raises beyond that.
 #include "fold.cuh"
 
 struct LeafMap {
   unsigned char u[PILOSA_MAX_BATCH * PILOSA_MAX_LEAVES];
 };
+
+// w[u] for a block-uniform u, by a uniform branch on u: every index into
+// w is a constant, so the U words stay in registers.
+#define PILOSA_PICK_CASE(c) \
+  case c:                   \
+    return w[c];
+__device__ __forceinline__ uint4 pick(const uint4 (&w)[PILOSA_MAX_LEAVES],
+                                      int u) {
+  switch (u) {
+    PILOSA_PICK_CASE(0) PILOSA_PICK_CASE(1) PILOSA_PICK_CASE(2)
+    PILOSA_PICK_CASE(3) PILOSA_PICK_CASE(4) PILOSA_PICK_CASE(5)
+    PILOSA_PICK_CASE(6) PILOSA_PICK_CASE(7) PILOSA_PICK_CASE(8)
+    PILOSA_PICK_CASE(9) PILOSA_PICK_CASE(10) PILOSA_PICK_CASE(11)
+    PILOSA_PICK_CASE(12) PILOSA_PICK_CASE(13) PILOSA_PICK_CASE(14)
+    PILOSA_PICK_CASE(15)
+  }
+  return zero4();
+}
 
 __global__ void __launch_bounds__(PILOSA_THREADS)
 coarse_count_shared_kernel(const __grid_constant__ Pools pools,
@@ -27,26 +47,31 @@ coarse_count_shared_kernel(const __grid_constant__ Pools pools,
                            const __grid_constant__ LeafMap map, int batch,
                            int* __restrict__ out) {
   __shared__ int red[32];
+  __shared__ const uint4* run[PILOSA_MAX_LEAVES];
   const int s = blockIdx.x;
-  const uint4* run[PILOSA_MAX_LEAVES];
-  for (int u = 0; u < num_unique; ++u) {
+  if (threadIdx.x < num_unique) {
+    const int u = threadIdx.x;
     const int st = uniform ? starts[u] : starts[(long long)u * num_slices + s];
     run[u] = st < 0 ? nullptr
                     : pools.base[u] + s * pools.slice_stride[u] +
                           (long long)st * PILOSA_RUN_VEC;
   }
+  __syncthreads();
   int cnt[PILOSA_MAX_BATCH];
 #pragma unroll
   for (int q = 0; q < PILOSA_MAX_BATCH; ++q) cnt[q] = 0;
   for (int i = threadIdx.x; i < PILOSA_RUN_VEC; i += blockDim.x) {
     uint4 w[PILOSA_MAX_LEAVES];
-    for (int u = 0; u < num_unique; ++u)
-      w[u] = run[u] != nullptr ? __ldg(run[u] + i) : zero4();
+#pragma unroll
+    for (int u = 0; u < PILOSA_MAX_LEAVES; ++u) {
+      const uint4* r = u < num_unique ? run[u] : nullptr;
+      w[u] = r != nullptr ? __ldg(r + i) : zero4();
+    }
 #pragma unroll
     for (int q = 0; q < PILOSA_MAX_BATCH; ++q) {
       if (q < batch) {
         const unsigned char* m = map.u + q * PILOSA_MAX_LEAVES;
-        cnt[q] += popc4(fold(prog, [&](int l) { return w[m[l]]; }));
+        cnt[q] += popc4(fold(prog, [&](int l) { return pick(w, m[l]); }));
       }
     }
   }

@@ -1,22 +1,27 @@
-// Shared pieces of the count kernels: the postfix fold program, the
-// per-leaf pool table, popcount and the block reduction.
+// Shared pieces of the count kernels: the fold program, the per-leaf
+// pool table, popcount and the block reduction.
 //
-// A query's bitmap-op tree reaches a kernel as a short postfix program
-// (ops/kernels.py tree_program): opcode l < 16 pushes leaf l's words,
-// and/or/andnot pop two operands and push the result. Every thread runs
-// the same program over its own 16-byte slice of the leaves' words, so
-// the tree shape is data, not code, and one build serves every query.
+// A query's bitmap-op tree reaches a kernel as a short program in
+// accumulator form (ops/kernels.py tree_program). Each byte is an opcode
+// in the high nibble and a leaf index in the low one:
+//   0x0l LOAD l     acc = leaf l
+//   0x1l AND l      acc &= leaf l
+//   0x2l OR l       acc |= leaf l
+//   0x3l ANDNOT l   acc &= ~leaf l
+//   0x40 PUSH       save acc (a nested right operand follows)
+//   0x50/0x60/0x70  acc = saved and/or/andnot acc
+// A flat n-ary tree is LOAD plus one op per further leaf: the value stays
+// in registers and the save stack is never touched. Every thread runs
+// the same program over its own 16 bytes of the leaves' words, so the
+// tree shape is data, not code, and one build serves every query.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #define PILOSA_MAX_LEAVES 16
 #define PILOSA_MAX_BATCH 16
-#define PILOSA_MAX_PROG 32
+#define PILOSA_MAX_PROG 48
 #define PILOSA_MAX_DEPTH 8
-#define PILOSA_OP_AND 16
-#define PILOSA_OP_OR 17
-#define PILOSA_OP_ANDNOT 18
 #define PILOSA_THREADS 256
 // uint4 vectors in one 2048-word container and in one 16-container run.
 #define PILOSA_CONTAINER_VEC 512
@@ -36,29 +41,33 @@ struct Pools {
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
-__device__ __forceinline__ uint4 combine(int op, uint4 a, uint4 b) {
-  if (op == PILOSA_OP_AND)
-    return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-  if (op == PILOSA_OP_OR)
-    return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+// kind 1 = and, 2 = or, 3 = andnot.
+__device__ __forceinline__ uint4 combine(int kind, uint4 a, uint4 b) {
+  if (kind == 1) return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+  if (kind == 2) return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
   return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
 }
 
-// Evaluates the program; leaf(l) yields leaf l's uint4 at this position.
+// Runs the program; leaf(l) yields leaf l's uint4 at this position.
 template <class Leaf>
 __device__ __forceinline__ uint4 fold(const Prog& p, Leaf leaf) {
-  uint4 st[PILOSA_MAX_DEPTH];
+  uint4 acc = zero4();
+  uint4 saved[PILOSA_MAX_DEPTH];
   int sp = 0;
   for (int k = 0; k < p.n; ++k) {
     const int op = p.op[k];
-    if (op < PILOSA_OP_AND) {
-      st[sp++] = leaf(op);
+    const int kind = op >> 4;
+    if (kind == 0) {
+      acc = leaf(op & 15);
+    } else if (kind < 4) {
+      acc = combine(kind, acc, leaf(op & 15));
+    } else if (kind == 4) {
+      saved[sp++] = acc;
     } else {
-      const uint4 rhs = st[--sp];
-      st[sp - 1] = combine(op, st[sp - 1], rhs);
+      acc = combine(kind - 4, saved[--sp], acc);
     }
   }
-  return st[0];
+  return acc;
 }
 
 __device__ __forceinline__ int popc4(uint4 v) {

@@ -10,10 +10,10 @@
 // absent one is a zero that reads nothing.
 //
 // Design: one block per (slice s, query b). For each of the 16 sub-keys
-// the block reads idx[b, l, s, j] and hit[b, l, s, j] for every leaf
-// (the same address for all threads: a broadcast), then walks the 2 KB
-// words of the gathered containers with 16-byte loads, folds, popcounts,
-// and reduces once per block into out[b, s]. The TPU kernel's SMEM
+// one thread per leaf reads idx[b, l, s, j] and hit[b, l, s, j] into a
+// shared pointer table, then the block walks the 8 KB of the gathered
+// containers with 16-byte loads, folds, popcounts, and reduces once per
+// block into out[b, s]. The TPU kernel's SMEM
 // slab loop over slices has no counterpart: a block reads its own
 // indices.
 #include "fold.cuh"
@@ -24,23 +24,27 @@ tree_count_kernel(const __grid_constant__ Pools pools,
                   int num_leaves, int num_slices,
                   const __grid_constant__ Prog prog, int* __restrict__ out) {
   __shared__ int red[32];
+  __shared__ const uint4* cont[PILOSA_MAX_LEAVES];
   const int s = blockIdx.x;
   const int b = blockIdx.y;
   int count = 0;
   for (int j = 0; j < 16; ++j) {
-    const uint4* cont[PILOSA_MAX_LEAVES];
-    for (int l = 0; l < num_leaves; ++l) {
+    if (threadIdx.x < num_leaves) {
+      const int l = threadIdx.x;
       const long long t =
           (((long long)b * num_leaves + l) * num_slices + s) * 16 + j;
       cont[l] = hit[t] != 0 ? pools.base[l] + s * pools.slice_stride[l] +
                                   (long long)idx[t] * PILOSA_CONTAINER_VEC
                             : nullptr;
     }
+    __syncthreads();
     for (int i = threadIdx.x; i < PILOSA_CONTAINER_VEC; i += blockDim.x) {
       count += popc4(fold(prog, [&](int l) {
-        return cont[l] != nullptr ? __ldg(cont[l] + i) : zero4();
+        const uint4* c = cont[l];
+        return c != nullptr ? __ldg(c + i) : zero4();
       }));
     }
+    __syncthreads();  // cont is rewritten for the next sub-key
   }
   count = block_sum(count, red);
   if (threadIdx.x == 0) out[(long long)b * num_slices + s] = count;

@@ -34,7 +34,12 @@ class Executor:
         self.device = resolve_device(device)
         self._mesh_mgr = None
         self._mesh_mu = threading.Lock()
+        self._stats_mu = threading.Lock()
         self.stats: Counter = Counter()
+
+    def _inc(self, key: str) -> None:
+        with self._stats_mu:
+            self.stats[key] += 1
 
     def mesh_manager(self):
         with self._mesh_mu:
@@ -144,9 +149,9 @@ class Executor:
             n = self.mesh_manager().count(index, shape, leaves, slices,
                                           num_slices)
             if n is not None:
-                self.stats["count_device"] += 1
+                self._inc("count_device")
                 return n
-        self.stats["count_host"] += 1
+        self._inc("count_host")
         return sum(self._bitmap_slice(index, child, s).count()
                    for s in slices)
 

@@ -7,7 +7,7 @@ names and argument order of the Pallas functions they replace
 
   K1 coarse_count (csrc/coarse_count.cu): coarse_count_per_slice,
      coarse_count_identity_batch, coarse_count_uniform,
-     coarse_count_uniform_batch, and tree_count_pallas_coarse over them;
+     coarse_count_uniform_batch;
   K2 coarse_count_shared (csrc/coarse_count_shared.cu):
      coarse_count_batch_per_slice, coarse_count_shared_uniform;
   K3 tree_count (csrc/tree_count.cu): tree_count_per_slice, and
@@ -16,7 +16,7 @@ names and argument order of the Pallas functions they replace
 Pools are (S, cap, 2048) int32 tensors holding uint32 words. A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 its kernel or raises. The tree reaches a kernel as a postfix program
-(tree_program) of at most MAX_LEAVES leaves and stack depth MAX_DEPTH.
+(tree_program) of at most MAX_LEAVES leaves and depth MAX_DEPTH.
 LAUNCHES counts kernel launches per kernel, and only launches.
 """
 
@@ -34,8 +34,9 @@ from .pool import CONTAINER_WORDS, ROW_SPAN
 MAX_LEAVES = 16
 MAX_DEPTH = 8
 MAX_BATCH = 16
-_MAX_PROG = 32
-_OPCODES = {"and": 16, "or": 17, "andnot": 18}
+_MAX_PROG = 48
+_OPCODES = {"and": 1, "or": 2, "andnot": 3}
+_PUSH = 0x40
 
 LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0}
 _LAUNCH_MU = threading.Lock()
@@ -48,7 +49,8 @@ def reset_launches() -> None:
 
 
 def tree_depth(tree) -> int:
-    """Stack depth the postfix evaluation of `tree` needs."""
+    """Values held at once while folding `tree` left to right (the
+    accumulator plus saved values): at most MAX_DEPTH on the kernels."""
     if tree[0] == "leaf":
         return 1
     depth = tree_depth(tree[1])
@@ -58,8 +60,10 @@ def tree_depth(tree) -> int:
 
 
 def tree_program(tree) -> bytes:
-    """The postfix program of a numbered op tree: opcode l < 16 pushes
-    leaf l; 16/17/18 combine the top two entries with and/or/andnot.
+    """The fold program of a numbered op tree, in the accumulator form
+    of csrc/fold.cuh: 0x0l loads leaf l; 0x1l/0x2l/0x3l combine leaf l
+    into the accumulator with and/or/andnot; 0x40 saves the accumulator
+    before a nested right operand and 0x50/0x60/0x70 combine it back.
     Raises ValueError beyond the kernels' limits."""
     ops = []
 
@@ -70,9 +74,15 @@ def tree_program(tree) -> bytes:
             ops.append(node[1])
             return
         emit(node[1])
+        kind = _OPCODES[node[0]]
         for child in node[2:]:
-            emit(child)
-            ops.append(_OPCODES[node[0]])
+            if child[0] == "leaf":
+                emit(child)
+                ops[-1] |= kind << 4
+            else:
+                ops.append(_PUSH)
+                emit(child)
+                ops.append((kind + 4) << 4)
 
     emit(tree)
     if len(ops) > _MAX_PROG or tree_depth(tree) > MAX_DEPTH:
@@ -201,14 +211,6 @@ def coarse_count_uniform_batch(pools, starts, tree):
     (B, S) int32."""
     return _coarse(pools, starts, tree, _batch_of(pools, starts),
                    uniform=True)
-
-
-def tree_count_pallas_coarse(words, starts, tree):
-    """Total count over one pool (every leaf reads `words`), starts
-    (L, S). Returns a 0-d int64 tensor."""
-    per = coarse_count_per_slice((words,) * int(starts.shape[0]), starts,
-                                 tree)
-    return per.sum(dtype=torch.int64)
 
 
 # -- K2 coarse_count_shared --------------------------------------------------

@@ -22,19 +22,21 @@ ROW_SPAN = 16
 INVALID_KEY = np.int32(2**31 - 1)
 
 
-def pool_keys(bitmap, row_ids: np.ndarray):
-    """(keys, order) for one slice's bitmap against the global dense
-    row table: keys[i] is the pool key of container order[i], sorted."""
-    real = np.asarray(bitmap.keys, dtype=np.uint64)
-    dense = np.searchsorted(row_ids, real >> np.uint64(4))
-    k = (dense * ROW_SPAN
-         + (real & np.uint64(15)).astype(np.int64)).astype(np.int32)
-    order = np.argsort(k, kind="stable")
-    return k[order], order
+def pack_bitmap(bitmap):
+    """One slice's containers as (keys (n,) uint64 container keys,
+    words (n, CONTAINER_WORDS) uint32): a copy, so the stager can take
+    it under the fragment's lock and pack the pool without it."""
+    keys = np.asarray(bitmap.keys, dtype=np.uint64)
+    words = np.empty((len(keys), CONTAINER_WORDS // 2), dtype=np.uint64)
+    if len(keys):
+        np.stack([c.words() for c in bitmap.containers], out=words)
+    return keys, words.view(np.uint32)
 
 
-def pack_words(bitmap, order: np.ndarray, out: np.ndarray) -> None:
-    """Write the containers of `bitmap`, in `order`, as uint32 words
-    into out[:len(order)] (out: (cap, CONTAINER_WORDS) uint32)."""
-    for j, ci in enumerate(order):
-        out[j] = bitmap.containers[ci].words().view(np.uint32)
+def pool_keys(real_keys: np.ndarray, row_ids: np.ndarray) -> np.ndarray:
+    """Pool keys of one slice's sorted container keys against the sorted
+    global dense row table. The mapping is monotonic, so the pool keys
+    come out sorted in the containers' own order."""
+    dense = np.searchsorted(row_ids, real_keys >> np.uint64(4))
+    return (dense * ROW_SPAN
+            + (real_keys & np.uint64(15)).astype(np.int64)).astype(np.int32)

@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.pool import (CONTAINER_WORDS, INVALID_KEY, ROW_SPAN, pack_words,
-                        pool_keys)
+from ..ops.pool import CONTAINER_WORDS, INVALID_KEY, ROW_SPAN, pool_keys
 
 # Host bytes packed per host-to-device copy while staging.
 _STAGE_CHUNK_BYTES = 64 << 20
@@ -45,27 +44,25 @@ class ShardedIndex(NamedTuple):
         return self.words.shape[1]
 
 
-def build_sharded_index(bitmaps: Sequence, device,
+def build_sharded_index(slices: Sequence, device,
                         capacity: Optional[int] = None) -> ShardedIndex:
-    """Stack per-slice host bitmaps (None = absent fragment) into one
-    device pool. Packing runs in host chunks of _STAGE_CHUNK_BYTES, each
+    """Stack per-slice containers into one device pool. slices[s] is
+    ops.pool.pack_bitmap of slice s's bitmap, or None for an absent
+    fragment. The pool fills in host chunks of _STAGE_CHUNK_BYTES, each
     copied into the preallocated device tensor."""
     device = torch.device(device)
-    s = max(1, len(bitmaps))
-    rows = [np.asarray(b.keys, dtype=np.uint64) >> np.uint64(4)
-            for b in bitmaps if b is not None and len(b.keys)]
+    s = max(1, len(slices))
+    rows = [keys >> np.uint64(4) for keys, _ in filter(None, slices)]
     row_ids = (np.unique(np.concatenate(rows)) if rows
                else np.empty(0, dtype=np.uint64))
-    counts = [len(b.keys) if b is not None else 0 for b in bitmaps]
+    counts = [len(sl[0]) if sl is not None else 0 for sl in slices]
     cap = capacity if capacity is not None else max(1, max(counts, default=1))
     cap = -(-cap // ROW_SPAN) * ROW_SPAN
 
     keys = np.full((s, cap), INVALID_KEY, dtype=np.int32)
-    orders: List[Optional[np.ndarray]] = [None] * s
-    for si, b in enumerate(bitmaps):
-        if b is not None and len(b.keys):
-            k, orders[si] = pool_keys(b, row_ids)
-            keys[si, :len(k)] = k
+    for si, sl in enumerate(slices):
+        if sl is not None:
+            keys[si, :len(sl[0])] = pool_keys(sl[0], row_ids)
 
     words = torch.empty((s, cap, CONTAINER_WORDS), dtype=torch.int32,
                         device=device)
@@ -74,8 +71,8 @@ def build_sharded_index(bitmaps: Sequence, device,
         hi = min(s, lo + chunk)
         buf = np.zeros((hi - lo, cap, CONTAINER_WORDS), dtype=np.uint32)
         for si in range(lo, hi):
-            if orders[si] is not None:
-                pack_words(bitmaps[si], orders[si], buf[si - lo])
+            if slices[si] is not None:
+                buf[si - lo, :len(slices[si][1])] = slices[si][1]
         words[lo:hi].copy_(torch.from_numpy(buf.view(np.int32)))
     return ShardedIndex(words=words, keys_host=keys, row_ids=row_ids)
 

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import resolve_device
 from ..core.fragment import MUTATION_EPOCH
+from ..ops.pool import pack_bitmap
 from .mesh import (ShardedIndex, build_sharded_index, count_batch, dense_row,
                    leaf_layout, slice_mask)
 from .plan import _tree_signature
@@ -113,19 +114,19 @@ class MeshManager:
                     for s, g in enumerate(sv.slice_gens))):
             sv.validated = epoch
             return sv
-        bitmaps, gens = [], []
+        t0 = time.monotonic()
+        packed, gens = [], []
         for s in range(num_slices):
             frag = self.holder.fragment(index, frame, view, s)
             if frag is None:
-                bitmaps.append(None)
+                packed.append(None)
                 gens.append(None)
                 continue
-            with frag._mu:
-                bitmaps.append(frag.storage.clone())
+            with frag._mu:  # containers and generation from one state
+                packed.append(pack_bitmap(frag.storage))
                 gens.append((frag, frag.generation))
-        t0 = time.monotonic()
         self._views.pop(key, None)  # free the old pool before the new one
-        sv = StagedView(build_sharded_index(bitmaps, self.device), gens,
+        sv = StagedView(build_sharded_index(packed, self.device), gens,
                         num_slices)
         sv.validated = epoch
         self._views[key] = sv
@@ -136,12 +137,6 @@ class MeshManager:
     def _gen(self, index, frame, view, s):
         frag = self.holder.fragment(index, frame, view, s)
         return None if frag is None else (frag, frag.generation)
-
-    def invalidate(self, index: Optional[str] = None) -> None:
-        with self._mu:
-            for key in [k for k in self._views
-                        if index is None or k[0] == index]:
-                del self._views[key]
 
     def _resolve(self, index: str, shape, leaves, slices: Sequence[int],
                  num_slices: int) -> Optional[_CountRequest]:

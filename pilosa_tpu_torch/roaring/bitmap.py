@@ -263,11 +263,6 @@ class Bitmap:
     def count(self) -> int:
         return sum(c.n for c in self.containers)
 
-    def max(self) -> int:
-        if not self.keys:
-            return 0
-        return (self.keys[-1] << 16) | int(self.containers[-1].values()[-1])
-
     def slice(self) -> np.ndarray:
         """All values, sorted, as uint64."""
         if not self.keys:

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from pilosa_tpu.ops import kernels as jk
 from pilosa_tpu_torch.ops import kernels as tk
+from pilosa_tpu_torch.ops.bitops import fold_tree
 from pilosa_tpu_torch.parallel.mesh import combine_counts
 
 W = 2048
@@ -117,17 +118,6 @@ def test_coarse_count_uniform_batch(name):
          tk.coarse_count_uniform_batch(torch_pools(pools), tt(starts), tree))
 
 
-def test_tree_count_pallas_coarse():
-    tree = TREES["nested"]
-    pool = make_pool(5)
-    starts = starts_table(np.random.default_rng(5), 4)
-    want = jk.tree_count_pallas_coarse(jnp.asarray(pool), jt(starts), tree,
-                                       interpret=True)
-    got = tk.tree_count_pallas_coarse(torch_pools([pool])[0], tt(starts),
-                                      tree)
-    assert int(got) == int(want)
-
-
 # U = 3 unique runs, shared by B = 4 queries.
 LEAF_MAPS = {
     "and": ((0, 1), (1, 2), (0, 2), (2, 2)),
@@ -197,7 +187,11 @@ def test_total_above_2_31_is_exact():
 
 
 def test_tree_program_limits():
-    assert tk.tree_program(TREES["nested"]) == bytes([0, 1, 16, 2, 3, 18, 17])
+    # or(and(l0, l1), andnot(l2, l3)): load 0, and 1, save, load 2,
+    # andnot 3, or the saved value back in.
+    assert tk.tree_program(TREES["nested"]) == bytes(
+        [0x00, 0x11, 0x40, 0x02, 0x33, 0x60])
+    assert tk.tree_program(["andnot", L0, L1, L2]) == bytes([0x00, 0x31, 0x32])
     deep = L0
     for i in range(1, 9):
         deep = ["and", ["leaf", i], deep]
@@ -206,6 +200,45 @@ def test_tree_program_limits():
         tk.tree_program(deep)
     with pytest.raises(ValueError):
         tk.tree_program(["or"] + [["leaf", i] for i in range(17)])
+
+
+def run_program(prog: bytes, leaves):
+    """The kernels' fold loop (csrc/fold.cuh), in Python."""
+    acc, saved = None, []
+    comb = {1: np.bitwise_and, 2: np.bitwise_or, 3: lambda a, b: a & ~b}
+    for op in prog:
+        kind, leaf = op >> 4, op & 15
+        if kind == 0:
+            acc = leaves[leaf]
+        elif kind < 4:
+            acc = comb[kind](acc, leaves[leaf])
+        elif kind == 4:
+            saved.append(acc)
+        else:
+            acc = comb[kind - 4](saved.pop(), acc)
+    return acc
+
+
+def random_tree(rng, counter, depth=0):
+    if depth >= 3 or rng.random() < 0.35:
+        counter[0] += 1
+        return ["leaf", counter[0] - 1]
+    op = str(rng.choice(["and", "or", "andnot"]))
+    return [op] + [random_tree(rng, counter, depth + 1)
+                   for _ in range(int(rng.integers(1, 4)))]
+
+
+def test_tree_program_runs_like_fold_tree():
+    rng = np.random.default_rng(12)
+    for _ in range(200):
+        counter = [0]
+        tree = random_tree(rng, counter)
+        if counter[0] > tk.MAX_LEAVES or tk.tree_depth(tree) > tk.MAX_DEPTH:
+            continue
+        leaves = [rng.integers(0, 1 << 32, size=64, dtype=np.uint32)
+                  for _ in range(counter[0])]
+        want = fold_tree(tree, lambda i: leaves[i])
+        assert (run_program(tk.tree_program(tree), leaves) == want).all()
 
 
 def test_shared_batch_beyond_limits_raises():

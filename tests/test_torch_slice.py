@@ -190,6 +190,34 @@ def test_staged_from_numpy_round_trip(data_dir, port_holder):
         assert got == want
 
 
+def test_files_written_by_the_port_open_in_jax(tmp_path):
+    """The port's writes (op log, bulk import with its snapshot) read
+    back identically through the JAX package's storage layer."""
+    h = Holder(str(tmp_path))
+    h.open()
+    f = h.create_index("i").create_frame("f")
+    ex = Executor(h, device="cpu")
+    ex.execute("i", parse_string("SetBit(rowID=3, frame=f, columnID=5)"))
+    ex.execute("i", parse_string(
+        f"SetBit(rowID=3, frame=f, columnID={SLICE_WIDTH + 9})"))
+    frag = f.view("standard").fragment(0)
+    frag.import_bits([4] * 5000, list(range(0, 10000, 2)))
+    ex.execute("i", parse_string("ClearBit(rowID=4, frame=f, columnID=2)"))
+    queries = ["Count(Bitmap(rowID=3, frame=f))",
+               "Count(Union(Bitmap(rowID=3, frame=f), Bitmap(rowID=4, frame=f)))",
+               "Bitmap(rowID=3, frame=f)"]
+    want = [as_plain(ex.execute("i", parse_string(q))[0]) for q in queries]
+    h.close()
+    jh = JaxHolder(str(tmp_path))
+    jh.open()
+    try:
+        jex = JaxExecutor(jh, use_device=False)
+        got = [as_plain(jex.execute("i", jax_parse(q))[0]) for q in queries]
+    finally:
+        jh.close()
+    assert got == want == [2, 2 + 4999, ("row", [5, SLICE_WIDTH + 9])]
+
+
 PAIRS = [(a, b) for a in DENSE_ROWS for b in DENSE_ROWS if a < b]
 
 
