@@ -47,6 +47,7 @@ ODD_ROW = 9          # all 16 blocks of odd slices only: coarse, not uniform
 CLIENTS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 RUN_BYTES = 16 * 2048 * 4  # one 16-container row run
+BATCH_RUNS = 32            # distinct row runs read by a 16-query K1 batch
 
 # kernel -> (source, the Pallas call it replaces on the main path)
 KERNELS = {
@@ -136,7 +137,7 @@ def time_ms(fn, reps: int) -> float:
 # -- phase 3: kernels ----------------------------------------------------------
 
 
-def kernel_phase(holder, words: np.ndarray, device) -> dict:
+def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     """Each wrapper at the main path's shapes against its plain version
     (ops.kernels.coarse_plain / shared_plain / tree_plain, called
     directly on the same card tensors), exactly, then both timed."""
@@ -166,9 +167,18 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
     pair_and = ["and", ["leaf", 0], ["leaf", 1]]
     pairs16 = list(itertools.combinations(range(DENSE_ROWS), 2))[:16]
     uni = dev([lay[0].uniform, lay[1].uniform])
-    uni16 = dev([lay[r].uniform for p in pairs16 for r in p])
     tab = dev(np.stack([lay[0].starts, lay[1].starts]))
-    tab16 = dev(np.stack([lay[r].starts for p in pairs16 for r in p]))
+    # K1 batches serve distinct leaves (repeats go to K2), so they run
+    # on a pool of BATCH_RUNS random row runs: query q reads runs 2q and
+    # 2q+1, at one index in every slice (uniform) or at a per-slice
+    # rotation (table).
+    gen = torch.Generator(device=device).manual_seed(seed)
+    wide = torch.randint(-2**31, 2**31, (s, BATCH_RUNS * 16, 2048),
+                         dtype=torch.int32, device=device, generator=gen)
+    w2 = (wide, wide)
+    uni32 = dev(np.arange(BATCH_RUNS))
+    tab32 = dev((np.arange(BATCH_RUNS)[:, None] + np.arange(s)[None, :])
+                % BATCH_RUNS)
     leaf_map = tuple(pairs16)
     shared_uni = dev([lay[r].uniform for r in range(DENSE_ROWS)])
     shared_tab = dev(np.stack([lay[r].starts for r in range(DENSE_ROWS)]))
@@ -185,17 +195,17 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
          lambda: tk.coarse_plain(p2, uni, True, pair_and, 1),
          2 * s * RUN_BYTES + out_b),
         ("coarse_count_uniform_batch", "coarse_count",
-         lambda: tk.coarse_count_uniform_batch(p2, uni16, pair_and),
-         lambda: tk.coarse_plain(p2, uni16, True, pair_and, 16),
-         32 * s * RUN_BYTES + 16 * out_b),
+         lambda: tk.coarse_count_uniform_batch(w2, uni32, pair_and),
+         lambda: tk.coarse_plain(w2, uni32, True, pair_and, 16),
+         BATCH_RUNS * s * RUN_BYTES + 16 * out_b),
         ("coarse_count_per_slice", "coarse_count",
          lambda: tk.coarse_count_per_slice(p2, tab, pair_and),
          lambda: tk.coarse_plain(p2, tab, False, pair_and, 1),
          2 * s * RUN_BYTES + 2 * out_b + out_b),
         ("coarse_count_identity_batch", "coarse_count",
-         lambda: tk.coarse_count_identity_batch(p2, tab16, pair_and),
-         lambda: tk.coarse_plain(p2, tab16, False, pair_and, 16),
-         32 * s * RUN_BYTES + 32 * out_b + 16 * out_b),
+         lambda: tk.coarse_count_identity_batch(w2, tab32, pair_and),
+         lambda: tk.coarse_plain(w2, tab32, False, pair_and, 16),
+         BATCH_RUNS * s * RUN_BYTES + BATCH_RUNS * out_b + 16 * out_b),
         ("coarse_count_shared_uniform", "coarse_count_shared",
          lambda: tk.coarse_count_shared_uniform(p8, shared_uni, pair_and,
                                                 leaf_map),
@@ -231,7 +241,7 @@ def kernel_phase(holder, words: np.ndarray, device) -> dict:
     total = int(tk.tree_count_pallas(pool, idx, hit, pair_and))
     want = host_count(words, "and", PARTIAL_ROW, 0)
     check(total == want, f"tree_count_pallas {total} != host {want}")
-    del staged, pool
+    del staged, pool, wide, w2
     torch.cuda.empty_cache()
     return results
 
@@ -448,7 +458,7 @@ def main(argv=None) -> int:
         try:
             log(f"data: {SLICES} slices ({SLICES << 20} columns) in "
                 f"{time.monotonic() - t0:.2f} s")
-            kern = kernel_phase(holder, words, device)
+            kern = kernel_phase(holder, words, device, args.seed)
             sl = slice_phase(holder, words, card, device)
         finally:
             holder.close()

@@ -14,8 +14,8 @@ import torch
 def fold_tree(tree, leaf_fn):
     """Fold a numbered op-shape tree (plan._tree_signature) over
     `leaf_fn(leaf_index) -> tensor` with the n-ary left-fold semantics
-    shared by every backend and by the CUDA kernels' postfix programs
-    (ops.kernels.tree_program)."""
+    shared by every backend and by the CUDA kernels' accumulator-form
+    programs (ops.kernels.tree_program, csrc/fold.cuh)."""
     if tree[0] == "leaf":
         return leaf_fn(tree[1])
     vals = [fold_tree(c, leaf_fn) for c in tree[1:]]

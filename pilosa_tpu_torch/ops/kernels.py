@@ -15,8 +15,8 @@ names and argument order of the Pallas functions they replace
 
 Pools are (S, cap, 2048) int32 tensors holding uint32 words. A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
-its kernel or raises. The tree reaches a kernel as a postfix program
-(tree_program) of at most MAX_LEAVES leaves and depth MAX_DEPTH.
+its kernel or raises. The tree reaches a kernel as an accumulator-form
+program (tree_program, csrc/fold.cuh) of at most MAX_LEAVES leaves and depth MAX_DEPTH.
 LAUNCHES counts kernel launches per kernel, and only launches.
 """
 

@@ -119,28 +119,27 @@ def coarse_row_starts(keys_host: np.ndarray, dense_id: int):
     """(starts (S,) int32 row-run indices, valid (S,) uint32) when every
     slice holds the row's 16 containers as one contiguous, 16-aligned
     run or holds none of them; None when any slice is partial or
-    unaligned, or no slice holds the row."""
+    unaligned, or no slice holds the row. A slice holds the row when
+    any of its keys lies in the row's span, not only its first key."""
     s, cap = keys_host.shape
     if cap % ROW_SPAN != 0:
         return None
     lo = np.int64(dense_id) * ROW_SPAN
-    off = np.arange(s, dtype=np.int64) * (np.int64(1) << 33)
+    base = np.arange(s, dtype=np.int64)
+    off = base * (np.int64(1) << 33)
     k64 = (keys_host.astype(np.int64) + off[:, None]).reshape(-1)
-    pos = np.searchsorted(k64, lo + off) - np.arange(s, dtype=np.int64) * cap
-    pos = np.clip(pos, 0, cap - 1)
-    present = keys_host[np.arange(s), pos] == lo
+    first = np.searchsorted(k64, lo + off) - base * cap
+    held = np.searchsorted(k64, lo + ROW_SPAN + off) - base * cap - first
+    present = held > 0
     if not present.any():
         return None
-    ps = pos[present]
-    if ((ps % ROW_SPAN) != 0).any():
-        return None
-    rows = ps // ROW_SPAN
-    run = keys_host.reshape(s, cap // ROW_SPAN, ROW_SPAN)[
-        np.flatnonzero(present), rows]
-    if not (run == lo + np.arange(ROW_SPAN, dtype=np.int64)[None, :]).all():
+    # Keys are unique and sorted within a slice, so 16 keys in the span
+    # are the whole run, contiguous from `first`.
+    ps = first[present]
+    if (held[present] != ROW_SPAN).any() or (ps % ROW_SPAN != 0).any():
         return None
     starts = np.zeros(s, dtype=np.int32)
-    starts[present] = rows.astype(np.int32)
+    starts[present] = (ps // ROW_SPAN).astype(np.int32)
     return starts, present.astype(np.uint32)
 
 

@@ -27,8 +27,11 @@ from pilosa_tpu_torch.api.handler import Handler
 from pilosa_tpu_torch.core import Holder
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.parallel import serve as torch_serve
-from pilosa_tpu_torch.parallel.mesh import count_rows, staged_from_numpy
+from pilosa_tpu_torch.ops.pool import pack_bitmap
+from pilosa_tpu_torch.parallel.mesh import (build_sharded_index, count_rows,
+                                            leaf_layout, staged_from_numpy)
 from pilosa_tpu_torch.pql import parse_string
+from pilosa_tpu_torch.roaring import Bitmap, Container
 
 NUM_SLICES = 2
 DENSE_ROWS = (0, 1, 2, 3)
@@ -188,6 +191,45 @@ def test_staged_from_numpy_round_trip(data_dir, port_holder):
             f"Bitmap(rowID={rows[1]})))"))[0]
         got = count_rows([staged, staged], tree, rows, range(NUM_SLICES))
         assert got == want
+
+
+def test_row_without_its_first_container_counts_every_slice(tmp_path):
+    """Row 0 is dense in slice 0 but holds only blocks 8-15 of slice 1;
+    row 1 is dense in slice 0 only. Slice 1 still holds row 0, so the
+    row is not a whole-run (coarse) row and its count must include
+    slice 1. Held against the host popcount of the written words."""
+    rng = np.random.default_rng(21)
+    words = np.zeros((2, 2, 16, 1024), dtype=np.uint64)
+    words[0] = rng.integers(0, 2**64, size=words[0].shape, dtype=np.uint64)
+    words[1, 0, 8:] = rng.integers(0, 2**64, size=(8, 1024), dtype=np.uint64)
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        view = h.create_index("i").create_frame("f").create_view_if_not_exists(
+            "standard")
+        for s in range(2):
+            bm = Bitmap()
+            for r in range(2):
+                for b in range(16):
+                    if words[s, r, b].any():
+                        bm.keys.append(r * 16 + b)
+                        bm.containers.append(Container(bitmap=words[s, r, b]))
+            view.create_fragment_if_not_exists(s).replace(bm)
+        ex = Executor(h, device="cpu")
+        for q, want in (
+                ("Count(Bitmap(rowID=0, frame=f))", words[:, 0]),
+                ("Count(Union(Bitmap(rowID=0, frame=f), "
+                 "Bitmap(rowID=1, frame=f)))", words[:, 0] | words[:, 1]),
+                ("Count(Difference(Bitmap(rowID=0, frame=f), "
+                 "Bitmap(rowID=1, frame=f)))", words[:, 0] & ~words[:, 1])):
+            got = ex.execute("i", parse_string(q))[0]
+            assert got == int(np.bitwise_count(want).sum(dtype=np.int64)), q
+        staged = build_sharded_index(
+            [pack_bitmap(view.fragment(s).storage) for s in range(2)], "cpu")
+        assert leaf_layout(staged.keys_host, 0).starts is None
+        assert ex.mesh_manager().stats["kernel:tree_count_per_slice"] == 3
+    finally:
+        h.close()
 
 
 def test_files_written_by_the_port_open_in_jax(tmp_path):
