@@ -2,26 +2,46 @@
 """Chip smoke test of the PyTorch + CUDA port (pilosa_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--dense-qps-of ROOT]
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc;
   3. kernels: every wrapper on the card at the main path's shapes, held
      exactly against its plain PyTorch version, and timed;
-  4. the slice: a Holder of 960 slices (1,006,632,960 columns) with 8 dense random rows, one partial row and one row in
-     odd slices only, served over HTTP on 127.0.0.1: the Quickstart
-     requests, a lone Count(Intersect), the 28 row pairs from 16
-     concurrent clients (twice), Count(Union) / Count(Difference), and
+  4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
+     whose frame `general` holds 8 dense random rows, one partial row
+     and one row in odd slices only, served over HTTP on 127.0.0.1: the
+     Quickstart requests, a lone Count(Intersect), the 28 row pairs from
+     16 concurrent clients (twice), Count(Union) / Count(Difference), and
      counts over the partial rows. Every answer is checked against
-     np.bitwise_count on the host words, every kernel's launch counter
-     must move during this phase, and torch.profiler measures the card's
-     busy share of the second 16-client round;
-  5. a `kernels` JSON line, the card line, and the final
+     np.bitwise_count on the host words, the launch counter of each
+     dense kernel (K1-K3) must move during this phase, and torch.profiler
+     measures the card's busy share of the second 16-client round;
+  5. the sorted-array kernel K4 at the sparse slice's shapes (one pair of
+     frame `sparse` over 960 x 16 containers), held exactly against its
+     plain version and timed, with its byte bound and the time its
+     binary searches' shared-memory lookups would take;
+  6. the sparse slice over HTTP: frame `sparse` (rows 0-7 of 1,024-2,048
+     values in every container of every slice, a fill of 1.6-3.1%, and
+     row 8 in blocks 0-7 of even slices) and frame `mixed` (rows 0-1
+     sorted-array in even slices, dense in odd ones) stage as sorted
+     arrays at the default threshold 0.05; the 28 pairs lone and from 16
+     clients, Union / Difference, sparse x dense and dense x sparse
+     pairs, the partial row, an absent row, a single leaf (no kernel),
+     the mixed pair (ss and dd groups in one query), then a three-leaf
+     tree that demotes `sparse` to packed words and a pair that then
+     runs K1. Every answer is checked against the host; K4's counter,
+     each format group and the demote must show;
+  7. a `kernels` JSON line, the card line, and the final
      {"ok": true, "device": ...} line.
 
 Exits non-zero, with no result line, when no CUDA card is present.
 Details go to chiprun_out/chip_smoke.json.
+
+With --dense-qps-of ROOT it runs phases 1, 2 and 4 only, built and
+served by the package under ROOT, and prints their QPS as one JSON line:
+run it alternately on two checkouts to compare their dense serving.
 """
 
 from __future__ import annotations
@@ -44,8 +64,15 @@ SLICES = 960
 DENSE_ROWS = 8
 PARTIAL_ROW = 8      # blocks 0-7 of even slices only: gathers per container
 ODD_ROW = 9          # all 16 blocks of odd slices only: coarse, not uniform
+SPARSE_ROWS = 8      # frame `sparse`: all 16 blocks of every slice
+SPARSE_PARTIAL = 8   # frame `sparse`: blocks 0-7 of even slices only
+BUCKET = 32          # sorted-array rows hold one value per 32-wide bucket
 CLIENTS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+# Shared-memory lookups per second of an H100 SXM: one 4-byte bank
+# access per lane per clock, 32 lanes on each of 132 SMs at the
+# 1.98 GHz boost clock (NVIDIA's data sheet).
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 RUN_BYTES = 16 * 2048 * 4  # one 16-container row run
 BATCH_RUNS = 32            # distinct row runs read by a 16-query K1 batch
 
@@ -57,7 +84,12 @@ KERNELS = {
                             "pilosa_tpu/ops/kernels.py:668"),
     "tree_count": ("pilosa_tpu_torch/csrc/tree_count.cu",
                    "pilosa_tpu/ops/kernels.py:279"),
+    "sparse_pair_count": ("pilosa_tpu_torch/csrc/sparse_pair_count.cu",
+                          "pilosa_tpu/ops/kernels.py:843"),
 }
+# The kernels each served path must launch.
+DENSE_PATH = ("coarse_count", "coarse_count_shared", "tree_count")
+SPARSE_PATH = ("sparse_pair_count", "coarse_count")
 
 
 def log(msg: str) -> None:
@@ -113,6 +145,81 @@ def host_count(words: np.ndarray, op: str, a: int, b: int) -> int:
     x, y = words[:, a], words[:, b]
     z = {"and": x & y, "or": x | y, "andnot": x & ~y}[op]
     return int(np.bitwise_count(z).sum(dtype=np.int64))
+
+
+class SparseRows:
+    """Sorted-array rows drawn in one vectorised pass: row r's container
+    b of slice s holds BUCKET * j + off[s, r, b, j] for j < lens[s, r, b],
+    one value per 32-wide bucket, so every container comes out sorted and
+    unique and the host answers stay vectorised. lens 0 = absent. Rows
+    0-7 fill all 16 blocks of every slice with 1,024-2,048 values; row 8
+    fills blocks 0-7 of even slices only."""
+
+    def __init__(self, num_slices: int, seed: int):
+        rng = np.random.default_rng(seed + 1)
+        rows = SPARSE_ROWS + 1
+        self.off = rng.integers(0, BUCKET, size=(num_slices, rows, 16, 2048),
+                                dtype=np.uint8)
+        self.lens = rng.integers(1024, 2049, size=(num_slices, rows, 16),
+                                 dtype=np.int32)
+        self.lens[1::2, SPARSE_PARTIAL] = 0
+        self.lens[0::2, SPARSE_PARTIAL, 8:] = 0
+
+    def values(self, s: int, r: int, b: int) -> np.ndarray:
+        n = self.lens[s, r, b]
+        return (np.arange(n, dtype=np.uint32) * BUCKET
+                + self.off[s, r, b, :n])
+
+    def inter(self, rows) -> np.ndarray:
+        """(S, 16) cardinalities of the intersection of `rows`."""
+        same = np.ones(self.off.shape[:1] + (16, 2048), dtype=bool)
+        n = self.lens[:, rows[0]]
+        for r in rows[1:]:
+            same &= self.off[:, r] == self.off[:, rows[0]]
+            n = np.minimum(n, self.lens[:, r])
+        return (same & (np.arange(2048) < n[..., None])).sum(axis=2)
+
+    def probe(self, r: int, words: np.ndarray, g: int) -> np.ndarray:
+        """(S, 16) |sparse row r ∩ dense row g of `words`|."""
+        v = (np.arange(2048, dtype=np.int64) * BUCKET
+             + self.off[:, r].astype(np.int64))
+        w = np.take_along_axis(words[:, g], v >> 6, axis=2)
+        bit = (w >> (v & 63).astype(np.uint64)) & np.uint64(1)
+        held = np.arange(2048) < self.lens[:, r][..., None]
+        return (bit.astype(bool) & held).sum(axis=2)
+
+    def card(self, r: int) -> np.ndarray:
+        return self.lens[:, r].astype(np.int64)
+
+
+def op_count(op: str, inter, na, nb) -> int:
+    """Total of a set op from per-container |a ∩ b| and cardinalities."""
+    per = {"and": inter, "or": na + nb - inter, "andnot": na - inter}[op]
+    return int(np.sum(per, dtype=np.int64))
+
+
+def add_sparse_frames(holder, words: np.ndarray, sp: SparseRows) -> None:
+    """Frame `sparse` of index `i` holds `sp`'s rows; frame `mixed` holds
+    its rows 0-1 in even slices and `general`'s rows 0-1 in odd ones."""
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    idx = holder.index("i")
+    views = {f: idx.create_frame_if_not_exists(f).create_view_if_not_exists(
+        "standard") for f in ("sparse", "mixed")}
+    for s in range(sp.lens.shape[0]):
+        for frame in ("sparse", "mixed"):
+            bm = Bitmap()
+            for r in range(SPARSE_ROWS + 1 if frame == "sparse" else 2):
+                for b in range(16):
+                    if frame == "mixed" and s % 2:
+                        c = Container(bitmap=words[s, r, b])
+                    elif sp.lens[s, r, b]:
+                        c = Container(array=sp.values(s, r, b))
+                    else:
+                        continue
+                    bm.keys.append(r * 16 + b)
+                    bm.containers.append(c)
+            views[frame].create_fragment_if_not_exists(s).replace(bm)
 
 
 # -- timing --------------------------------------------------------------------
@@ -232,7 +339,8 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
         plain_ms = time_ms(plain, 3)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         results[name] = {"kernel": kernel, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bytes": nbytes,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "bytes": nbytes,
                          "gb_per_s": nbytes / ms / 1e6, "max_abs_err": err}
         log(f"  {name:30s} {kernel:20s} {ms:8.4f} ms  "
             f"{nbytes / ms / 1e6:7.1f} GB/s  bound {bound_ms:.4f} ms  "
@@ -411,8 +519,8 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
         f"busy {busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s "
         f"wall = {busy['device_busy_share']:.4f}")
     log(f"slice phase stats {json.dumps(stats, sort_keys=True)}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} launched on the main path")
+    for k in DENSE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the dense path")
     check(stats.get("batched", 0) > 0 and stats.get("shared_batch", 0) > 0,
           "concurrent counts coalesced and shared reads")
     return {"launches": launches, "launches_by_wrapper": by_wrapper,
@@ -421,12 +529,256 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
             "concurrent_qps": conc_qps, "clients": CLIENTS}
 
 
+# -- phase 5: K4 at the sparse slice's shapes ----------------------------------
+
+
+def sparse_kernel_phase(holder, sp: SparseRows, device) -> dict:
+    """K4 on one pair of frame `sparse` (rows 0 and 1, every container of
+    every slice) against its plain version (ops.kernels.sparse_pair_plain
+    on the same card tensors), exactly, then both timed. Bound: the
+    bytes the pair needs (the real values of both sides, the idx/hit and
+    cardinality reads, the output) over the memory rate. Beside it, a
+    design figure: the shared-memory lookups of K4's binary searches
+    (len_a * ceil(log2 len_b) per container pair) over
+    SMEM_LOOKUPS_PER_S."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.ops.pool import pack_sparse
+    from pilosa_tpu_torch.parallel.mesh import (build_sparse_sharded_index,
+                                                dense_row,
+                                                resolve_row_indices)
+
+    s = sp.lens.shape[0]
+    t0 = time.monotonic()
+    staged = build_sparse_sharded_index(
+        [pack_sparse(holder.fragment("i", "sparse", "standard", i).storage)
+         for i in range(s)], device)
+    torch.cuda.synchronize()
+    pool_bytes = staged.values.numel() * 2 + staged.cards.numel() * 4
+    log(f"sparse kernel phase: staged {pool_bytes / 1e9:.3f} GB sorted-array "
+        f"pool (S={s}, C={staged.capacity}, K={staged.value_cap}) in "
+        f"{time.monotonic() - t0:.2f} s")
+    tables = [resolve_row_indices(staged.keys_host, dense_row(staged, r))
+              for r in (0, 1)]
+    (ia, ha), (ib, hb) = tables
+    ia, ha, ib, hb = (torch.from_numpy(np.ascontiguousarray(t, np.int32))
+                      .to(device) for t in (ia, ha, ib, hb))
+    args = (staged.values, staged.cards, staged.values, staged.cards, ia, ha,
+            ib, hb)
+    got, want = tk.sparse_pair_count(*args), tk.sparse_pair_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0 and got.shape == want.shape == (s, 16),
+          f"sparse_pair_count: kernel != plain (max err {err})")
+    host = sp.inter((0, 1))
+    check((got.cpu().numpy() == host).all(), "sparse_pair_count != host")
+    ms = time_ms(lambda: tk.sparse_pair_count(*args), 50)
+    plain_ms = time_ms(lambda: tk.sparse_pair_plain(*args), 3)
+
+    la = np.take_along_axis(staged.cards_host, tables[0][0], 1) * tables[0][1]
+    lb = np.take_along_axis(staged.cards_host, tables[1][0], 1) * tables[1][1]
+    nbytes = (2 * int(la.sum() + lb.sum())   # the real values, once
+              + 4 * 4 * s * 16               # idx/hit of both sides
+              + 2 * 4 * s * 16               # one card per side and pair
+              + 4 * s * 16)                  # the output
+    both = (la > 0) & (lb > 0)
+    lookups = int((la[both].astype(np.int64)
+                   * np.ceil(np.log2(np.maximum(lb[both], 2)))).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lookups_ms = lookups / SMEM_LOOKUPS_PER_S * 1e3
+    # The lookups are the binary-search design's own work; a merge of the
+    # two sorted arrays needs ~la + lb steps, far under the byte time, so
+    # the function's floor is the bytes.
+    res = {"kernel": "sparse_pair_count", "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bytes_ms, "bound_by": "bytes",
+           "bytes": nbytes, "bytes_bound_ms": bytes_ms, "lookups": lookups,
+           "lookups_bound_ms": lookups_ms, "max_abs_err": err,
+           "pairs": s * 16, "pool_bytes": pool_bytes,
+           "dense_image_bytes": s * staged.capacity * 2048 * 4}
+    log(f"  sparse_pair_count {ms:8.4f} ms  bound {bytes_ms:.4f} ms (bytes); "
+        f"binary-search lookups {lookups_ms:.4f} ms  plain {plain_ms:.3f} ms"
+        f"  exact")
+    del staged, args, ia, ha, ib, hb
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 6: the sparse slice over HTTP -----------------------------------------
+
+
+# A tree only the dense kernels fold: it demotes frame `sparse`.
+TRI = ("Count(Intersect(Bitmap(rowID=0, frame=sparse), "
+       "Bitmap(rowID=1, frame=sparse), Bitmap(rowID=2, frame=sparse)))")
+
+
+def fpql(op: str, a: int, fa: str, b: int, fb: str) -> str:
+    return (f"Count({OPS[op]}(Bitmap(rowID={a}, frame={fa}), "
+            f"Bitmap(rowID={b}, frame={fb})))")
+
+
+def sparse_answers(words: np.ndarray, sp: SparseRows) -> dict:
+    """Host answers of the sparse phase's queries, by PQL."""
+    want = {}
+    odd = words[1::2]
+    for a, b in itertools.combinations(range(SPARSE_ROWS), 2):
+        want[fpql("and", a, "sparse", b, "sparse")] = int(
+            sp.inter((a, b)).sum())
+    for op in ("or", "andnot"):
+        for a, b in ((0, 1), (SPARSE_PARTIAL, 0), (0, SPARSE_PARTIAL)):
+            want[fpql(op, a, "sparse", b, "sparse")] = op_count(
+                op, sp.inter((a, b)), sp.card(a), sp.card(b))
+    want[fpql("and", SPARSE_PARTIAL, "sparse", 0, "sparse")] = int(
+        sp.inter((SPARSE_PARTIAL, 0)).sum())
+    ng = np.bitwise_count(words[:, 1]).sum(axis=2).astype(np.int64)
+    inter = sp.probe(2, words, 1)
+    for op in OPS:
+        want[fpql(op, 2, "sparse", 1, "general")] = op_count(
+            op, inter, sp.card(2), ng)
+        want[fpql(op, 1, "general", 2, "sparse")] = op_count(
+            op, inter, ng, sp.card(2))
+    want[fpql("and", 50, "sparse", 0, "sparse")] = 0
+    want[fpql("or", 50, "sparse", 0, "sparse")] = int(sp.card(0).sum())
+    want["Count(Bitmap(rowID=3, frame=sparse))"] = int(sp.card(3).sum())
+    even = sp.inter((0, 1))[0::2]
+    for op in OPS:
+        want[fpql(op, 0, "mixed", 1, "mixed")] = op_count(
+            op, even, sp.card(0)[0::2], sp.card(1)[0::2]) + host_count(
+            odd, op, 0, 1)
+    want[TRI] = int(sp.inter((0, 1, 2)).sum())
+    return want
+
+
+def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
+                 device) -> dict:
+    """The sorted-array path through the normal entry points. Counters are
+    set to 0 just before and read just after; the single leaf must
+    launch nothing, and the pair after the demote must run K1."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    t0 = time.monotonic()
+    want = sparse_answers(words, sp)
+    log(f"sparse phase: host answers in {time.monotonic() - t0:.2f} s")
+    srv = serve(holder, device=device)
+    host, port = srv.address
+    mgr = srv.handler.executor.mesh_manager()
+    c = Client(host, port)
+
+    def ask(q):
+        got = c.count(q)
+        check(got == want[q], (q, got, want[q]))
+
+    try:
+        pairs = [fpql("and", a, "sparse", b, "sparse")
+                 for a, b in itertools.combinations(range(SPARSE_ROWS), 2)]
+        t0 = time.monotonic()
+        ask(pairs[0])  # stages the view
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        sv = mgr._views[("i", "sparse", "standard")]
+        check(sv.sparse is not None and bool(sv.slice_formats.all())
+              and sv.sharded.capacity == 0, "frame sparse staged sorted")
+        staged_bytes = sv.sparse.values.numel() * 2 + \
+            sv.sparse.cards.numel() * 4
+        log(f"sparse phase: first query (staging {staged_bytes / 1e9:.3f} "
+            f"GB) {first_s:.2f} s")
+        before = dict(mgr.stats)
+        tk.reset_launches()
+        t0 = time.monotonic()
+        for q in pairs * 2:
+            ask(q)
+        lone_qps = 2 * len(pairs) / (time.monotonic() - t0)
+        conc_qps = [concurrent(host, port, pairs, [want[q] for q in pairs])]
+        busy = profiled(lambda: conc_qps.append(
+            concurrent(host, port, pairs, [want[q] for q in pairs])))
+        leaf = "Count(Bitmap(rowID=3, frame=sparse))"
+        for q in want:
+            if q in pairs or q in (leaf, TRI):
+                continue
+            ask(q)
+        k_before = dict(tk.LAUNCHES)
+        ask(leaf)
+        torch.cuda.synchronize()
+        check(dict(tk.LAUNCHES) == k_before, "single leaf launched nothing")
+        mixed = mgr._views[("i", "mixed", "standard")]
+        check(list(mixed.slice_formats[:4]) == [1, 0, 1, 0],
+              "mixed: even slices sorted, odd slices dense")
+        stats = {k: n - before.get(k, 0) for k, n in mgr.stats.items()}
+        # A three-leaf tree demotes `sparse` to packed words ...
+        ask(TRI)
+        sv = mgr._views[("i", "sparse", "standard")]
+        check(sv.sparse is None and mgr.stats["sparse_demote"] == 1,
+              "three-leaf tree demoted frame sparse")
+        dense_bytes = sv.sharded.words.numel() * 4
+        # ... and a pair over it then runs K1.
+        k_before = dict(tk.LAUNCHES)
+        ask(pairs[1])
+        torch.cuda.synchronize()
+        check(tk.LAUNCHES["coarse_count"] > k_before["coarse_count"]
+              and tk.LAUNCHES["sparse_pair_count"]
+              == k_before["sparse_pair_count"], "demoted pair ran K1")
+        launches = dict(tk.LAUNCHES)
+        all_stats = dict(mgr.stats)
+    finally:
+        c.close()
+        srv.close()
+    log(f"sparse phase on {card}: lone {lone_qps:.1f} QPS, {CLIENTS} clients "
+        f"{conc_qps[0]:.1f} / {conc_qps[1]:.1f} QPS; staged "
+        f"{staged_bytes} B sorted-array vs {dense_bytes} B dense image")
+    log(f"sparse phase launches {launches}")
+    log(f"sparse phase profile (second {CLIENTS}-client round): device "
+        f"busy {busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s "
+        f"wall = {busy['device_busy_share']:.4f}")
+    log(f"sparse phase stats {json.dumps(all_stats, sort_keys=True)}")
+    for k in SPARSE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the sparse path")
+    check(stats.get("sparse_count", 0) > 0, "sparse counts served")
+    for group in ("ss", "sd", "ds", "dd"):
+        check(stats.get(f"sparse_group:{group}", 0) > 0,
+              f"format group {group} served")
+    check(all_stats["sparse_demote"] == 1, "one demote")
+    return {"launches": launches, "stats": all_stats,
+            "first_query_s": first_s, "lone_qps": lone_qps,
+            "concurrent_qps": conc_qps, "profile": busy, "clients": CLIENTS,
+            "staged_bytes_sparse": staged_bytes,
+            "staged_bytes_dense_image": dense_bytes}
+
+
 # -- main ----------------------------------------------------------------------
+
+
+def dense_qps_only(root: Path, card: str, smi: str, seed: int) -> int:
+    """Phase 4 alone, served by the package under `root`, and its QPS as
+    one JSON line: run it once per tree, alternating, to compare two
+    trees' dense serving in one call."""
+    import torch
+
+    words = make_words(SLICES, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        holder = build_holder(tmp, words)
+        try:
+            sl = slice_phase(holder, words, card, torch.device("cuda"))
+        finally:
+            holder.close()
+    busy = sl["profile"]["device_busy_share"]
+    print(json.dumps({"dense_qps_of": str(root), "card": smi,
+                      "first_query_s": sl["first_query_s"],
+                      "lone_qps": sl["lone_qps"],
+                      "concurrent_qps": sl["concurrent_qps"],
+                      "device_busy_share": busy}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--dense-qps-of", metavar="ROOT", type=Path,
+                    help="run only phase 4, served by the pilosa_tpu_torch "
+                         "package under ROOT (a checkout of any commit), "
+                         "and print its QPS as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -435,7 +787,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    root = (args.dense_qps_of or REPO).resolve()
+    sys.path.insert(0, str(root))
     from pilosa_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(
@@ -447,32 +800,44 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     cuda_build.build_all()
-    log(f"build: 3 kernels in {time.monotonic() - t0:.2f} s "
+    log(f"build: {len(cuda_build.ENTRIES)} kernels in "
+        f"{time.monotonic() - t0:.2f} s "
         f"{json.dumps(cuda_build.BUILD_SECONDS)}")
+    if args.dense_qps_of:
+        return dense_qps_only(root, card, smi, args.seed)
 
     device = torch.device("cuda")
     t0 = time.monotonic()
     words = make_words(SLICES, args.seed)
+    sp = SparseRows(SLICES, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         holder = build_holder(tmp, words)
         try:
+            add_sparse_frames(holder, words, sp)
             log(f"data: {SLICES} slices ({SLICES << 20} columns) in "
                 f"{time.monotonic() - t0:.2f} s")
             kern = kernel_phase(holder, words, device, args.seed)
             sl = slice_phase(holder, words, card, device)
+            kern["sparse_pair_count"] = sparse_kernel_phase(holder, sp,
+                                                            device)
+            sps = sparse_phase(holder, words, sp, card, device)
         finally:
             holder.close()
 
+    # Each kernel's launches come from the path it serves.
+    launches = {k: (sps if k == "sparse_pair_count" else sl)["launches"][k]
+                for k in KERNELS}
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rows = {w: r for w, r in kern.items() if r["kernel"] == name}
         main_row = next(iter(rows.values()))
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sl["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
             "library_ms": None})
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -480,7 +845,8 @@ def main(argv=None) -> int:
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "slices": SLICES,
          "seed": args.seed, "build_s": cuda_build.BUILD_SECONDS,
-         "wrappers": kern, "slice": sl, "kernels": entries}, indent=1))
+         "wrappers": kern, "slice": sl, "sparse_slice": sps,
+         "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from .core.row import Row
 from .core.view import VIEW_INVERSE, VIEW_STANDARD
 from .errors import FrameNotFoundError, IndexNotFoundError, \
     IndexRequiredError, QueryError
+from .parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
 from .parallel.plan import DEFAULT_FRAME, _lower_tree
 from .pql import Call, Query
 
@@ -27,11 +28,16 @@ _BINOPS = {"Intersect": "intersect", "Union": "union",
 
 
 class Executor:
-    """Evaluates PQL against a Holder; device work runs on `device`."""
+    """Evaluates PQL against a Holder; device work runs on `device`.
+    sparse_density_threshold: mean container fill under which a slice
+    stages as sorted arrays (<= 0 stages everything dense)."""
 
-    def __init__(self, holder, device="cuda"):
+    def __init__(self, holder, device="cuda",
+                 sparse_density_threshold: float =
+                 DEFAULT_SPARSE_DENSITY_THRESHOLD):
         self.holder = holder
         self.device = resolve_device(device)
+        self.sparse_density_threshold = sparse_density_threshold
         self._mesh_mgr = None
         self._mesh_mu = threading.Lock()
         self._stats_mu = threading.Lock()
@@ -46,7 +52,9 @@ class Executor:
             if self._mesh_mgr is None:
                 from .parallel.serve import MeshManager
 
-                self._mesh_mgr = MeshManager(self.holder, self.device)
+                self._mesh_mgr = MeshManager(
+                    self.holder, self.device,
+                    sparse_density_threshold=self.sparse_density_threshold)
             return self._mesh_mgr
 
     def execute(self, index: str, q: Query,

@@ -1,4 +1,4 @@
-"""Build the CUDA count kernels with nvcc and load them with ctypes.
+"""Build the CUDA count kernels (K1-K4) with nvcc and load them with ctypes.
 
 Each source under csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a at first use into csrc/_build/ (or
@@ -35,6 +35,9 @@ ENTRIES = {
                              _P, _P]),
     "tree_count": ("pilosa_tree_count",
                    [_PP, _PLL, _I, _P, _P, _I, _I, _B, _I, _P, _P]),
+    "sparse_pair_count": ("pilosa_sparse_pair_count",
+                          [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                           _I, _I, _P, _P]),
 }
 
 _MU = threading.Lock()

@@ -1,9 +1,9 @@
 """The count kernels: CUDA C++ for Hopper (csrc/), each beside its plain
 PyTorch version.
 
-Three kernels serve the dense Count path, and the wrappers keep the
-names and argument order of the Pallas functions they replace
-(pilosa_tpu/ops/kernels.py):
+Three kernels serve the dense Count path and one the sorted-array pairs,
+and the wrappers keep the names and argument order of the Pallas
+functions they replace (pilosa_tpu/ops/kernels.py):
 
   K1 coarse_count (csrc/coarse_count.cu): coarse_count_per_slice,
      coarse_count_identity_batch, coarse_count_uniform,
@@ -11,9 +11,13 @@ names and argument order of the Pallas functions they replace
   K2 coarse_count_shared (csrc/coarse_count_shared.cu):
      coarse_count_batch_per_slice, coarse_count_shared_uniform;
   K3 tree_count (csrc/tree_count.cu): tree_count_per_slice, and
-     tree_count_pallas over it.
+     tree_count_pallas over it;
+  K4 sparse_pair_count (csrc/sparse_pair_count.cu): sparse_pair_count
+     over two sorted-array pools, and pallas_sparse_pair_counts with the
+     Pallas function's flat contract.
 
-Pools are (S, cap, 2048) int32 tensors holding uint32 words. A wrapper
+Pools are (S, cap, 2048) int32 tensors holding uint32 words, and
+sorted-array pools (S, C, K) int16 tensors holding u16 values. A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 its kernel or raises. The tree reaches a kernel as an accumulator-form
 program (tree_program, csrc/fold.cuh) of at most MAX_LEAVES leaves and depth MAX_DEPTH.
@@ -27,7 +31,9 @@ import threading
 
 import torch
 
-from .bitops import fold_tree, popcount
+from ..roaring import ARRAY_MAX_SIZE
+from .bitops import (fold_tree, popcount, sparse_pair_intersect_counts,
+                     u16_bits)
 from .cuda_build import kernel_fn
 from .pool import CONTAINER_WORDS, ROW_SPAN
 
@@ -38,7 +44,8 @@ _MAX_PROG = 48
 _OPCODES = {"and": 1, "or": 2, "andnot": 3}
 _PUSH = 0x40
 
-LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0}
+LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
+            "sparse_pair_count": 0}
 _LAUNCH_MU = threading.Lock()
 
 
@@ -266,14 +273,19 @@ def coarse_count_shared_uniform(views, starts, tree, leaf_map):
 # -- K3 tree_count -----------------------------------------------------------
 
 
+def gather_words(words, idx, hit):
+    """(S, R, 2048) containers of one leaf from a dense pool, by (S, R)
+    within-slice index; zero where hit is 0."""
+    sl = torch.arange(words.shape[0], device=words.device)[:, None]
+    return words[sl, idx.long()] * (hit != 0)[..., None]
+
+
 def tree_plain(views, idx, hit, tree):
-    batch, num_leaves, s, _ = idx.shape
-    sl = torch.arange(s, device=idx.device)[:, None]
+    batch, s = idx.shape[0], idx.shape[2]
     out = torch.empty((batch, s), dtype=torch.int32, device=idx.device)
     for b in range(batch):
         def leaf(i, b=b):
-            g = views[i][sl, idx[b, i].long()]          # (S, 16, 2048)
-            return g * (hit[b, i] != 0)[..., None]
+            return gather_words(views[i], idx[b, i], hit[b, i])
 
         out[b] = popcount(fold_tree(tree, leaf)).sum(dim=(1, 2))
     return out
@@ -308,3 +320,89 @@ def tree_count_pallas(words, idx, hit, tree):
     per = tree_count_per_slice((words,) * int(idx.shape[0]), idx[None],
                                hit[None], tree)
     return per.sum(dtype=torch.int64)
+
+
+# -- K4 sparse_pair_count ----------------------------------------------------
+
+
+def leaf_cards(cards, idx, hit):
+    """(S, R) int32 cardinalities of one leaf's containers in a
+    sorted-array pool, zero where hit is 0."""
+    sl = torch.arange(cards.shape[0], device=cards.device)[:, None]
+    return cards[sl, idx.long()] * (hit != 0)
+
+
+def gather_sparse(vals, cards, idx, hit):
+    """One leaf's containers from a sorted-array pool: ((S, R, K) values,
+    leaf_cards)."""
+    sl = torch.arange(vals.shape[0], device=vals.device)[:, None]
+    return vals[sl, idx.long()], leaf_cards(cards, idx, hit)
+
+
+def sparse_pair_plain(a_vals, a_cards, b_vals, b_cards, idx_a, hit_a, idx_b,
+                      hit_b):
+    va, na = gather_sparse(a_vals, a_cards, idx_a, hit_a)
+    vb, nb = gather_sparse(b_vals, b_cards, idx_b, hit_b)
+    return sparse_pair_intersect_counts(va, na, vb, nb)
+
+
+def _check_sparse_pool(vals, cards, s: int) -> None:
+    if (vals.dtype != torch.int16 or vals.dim() != 3 or vals.shape[0] != s
+            or not vals.is_contiguous() or cards.dtype != torch.int32
+            or cards.shape != vals.shape[:2] or not cards.is_contiguous()):
+        raise ValueError("sorted-array pools must be contiguous (S, C, K) "
+                         "int16 values with (S, C) int32 cardinalities")
+    if not 1 <= vals.shape[2] <= ARRAY_MAX_SIZE:
+        raise ValueError(f"value capacity {vals.shape[2]} is not in "
+                         f"[1, {ARRAY_MAX_SIZE}]")
+
+
+def sparse_pair_count(a_vals, a_cards, b_vals, b_cards, idx_a, hit_a, idx_b,
+                      hit_b):
+    """Per-(slice, r) |a ∩ b| of containers read straight from two
+    sorted-array pools. a_vals (S, Ca, Ka) and b_vals (S, Cb, Kb) int16
+    (u16 bits, sorted, 0xFFFF padded); a_cards (S, Ca), b_cards (S, Cb)
+    int32; idx_*, hit_* (S, R) int32 within-slice container index and
+    presence flag. An absent container on either side counts 0. Returns
+    (S, R) int32."""
+    s = a_vals.shape[0]
+    _check_sparse_pool(a_vals, a_cards, s)
+    _check_sparse_pool(b_vals, b_cards, s)
+    if (idx_a.dim() != 2 or idx_a.shape[0] != s
+            or not idx_a.shape == hit_a.shape == idx_b.shape == hit_b.shape):
+        raise ValueError("idx/hit must be (S, R) for both leaves")
+    if not _on_cuda(a_vals, a_cards, b_vals, b_cards, idx_a, hit_a, idx_b,
+                    hit_b):
+        return sparse_pair_plain(a_vals, a_cards, b_vals, b_cards, idx_a,
+                                 hit_a, idx_b, hit_b)
+    tables = [t.to(torch.int32).contiguous()
+              for t in (idx_a, hit_a, idx_b, hit_b)]
+    r = int(idx_a.shape[1])
+    out = torch.empty((s, r), dtype=torch.int32, device=a_vals.device)
+    rc = kernel_fn("sparse_pair_count")(
+        a_vals.data_ptr(), a_cards.data_ptr(), a_vals.shape[1],
+        a_vals.shape[2], b_vals.data_ptr(), b_cards.data_ptr(),
+        b_vals.shape[1], b_vals.shape[2], *[t.data_ptr() for t in tables],
+        s, r, out.data_ptr(), _stream(out))
+    _launched("sparse_pair_count", rc)
+    return out
+
+
+def pallas_sparse_pair_counts(a_vals, a_len, b_vals, b_len):
+    """Per-container |a ∩ b| with the flat contract of the Pallas function
+    of this name: a_vals (..., Ka), b_vals (..., Kb) integer values
+    (sorted, 0xFFFF padded), a_len/b_len (...,). K4 with one container
+    per pool slot (C = 1, R = 1, idx = 0, hit = 1). Returns (...,)
+    int32."""
+    shape = a_vals.shape[:-1]
+    n = 1
+    for d in shape:
+        n *= int(d)
+    a = u16_bits(a_vals).reshape(n, 1, a_vals.shape[-1]).contiguous()
+    b = u16_bits(b_vals).reshape(n, 1, b_vals.shape[-1]).contiguous()
+    na = a_len.reshape(n, 1).to(torch.int32).contiguous()
+    nb = b_len.reshape(n, 1).to(torch.int32).contiguous()
+    zero = torch.zeros((n, 1), dtype=torch.int32, device=a.device)
+    one = torch.ones((n, 1), dtype=torch.int32, device=a.device)
+    out = sparse_pair_count(a, na, b, nb, zero, one, zero, one)
+    return out.reshape(shape)

@@ -1,5 +1,5 @@
 """The packed container pool: a fragment's containers as fixed-shape
-2048-word blocks.
+2048-word blocks (or, for sparse slices, as sorted value arrays).
 
 Key layout: a bit at (row, col) of one slice sits at position
 pos = row * 2^20 + (col % 2^20), so container key = pos >> 16 and row r
@@ -31,6 +31,19 @@ def pack_bitmap(bitmap):
     if len(keys):
         np.stack([c.words() for c in bitmap.containers], out=words)
     return keys, words.view(np.uint32)
+
+
+def pack_sparse(bitmap):
+    """One slice's containers as sorted arrays: (keys (n,) uint64, cards
+    (n,) int32, values (sum of cards,) uint16, each container's sorted
+    values concatenated in key order). A copy, taken under the
+    fragment's lock like pack_bitmap."""
+    keys = np.asarray(bitmap.keys, dtype=np.uint64)
+    vals = [c.values() for c in bitmap.containers]
+    cards = np.array([len(v) for v in vals], dtype=np.int32)
+    flat = (np.concatenate(vals).astype(np.uint16) if vals
+            else np.empty(0, dtype=np.uint16))
+    return keys, cards, flat
 
 
 def pool_keys(real_keys: np.ndarray, row_ids: np.ndarray) -> np.ndarray:

@@ -12,17 +12,24 @@ every slice that holds it is `coarse` and its count reads whole runs
 (K1/K2); when that run sits at one index in every slice the layout is
 `uniform` and a single start per leaf serves all slices. Other rows
 gather container by container (K3). count_batch picks the kernel.
+
+Slices of low fill stage instead as sorted u16 value arrays
+(SparseShardedIndex, pick_slice_formats); count_sparse_pair counts a
+two-leaf op over them (K4 for two sorted-array leaves).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import kernels
+from ..ops.bitops import (popcount, sparse_op_counts,
+                          sparse_probe_intersect_counts)
 from ..ops.pool import CONTAINER_WORDS, INVALID_KEY, ROW_SPAN, pool_keys
+from ..roaring import ARRAY_MAX_SIZE
 
 # Host bytes packed per host-to-device copy while staging.
 _STAGE_CHUNK_BYTES = 64 << 20
@@ -44,17 +51,30 @@ class ShardedIndex(NamedTuple):
         return self.words.shape[1]
 
 
+def global_row_ids(slices: Sequence) -> np.ndarray:
+    """The sorted uint64 row-id table over every slice's packed keys
+    (slices[s][0], or None for an absent or other-format slice): shared
+    by the dense and sorted-array pools of one view."""
+    rows = [sl[0] >> np.uint64(4) for sl in slices
+            if sl is not None and len(sl[0])]
+    return (np.unique(np.concatenate(rows)) if rows
+            else np.empty(0, dtype=np.uint64))
+
+
 def build_sharded_index(slices: Sequence, device,
-                        capacity: Optional[int] = None) -> ShardedIndex:
+                        capacity: Optional[int] = None,
+                        row_ids: Optional[np.ndarray] = None) -> ShardedIndex:
     """Stack per-slice containers into one device pool. slices[s] is
     ops.pool.pack_bitmap of slice s's bitmap, or None for an absent
-    fragment. The pool fills in host chunks of _STAGE_CHUNK_BYTES, each
-    copied into the preallocated device tensor."""
+    fragment (or one staged sorted-array). row_ids, when given, is the
+    view's global row table (global_row_ids); capacity=0 stages an empty
+    pool for a view whose populated slices all went sorted-array. The
+    pool fills in host chunks of _STAGE_CHUNK_BYTES, each copied into
+    the preallocated device tensor."""
     device = torch.device(device)
     s = max(1, len(slices))
-    rows = [keys >> np.uint64(4) for keys, _ in filter(None, slices)]
-    row_ids = (np.unique(np.concatenate(rows)) if rows
-               else np.empty(0, dtype=np.uint64))
+    if row_ids is None:
+        row_ids = global_row_ids(slices)
     counts = [len(sl[0]) if sl is not None else 0 for sl in slices]
     cap = capacity if capacity is not None else max(1, max(counts, default=1))
     cap = -(-cap // ROW_SPAN) * ROW_SPAN
@@ -66,7 +86,7 @@ def build_sharded_index(slices: Sequence, device,
 
     words = torch.empty((s, cap, CONTAINER_WORDS), dtype=torch.int32,
                         device=device)
-    chunk = max(1, _STAGE_CHUNK_BYTES // (cap * CONTAINER_WORDS * 4))
+    chunk = max(1, _STAGE_CHUNK_BYTES // max(1, cap * CONTAINER_WORDS * 4))
     for lo in range(0, s, chunk):
         hi = min(s, lo + chunk)
         buf = np.zeros((hi - lo, cap, CONTAINER_WORDS), dtype=np.uint32)
@@ -87,6 +107,221 @@ def staged_from_numpy(keys_host: np.ndarray, words, row_ids: np.ndarray,
         words=torch.from_numpy(w.view(np.int32)).to(torch.device(device)),
         keys_host=np.ascontiguousarray(keys_host, dtype=np.int32),
         row_ids=np.asarray(row_ids, dtype=np.uint64))
+
+
+# -- sorted-array ("sparse") staging ------------------------------------------
+#
+# The dense image bills 8 KB per container whatever its cardinality: a
+# container 3% full carries ~2 K values = 4 KB, one 0.3% full ~200 values
+# = 400 B. Slices whose mean container fill is under a density threshold
+# stage as sorted u16 value arrays plus a cardinality table; the rest
+# keep packed words. One view can hold both pools, and a per-slice format
+# byte says which pool serves each slice (pilosa_tpu/parallel/mesh.py:
+# 381-616).
+
+# Mean container fill under which a slice stages as sorted arrays (the
+# reference's default).
+DEFAULT_SPARSE_DENSITY_THRESHOLD = 0.05
+
+# A container of more than 4096 values is smaller as a bitmap (4096 x 2 B
+# = 8 KB, the packed-word size): the roaring array/bitmap break-even.
+ARRAY_VALUE_CAP = ARRAY_MAX_SIZE
+
+# A slice of total cardinality under this never stages sorted-array: it
+# is kilobytes either way, and the separate dispatch costs more than the
+# memory it saves.
+SPARSE_MIN_SLICE_CARD = 1024
+
+# The value capacity K pads to a multiple of this.
+_VALUE_ALIGN = 128
+
+
+class SparseShardedIndex(NamedTuple):
+    """One frame/view's sorted-array slices, stacked on the device. Keys
+    pack like ShardedIndex's (global dense row * 16 + sub-key), so
+    resolve_row_indices works on either pool's host keys."""
+
+    values: torch.Tensor    # (S, C, K) int16 holding u16, 0xFFFF padded
+    cards: torch.Tensor     # (S, C) int32 real cardinalities
+    keys_host: np.ndarray   # (S, C) int32, sorted, INVALID_KEY padded
+    cards_host: np.ndarray  # (S, C) int32
+    row_ids: np.ndarray     # (R,) uint64, shared with the dense pool
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def value_cap(self) -> int:
+        return self.values.shape[2]
+
+
+def slice_format_stats(bitmaps: Sequence) -> np.ndarray:
+    """Per-slice [n_containers, total_cardinality, max_cardinality] (S, 3)
+    int64, from the containers' own counts, for pick_slice_formats. A
+    slice stops at its first container over ARRAY_VALUE_CAP: its stats
+    are then partial, but that max alone makes it ineligible, so the pick
+    is the reference's (whose stats count every container) while a dense
+    slice popcounts one bitmap container, not all of them."""
+    out = np.zeros((len(bitmaps), 3), dtype=np.int64)
+    for si, b in enumerate(bitmaps):
+        if b is None or not len(b.keys):
+            continue
+        ns = []
+        for c in b.containers:
+            ns.append(c.n)
+            if ns[-1] > ARRAY_VALUE_CAP:
+                break
+        out[si] = (len(ns), sum(ns), max(ns))
+    return out
+
+
+def pick_slice_formats(stats: np.ndarray, threshold: float,
+                       prev: Optional[np.ndarray] = None,
+                       band: float = 1.25,
+                       value_cap: int = ARRAY_VALUE_CAP,
+                       min_card: int = SPARSE_MIN_SLICE_CARD) -> np.ndarray:
+    """Per-slice format: 1 = sorted-array, 0 = packed words.
+
+    A slice goes sorted-array when its mean container fill
+    (total / (n * 65536)) is under `threshold`, its total cardinality is
+    at least `min_card`, and no container holds more than `value_cap`
+    values. threshold <= 0 stages everything dense.
+
+    Hysteresis: with `prev` (the formats before a restage), a slice keeps
+    its format inside [threshold / band, threshold * band), so a slice
+    near the boundary does not change layout on every restage."""
+    s = stats.shape[0]
+    n = stats[:, 0].astype(np.float64)
+    total = stats[:, 1].astype(np.float64)
+    density = np.where(n > 0, total / np.maximum(n, 1) / 65536.0, 1.0)
+    eligible = ((stats[:, 0] > 0) & (stats[:, 2] <= value_cap)
+                & (stats[:, 1] >= min_card))
+    if threshold <= 0:
+        return np.zeros(s, dtype=np.uint8)
+    fmt = (eligible & (density < threshold)).astype(np.uint8)
+    if prev is not None and band > 1.0:
+        m = min(s, len(prev))
+        was_sparse = prev[:m].astype(bool)
+        keep_sparse = was_sparse & eligible[:m] & (
+            density[:m] < threshold * band)
+        go_sparse = ~was_sparse & eligible[:m] & (
+            density[:m] < threshold / band)
+        fmt[:m] = (keep_sparse | go_sparse).astype(np.uint8)
+    return fmt
+
+
+def split_bitmaps_by_format(slices: Sequence, formats: np.ndarray):
+    """(dense, sparse): the full-length slice list twice, each with the
+    other format's slices None."""
+    dense = [b if not formats[si] else None for si, b in enumerate(slices)]
+    sparse = [b if formats[si] else None for si, b in enumerate(slices)]
+    return dense, sparse
+
+
+def sparse_pool_dims(slices: Sequence) -> Tuple[int, int]:
+    """(container capacity C, value capacity K) of the sorted-array pool
+    over ops.pool.pack_sparse slices."""
+    cap = max([1] + [len(sl[0]) for sl in slices if sl is not None])
+    cap = -(-cap // ROW_SPAN) * ROW_SPAN
+    max_card = max([1] + [int(sl[1].max()) for sl in slices
+                          if sl is not None and len(sl[1])])
+    return cap, -(-max_card // _VALUE_ALIGN) * _VALUE_ALIGN
+
+
+def build_sparse_sharded_index(slices: Sequence, device,
+                               row_ids: Optional[np.ndarray] = None
+                               ) -> SparseShardedIndex:
+    """Stack the sorted-array slices into one device pool. slices[s] is
+    ops.pool.pack_sparse of slice s's bitmap, or None (absent or dense),
+    full-length so slice positions line up with the dense pool. Values
+    pad with 0xFFFF to the pool's value capacity."""
+    device = torch.device(device)
+    s = max(1, len(slices))
+    if row_ids is None:
+        row_ids = global_row_ids(slices)
+    cap, k = sparse_pool_dims(slices)
+    keys = np.full((s, cap), INVALID_KEY, dtype=np.int32)
+    values = np.full((s, cap, k), 0xFFFF, dtype=np.uint16)
+    cards = np.zeros((s, cap), dtype=np.int32)
+    for si, sl in enumerate(slices):
+        if sl is None or not len(sl[0]):
+            continue
+        real, c, flat = sl
+        n = len(real)
+        # pool_keys is monotonic: the containers stay in key order.
+        keys[si, :n] = pool_keys(real, row_ids)
+        cards[si, :n] = c
+        starts = np.repeat(np.cumsum(c) - c, c)
+        values[si, np.repeat(np.arange(n), c),
+               np.arange(len(flat)) - starts] = flat
+    return SparseShardedIndex(
+        values=torch.from_numpy(values.view(np.int16)).to(device),
+        cards=torch.from_numpy(cards).to(device),
+        keys_host=keys, cards_host=cards,
+        row_ids=np.asarray(row_ids, dtype=np.uint64))
+
+
+def sparse_staged_from_numpy(keys, values, cards, row_ids,
+                             device) -> SparseShardedIndex:
+    """The JAX package's sorted-array pool (the host keys, uint16 values,
+    cards and row ids its build_sparse_sharded_index yields) as this
+    port's SparseShardedIndex. The arrays are copied."""
+    v = np.array(values, dtype=np.uint16, order="C")
+    c = np.array(cards, dtype=np.int32, order="C")
+    device = torch.device(device)
+    return SparseShardedIndex(
+        values=torch.from_numpy(v.view(np.int16)).to(device),
+        cards=torch.from_numpy(c.copy()).to(device),
+        keys_host=np.ascontiguousarray(keys, dtype=np.int32),
+        cards_host=c, row_ids=np.asarray(row_ids, dtype=np.uint64))
+
+
+def count_sparse_pair(op: str, kind: str, pool_a, pool_b, idx_a, hit_a,
+                      idx_b, hit_b, mask) -> int:
+    """Count of the two-leaf `op` ("and", "or", "andnot") over the slices
+    in `mask` where at least one leaf serves from a sorted-array pool.
+
+    kind: "ss" both sorted-array (K4, kernels.sparse_pair_count); "sd"
+    leaf 0 sorted-array, leaf 1 dense; "ds" the reverse. The mixed kinds
+    gather the dense side's containers and probe them with the sorted
+    values (sparse_probe_intersect_counts), as the reference does in XLA.
+    Union and difference follow from |a ∩ b| and the hit-masked operand
+    cardinalities (sparse_op_counts).
+
+    A sorted-array pool is (values, cards), a dense one (words,); idx/hit
+    are the host (S, R) resolve_row_indices arrays against the pool the
+    leaf serves from, mask the (S,) 1/0 slice mask. Per-slice sums are
+    int64 on the device."""
+    device = pool_a[0].device
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    ia, ha, ib, hb = (dev(t) for t in (idx_a, hit_a, idx_b, hit_b))
+    if kind == "ss":
+        inter = kernels.sparse_pair_count(pool_a[0], pool_a[1], pool_b[0],
+                                          pool_b[1], ia, ha, ib, hb)
+        na = kernels.leaf_cards(pool_a[1], ia, ha)
+        nb = kernels.leaf_cards(pool_b[1], ib, hb)
+    elif kind == "sd":
+        va, na = kernels.gather_sparse(pool_a[0], pool_a[1], ia, ha)
+        blk = kernels.gather_words(pool_b[0], ib, hb)
+        nb = popcount(blk).sum(dim=-1, dtype=torch.int32)
+        inter = sparse_probe_intersect_counts(va, na, blk)
+    elif kind == "ds":
+        # |a ∩ b| is symmetric; na and nb keep their leaf positions so
+        # andnot stays leaf 0 minus the intersection.
+        blk = kernels.gather_words(pool_a[0], ia, ha)
+        na = popcount(blk).sum(dim=-1, dtype=torch.int32)
+        vb, nb = kernels.gather_sparse(pool_b[0], pool_b[1], ib, hb)
+        inter = sparse_probe_intersect_counts(vb, nb, blk)
+    else:
+        raise ValueError(f"unknown format pair {kind!r}")
+    counts = sparse_op_counts(op, inter, na, nb)
+    per_slice = counts.sum(dim=1, dtype=torch.int64)
+    return int((per_slice * torch.from_numpy(
+        np.asarray(mask, dtype=np.int64)).to(device)).sum())
 
 
 def dense_row(staged: ShardedIndex, row_id: int) -> int:

@@ -1,4 +1,5 @@
-"""The CUDA count kernels against their plain PyTorch versions, on a card.
+"""The CUDA count kernels (K1-K4) against their plain PyTorch versions, on
+a card.
 
 Marked `cuda`; each test skips without a card. This file imports no JAX,
 so it runs on a machine without it:
@@ -99,3 +100,70 @@ def test_tree_count_kernel(card, t):
     hit = torch.from_numpy(
         (rng.random((4, n, S, 16)) < 0.7).astype(np.int32))
     check(tk.tree_count_per_slice, ps, (idx, hit), tree, card)
+
+
+def sparse_pool(rng, s, c, k):
+    """(S, C, K) int16 sorted-array values (u16 bits, 0xFFFF padded) and
+    (S, C) int32 cards: random fills from empty to full K, with 65535
+    and 0 at the edges of some containers."""
+    vals = np.full((s, c, k), 0xFFFF, dtype=np.uint16)
+    cards = np.zeros((s, c), dtype=np.int32)
+    for i in range(s):
+        for j in range(c):
+            n = int(rng.integers(0, k + 1)) if j % 5 else (0, k, 1)[i % 3]
+            v = np.sort(rng.choice(65536, size=n, replace=False))
+            if n and j % 7 == 0:
+                v[-1] = 65535
+            if n > 1 and j % 3 == 0:
+                v[0] = 0
+            vals[i, j, :n] = np.unique(v)
+            cards[i, j] = len(np.unique(v))
+    return torch.from_numpy(vals.view(np.int16)), torch.from_numpy(cards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb", [(128, 128), (4096, 256), (8, 4096),
+                                   (100, 36)])
+def test_sparse_pair_kernel(card, ka, kb):
+    rng = np.random.default_rng(ka + kb)
+    s, r = 6, 16
+    a_vals, a_cards = sparse_pool(rng, s, 24, ka)
+    b_vals, b_cards = sparse_pool(rng, s, 40, kb)
+    # b shares a's values in some containers, so the counts are not all 0.
+    share = min(ka, kb)
+    b_vals[:, :8, :share] = a_vals[:, :8, :share]
+    b_cards[:, :8] = torch.minimum(a_cards[:, :8],
+                                   torch.tensor(share, dtype=torch.int32))
+    b_vals[:, :8, share:] = -1
+    tables = [torch.from_numpy(t.astype(np.int32)) for t in (
+        rng.integers(0, 24, size=(s, r)), rng.random((s, r)) < 0.8,
+        rng.integers(0, 8, size=(s, r)), rng.random((s, r)) < 0.8)]
+    args = (a_vals, a_cards, b_vals, b_cards, *tables)
+    want = tk.sparse_pair_count(*args)
+    before = tk.LAUNCHES["sparse_pair_count"]
+    got = tk.sparse_pair_count(*(t.to(card) for t in args))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sparse_pair_count"] == before + 1
+    assert want.sum() > 0
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sparse_flat_contract_kernel(card):
+    edges = [[], [0], [65535], list(range(4096)), list(range(61440, 65536)),
+             [0, 1, 65534, 65535], list(range(0, 65536, 16))]
+    a = [x for x in edges for _ in edges]
+    b = [y for _ in edges for y in edges]
+    vals = np.full((2, len(a), 4096), 0xFFFF, dtype=np.int32)
+    lens = np.zeros((2, len(a)), dtype=np.int32)
+    for side, lists in enumerate((a, b)):
+        for i, x in enumerate(lists):
+            vals[side, i, :len(x)] = x
+            lens[side, i] = len(x)
+    args = [torch.from_numpy(t) for t in (vals[0], lens[0], vals[1],
+                                          lens[1])]
+    want = tk.pallas_sparse_pair_counts(*args)
+    got = tk.pallas_sparse_pair_counts(*(t.to(card) for t in args))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert want.tolist() == [len(set(x) & set(y)) for x, y in zip(a, b)]

@@ -128,7 +128,9 @@ def test_queries_match_jax(data_dir):
     h = Holder(str(data_dir))
     h.open()
     try:
-        ex = Executor(h, device="cpu")
+        # Threshold 0: every slice stages dense, so the dense kernels
+        # serve (tests/test_torch_sparse.py covers the sorted arrays).
+        ex = Executor(h, device="cpu", sparse_density_threshold=0)
         got = []
         for q in QUERIES:
             try:
@@ -272,7 +274,7 @@ def test_coalesced_group_matches_jax(data_dir):
     h = Holder(str(data_dir))
     h.open()
     try:
-        ex = Executor(h, device="cpu")
+        ex = Executor(h, device="cpu", sparse_density_threshold=0)
         mgr = ex.mesh_manager()
         from pilosa_tpu_torch.parallel.plan import _lower_tree
 
@@ -292,8 +294,9 @@ def test_coalesced_group_matches_jax(data_dir):
 
 def test_concurrent_counts_coalesce(port_holder, monkeypatch):
     """Counts that arrive while another is in flight queue to the batch
-    thread and run as one launch."""
-    ex = Executor(port_holder, device="cpu")
+    thread and run as one launch (dense views: sorted-array counts run
+    on the calling thread)."""
+    ex = Executor(port_holder, device="cpu", sparse_density_threshold=0)
     want = [ex.execute("i", parse_string(pair_query(a, b)))[0]
             for a, b in PAIRS]
     mgr = ex.mesh_manager()
