@@ -6,7 +6,8 @@ NVIDIA card.
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc, and
+     run the K0 canary (ops.kernels.probe_ok);
   3. kernels: every wrapper on the card at the main path's shapes, held
      exactly against its plain PyTorch version, and timed;
   4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
@@ -33,8 +34,28 @@ Phases, each fatal on failure:
      tree that demotes `sparse` to packed words and a pair that then
      runs K1. Every answer is checked against the host; K4's counter,
      each format group and the demote must show;
-  7. a `kernels` JSON line, the card line, and the final
+  7. K5 (pair_count) at the integer field's shapes: the flat pair of each
+     op at (15,360, 2048) and at an M that is no multiple of a block, and
+     the serving form over the staged `bsi.val` view as the Sum runs it
+     (no b, b = the sign row, b = a filter block); plus K1 on the
+     canonical tree of Count(Range(val > 1000)) and the K0 canary. Each
+     held exactly against its plain version and timed beside its bound;
+  8. the integer-field slice over HTTP: field `val` of frame `general`
+     (min -32768, max 32767: 16 planes; uniform values in half the
+     columns of all 960 slices, made slice by slice from the seed) serves
+     Sum, Min and Max with and without the filter Bitmap(frame=general,
+     rowID=0), Count(Range(val op c)) for all seven operators with
+     constants on both sides of 0 and at the edges, then a handful of
+     SetValue writes (and a refused one) and the aggregates again. Every
+     answer is checked against the numpy truth; K0 (at server start), K5
+     and K1 must launch, `count_host` must not move, and torch.profiler
+     measures the card's busy share of a round of Sums;
+  9. a `kernels` JSON line, the card line, and the final
      {"ok": true, "device": ...} line.
+
+Each HTTP phase runs one full pass of Python's cyclic collector right
+after its staging query and reports its time, so that no timed window
+holds the pass that staging would otherwise set off.
 
 Exits non-zero, with no result line, when no CUDA card is present.
 Details go to chiprun_out/chip_smoke.json.
@@ -42,11 +63,15 @@ Details go to chiprun_out/chip_smoke.json.
 With --dense-qps-of ROOT it runs phases 1, 2 and 4 only, built and
 served by the package under ROOT, and prints their QPS as one JSON line:
 run it alternately on two checkouts to compare their dense serving.
+With --lone-latency-of ROOT it runs phases 1 and 2 and the lone Counts
+of phase 4 only, 56 of them as in phase 4 and then 560 more, and prints
+their latency and the collector's full passes as one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import http.client
 import itertools
 import json
@@ -86,10 +111,19 @@ KERNELS = {
                    "pilosa_tpu/ops/kernels.py:279"),
     "sparse_pair_count": ("pilosa_tpu_torch/csrc/sparse_pair_count.cu",
                           "pilosa_tpu/ops/kernels.py:843"),
+    "probe_ok": ("pilosa_tpu_torch/csrc/probe_ok.cu",
+                 "pilosa_tpu/ops/kernels.py:121"),
+    "pair_count": ("pilosa_tpu_torch/csrc/pair_count.cu",
+                   "pilosa_tpu/ops/kernels.py:176"),
 }
 # The kernels each served path must launch.
 DENSE_PATH = ("coarse_count", "coarse_count_shared", "tree_count")
 SPARSE_PATH = ("sparse_pair_count", "coarse_count")
+BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count")
+# The integer field: the repo's own BSI configuration (bench.py:2079-2167).
+BSI_FIELD, BSI_MIN, BSI_MAX = "val", -32768, 32767
+BSI_ROWS = 18        # existence, sign, 16 magnitude planes
+FLAT_M = 15_360      # the ops-level pair at chip shape: 960 x 16 containers
 
 
 def log(msg: str) -> None:
@@ -220,6 +254,127 @@ def add_sparse_frames(holder, words: np.ndarray, sp: SparseRows) -> None:
                     bm.keys.append(r * 16 + b)
                     bm.containers.append(c)
             views[frame].create_fragment_if_not_exists(s).replace(bm)
+
+
+class BsiTruth:
+    """The integer field's values, made slice by slice from the seed and
+    never held whole (960 x 2^20 int64 would be 8 GB): the numpy truth
+    keeps a histogram of the values over all columns and one over the
+    columns of the filter (`general` row 0), and answers every query
+    from them."""
+
+    def __init__(self, num_slices: int, seed: int, words: np.ndarray):
+        self.num_slices, self.seed, self.words = num_slices, seed, words
+        self.hist = np.zeros(BSI_MAX - BSI_MIN + 1, dtype=np.int64)
+        self.fhist = np.zeros_like(self.hist)
+        self.written: dict = {}  # column -> value set by SetValue
+
+    def slice_values(self, s: int):
+        """(values int64, exists bool) of slice s's 2^20 columns: uniform
+        over the field's range in half the columns, 0 elsewhere."""
+        rng = np.random.default_rng([self.seed, 3, s])
+        vals = rng.integers(BSI_MIN, BSI_MAX + 1, size=1 << 20,
+                            dtype=np.int64)
+        exists = rng.random(1 << 20) < 0.5
+        vals[~exists] = 0
+        return vals, exists
+
+    def filter_bits(self, s: int) -> np.ndarray:
+        return np.unpackbits(self.words[s, 0].view(np.uint8),
+                             bitorder="little").astype(bool)
+
+    def planes(self, s: int):
+        """Slice s's (18, 16, 1024) uint64 bsi rows, and its two
+        histograms."""
+        vals, exists = self.slice_values(s)
+        mags = np.abs(vals).astype(np.uint16)
+        bits = np.unpackbits(mags.view(np.uint8).reshape(-1, 2), axis=1,
+                             bitorder="little")
+        out = np.empty((BSI_ROWS, (1 << 20) // 8), dtype=np.uint8)
+        out[0] = np.packbits(exists, bitorder="little")
+        out[1] = np.packbits(vals < 0, bitorder="little")
+        out[2:] = np.packbits(np.ascontiguousarray(bits.T), axis=1,
+                              bitorder="little")
+        keep = exists & self.filter_bits(s)
+        n = len(self.hist)
+        return (out.view(np.uint64).reshape(BSI_ROWS, 16, 1024),
+                np.bincount(vals[exists] - BSI_MIN, minlength=n),
+                np.bincount(vals[keep] - BSI_MIN, minlength=n))
+
+    def value(self, col: int):
+        """The value column `col` holds now, or None."""
+        if col in self.written:
+            return self.written[col]
+        vals, exists = self.slice_values(col >> 20)
+        return int(vals[col & 0xFFFFF]) if exists[col & 0xFFFFF] else None
+
+    def set_value(self, col: int, v: int) -> None:
+        old = self.value(col)
+        filt = bool(self.filter_bits(col >> 20)[col & 0xFFFFF])
+        for h, on in ((self.hist, True), (self.fhist, filt)):
+            if on and old is not None:
+                h[old - BSI_MIN] -= 1
+            if on:
+                h[v - BSI_MIN] += 1
+        self.written[col] = v
+
+    @staticmethod
+    def _agg(h: np.ndarray, name: str):
+        vals = np.arange(BSI_MIN, BSI_MAX + 1, dtype=np.int64)
+        if name == "Sum":
+            return {"value": int((vals * h).sum()), "count": int(h.sum())}
+        held = np.nonzero(h)[0]
+        if not len(held):
+            return None
+        i = held[-1] if name == "Max" else held[0]
+        return {"value": int(vals[i]), "count": int(h[i])}
+
+    def aggregate(self, name: str, filtered: bool):
+        return self._agg(self.fhist if filtered else self.hist, name)
+
+    def range_count(self, op: str, c) -> int:
+        v = np.arange(BSI_MIN, BSI_MAX + 1, dtype=np.int64)
+        if op == "><":
+            sel = (v >= c[0]) & (v <= c[1])
+        else:
+            sel = {">": v > c, ">=": v >= c, "<": v < c, "<=": v <= c,
+                   "==": v == c, "!=": v != c}[op]
+        return int(self.hist[sel].sum())
+
+
+def add_bsi_field(holder, truth: BsiTruth) -> float:
+    """Field `val` of frame `general`, its planes injected slice by slice
+    as whole storage images (SetValue per column would take days). The
+    slices are made by a pool of threads: numpy releases the GIL in the
+    heavy calls. Returns the seconds spent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.bsi import FieldSchema
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    t0 = time.monotonic()
+    frame = holder.index("i").frame("general")
+    schema = frame.create_field_if_not_exists(
+        FieldSchema(BSI_FIELD, BSI_MIN, BSI_MAX))
+    check(schema.row_count == BSI_ROWS, "16-plane field")
+    view = frame.create_view_if_not_exists(schema.view)
+
+    def one(s):
+        rows, h, fh = truth.planes(s)
+        bm = Bitmap()
+        for r in range(BSI_ROWS):
+            for b in range(16):
+                if rows[r, b].any():
+                    bm.keys.append(r * 16 + b)
+                    bm.containers.append(Container(bitmap=rows[r, b]))
+        view.create_fragment_if_not_exists(s).replace(bm)
+        return h, fh
+
+    with ThreadPoolExecutor(8) as pool:
+        for h, fh in pool.map(one, range(truth.num_slices)):
+            truth.hist += h
+            truth.fhist += fh
+    return time.monotonic() - t0
 
 
 # -- timing --------------------------------------------------------------------
@@ -361,11 +516,14 @@ class Client:
     def __init__(self, host: str, port: int):
         self.conn = http.client.HTTPConnection(host, port, timeout=120)
 
-    def call(self, method: str, path: str, body: str = ""):
+    def raw(self, method: str, path: str, body: str = ""):
         self.conn.request(method, path, body=body.encode())
         resp = self.conn.getresponse()
-        doc = json.loads(resp.read())
-        check(resp.status == 200, (method, path, body, resp.status, doc))
+        return resp.status, json.loads(resp.read())
+
+    def call(self, method: str, path: str, body: str = ""):
+        status, doc = self.raw(method, path, body)
+        check(status == 200, (method, path, body, status, doc))
         return doc
 
     def count(self, pql: str) -> int:
@@ -452,6 +610,20 @@ def profiled(fn) -> dict:
             "device_us_by_kernel": kernels}
 
 
+def collect_after_staging(phase: str) -> float:
+    """One full pass of Python's cyclic collector, timed and logged, ms.
+    Staging leaves so many new long-lived objects that the collector makes
+    a full pass over the whole heap soon after it, longer than a short
+    timed window can absorb; the phases run it right after their staging
+    query, so that it lands in no timed window, and report what it
+    costs."""
+    t0 = time.monotonic()
+    gc.collect()
+    ms = (time.monotonic() - t0) * 1e3
+    log(f"{phase}: full collection after staging {ms:.1f} ms")
+    return ms
+
+
 def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
     import torch
 
@@ -477,6 +649,7 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
         torch.cuda.synchronize()
         first_s = time.monotonic() - t0
         log(f"slice phase: first query (staging) {first_s:.2f} s")
+        collect_ms = collect_after_staging("slice phase")
         mgr = ex.mesh_manager()
         before = dict(mgr.stats)
         tk.reset_launches()
@@ -525,7 +698,7 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
           "concurrent counts coalesced and shared reads")
     return {"launches": launches, "launches_by_wrapper": by_wrapper,
             "stats": stats, "first_query_s": first_s, "lone_qps": lone_qps,
-            "profile": busy,
+            "collect_after_staging_ms": collect_ms, "profile": busy,
             "concurrent_qps": conc_qps, "clients": CLIENTS}
 
 
@@ -685,6 +858,7 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
             sv.sparse.cards.numel() * 4
         log(f"sparse phase: first query (staging {staged_bytes / 1e9:.3f} "
             f"GB) {first_s:.2f} s")
+        collect_ms = collect_after_staging("sparse phase")
         before = dict(mgr.stats)
         tk.reset_launches()
         t0 = time.monotonic()
@@ -742,9 +916,267 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
     check(all_stats["sparse_demote"] == 1, "one demote")
     return {"launches": launches, "stats": all_stats,
             "first_query_s": first_s, "lone_qps": lone_qps,
+            "collect_after_staging_ms": collect_ms,
             "concurrent_qps": conc_qps, "profile": busy, "clients": CLIENTS,
             "staged_bytes_sparse": staged_bytes,
             "staged_bytes_dense_image": dense_bytes}
+
+
+# -- phase 7: K5, K1 on a Range tree, and K0 at the integer field's shapes ------
+
+
+def bsi_kernel_phase(holder, truth: BsiTruth, device, seed: int) -> dict:
+    """K5's flat pair for each op (random words, 126 MB a side) and its
+    serving form over the staged `bsi.val` view as the Sum runs it; K1
+    on the canonical tree of Count(Range(val > 1000)); the K0 canary.
+    Each against its plain version on the same card tensors, exactly,
+    then both timed. Bounds: each input byte once over the memory rate
+    (K5's popcount and bitwise op per 16 bytes are far under the card's
+    integer rate)."""
+    import torch
+
+    from pilosa_tpu_torch.bsi import cond_tree, to_shape
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.ops.cuda_build import kernel_fn
+    from pilosa_tpu_torch.ops.pool import pack_bitmap
+    from pilosa_tpu_torch.parallel.mesh import (build_sharded_index,
+                                                container_table, dense_row,
+                                                leaf_layout)
+    from pilosa_tpu_torch.parallel.plan import canonical_tree
+
+    s = truth.num_slices
+    t0 = time.monotonic()
+    view = f"bsi.{BSI_FIELD}"
+    staged = build_sharded_index(
+        [pack_bitmap(holder.fragment("i", "general", view, i).storage)
+         for i in range(s)], device)
+    torch.cuda.synchronize()
+    log(f"bsi kernel phase: staged {staged.words.numel() * 4 / 1e9:.3f} GB "
+        f"(S={s}, cap={staged.capacity}) in {time.monotonic() - t0:.2f} s")
+    pool = staged.words
+    lay = [leaf_layout(staged.keys_host, dense_row(staged, r))
+           for r in range(BSI_ROWS)]
+    ones = np.ones(s, dtype=np.int64)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    tables = [container_table(lay, ones), container_table(lay[2:], ones),
+              container_table(lay[1:2], ones)[0]]
+    # Bytes of the containers present (K5 reads no absent one): the top
+    # plane of a uniform 16-bit field is nearly empty (only -32768 sets
+    # it), so the view holds ~17 full rows.
+    rows_b, planes_b, sign_b = (int((t >= 0).sum()) * 8192 for t in tables)
+    a_all, a_planes, sign_idx = (dev(t) for t in tables)
+    block = dev(truth.words[:, 0].view(np.int32).reshape(s, 16, 2048))
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand_words(m):
+        return torch.randint(-2**31, 2**31, (m, 2048), dtype=torch.int32,
+                             device=device, generator=gen)
+
+    fa, fb = rand_words(FLAT_M + 1), rand_words(FLAT_M + 1)
+    a, b = fa[:FLAT_M], fb[:FLAT_M]
+    cells = 16 * s
+    idx_b = 4 * 16 * s  # one int32 container index per (row, slice, block)
+    cases = [
+        ("pair_count_rows (Sum, no b)", "pair_count",
+         lambda: tk.pair_count_rows(pool, a_all),
+         lambda: tk.pair_rows_plain(pool, a_all, "and", None, None, None),
+         rows_b + BSI_ROWS * idx_b + 8 * BSI_ROWS),
+        ("pair_count_rows (sign pass, b = sign row)", "pair_count",
+         lambda: tk.pair_count_rows(pool, a_planes, "and", b_pool=pool,
+                                    b_idx=sign_idx),
+         lambda: tk.pair_rows_plain(pool, a_planes, "and", pool, sign_idx,
+                                    None),
+         planes_b + sign_b + (BSI_ROWS - 1) * idx_b + 8 * 16),
+        ("pair_count_rows (filtered Sum, b = block)", "pair_count",
+         lambda: tk.pair_count_rows(pool, a_all, "and", b_block=block),
+         lambda: tk.pair_rows_plain(pool, a_all, "and", None, None, block),
+         rows_b + s * RUN_BYTES + BSI_ROWS * idx_b + 8 * BSI_ROWS),
+    ]
+    for op in ("and", "or", "xor", "andnot"):
+        cases.append((f"pair_count {op} ({FLAT_M}, 2048)", "pair_count",
+                      lambda op=op: tk.pair_count(a, b, op),
+                      lambda op=op: tk.pair_count_plain(a, b, op),
+                      2 * FLAT_M * 8192 + 8))
+    cases.append((f"pair_count and ({FLAT_M + 1}, 2048)", "pair_count",
+                  lambda: tk.pair_count(fa, fb, "and"),
+                  lambda: tk.pair_count_plain(fa, fb, "and"),
+                  2 * (FLAT_M + 1) * 8192 + 8))
+    # The tree Count(Range(val > 1000)) runs: 18 distinct rows after
+    # dedupe. The nearly empty top plane is not a whole run in every
+    # slice, so the serving path gathers per container (K3), as here.
+    raw: list = []
+    leaves: list = []
+    tree = canonical_tree(to_shape(cond_tree(
+        holder.index("i").frame("general").bsi_field(BSI_FIELD), ">", 1000),
+        "general", view, raw), raw, leaves)
+    r_lay = [lay[lf[2]] for lf in leaves]
+    r_pools = (pool,) * len(leaves)
+    r_idx = dev(np.stack([x.idx for x in r_lay])[None])
+    r_hit = dev(np.stack([x.hit for x in r_lay])[None])
+    cases.append(("tree_count_per_slice (Range val > 1000)", "tree_count",
+                  lambda: tk.tree_count_per_slice(r_pools, r_idx, r_hit, tree),
+                  lambda: tk.tree_plain(r_pools, r_idx, r_hit, tree),
+                  int(sum(x.hit.sum() for x in r_lay)) * 8192
+                  + 2 * r_idx.numel() * 4 + 4 * s))
+    results = {}
+    for name, kernel, run, plain, nbytes in cases:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0 and got.shape == want.shape,
+              f"{name}: kernel != plain (max err {err})")
+        ms = time_ms(run, 20)
+        plain_ms = time_ms(plain, 1 if "rows" in name else 3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = {"kernel": kernel, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+                         "max_abs_err": err, "library_ms": None}
+        log(f"  {name:42s} {ms:8.4f} ms  {nbytes / ms / 1e6:7.1f} GB/s  "
+            f"bound {bound_ms:.4f} ms  plain {plain_ms:.3f} ms  exact")
+    check(len(leaves) == BSI_ROWS, f"Range tree has {len(leaves)} leaves")
+    # The Sum's plane counts against the truth.
+    counts = tk.pair_count_rows(pool, a_all).tolist()
+    check(counts[0] == int(truth.hist.sum()), "existence count = truth")
+    # K0: the canary kernel alone, launched on a standing tensor; its
+    # plain version and the one PyTorch call that does the same (x + 1).
+    x = torch.zeros((8, 128), dtype=torch.int32, device=device)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(tk.probe_ok(device), "probe_ok")
+    ms = time_ms(lambda: kernel_fn("probe_ok")(x.data_ptr(), x.numel(),
+                                                stream), 50)
+    results["probe_ok"] = {
+        "kernel": "probe_ok", "ms": ms,
+        "plain_ms": time_ms(lambda: tk.probe_plain(x), 50),
+        "library_ms": time_ms(lambda: torch.add(x, 1, out=y), 50),
+        "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": 2 * x.numel() * 4, "max_abs_err": 0}
+    log(f"  probe_ok {ms:.4f} ms per launch, plain "
+        f"{results['probe_ok']['plain_ms']:.4f} ms")
+    del staged, pool, a_all, a_planes, block, fa, fb, a, b, r_pools, r_idx
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 8: the integer-field slice over HTTP ---------------------------------
+
+RANGE_CONSTS = (-32769, -32768, -32767, -1000, -1, 0, 1, 1000, 32766, 32767,
+                32768)
+BETWEEN = ((-1000, 1000), (BSI_MIN, BSI_MAX), (5, 5), (10, -10))
+FILTER = "Bitmap(frame=general, rowID=0), "
+
+
+def agg_pql(name: str, filtered: bool) -> str:
+    return (f"{name}({FILTER if filtered else ''}frame=general, "
+            f'field="{BSI_FIELD}")')
+
+
+def range_pql(op: str, c) -> str:
+    arg = f"[{c[0]}, {c[1]}]" if op == "><" else str(c)
+    return f"Count(Range(frame=general, {BSI_FIELD} {op} {arg}))"
+
+
+def bsi_phase(holder, truth: BsiTruth, card: str, device) -> dict:
+    """The integer field through the normal entry points. Counters are
+    set to 0 just before the server starts (it launches K0) and read
+    after the last query."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    tk.reset_launches()
+    srv = serve(holder, device=device)
+    host, port = srv.address
+    ex = srv.handler.executor
+    c = Client(host, port)
+    aggs = [(n, f) for f in (False, True) for n in ("Sum", "Min", "Max")]
+    ranges = [(op, k) for op in (">", ">=", "<", "<=", "==", "!=")
+              for k in RANGE_CONSTS] + [("><", k) for k in BETWEEN]
+
+    def ask_aggs():
+        for name, filt in aggs:
+            got = c.count(agg_pql(name, filt))
+            want = truth.aggregate(name, filt)
+            check(got == want, (name, filt, got, want))
+
+    def timed(q, n):
+        t0 = time.monotonic()
+        for _ in range(n):
+            c.count(q)
+        return (time.monotonic() - t0) / n * 1e3
+
+    try:
+        t0 = time.monotonic()
+        got = c.count(agg_pql("Sum", False))  # stages the view
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        check(got == truth.aggregate("Sum", False), ("first Sum", got))
+        log(f"bsi phase: first Sum (staging {BSI_ROWS} rows) {first_s:.2f} s")
+        collect_ms = collect_after_staging("bsi phase")
+        ask_aggs()
+        t0 = time.monotonic()
+        for op, k in ranges:
+            got = c.count(range_pql(op, k))
+            want = truth.range_count(op, k)
+            check(got == want, (op, k, got, want))
+        range_ms = (time.monotonic() - t0) / len(ranges) * 1e3
+        ms = {"Sum": timed(agg_pql("Sum", False), 20),
+              "Sum filtered": timed(agg_pql("Sum", True), 20),
+              "Min": timed(agg_pql("Min", False), 5),
+              "Max filtered": timed(agg_pql("Max", True), 5),
+              "Count(Range(val > 1000))": timed(range_pql(">", 1000), 20),
+              "Range, all ops (mean)": range_ms}
+        busy = profiled(lambda: timed(agg_pql("Sum", False), 20))
+        # Writes: overwrite an existing value, flip its sign, write the
+        # field's edges into columns with and without a value, rewrite a
+        # column twice; then a refused one changes nothing.
+        last = truth.num_slices - 1
+        cols = [5, (1 << 20) * min(17, last) + 3, (1 << 20) * last + 77,
+                1 << 20, 123_456]
+        writes = [(cols[0], 31000), (cols[1], -32768), (cols[2], 32767),
+                  (cols[3], 0), (cols[4], -5), (cols[4], 17)]
+        for col, v in writes:
+            had = truth.value(col)
+            got = c.count(f"SetValue(frame=general, columnID={col}, "
+                          f"{BSI_FIELD}={v})")
+            check(got is (had != v), ("SetValue", col, v, got, had))
+            truth.set_value(col, v)
+        status, doc = c.raw("POST", "/index/i/query",
+                            f"SetValue(frame=general, columnID=9, "
+                            f"{BSI_FIELD}=40000)")
+        check(status == 422, ("out-of-range SetValue", status, doc))
+        t0 = time.monotonic()
+        ask_aggs()
+        restage_s = time.monotonic() - t0
+        for op, k in ((">=", 31000), ("==", -32768), ("==", 32767),
+                      ("<", 0), ("!=", 0)):
+            got = c.count(range_pql(op, k))
+            check(got == truth.range_count(op, k), (op, k, got))
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        stats = dict(ex.stats)
+        mstats = dict(ex.mesh_manager().stats)
+    finally:
+        c.close()
+        srv.close()
+    log(f"bsi phase on {card}: ms per query {json.dumps(ms)}; aggregates "
+        f"after the writes (restage included) {restage_s:.2f} s")
+    log(f"bsi phase launches {launches}; executor {stats}")
+    log(f"bsi phase profile (20 Sums): device busy "
+        f"{busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s wall = "
+        f"{busy['device_busy_share']:.4f}")
+    for k in BSI_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the bsi path")
+    check(stats.get("count_host", 0) == 0 and stats.get("bsi_host", 0) == 0,
+          "nothing counted on the host")
+    return {"launches": launches, "stats": stats, "mesh_stats": mstats,
+            "first_query_s": first_s, "collect_after_staging_ms": collect_ms,
+            "ms_per_query": ms, "after_writes_s": restage_s, "profile": busy}
 
 
 # -- main ----------------------------------------------------------------------
@@ -766,9 +1198,80 @@ def dense_qps_only(root: Path, card: str, smi: str, seed: int) -> int:
     busy = sl["profile"]["device_busy_share"]
     print(json.dumps({"dense_qps_of": str(root), "card": smi,
                       "first_query_s": sl["first_query_s"],
+                      "collect_after_staging_ms":
+                          sl["collect_after_staging_ms"],
                       "lone_qps": sl["lone_qps"],
                       "concurrent_qps": sl["concurrent_qps"],
                       "device_busy_share": busy}), flush=True)
+    return 0
+
+
+def lone_latency_only(root: Path, smi: str, seed: int) -> int:
+    """The dense slice's lone Counts alone, served by the package under
+    `root`, as one JSON line: the collector's automatic full passes from
+    the end of staging on (offset from it and length) and whether one fell
+    in the first window of 56 lone requests (the slice phase's lone
+    window, answers checked); then one full collection and 560 more lone
+    requests, their median, p90 and mean latency and QPS. Run it
+    alternately on two checkouts to compare their lone serving."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+
+    words = make_words(SLICES, seed)
+    pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+    qs = [pql("and", a, b) for a, b in pairs]
+    want = [host_count(words, "and", a, b) for a, b in pairs]
+    passes, begun = [], []
+
+    def on_pass(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                begun.append(time.monotonic())
+            else:
+                passes.append((begun[-1], time.monotonic() - begun[-1]))
+
+    def lone(queries, answers):
+        lat = []
+        for q, w in zip(queries, answers):
+            t0 = time.monotonic()
+            got = c.count(q)
+            lat.append(time.monotonic() - t0)
+            check(w is None or got == w, (q, got, w))
+        return lat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        holder = build_holder(tmp, words)
+        srv = serve(holder, device=torch.device("cuda"))
+        c = Client(*srv.address)
+        gc.callbacks.append(on_pass)
+        try:
+            c.count(qs[0])  # stages the view
+            staged = time.monotonic()
+            first = lone(qs * 2, want * 2)
+            first_end = time.monotonic()
+            auto = list(passes)
+            collect_ms = collect_after_staging("lone latency")
+            t0 = time.monotonic()
+            lat = sorted(lone(qs * 20, [None] * len(qs) * 20))
+            wall = time.monotonic() - t0
+        finally:
+            gc.callbacks.remove(on_pass)
+            c.close()
+            srv.close()
+            holder.close()
+    print(json.dumps({
+        "lone_latency_of": str(root), "card": smi,
+        "passes_after_staging": [
+            {"at_s": t - staged, "ms": d * 1e3} for t, d in auto],
+        "pass_in_first_window": any(staged <= t <= first_end
+                                    for t, _ in auto),
+        "first_window_qps": len(first) / (first_end - staged),
+        "collect_ms": collect_ms, "n": len(lat),
+        "median_ms": lat[len(lat) // 2] * 1e3,
+        "p90_ms": lat[int(0.9 * len(lat))] * 1e3,
+        "mean_ms": sum(lat) / len(lat) * 1e3,
+        "qps": len(lat) / wall}), flush=True)
     return 0
 
 
@@ -779,6 +1282,11 @@ def main(argv=None) -> int:
                     help="run only phase 4, served by the pilosa_tpu_torch "
                          "package under ROOT (a checkout of any commit), "
                          "and print its QPS as one JSON line")
+    ap.add_argument("--lone-latency-of", metavar="ROOT", type=Path,
+                    help="run only the dense slice's lone Counts, served "
+                         "by the package under ROOT, and print their "
+                         "latency and the collector's passes as one JSON "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -787,7 +1295,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    root = (args.dense_qps_of or REPO).resolve()
+    root = (args.dense_qps_of or args.lone_latency_of or REPO).resolve()
     sys.path.insert(0, str(root))
     from pilosa_tpu_torch.ops import cuda_build
 
@@ -800,11 +1308,17 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     cuda_build.build_all()
-    log(f"build: {len(cuda_build.ENTRIES)} kernels in "
+    log(f"build: {len(cuda_build.BUILD_SECONDS)} libraries in "
         f"{time.monotonic() - t0:.2f} s "
         f"{json.dumps(cuda_build.BUILD_SECONDS)}")
     if args.dense_qps_of:
         return dense_qps_only(root, card, smi, args.seed)
+    if args.lone_latency_of:
+        return lone_latency_only(root, smi, args.seed)
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    check(tk.probe_ok(torch.device("cuda")), "K0 canary")
+    log("K0 canary: ok")
 
     device = torch.device("cuda")
     t0 = time.monotonic()
@@ -821,12 +1335,19 @@ def main(argv=None) -> int:
             kern["sparse_pair_count"] = sparse_kernel_phase(holder, sp,
                                                             device)
             sps = sparse_phase(holder, words, sp, card, device)
+            truth = BsiTruth(SLICES, args.seed, words)
+            gen_s = add_bsi_field(holder, truth)
+            log(f"bsi data: {SLICES} slices of field {BSI_FIELD} made, "
+                f"packed and injected in {gen_s:.2f} s")
+            kern.update(bsi_kernel_phase(holder, truth, device, args.seed))
+            bsi = bsi_phase(holder, truth, card, device)
+            bsi["data_s"] = gen_s
         finally:
             holder.close()
 
     # Each kernel's launches come from the path it serves.
-    launches = {k: (sps if k == "sparse_pair_count" else sl)["launches"][k]
-                for k in KERNELS}
+    served = {"sparse_pair_count": sps, "probe_ok": bsi, "pair_count": bsi}
+    launches = {k: served.get(k, sl)["launches"][k] for k in KERNELS}
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rows = {w: r for w, r in kern.items() if r["kernel"] == name}
@@ -838,7 +1359,7 @@ def main(argv=None) -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": None})
+            "library_ms": main_row.get("library_ms")})
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -846,6 +1367,7 @@ def main(argv=None) -> int:
          "cuda": torch.version.cuda, "slices": SLICES,
          "seed": args.seed, "build_s": cuda_build.BUILD_SECONDS,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
+         "bsi_slice": bsi,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -6,8 +6,9 @@ bodies and status codes.
   POST /index/{index}/query           PQL body          -> {"results": [...]}
   GET  /schema                                          -> {"indexes": [...]}
 
-Errors answer {"error": message}: 404 for a missing index or frame, 409
-for one that exists, 400 for a bad request or a failed query.
+Errors answer {"error": message}: 404 for a missing index, frame or
+integer field, 409 for one that exists, 422 for a value outside a field's
+range, 400 for a bad request or a failed query.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import json
 import re
 from typing import Callable, Dict, List, NamedTuple, Optional
 
+from ..bsi.field import FieldNotFoundError, FieldValueError
 from ..core.row import Row
 from ..errors import (FrameExistsError, FrameNotFoundError, IndexExistsError,
                       IndexNotFoundError, PilosaError)
@@ -37,10 +39,15 @@ def _json_resp(obj, status: int = 200) -> Response:
 
 
 def _error_status(err: Exception) -> int:
-    if isinstance(err, (IndexNotFoundError, FrameNotFoundError)):
+    if isinstance(err, (IndexNotFoundError, FrameNotFoundError,
+                        FieldNotFoundError)):
         return 404
     if isinstance(err, (IndexExistsError, FrameExistsError)):
         return 409
+    # Before ValueError -> 400: a value outside the declared range is a
+    # semantic rejection, not a malformed request.
+    if isinstance(err, FieldValueError):
+        return 422
     if isinstance(err, (PilosaError, ParseError, ValueError, KeyError,
                         TypeError)):
         return 400
@@ -51,7 +58,7 @@ def _result_to_json(result):
     if isinstance(result, Row):
         return {"attrs": result.attrs,
                 "bits": [int(c) for c in result.columns()]}
-    return result  # int or bool
+    return result  # int, bool, a Sum/Min/Max {value, count}, or None
 
 
 def _decode_options(body: bytes, mapping: Dict[str, str]) -> dict:
@@ -128,7 +135,8 @@ class Handler:
     def _post_frame(self, pv, params, body) -> Response:
         opts = _decode_options(body, {
             "rowLabel": "row_label", "inverseEnabled": "inverse_enabled",
-            "cacheType": "cache_type", "cacheSize": "cache_size"})
+            "cacheType": "cache_type", "cacheSize": "cache_size",
+            "fields": "fields"})
         idx = self.holder.index(pv["index"])
         if idx is None:
             raise IndexNotFoundError()
@@ -141,6 +149,8 @@ class Handler:
         try:
             q = parse_string(body.decode())
             results = self.executor.execute(pv["index"], q, slices or None)
+        except (FieldValueError, FieldNotFoundError) as e:
+            return _json_resp({"error": str(e)}, _error_status(e))
         except (PilosaError, ParseError) as e:
             return _json_resp({"error": str(e)}, 400)
         return _json_resp({"results": [_result_to_json(r) for r in results]})

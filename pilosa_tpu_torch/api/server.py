@@ -77,12 +77,18 @@ class APIServer:
 def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
           sparse_density_threshold: float =
           DEFAULT_SPARSE_DENSITY_THRESHOLD) -> APIServer:
-    """Start serving `holder`; returns the running APIServer."""
+    """Start serving `holder`; returns the running APIServer. On a card,
+    the K0 canary (ops.kernels.probe_ok) runs first, and a card that
+    fails it is refused before the socket is bound."""
     from ..executor import Executor
+    from ..ops.kernels import probe_ok
     from .handler import Handler
 
     ex = Executor(holder, device=device,
                   sparse_density_threshold=sparse_density_threshold)
+    if ex.device.type == "cuda" and not probe_ok(ex.device):
+        raise RuntimeError(f"kernel canary failed on {ex.device}: refusing "
+                           "to serve")
     srv = APIServer(Handler(holder, ex), host, port)
     srv.start()
     return srv

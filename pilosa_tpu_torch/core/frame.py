@@ -1,7 +1,8 @@
 """Frame: a table of rows owning its views, with the JSON `.meta` the
 JAX package writes (rowLabel, inverseEnabled, cacheType, cacheSize,
-timeQuantum, fields). This port serves no time quantums or integer
-fields; their meta values are kept and reported as they were read."""
+timeQuantum, fields). Integer fields live in `bsi.<field>` views. This
+port serves no time quantums; that meta value is kept and reported as it
+was read."""
 
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ import json
 import os
 import re
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+from ..bsi.field import FieldNotFoundError, FieldSchema, FieldValueError
 from .view import VIEW_INVERSE, VIEW_STANDARD, View
 
 DEFAULT_ROW_LABEL = "rowID"
@@ -28,7 +30,8 @@ class Frame:
     def __init__(self, path: str, index: str, name: str,
                  row_label: str = DEFAULT_ROW_LABEL,
                  inverse_enabled: bool = False,
-                 cache_type: str = "ranked", cache_size: int = 50000):
+                 cache_type: str = "ranked", cache_size: int = 50000,
+                 fields: Optional[Sequence] = None):
         validate_name(name)
         self.path = path
         self.index = index
@@ -37,6 +40,7 @@ class Frame:
                      "inverseEnabled": bool(inverse_enabled),
                      "cacheType": cache_type, "cacheSize": cache_size,
                      "timeQuantum": "", "fields": []}
+        self.fields: Dict[str, FieldSchema] = _coerce_fields(fields)
         self.views: Dict[str, View] = {}
         self._create_mu = threading.Lock()
 
@@ -57,6 +61,9 @@ class Frame:
         if os.path.exists(self.meta_path):
             with open(self.meta_path) as f:
                 self.meta.update(json.load(f))
+            if self.meta.get("fields"):
+                # Disk wins over the constructor, as for every meta key.
+                self.fields = _coerce_fields(self.meta["fields"])
         else:
             self._save_meta()
         for name in sorted(os.listdir(self.path)):
@@ -68,9 +75,50 @@ class Frame:
             v.close()
         self.views = {}
 
+    def _meta_doc(self) -> dict:
+        return {**self.meta, "fields": [
+            s.to_dict() for _, s in sorted(self.fields.items())]}
+
     def _save_meta(self):
         with open(self.meta_path, "w") as f:
-            json.dump(self.meta, f)
+            json.dump(self._meta_doc(), f)
+
+    # -- integer fields ------------------------------------------------------
+
+    def bsi_field(self, name: str) -> Optional[FieldSchema]:
+        return self.fields.get(name)
+
+    def create_field_if_not_exists(self, schema: FieldSchema) -> FieldSchema:
+        with self._create_mu:
+            cur = self.fields.get(schema.name)
+            if cur is not None:
+                if cur != schema:
+                    raise FieldValueError(
+                        f"field {schema.name!r} already exists with a "
+                        f"different range")
+                return cur
+            # Copy-on-write like the views: readers never take the lock.
+            self.fields = {**self.fields, schema.name: schema}
+            self._save_meta()
+            return schema
+
+    def set_value(self, field: str, column_id: int, value: int) -> bool:
+        """Write one integer value: set or clear every row of the field's
+        bsi view for this column. Raises FieldNotFoundError (404) or
+        FieldValueError (422) before writing anything."""
+        schema = self.fields.get(field)
+        if schema is None:
+            raise FieldNotFoundError(self.name, field)
+        set_rows, clear_rows = schema.encode(value)
+        view = self.create_view_if_not_exists(schema.view)
+        changed = False
+        for row_id in set_rows:
+            changed |= view.set_bit(row_id, column_id)
+        for row_id in clear_rows:
+            changed |= view.clear_bit(row_id, column_id)
+        return changed
+
+    # -- views ---------------------------------------------------------------
 
     def _open_view(self, name: str) -> View:
         v = View(os.path.join(self.path, name), self.index, self.name, name)
@@ -114,5 +162,15 @@ class Frame:
         return changed
 
     def to_dict(self) -> dict:
-        return {"name": self.name, "meta": dict(self.meta),
+        return {"name": self.name, "meta": self._meta_doc(),
                 "views": sorted(self.views)}
+
+
+def _coerce_fields(fields) -> Dict[str, FieldSchema]:
+    out: Dict[str, FieldSchema] = {}
+    for f in fields or ():
+        schema = f if isinstance(f, FieldSchema) else FieldSchema.from_dict(f)
+        if schema.name in out:
+            raise FieldValueError(f"duplicate field {schema.name!r}")
+        out[schema.name] = schema
+    return out

@@ -57,6 +57,9 @@ class Row:
     def count(self) -> int:
         return sum(seg.count() for seg in self.segments.values())
 
+    def intersection_count(self, other: "Row") -> int:
+        return self.intersect(other).count()
+
     def columns(self) -> np.ndarray:
         """Absolute column IDs, sorted uint64."""
         parts = [seg.slice() + np.uint64(s * SLICE_WIDTH)

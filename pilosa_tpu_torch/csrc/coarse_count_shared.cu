@@ -14,11 +14,12 @@
 // index, with B per-thread counters; one block reduction per query
 // writes out[b, s]. The map is uniform across the block, so picking a
 // unique word is a uniform branch, not an indexed (local memory) load.
-// B <= 16 and U <= 16; the wrapper raises beyond that.
+// B <= 16 and U <= 16 (PILOSA_SHARED_LEAVES); the wrapper raises beyond
+// that, and the serving path sends wider batches to K1.
 #include "fold.cuh"
 
 struct LeafMap {
-  unsigned char u[PILOSA_MAX_BATCH * PILOSA_MAX_LEAVES];
+  unsigned char u[PILOSA_MAX_BATCH * PILOSA_SHARED_LEAVES];
 };
 
 // w[u] for a block-uniform u, by a uniform branch on u: every index into
@@ -26,7 +27,7 @@ struct LeafMap {
 #define PILOSA_PICK_CASE(c) \
   case c:                   \
     return w[c];
-__device__ __forceinline__ uint4 pick(const uint4 (&w)[PILOSA_MAX_LEAVES],
+__device__ __forceinline__ uint4 pick(const uint4 (&w)[PILOSA_SHARED_LEAVES],
                                       int u) {
   switch (u) {
     PILOSA_PICK_CASE(0) PILOSA_PICK_CASE(1) PILOSA_PICK_CASE(2)
@@ -47,7 +48,7 @@ coarse_count_shared_kernel(const __grid_constant__ Pools pools,
                            const __grid_constant__ LeafMap map, int batch,
                            int* __restrict__ out) {
   __shared__ int red[32];
-  __shared__ const uint4* run[PILOSA_MAX_LEAVES];
+  __shared__ const uint4* run[PILOSA_SHARED_LEAVES];
   const int s = blockIdx.x;
   if (threadIdx.x < num_unique) {
     const int u = threadIdx.x;
@@ -61,16 +62,16 @@ coarse_count_shared_kernel(const __grid_constant__ Pools pools,
 #pragma unroll
   for (int q = 0; q < PILOSA_MAX_BATCH; ++q) cnt[q] = 0;
   for (int i = threadIdx.x; i < PILOSA_RUN_VEC; i += blockDim.x) {
-    uint4 w[PILOSA_MAX_LEAVES];
+    uint4 w[PILOSA_SHARED_LEAVES];
 #pragma unroll
-    for (int u = 0; u < PILOSA_MAX_LEAVES; ++u) {
+    for (int u = 0; u < PILOSA_SHARED_LEAVES; ++u) {
       const uint4* r = u < num_unique ? run[u] : nullptr;
       w[u] = r != nullptr ? __ldg(r + i) : zero4();
     }
 #pragma unroll
     for (int q = 0; q < PILOSA_MAX_BATCH; ++q) {
       if (q < batch) {
-        const unsigned char* m = map.u + q * PILOSA_MAX_LEAVES;
+        const unsigned char* m = map.u + q * PILOSA_SHARED_LEAVES;
         cnt[q] += popc4(fold(prog, [&](int l) { return pick(w, m[l]); }));
       }
     }
@@ -89,7 +90,7 @@ coarse_count_shared_kernel(const __grid_constant__ Pools pools,
 // indices; out: device int32 (batch, num_slices).
 extern "C" int pilosa_coarse_count_shared(
     const void* const* bases, const long long* strides, int num_unique,
-    const int* starts, int uniform, int num_slices, const unsigned char* ops,
+    const int* starts, int uniform, int num_slices, const unsigned short* ops,
     int prog_len, int num_leaves, const unsigned char* leaf_map, int batch,
     int* out, void* stream) {
   Pools pools;
@@ -98,14 +99,15 @@ extern "C" int pilosa_coarse_count_shared(
                        &prog);
   if (rc != 0) return rc;
   if (batch < 1 || batch > PILOSA_MAX_BATCH || num_leaves < 1 ||
-      num_leaves > PILOSA_MAX_LEAVES || num_slices < 1)
+      num_leaves > PILOSA_SHARED_LEAVES || num_unique > PILOSA_SHARED_LEAVES ||
+      num_slices < 1)
     return (int)cudaErrorInvalidValue;
   LeafMap map;
   for (int q = 0; q < PILOSA_MAX_BATCH; ++q)
-    for (int l = 0; l < PILOSA_MAX_LEAVES; ++l) {
+    for (int l = 0; l < PILOSA_SHARED_LEAVES; ++l) {
       const int u = q < batch && l < num_leaves ? leaf_map[q * num_leaves + l] : 0;
       if (u >= num_unique) return (int)cudaErrorInvalidValue;
-      map.u[q * PILOSA_MAX_LEAVES + l] = (unsigned char)u;
+      map.u[q * PILOSA_SHARED_LEAVES + l] = (unsigned char)u;
     }
   coarse_count_shared_kernel<<<num_slices, PILOSA_THREADS, 0,
                                (cudaStream_t)stream>>>(

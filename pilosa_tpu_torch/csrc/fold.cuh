@@ -1,26 +1,31 @@
 // Shared pieces of the count kernels: the fold program, the per-leaf
 // pool table, popcount and the block reduction.
 //
-// A query's bitmap-op tree reaches a kernel as a short program in
-// accumulator form (ops/kernels.py tree_program). Each byte is an opcode
-// in the high nibble and a leaf index in the low one:
-//   0x0l LOAD l     acc = leaf l
-//   0x1l AND l      acc &= leaf l
-//   0x2l OR l       acc |= leaf l
-//   0x3l ANDNOT l   acc &= ~leaf l
-//   0x40 PUSH       save acc (a nested right operand follows)
-//   0x50/0x60/0x70  acc = saved and/or/andnot acc
+// A query's bitmap-op tree reaches a kernel as a program in accumulator
+// form (ops/kernels.py tree_program). Each op is 16 bits, the opcode in
+// the high byte and a leaf index in the low one:
+//   0x00ll LOAD l     acc = leaf l
+//   0x01ll AND l      acc &= leaf l
+//   0x02ll OR l       acc |= leaf l
+//   0x03ll ANDNOT l   acc &= ~leaf l
+//   0x0400 PUSH       save acc (a nested right operand follows)
+//   0x0500/0x0600/0x0700  acc = saved and/or/andnot acc
 // A flat n-ary tree is LOAD plus one op per further leaf: the value stays
-// in registers and the save stack is never touched. Every thread runs
+// in registers and the save stack is never touched. The planner puts the
+// deepest operand of and/or first (parallel/plan.py canonical_tree), so
+// the BSI comparison ladders run as such chains too. Every thread runs
 // the same program over its own 16 bytes of the leaves' words, so the
 // tree shape is data, not code, and one build serves every query.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#define PILOSA_MAX_LEAVES 16
+// K1/K3 leaves: 2 + 62 rows of the deepest integer field and a 16-leaf
+// filter. K2 holds its unique words in registers: 16 of them.
+#define PILOSA_MAX_LEAVES 80
+#define PILOSA_SHARED_LEAVES 16
 #define PILOSA_MAX_BATCH 16
-#define PILOSA_MAX_PROG 48
+#define PILOSA_MAX_PROG 768
 #define PILOSA_MAX_DEPTH 8
 #define PILOSA_THREADS 256
 // uint4 vectors in one 2048-word container and in one 16-container run.
@@ -29,7 +34,7 @@
 
 struct Prog {
   int n;
-  unsigned char op[PILOSA_MAX_PROG];
+  unsigned short op[PILOSA_MAX_PROG];
 };
 
 // One pool per leaf position (leaves may share a pool). slice_stride is
@@ -56,11 +61,11 @@ __device__ __forceinline__ uint4 fold(const Prog& p, Leaf leaf) {
   int sp = 0;
   for (int k = 0; k < p.n; ++k) {
     const int op = p.op[k];
-    const int kind = op >> 4;
+    const int kind = op >> 8;
     if (kind == 0) {
-      acc = leaf(op & 15);
+      acc = leaf(op & 255);
     } else if (kind < 4) {
-      acc = combine(kind, acc, leaf(op & 15));
+      acc = combine(kind, acc, leaf(op & 255));
     } else if (kind == 4) {
       saved[sp++] = acc;
     } else {
@@ -95,7 +100,7 @@ __device__ __forceinline__ int block_sum(int v, int* smem) {
 // cudaError_t for arguments the kernels do not take.
 static inline int pilosa_pack(const void* const* bases,
                               const long long* strides, int n,
-                              const unsigned char* ops, int prog_len,
+                              const unsigned short* ops, int prog_len,
                               Pools* pools, Prog* prog) {
   if (n < 1 || n > PILOSA_MAX_LEAVES || prog_len < 1 ||
       prog_len > PILOSA_MAX_PROG)

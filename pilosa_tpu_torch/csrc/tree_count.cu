@@ -55,7 +55,7 @@ tree_count_kernel(const __grid_constant__ Pools pools,
 extern "C" int pilosa_tree_count(const void* const* bases,
                                  const long long* strides, int num_leaves,
                                  const int* idx, const int* hit, int batch,
-                                 int num_slices, const unsigned char* ops,
+                                 int num_slices, const unsigned short* ops,
                                  int prog_len, int* out, void* stream) {
   Pools pools;
   Prog prog;

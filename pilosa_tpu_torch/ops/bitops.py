@@ -31,6 +31,23 @@ def fold_tree(tree, leaf_fn):
     return acc
 
 
+# K5's op codes (csrc/pair_count.cu).
+PAIR_OPS = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
+
+
+def pair_op(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a <op> b for op in PAIR_OPS. 0 op 0 is 0 for all four."""
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    if op == "xor":
+        return a ^ b
+    if op == "andnot":
+        return a & ~b
+    raise ValueError(f"unknown pair op {op!r}")
+
+
 def _popcount16(v: torch.Tensor) -> torch.Tensor:
     v = v - ((v >> 1) & 0x5555)
     v = (v & 0x3333) + ((v >> 2) & 0x3333)

@@ -1,4 +1,4 @@
-"""Build the CUDA count kernels (K1-K4) with nvcc and load them with ctypes.
+"""Build the CUDA kernels (K0-K5) with nvcc and load them with ctypes.
 
 Each source under csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a at first use into csrc/_build/ (or
@@ -24,21 +24,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+_LL = ctypes.c_longlong
 _PP, _PLL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
+_PROG = ctypes.POINTER(ctypes.c_uint16)
 
-# C entry point and argument types per source (csrc/<name>.cu).
+# Wrapper name -> (source csrc/<source>.cu, C entry point, argument types).
 ENTRIES = {
-    "coarse_count": ("pilosa_coarse_count",
-                     [_PP, _PLL, _I, _P, _I, _I, _I, _B, _I, _P, _P]),
-    "coarse_count_shared": ("pilosa_coarse_count_shared",
-                            [_PP, _PLL, _I, _P, _I, _I, _B, _I, _I, _B, _I,
-                             _P, _P]),
-    "tree_count": ("pilosa_tree_count",
-                   [_PP, _PLL, _I, _P, _P, _I, _I, _B, _I, _P, _P]),
-    "sparse_pair_count": ("pilosa_sparse_pair_count",
+    "coarse_count": ("coarse_count", "pilosa_coarse_count",
+                     [_PP, _PLL, _I, _P, _I, _I, _I, _PROG, _I, _P, _P]),
+    "coarse_count_shared": ("coarse_count_shared",
+                            "pilosa_coarse_count_shared",
+                            [_PP, _PLL, _I, _P, _I, _I, _PROG, _I, _I, _B,
+                             _I, _P, _P]),
+    "tree_count": ("tree_count", "pilosa_tree_count",
+                   [_PP, _PLL, _I, _P, _P, _I, _I, _PROG, _I, _P, _P]),
+    "sparse_pair_count": ("sparse_pair_count", "pilosa_sparse_pair_count",
                           [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                            _I, _I, _P, _P]),
+    "pair_count": ("pair_count", "pilosa_pair_count",
+                   [_P, _P, _LL, _I, _P, _P]),
+    "pair_count_rows": ("pair_count", "pilosa_pair_count_rows",
+                        [_P, _LL, _P, _I, _I, _P, _LL, _P, _P, _I, _P, _P]),
+    "probe_ok": ("probe_ok", "pilosa_probe_ok", [_P, _I, _P]),
 }
+# One shared library per source.
+SOURCES = tuple(sorted({src for src, _, _ in ENTRIES.values()}))
 
 _MU = threading.Lock()
 _FNS: dict = {}
@@ -71,7 +81,7 @@ def build_all() -> dict:
     The ptxas report (registers, spills) is kept beside each library."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in ENTRIES}
+    paths = {name: _lib_path(name) for name in SOURCES}
     t0 = time.monotonic()
     procs = {}
     for name, path in paths.items():
@@ -97,16 +107,18 @@ def build_all() -> dict:
 
 
 def kernel_fn(name: str):
-    """The ctypes function of csrc/<name>.cu, built on first use."""
+    """The ctypes function of entry `name` (ENTRIES), every library
+    built on first use."""
     fn = _FNS.get(name)
     if fn is not None:
         return fn
     with _MU:
         if name not in _FNS:
             paths = build_all()
-            for lib_name, (sym, argtypes) in ENTRIES.items():
-                f = getattr(ctypes.CDLL(str(paths[lib_name])), sym)
+            libs = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
+            for entry, (src, sym, argtypes) in ENTRIES.items():
+                f = getattr(libs[src], sym)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _FNS[lib_name] = f
+                _FNS[entry] = f
     return _FNS[name]

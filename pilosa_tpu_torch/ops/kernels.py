@@ -1,10 +1,12 @@
 """The count kernels: CUDA C++ for Hopper (csrc/), each beside its plain
 PyTorch version.
 
-Three kernels serve the dense Count path and one the sorted-array pairs,
-and the wrappers keep the names and argument order of the Pallas
-functions they replace (pilosa_tpu/ops/kernels.py):
+Three kernels serve the dense Count path, one the sorted-array pairs,
+one the integer-field plane counts and one the boot canary, and the
+wrappers keep the names and argument order of the Pallas functions they
+replace (pilosa_tpu/ops/kernels.py):
 
+  K0 probe_ok (csrc/probe_ok.cu): probe_ok, for pallas_probe_ok;
   K1 coarse_count (csrc/coarse_count.cu): coarse_count_per_slice,
      coarse_count_identity_batch, coarse_count_uniform,
      coarse_count_uniform_batch;
@@ -14,13 +16,17 @@ functions they replace (pilosa_tpu/ops/kernels.py):
      tree_count_pallas over it;
   K4 sparse_pair_count (csrc/sparse_pair_count.cu): sparse_pair_count
      over two sorted-array pools, and pallas_sparse_pair_counts with the
-     Pallas function's flat contract.
+     Pallas function's flat contract;
+  K5 pair_count (csrc/pair_count.cu): pair_count, for _pallas_pair_count
+     / fused_pair_count, and pair_count_rows, its serving form over row
+     runs of a staged pool.
 
 Pools are (S, cap, 2048) int32 tensors holding uint32 words, and
 sorted-array pools (S, C, K) int16 tensors holding u16 values. A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
 its kernel or raises. The tree reaches a kernel as an accumulator-form
-program (tree_program, csrc/fold.cuh) of at most MAX_LEAVES leaves and depth MAX_DEPTH.
+program (tree_program, csrc/fold.cuh) of at most MAX_LEAVES leaves and
+depth MAX_DEPTH.
 LAUNCHES counts kernel launches per kernel, and only launches.
 """
 
@@ -32,20 +38,24 @@ import threading
 import torch
 
 from ..roaring import ARRAY_MAX_SIZE
-from .bitops import (fold_tree, popcount, sparse_pair_intersect_counts,
-                     u16_bits)
+from .bitops import (PAIR_OPS, fold_tree, pair_op, popcount,
+                     sparse_pair_intersect_counts, u16_bits)
 from .cuda_build import kernel_fn
 from .pool import CONTAINER_WORDS, ROW_SPAN
 
-MAX_LEAVES = 16
+# K1/K3 fold up to MAX_LEAVES unique leaves: the 2 + 62 rows of the
+# deepest integer field (bsi.field.MAX_BIT_DEPTH) and a 16-leaf filter.
+# K2 keeps its unique words in registers, MAX_SHARED_LEAVES of them.
+MAX_LEAVES = 80
+MAX_SHARED_LEAVES = 16
 MAX_DEPTH = 8
 MAX_BATCH = 16
-_MAX_PROG = 48
+_MAX_PROG = 768
 _OPCODES = {"and": 1, "or": 2, "andnot": 3}
-_PUSH = 0x40
+_PUSH = 4
 
 LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
-            "sparse_pair_count": 0}
+            "sparse_pair_count": 0, "pair_count": 0, "probe_ok": 0}
 _LAUNCH_MU = threading.Lock()
 
 
@@ -66,35 +76,38 @@ def tree_depth(tree) -> int:
     return depth
 
 
-def tree_program(tree) -> bytes:
+def tree_program(tree) -> tuple:
     """The fold program of a numbered op tree, in the accumulator form
-    of csrc/fold.cuh: 0x0l loads leaf l; 0x1l/0x2l/0x3l combine leaf l
-    into the accumulator with and/or/andnot; 0x40 saves the accumulator
-    before a nested right operand and 0x50/0x60/0x70 combine it back.
-    Raises ValueError beyond the kernels' limits."""
-    ops = []
-
-    def emit(node):
-        if node[0] == "leaf":
-            if not 0 <= node[1] < MAX_LEAVES:
-                raise ValueError(f"leaf {node[1]} beyond {MAX_LEAVES}")
-            ops.append(node[1])
-            return
-        emit(node[1])
-        kind = _OPCODES[node[0]]
-        for child in node[2:]:
-            if child[0] == "leaf":
-                emit(child)
-                ops[-1] |= kind << 4
-            else:
-                ops.append(_PUSH)
-                emit(child)
-                ops.append((kind + 4) << 4)
-
-    emit(tree)
+    of csrc/fold.cuh: one 16-bit op each, the opcode in the high byte and
+    a leaf in the low one. 0x00l loads leaf l; 0x1l/0x2l/0x3l (high byte
+    1-3) combine leaf l into the accumulator with and/or/andnot; 0x400
+    saves the accumulator before a nested right operand and 0x500/0x600/
+    0x700 combine it back. Raises ValueError beyond the kernels' limits."""
+    ops: list = []
+    _emit(tree, ops)
     if len(ops) > _MAX_PROG or tree_depth(tree) > MAX_DEPTH:
         raise ValueError("tree beyond the count kernels' limits")
-    return bytes(ops)
+    return tuple(ops)
+
+
+def _emit(node, ops: list) -> None:
+    # A module function, not a recursive closure: that would leave a
+    # reference cycle per query for the cyclic collector.
+    if node[0] == "leaf":
+        if not 0 <= node[1] < MAX_LEAVES:
+            raise ValueError(f"leaf {node[1]} beyond {MAX_LEAVES}")
+        ops.append(node[1])
+        return
+    _emit(node[1], ops)
+    kind = _OPCODES[node[0]]
+    for child in node[2:]:
+        if child[0] == "leaf":
+            _emit(child, ops)
+            ops[-1] |= kind << 8
+        else:
+            ops.append(_PUSH << 8)
+            _emit(child, ops)
+            ops.append((kind + 4) << 8)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -121,12 +134,18 @@ def _check_pools(pools, run_aligned: bool) -> None:
                              f"multiple of {ROW_SPAN}")
 
 
-def _kernel_args(pools, prog: bytes):
-    """The by-pointer arguments every C entry takes."""
+def _kernel_args(pools, prog: tuple, num_leaves: int = 0):
+    """The by-pointer arguments every fold kernel's C entry takes. The
+    program may read leaf positions below num_leaves (default: one per
+    pool; K2 maps more positions onto its unique pools)."""
+    num_leaves = num_leaves or len(pools)
+    if any((op >> 8) < 4 and (op & 255) >= num_leaves for op in prog):
+        raise ValueError(f"tree reads a leaf beyond its {num_leaves} "
+                         f"leaf positions")
     bases = (ctypes.c_void_p * len(pools))(*[p.data_ptr() for p in pools])
     strides = (ctypes.c_longlong * len(pools))(
         *[p.shape[1] * CONTAINER_WORDS // 4 for p in pools])
-    return bases, strides, prog, len(prog)
+    return bases, strides, (ctypes.c_uint16 * len(prog))(*prog), len(prog)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -236,10 +255,12 @@ def _shared(views, starts, tree, leaf_map, uniform: bool):
     views = tuple(views)
     leaf_map = tuple(tuple(int(u) for u in m) for m in leaf_map)
     _check_pools(views, run_aligned=True)
-    if not 1 <= len(leaf_map) <= MAX_BATCH or len(views) > MAX_LEAVES:
+    if (not 1 <= len(leaf_map) <= MAX_BATCH
+            or len(views) > MAX_SHARED_LEAVES
+            or len(leaf_map[0]) > MAX_SHARED_LEAVES):
         raise ValueError(f"shared batch of {len(leaf_map)} queries over "
                          f"{len(views)} unique leaves is beyond "
-                         f"{MAX_BATCH} x {MAX_LEAVES}")
+                         f"{MAX_BATCH} x {MAX_SHARED_LEAVES}")
     if not _on_cuda(*views, starts):
         return shared_plain(views, starts, uniform, tree, leaf_map)
     starts = starts.to(torch.int32).contiguous()
@@ -247,7 +268,8 @@ def _shared(views, starts, tree, leaf_map, uniform: bool):
     num_leaves = len(leaf_map[0])
     out = torch.empty((len(leaf_map), s), dtype=torch.int32,
                       device=starts.device)
-    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree))
+    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree),
+                                                  num_leaves)
     rc = kernel_fn("coarse_count_shared")(
         bases, strides, len(views), starts.data_ptr(), int(uniform), s,
         prog, prog_len, num_leaves, bytes(u for m in leaf_map for u in m),
@@ -406,3 +428,124 @@ def pallas_sparse_pair_counts(a_vals, a_len, b_vals, b_len):
     one = torch.ones((n, 1), dtype=torch.int32, device=a.device)
     out = sparse_pair_count(a, na, b, nb, zero, one, zero, one)
     return out.reshape(shape)
+
+
+# -- K5 pair_count -----------------------------------------------------------
+
+
+def pair_count_plain(a, b, op: str) -> torch.Tensor:
+    """popcount(op(a, b)) (popcount(a) when b is None) as a 0-d int64."""
+    return popcount(a if b is None else pair_op(op, a, b)).sum(
+        dtype=torch.int64)
+
+
+def _check_words(t, shape, what: str) -> None:
+    if (t.dtype != torch.int32 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {tuple(shape)} int32 "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def pair_count(a, b=None, op: str = "and") -> torch.Tensor:
+    """popcount(op(a, b)) summed over two (M, 2048) int32 word blocks, as a
+    0-d int64 tensor: the contract of the Pallas _pallas_pair_count, for
+    op in and / or / xor / andnot and any M. b None counts a alone."""
+    if op not in PAIR_OPS:
+        raise ValueError(f"unknown pair op {op!r}")
+    if a.dim() != 2 or a.shape[1] != CONTAINER_WORDS:
+        raise ValueError(f"a must be (M, {CONTAINER_WORDS}), got "
+                         f"{tuple(a.shape)}")
+    _check_words(a, a.shape, "a")
+    if b is not None:
+        _check_words(b, a.shape, "b")
+    if not _on_cuda(a, *([] if b is None else [b])):
+        return pair_count_plain(a, b, op)
+    out = torch.zeros((), dtype=torch.int64, device=a.device)
+    rc = kernel_fn("pair_count")(
+        a.data_ptr(), None if b is None else b.data_ptr(), a.numel() // 4,
+        PAIR_OPS[op], out.data_ptr(), _stream(out))
+    _launched("pair_count", rc)
+    return out
+
+
+def gather_containers(pool, idx):
+    """(..., 2048) containers of a dense pool by (S, ...) within-slice
+    index; zero where the index is negative."""
+    return gather_words(pool, idx.clamp(min=0), idx >= 0)
+
+
+def pair_rows_plain(pool, a_idx, op, b_pool, b_idx, b_block):
+    b = (gather_containers(b_pool, b_idx) if b_idx is not None
+         else b_block)
+    out = torch.empty(a_idx.shape[0], dtype=torch.int64,
+                      device=a_idx.device)
+    for p in range(a_idx.shape[0]):
+        out[p] = pair_count_plain(gather_containers(pool, a_idx[p]), b, op)
+    return out
+
+
+def pair_count_rows(pool, a_idx, op: str = "and", b_pool=None, b_idx=None,
+                    b_block=None) -> torch.Tensor:
+    """K5's serving form: per row p, popcount(op(row p, b)) over S slices.
+
+    pool: the (S, cap, 2048) staged words; a_idx: (P, S, 16) int32 index
+    of row p's container in each (slice, sub-key), negative = absent
+    (read as zero). b, shared by every row: b_idx (S, 16) into b_pool, or
+    b_block (S, 16, 2048) int32 words, or neither (plain popcount).
+    Returns (P,) int64 totals."""
+    if op not in PAIR_OPS:
+        raise ValueError(f"unknown pair op {op!r}")
+    _check_pools((pool,), run_aligned=False)
+    s = pool.shape[0]
+    if (a_idx.dim() != 3 or a_idx.shape[1:] != (s, ROW_SPAN)
+            or not 1 <= a_idx.shape[0] <= 65535 or s > 65535):
+        raise ValueError(f"a_idx must be (P, {s}, {ROW_SPAN}), got "
+                         f"{tuple(a_idx.shape)}")
+    if b_idx is not None and b_block is not None:
+        raise ValueError("b is a pool row or a block, not both")
+    tensors = [pool, a_idx]
+    if b_idx is not None:
+        _check_pools((b_pool,), run_aligned=False)
+        if tuple(b_idx.shape) != (s, ROW_SPAN) or b_pool.shape[0] != s:
+            raise ValueError(f"b_idx must be ({s}, {ROW_SPAN}) into a pool "
+                             f"of {s} slices")
+        tensors += [b_pool, b_idx]
+    if b_block is not None:
+        _check_words(b_block, (s, ROW_SPAN, CONTAINER_WORDS), "b_block")
+        tensors.append(b_block)
+    if not _on_cuda(*tensors):
+        return pair_rows_plain(pool, a_idx, op, b_pool, b_idx, b_block)
+    a_idx = a_idx.to(torch.int32).contiguous()
+    if b_idx is not None:
+        b_idx = b_idx.to(torch.int32).contiguous()
+    out = torch.zeros(a_idx.shape[0], dtype=torch.int64, device=pool.device)
+    rc = kernel_fn("pair_count_rows")(
+        pool.data_ptr(), pool.shape[1] * CONTAINER_WORDS // 4,
+        a_idx.data_ptr(), a_idx.shape[0], s,
+        None if b_idx is None else b_pool.data_ptr(),
+        0 if b_idx is None else b_pool.shape[1] * CONTAINER_WORDS // 4,
+        None if b_idx is None else b_idx.data_ptr(),
+        None if b_block is None else b_block.data_ptr(),
+        PAIR_OPS[op], out.data_ptr(), _stream(out))
+    _launched("pair_count", rc)
+    return out
+
+
+# -- K0 probe_ok -------------------------------------------------------------
+
+
+def probe_plain(x: torch.Tensor) -> torch.Tensor:
+    return x + 1
+
+
+def probe_ok(device="cuda") -> bool:
+    """The canary of the Pallas pallas_probe_ok: one launch adding 1 over
+    an (8, 128) int32 tensor of zeros; True when every element reads 1.
+    A build or launch failure raises."""
+    x = torch.zeros((8, 128), dtype=torch.int32, device=device)
+    if x.device.type == "cpu":
+        x = probe_plain(x)
+    else:
+        rc = kernel_fn("probe_ok")(x.data_ptr(), x.numel(), _stream(x))
+        _launched("probe_ok", rc)
+    return bool((x == 1).all())

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.bitops import (popcount, sparse_op_counts,
+from ..ops.bitops import (fold_tree, popcount, sparse_op_counts,
                           sparse_probe_intersect_counts)
 from ..ops.pool import CONTAINER_WORDS, INVALID_KEY, ROW_SPAN, pool_keys
 from ..roaring import ARRAY_MAX_SIZE
@@ -439,7 +439,10 @@ def shared_plan(leaf_keys: Sequence[Sequence]):
         leaf_map.append(tuple(row))
     if len(positions) >= sum(len(m) for m in leaf_map):
         return None  # nothing shared
-    if len(positions) > kernels.MAX_LEAVES or len(leaf_map) > kernels.MAX_BATCH:
+    # K2 holds the unique words in registers: wider batches run on K1.
+    if (len(positions) > kernels.MAX_SHARED_LEAVES
+            or len(leaf_map[0]) > kernels.MAX_SHARED_LEAVES
+            or len(leaf_map) > kernels.MAX_BATCH):
         return None
     return tuple(leaf_map), positions
 
@@ -497,6 +500,25 @@ def count_batch(tree, pools: Sequence[torch.Tensor],
         per = kernels.tree_count_per_slice(pools, idx, hit, tree)
         name = "tree_count_per_slice"
     return combine_counts(per, dev(mask)), name
+
+
+def container_table(layouts: Sequence[LeafLayout],
+                    mask: np.ndarray) -> np.ndarray:
+    """(P, S, 16) int32 container index of each row's layout, -1 where
+    the container is absent or the slice is outside `mask`: the a_idx
+    of kernels.pair_count_rows."""
+    idx = np.stack([np.where(lay.hit != 0, lay.idx, -1) for lay in layouts])
+    idx[:, np.asarray(mask) == 0] = -1
+    return idx.astype(np.int32)
+
+
+def materialize_block(tree, pools: Sequence[torch.Tensor],
+                      layouts: Sequence[LeafLayout]) -> torch.Tensor:
+    """The (S, 16, 2048) int32 words of a numbered op tree over one row
+    of each leaf's pool, folded with torch indexing and bitwise ops."""
+    return fold_tree(tree, lambda l: kernels.gather_words(
+        pools[l], torch.from_numpy(layouts[l].idx).to(pools[l].device),
+        torch.from_numpy(layouts[l].hit).to(pools[l].device))).contiguous()
 
 
 def count_rows(staged: Sequence[ShardedIndex], tree, row_ids: Sequence[int],

@@ -1,19 +1,25 @@
-"""PQL call tree -> the numbered op shape the count kernels fold.
+"""PQL call tree -> the numbered op tree the count kernels fold.
 
-Bitmap (a row on the standard view, or a column on the inverse view)
-leaves combined by Intersect / Union / Difference lower to a nested op
-list with leaves numbered depth-first, plus the (frame, view, row_id,
-required) leaf list. Anything else returns None and the executor
-answers on the host: Range and integer-field trees, and trees beyond
-the kernels' limits (ops.kernels.MAX_LEAVES leaves, MAX_DEPTH stack).
+Bitmap leaves (a row on the standard view, or a column on the inverse
+view) combined by Intersect / Union / Difference, and Range(frame=f,
+field <op> N) over an integer field's plane rows (bsi.lower), lower to a
+nested op list plus the (frame, view, row_id, required) leaf list.
+canonical_tree then puts the tree in the form the kernels fold best:
+leaves deduplicated by (frame, view, row) and numbered by first use, and
+the deepest operand of every and/or first, so the BSI ladders become
+left-deep chains in the kernels' accumulator. Anything else returns
+None and the executor answers on the host: time-quantum Range, and trees
+beyond the kernels' limits (ops.kernels.MAX_LEAVES unique leaves,
+MAX_DEPTH held values, their program length).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+from ..bsi.lower import lower_cond
 from ..core.view import VIEW_INVERSE, VIEW_STANDARD
-from ..ops.kernels import MAX_DEPTH, MAX_LEAVES, tree_depth
+from ..ops.kernels import tree_program
 
 # Frame used when a query doesn't name one.
 DEFAULT_FRAME = "general"
@@ -22,19 +28,68 @@ DEFAULT_FRAME = "general"
 _TREE_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot"}
 
 
+# The recursive helpers below are module functions, not nested closures:
+# a recursive closure is a reference cycle, garbage only the cyclic
+# collector frees, and a few per query make the collector's full passes
+# over a large holder come much more often.
+
+
 def _tree_signature(node) -> object:
-    """Canonical nested-list shape of a call tree; leaves are numbered in
-    depth-first order."""
-    counter = [0]
+    """The numbered nested-list tree of a shape: ["leaf"] markers are
+    numbered depth-first; numbered leaves keep their number."""
+    return _signature_walk(node, [0])
 
-    def walk(n):
-        if n[0] == "leaf":
-            i = counter[0]
-            counter[0] += 1
-            return ["leaf", i]
-        return [n[0]] + [walk(c) for c in n[1:]]
 
-    return walk(node)
+def _signature_walk(n, counter: list):
+    if n[0] == "leaf":
+        if len(n) > 1:
+            return ["leaf", n[1]]
+        counter[0] += 1
+        return ["leaf", counter[0] - 1]
+    return [n[0]] + [_signature_walk(c, counter) for c in n[1:]]
+
+
+def canonical_tree(shape, leaves: List[tuple], out: List[tuple]):
+    """The kernels' form of a lowered (shape, leaves): returns the
+    numbered tree and fills `out` with its unique leaves, or returns None
+    when the tree is beyond the kernels' limits. Every and/or puts its
+    deepest operand first (stable among equals), which is where the
+    accumulator form holds it for free; andnot keeps its first operand.
+    Leaves sharing (frame, view, row) share a slot, numbered by first use
+    in the reordered tree."""
+    tree = _number(_order(shape, iter(leaves))[0], {}, out)
+    try:
+        tree_program(tree)
+    except ValueError:
+        out.clear()
+        return None
+    return tree
+
+
+def _held_depth(kid) -> int:
+    return -kid[1]
+
+
+def _order(n, leaves):
+    """(node with leaf tuples taken from `leaves` in order, held-value
+    depth), with the deepest operand of every and/or first."""
+    if n[0] == "leaf":
+        return ("leaf", next(leaves)), 1
+    kids = [_order(c, leaves) for c in n[1:]]
+    if n[0] in ("and", "or"):
+        kids.sort(key=_held_depth)
+    depth = max([kids[0][1]] + [1 + d for _, d in kids[1:]])
+    return (n[0],) + tuple(k for k, _ in kids), depth
+
+
+def _number(n, slots: dict, out: List[tuple]):
+    if n[0] == "leaf":
+        key = n[1][:3]
+        if key not in slots:
+            slots[key] = len(out)
+            out.append(n[1])
+        return ["leaf", slots[key]]
+    return [n[0]] + [_number(c, slots, out) for c in n[1:]]
 
 
 def _lower_call(holder, index: str, c, leaves: List[tuple]):
@@ -58,6 +113,8 @@ def _lower_call(holder, index: str, c, leaves: List[tuple]):
             leaves.append((frame, VIEW_INVERSE, col_id, True))
             return ["leaf"]
         return None  # both/neither/disabled inverse -> host path
+    if c.name == "Range":
+        return lower_cond(holder, index, c, leaves)
     op = _TREE_OPS.get(c.name)
     if op is None or not c.children:
         return None
@@ -70,11 +127,12 @@ def _lower_call(holder, index: str, c, leaves: List[tuple]):
     return [op] + parts
 
 
-def _lower_tree(holder, index: str, c, leaves: List[tuple]):
-    """Call -> nested shape list, collecting leaves; None if not
-    lowerable or beyond the kernels' limits."""
-    shape = _lower_call(holder, index, c, leaves)
-    if shape is None or len(leaves) > MAX_LEAVES \
-            or tree_depth(shape) > MAX_DEPTH:
+def _lower_tree(holder, index: str, c, leaves: List[tuple]) -> Optional[list]:
+    """Call -> the canonical numbered tree (canonical_tree), filling
+    `leaves` with its unique leaves; None if not lowerable or beyond the
+    kernels' limits."""
+    raw: List[tuple] = []
+    shape = _lower_call(holder, index, c, raw)
+    if shape is None:
         return None
-    return shape
+    return canonical_tree(shape, raw, leaves)

@@ -33,15 +33,18 @@ from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..core.fragment import MUTATION_EPOCH
+from ..ops import kernels
 from ..ops.pool import pack_bitmap, pack_sparse
 from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
                    SparseShardedIndex,
                    build_sharded_index, build_sparse_sharded_index,
-                   count_batch, count_sparse_pair, dense_row, global_row_ids,
-                   leaf_layout, pick_slice_formats, resolve_row_indices,
+                   container_table, count_batch, count_sparse_pair,
+                   dense_row, global_row_ids, leaf_layout, materialize_block,
+                   pick_slice_formats, resolve_row_indices,
                    slice_format_stats, slice_mask, split_bitmaps_by_format)
 from .plan import _tree_signature
 
@@ -299,6 +302,75 @@ class MeshManager:
         finally:
             with self._lone_mu:
                 self._counts_inflight -= 1
+
+    # -- integer-field plane counts ------------------------------------------
+
+    def _staged_dense(self, index: str, frame: str, view: str,
+                      num_slices: int) -> Optional[StagedView]:
+        """refresh, then _demote_to_dense when the view holds a
+        sorted-array pool. Call under _mu."""
+        sv = self.refresh(index, frame, view, num_slices)
+        if sv is not None and sv.sparse is not None:
+            sv = self._demote_to_dense((index, frame, view), num_slices)
+        return sv
+
+    def bsi_plane_counts(self, index: str, frame: str, view: str,
+                         slices: Sequence[int], num_slices: int, src=None,
+                         rows: Optional[Sequence[int]] = None
+                         ) -> Optional[Dict[int, int]]:
+        """Per-row counts over a ``bsi.<field>`` view as {row_id: count},
+        from one launch of K5's serving form (kernels.pair_count_rows):
+        every row the staged view holds, or only `rows`. With `src` =
+        (numbered tree, leaves) from plan._lower_tree, the counts are
+        |row ∩ src|: a src that is one row of this view is read from the
+        pool, any other is materialized once as an (S, 16, 2048) block.
+        A view staged sorted-array is demoted to packed words first. None
+        when a view cannot be staged or the slices reach past it."""
+        with self._mu:
+            sv = self._staged_dense(index, frame, view, num_slices)
+            mask = slice_mask(num_slices, slices)
+            if sv is None or mask is None:
+                return None
+            row_ids = [int(r) for r in sv.sharded.row_ids]
+            if rows is not None:
+                wanted = set(rows)
+                row_ids = [r for r in row_ids if r in wanted]
+            if not row_ids:
+                return {}
+            pool = sv.sharded.words
+            a_idx = container_table(
+                [sv.layout(dense_row(sv.sharded, r)) for r in row_ids], mask)
+            b = {}
+            if src is not None:
+                tree, leaves = src
+                staged = {}
+                for f, v, _row, _req in leaves:
+                    if (f, v) not in staged:
+                        staged[(f, v)] = self._staged_dense(index, f, v,
+                                                            num_slices)
+                        if staged[(f, v)] is None:
+                            return None
+                lays = [staged[(f, v)].layout(
+                    dense_row(staged[(f, v)].sharded, r))
+                        for f, v, r, _req in leaves]
+                if tree == ["leaf", 0] and leaves[0][:2] == (frame, view):
+                    b = {"b_pool": pool, "b_idx": container_table(
+                        lays, np.ones(num_slices))[0]}
+                else:
+                    pools = [staged[(f, v)].sharded.words
+                             for f, v, _r, _q in leaves]
+                    b = {"b_block": (tree, pools, lays)}
+        # The launch runs outside _mu: the locals hold the pools it reads.
+        dev = pool.device
+        if "b_idx" in b:
+            b["b_idx"] = torch.from_numpy(b["b_idx"]).to(dev)
+        elif "b_block" in b:
+            b["b_block"] = materialize_block(*b["b_block"])
+        counts = kernels.pair_count_rows(
+            pool, torch.from_numpy(a_idx).to(dev), "and", **b)
+        self._inc("bsi_aggregate")
+        self._inc("kernel:pair_count_rows")
+        return dict(zip(row_ids, counts.tolist()))
 
     # -- sorted-array serving ------------------------------------------------
 

@@ -1,6 +1,6 @@
 """PQL: scanner, parser and AST."""
 
-from .ast import Call, Query
+from .ast import Call, Cond, Query
 from .parser import ParseError, Parser, parse_string
 
-__all__ = ["Call", "ParseError", "Parser", "Query", "parse_string"]
+__all__ = ["Call", "Cond", "ParseError", "Parser", "Query", "parse_string"]

@@ -1,9 +1,53 @@
 """PQL AST. Argument values carry the parser's Python types: int,
-float, bool, None, str, list."""
+float, bool, None, str, list, and Cond for a field comparison.
+`Call.__str__` serializes a call so that it parses back to itself."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
+
+# Comparison operators a Cond may carry, in canonical spelling.
+COND_OPS = (">", ">=", "<", "<=", "==", "!=", "><")
+
+
+@dataclass(frozen=True)
+class Cond:
+    """A value comparison attached to an argument key: the parse of
+    `field >= 10` in Range(frame=f, field >= 10). `value` is an int, or a
+    (low, high) tuple for `><` (between, inclusive)."""
+
+    op: str
+    value: Any
+
+    def __post_init__(self):
+        if self.op not in COND_OPS:
+            raise ValueError(f"invalid condition operator {self.op!r}")
+        if isinstance(self.value, list):
+            object.__setattr__(self, "value", tuple(self.value))
+
+    def __str__(self) -> str:
+        return f"{self.op} {_fmt_value(self.value)}"
+
+
+def _fmt_value(v: Any) -> str:
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, (list, tuple)):
+        return "[" + ",".join(_fmt_value(x) for x in v) + "]"
+    if isinstance(v, float):
+        # Positional notation only: the scanner has no exponents.
+        s = repr(v)
+        if "e" in s or "E" in s:
+            s = format(v, ".17f").rstrip("0")
+            if s.endswith("."):
+                s += "0"
+        return s
+    return str(v)
 
 
 @dataclass
@@ -34,7 +78,18 @@ class Call:
             return False
         return col_ok and not row_ok
 
+    def __str__(self) -> str:
+        parts = [str(c) for c in self.children]
+        # A Cond serializes as `key >= 10`, everything else as key=value.
+        parts += [f"{k} {v}" if isinstance(v, Cond)
+                  else f"{k}={_fmt_value(v)}"
+                  for k, v in sorted(self.args.items())]
+        return f"{self.name}({', '.join(parts)})"
+
 
 @dataclass
 class Query:
     calls: list = field(default_factory=list)
+
+    def __str__(self) -> str:
+        return "\n".join(str(c) for c in self.calls)

@@ -2,17 +2,24 @@
 
 call = IDENT '(' [child-calls] [, key=value ...] ')'. Children are
 detected by IDENT + LPAREN lookahead; duplicate argument keys are
-errors.
+errors. A key may take a comparison instead of `=` (`val >= 10`,
+`val >< [lo, hi]`), parsed into a Cond.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .ast import Call, Query
+from .ast import Call, Cond, Query
 from .scanner import Pos, Scanner, Token
 
 _IDENT_VALUES = {"true": True, "false": False, "null": None}
+
+# Comparison tokens between an argument key and its value, to their
+# Cond.op spelling.
+_COND_TOKENS = {Token.GT: ">", Token.GTE: ">=", Token.LT: "<",
+                Token.LTE: "<=", Token.EQEQ: "==", Token.NEQ: "!=",
+                Token.BETWEEN: "><"}
 
 
 class ParseError(Exception):
@@ -96,11 +103,15 @@ class Parser:
             if tok is not Token.IDENT:
                 raise ParseError(f"expected argument key, found {key!r}", pos)
             tok, pos, lit = self._next()
-            if tok is not Token.EQ:
+            if tok in _COND_TOKENS:
+                value = self._parse_cond(_COND_TOKENS[tok], pos)
+            elif tok is Token.EQ:
+                value = self._parse_value()
+            else:
                 raise ParseError(f"expected equals sign, found {lit!r}", pos)
             if key in args:
                 raise ParseError(f"argument key already used: {key}", pos)
-            args[key] = self._parse_value()
+            args[key] = value
             tok, pos, lit = self._peek()
             if tok is Token.RPAREN:
                 return args
@@ -108,6 +119,19 @@ class Parser:
                 raise ParseError(
                     f"expected comma or right paren, found {lit!r}", pos)
             self._next()
+
+    def _parse_cond(self, op: str, pos) -> Cond:
+        value = self._parse_value()
+        if op == "><":
+            if (not isinstance(value, list) or len(value) != 2
+                    or any(isinstance(x, bool) or not isinstance(x, int)
+                           for x in value)):
+                raise ParseError("between (><) requires [low, high] integers",
+                                 pos)
+        elif isinstance(value, bool) or not isinstance(value, int):
+            raise ParseError(f"comparison {op} requires an integer value",
+                             pos)
+        return Cond(op, value)
 
     def _parse_value(self):
         tok, pos, lit = self._next()

@@ -27,6 +27,14 @@ class Token(enum.Enum):
     RPAREN = ")"
     LBRACK = "["
     RBRACK = "]"
+    # Field comparisons: Range(frame=f, field >= 10).
+    GT = ">"
+    GTE = ">="
+    LT = "<"
+    LTE = "<="
+    EQEQ = "=="
+    NEQ = "!="
+    BETWEEN = "><"
 
 
 class Pos(NamedTuple):
@@ -36,8 +44,13 @@ class Pos(NamedTuple):
 
 _ESCAPES = {"n": "\n", "\\": "\\", '"': '"', "'": "'"}
 
-_SINGLE = {"=": Token.EQ, ",": Token.COMMA, "(": Token.LPAREN,
-           ")": Token.RPAREN, "[": Token.LBRACK, "]": Token.RBRACK}
+# Two-character operators, matched before the one-character ones.
+_DOUBLE = {"==": Token.EQEQ, ">=": Token.GTE, "><": Token.BETWEEN,
+           "<=": Token.LTE, "!=": Token.NEQ}
+
+_SINGLE = {"=": Token.EQ, ">": Token.GT, "<": Token.LT, ",": Token.COMMA,
+           "(": Token.LPAREN, ")": Token.RPAREN, "[": Token.LBRACK,
+           "]": Token.RBRACK}
 
 
 def _is_letter(ch: str) -> bool:
@@ -96,6 +109,10 @@ class Scanner:
         if ch in "\"'":
             return self._scan_string(pos)
         self._read()
+        pair = ch + self._peek()
+        if pair in _DOUBLE:
+            self._read()
+            return _DOUBLE[pair], pos, pair
         return _SINGLE.get(ch, Token.ILLEGAL), pos, ch
 
     def _scan_number(self, pos):

@@ -1,5 +1,5 @@
-"""The CUDA count kernels (K1-K4) against their plain PyTorch versions, on
-a card.
+"""The CUDA kernels (K0-K5) against their plain PyTorch versions, on a
+card.
 
 Marked `cuda`; each test skips without a card. This file imports no JAX,
 so it runs on a machine without it:
@@ -167,3 +167,59 @@ def test_sparse_flat_contract_kernel(card):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert want.tolist() == [len(set(x) & set(y)) for x, y in zip(a, b)]
+
+
+def words(rng, shape, zero_rows=()):
+    w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+    w[0, :8] = 0xFFFFFFFF
+    for r in zero_rows:
+        w[r] = 0
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["and", "or", "xor", "andnot"])
+@pytest.mark.parametrize("m", [1, 7, 9, 64, 1001])
+def test_pair_count_kernel(card, op, m):
+    rng = np.random.default_rng(m)
+    a, b = words(rng, (m, 2048)), words(rng, (m, 2048), zero_rows=[m - 1])
+    for bb in (b, None):
+        want = tk.pair_count(a, bb, op)
+        before = tk.LAUNCHES["pair_count"]
+        got = tk.pair_count(a.to(card), None if bb is None else bb.to(card),
+                            op)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["pair_count"] == before + 1
+        assert got.dtype == torch.int64 and int(got) == int(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["and", "or", "xor", "andnot"])
+@pytest.mark.parametrize("b_kind", ["none", "row", "block"])
+def test_pair_count_rows_kernel(card, op, b_kind):
+    rng = np.random.default_rng(len(op) + len(b_kind))
+    s, cap, p = 6, 48, 5
+    pool = words(rng, (s, cap, 2048))
+    a_idx = rng.integers(0, cap, size=(p, s, 16)).astype(np.int32)
+    a_idx[rng.random(a_idx.shape) < 0.2] = -1
+    a_idx[1] = -1  # a row absent everywhere
+    kw = {}
+    if b_kind == "row":
+        b_idx = rng.integers(-1, cap, size=(s, 16)).astype(np.int32)
+        kw = {"b_pool": pool, "b_idx": torch.from_numpy(b_idx)}
+    elif b_kind == "block":
+        kw = {"b_block": words(rng, (s, 16, 2048))}
+    args = (pool, torch.from_numpy(a_idx))
+    want = tk.pair_count_rows(*args, op, **kw)
+    got = tk.pair_count_rows(*(t.to(card) for t in args), op,
+                             **{k: v.to(card) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert want.dtype == torch.int64 and want.sum() > 0
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_probe_ok_kernel(card):
+    before = tk.LAUNCHES["probe_ok"]
+    assert tk.probe_ok(card) is True
+    assert tk.LAUNCHES["probe_ok"] == before + 1

@@ -83,3 +83,66 @@ def test_cuda_without_card_raises(tmp_path):
             Executor(h)
     finally:
         h.close()
+
+
+FIELD_VALUES = {3: 17, 9: -1000, 1 << 20: 1000, (2 << 20) + 5: 0,
+                (2 << 20) + 6: -3}
+FIELD_QUERIES = ['Sum(frame=f, field="val")', 'Min(frame=f, field="val")',
+                 'Max(frame=f, field="val")',
+                 "Count(Range(frame=f, val < 0))"]
+FIELD_ANSWERS = [{"value": 14, "count": 5}, {"value": -1000, "count": 1},
+                 {"value": 1000, "count": 1}, 2]
+
+
+def test_fields_written_by_the_port_open_in_the_jax_package(tmp_path):
+    from pilosa_tpu.bsi import FieldSchema as JaxSchema
+    from pilosa_tpu.core import Holder as JaxHolder
+    from pilosa_tpu.executor import Executor as JaxExecutor
+    from pilosa_tpu.pql import parse_string as jax_parse
+    from pilosa_tpu_torch.core import Holder
+
+    h = Holder(str(tmp_path))
+    h.open()
+    f = h.create_index("i").create_frame(
+        "f", fields=[{"name": "val", "min": -1000, "max": 1000}])
+    for col, v in FIELD_VALUES.items():
+        f.set_value("val", col, v)
+    h.close()
+    jh = JaxHolder(str(tmp_path))
+    jh.open()
+    try:
+        assert jh.index("i").frame("f").fields == {
+            "val": JaxSchema("val", -1000, 1000)}
+        ex = JaxExecutor(jh, use_device=False)
+        assert [ex.execute("i", jax_parse(q))[0]
+                for q in FIELD_QUERIES] == FIELD_ANSWERS
+    finally:
+        jh.close()
+
+
+def test_fields_written_by_the_jax_package_open_in_the_port(tmp_path):
+    from pilosa_tpu.bsi import FieldSchema as JaxSchema
+    from pilosa_tpu.core import Holder as JaxHolder
+    from pilosa_tpu_torch.bsi import FieldSchema
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    jh = JaxHolder(str(tmp_path))
+    jh.open()
+    f = jh.create_index_if_not_exists("i").create_frame_if_not_exists("f")
+    f.create_field_if_not_exists(JaxSchema("val", -1000, 1000))
+    for col, v in FIELD_VALUES.items():
+        f.set_value("val", col, v)
+    jh.close()
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        assert h.index("i").frame("f").fields == {
+            "val": FieldSchema("val", -1000, 1000)}
+        ex = Executor(h, device="cpu")
+        assert [ex.execute("i", parse_string(q))[0]
+                for q in FIELD_QUERIES] == FIELD_ANSWERS
+        assert ex.stats["bsi_device"] == 3 and ex.stats["count_device"] == 1
+    finally:
+        h.close()

@@ -189,25 +189,27 @@ def test_total_above_2_31_is_exact():
 def test_tree_program_limits():
     # or(and(l0, l1), andnot(l2, l3)): load 0, and 1, save, load 2,
     # andnot 3, or the saved value back in.
-    assert tk.tree_program(TREES["nested"]) == bytes(
-        [0x00, 0x11, 0x40, 0x02, 0x33, 0x60])
-    assert tk.tree_program(["andnot", L0, L1, L2]) == bytes([0x00, 0x31, 0x32])
+    assert tk.tree_program(TREES["nested"]) == (
+        0x000, 0x101, 0x400, 0x002, 0x303, 0x600)
+    assert tk.tree_program(["andnot", L0, L1, L2]) == (0x000, 0x301, 0x302)
     deep = L0
     for i in range(1, 9):
         deep = ["and", ["leaf", i], deep]
     assert tk.tree_depth(deep) == 9
     with pytest.raises(ValueError):
         tk.tree_program(deep)
+    wide = ["or"] + [["leaf", i] for i in range(tk.MAX_LEAVES)]
+    assert len(tk.tree_program(wide)) == tk.MAX_LEAVES
     with pytest.raises(ValueError):
-        tk.tree_program(["or"] + [["leaf", i] for i in range(17)])
+        tk.tree_program(wide + [["leaf", tk.MAX_LEAVES]])
 
 
-def run_program(prog: bytes, leaves):
+def run_program(prog, leaves):
     """The kernels' fold loop (csrc/fold.cuh), in Python."""
     acc, saved = None, []
     comb = {1: np.bitwise_and, 2: np.bitwise_or, 3: lambda a, b: a & ~b}
     for op in prog:
-        kind, leaf = op >> 4, op & 15
+        kind, leaf = op >> 8, op & 255
         if kind == 0:
             acc = leaves[leaf]
         elif kind < 4:
@@ -239,6 +241,15 @@ def test_tree_program_runs_like_fold_tree():
                   for _ in range(counter[0])]
         want = fold_tree(tree, lambda i: leaves[i])
         assert (run_program(tk.tree_program(tree), leaves) == want).all()
+
+
+def test_kernel_args_check_leaf_positions():
+    # K2 folds 4 leaf positions over 3 unique pools; K1/K3 one per pool.
+    pools = torch_pools([make_pool(1)] * 3)
+    prog = tk.tree_program(TREES["nested"])
+    assert tk._kernel_args(pools, prog, 4)[3] == len(prog)
+    with pytest.raises(ValueError):
+        tk._kernel_args(pools, prog)
 
 
 def test_shared_batch_beyond_limits_raises():

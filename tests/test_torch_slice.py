@@ -26,6 +26,7 @@ from pilosa_tpu.roaring import Bitmap as JaxBitmap
 from pilosa_tpu_torch.api.handler import Handler
 from pilosa_tpu_torch.core import Holder
 from pilosa_tpu_torch.executor import Executor
+from pilosa_tpu_torch.ops.kernels import MAX_LEAVES
 from pilosa_tpu_torch.parallel import serve as torch_serve
 from pilosa_tpu_torch.ops.pool import pack_bitmap
 from pilosa_tpu_torch.parallel.mesh import (build_sharded_index, count_rows,
@@ -149,13 +150,14 @@ def test_queries_match_jax(data_dir):
 
 def test_unlowerable_tree_counts_on_host(port_holder):
     ex = Executor(port_holder, device="cpu")
-    # 17 leaves is beyond the kernels' limit.
+    # MAX_LEAVES + 1 distinct rows is beyond the kernels' limit (repeated
+    # rows share a leaf, so they must be distinct). Rows past 5 are
+    # absent, so the union of rows 0-7 counts the same columns.
     q = "Count(Union(" + ", ".join(
-        f"Bitmap(rowID={i % 4})" for i in range(17)) + "))"
+        f"Bitmap(rowID={i})" for i in range(MAX_LEAVES + 1)) + "))"
     n = ex.execute("i", parse_string(q))[0]
-    want = ex.execute("i", parse_string(
-        "Count(Union(Bitmap(rowID=0), Bitmap(rowID=1), Bitmap(rowID=2), "
-        "Bitmap(rowID=3)))"))[0]
+    want = ex.execute("i", parse_string("Count(Union(" + ", ".join(
+        f"Bitmap(rowID={i})" for i in range(8)) + "))"))[0]
     assert n == want
     assert ex.stats["count_host"] == 1 and ex.stats["count_device"] == 1
 
