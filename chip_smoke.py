@@ -50,7 +50,15 @@ Phases, each fatal on failure:
      answer is checked against the numpy truth; K0 (at server start), K5
      and K1 must launch, `count_host` must not move, and torch.profiler
      measures the card's busy share of a round of Sums;
-  9. a `kernels` JSON line, the card line, and the final
+  9. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+     main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
+     stream_popcount and torch's sum over pools of 960 and 3072 slices),
+     probe_r5 kernels / stage / readback, profile_stage and
+     profile_headline, each record under chiprun_out/probes/; K6 and
+     stream_popcount must launch on this path, and then K6 at every T
+     and both slice counts and stream_popcount are held exactly against
+     their plain versions and numpy, and timed;
+ 10. a `kernels` JSON line, the card line, and the final
      {"ok": true, "device": ...} line.
 
 Each HTTP phase runs one full pass of Python's cyclic collector right
@@ -112,14 +120,22 @@ KERNELS = {
     "sparse_pair_count": ("pilosa_tpu_torch/csrc/sparse_pair_count.cu",
                           "pilosa_tpu/ops/kernels.py:843"),
     "probe_ok": ("pilosa_tpu_torch/csrc/probe_ok.cu",
-                 "pilosa_tpu/ops/kernels.py:121"),
+                 "pilosa_tpu/ops/kernels.py:121, tools/probe_r5.py:211"),
     "pair_count": ("pilosa_tpu_torch/csrc/pair_count.cu",
                    "pilosa_tpu/ops/kernels.py:176"),
+    "coarse_count_blocked": ("pilosa_tpu_torch/csrc/coarse_count_blocked.cu",
+                             "tools/probe_r5_bw.py:82"),
+    "stream_popcount": ("pilosa_tpu_torch/csrc/coarse_count_blocked.cu",
+                        "tools/probe_r5_bw.py:144 (the XLA whole-pool "
+                        "popcount, no Pallas call)"),
 }
 # The kernels each served path must launch.
 DENSE_PATH = ("coarse_count", "coarse_count_shared", "tree_count")
 SPARSE_PATH = ("sparse_pair_count", "coarse_count")
 BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count")
+PROBE_PATH = ("coarse_count_blocked", "stream_popcount", "probe_ok",
+              "coarse_count")
+PROBE_SLICES = (SLICES, 3072)  # the bandwidth probe's sweep
 # The integer field: the repo's own BSI configuration (bench.py:2079-2167).
 BSI_FIELD, BSI_MIN, BSI_MAX = "val", -32768, 32767
 BSI_ROWS = 18        # existence, sign, 16 magnitude planes
@@ -1179,6 +1195,107 @@ def bsi_phase(holder, truth: BsiTruth, card: str, device) -> dict:
             "ms_per_query": ms, "after_writes_s": restage_s, "profile": busy}
 
 
+# -- phase 9: the on-chip probe tools -------------------------------------------
+
+
+def probe_phase(device, seed: int) -> dict:
+    """The probe tools through their main(), the counters set to 0 just
+    before and read just after; then K6 (coarse_count_blocked) at every T
+    over pools of PROBE_SLICES and stream_popcount, each held exactly
+    against its plain version (coarse_plain's uniform form, stream_plain)
+    and against numpy; the rows at SLICES are timed."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.tools import (probe_r5, probe_r5_bw,
+                                       profile_headline, profile_stage)
+
+    out_dir = REPO / "chiprun_out" / "probes"
+    common = ["--device", "cuda", "--out", str(out_dir)]
+    runs = [("probe_r5_bw", probe_r5_bw, ["--reps", "5"]),
+            ("probe_r5_kernels", probe_r5, ["kernels"]),
+            ("probe_r5_stage", probe_r5, ["stage", "--reps", "2"]),
+            ("probe_r5_readback", probe_r5, ["readback"]),
+            ("profile_stage", profile_stage, []),
+            ("profile_headline", profile_headline, ["--reps", "30"])]
+    seconds = {}
+    t_phase = time.monotonic()
+    tk.reset_launches()
+    for name, mod, argv in runs:
+        t0 = time.monotonic()
+        check(mod.main(argv + common) == 0, f"{name} exits 0")
+        seconds[name] = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    log(f"probe phase: tools in {json.dumps(seconds)} s; launches "
+        f"{launches}")
+    for k in PROBE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the probe path")
+    # Each tool checked its own answers against numpy and raised if one
+    # was wrong; their records go into chip_smoke.json.
+    records = {name: json.loads((out_dir / f"{name}.json").read_text())
+               for name, _, _ in runs}
+
+    pair = ["and", ["leaf", 0], ["leaf", 1]]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    results, checked = {}, {}
+    for s in PROBE_SLICES:
+        pool = torch.randint(-2**31, 2**31, (s, 32, 2048), dtype=torch.int32,
+                             device=device, generator=gen)
+        host = pool.cpu().numpy().view(np.uint32)
+        per = np.bitwise_count(host[:, :16] & host[:, 16:]).sum(
+            axis=(1, 2), dtype=np.int64)[None]
+        starts = torch.tensor([0, 1], dtype=torch.int32, device=device)
+        pp = (pool, pool)
+
+        def plain():
+            return tk.coarse_plain(pp, starts, True, pair, 1)
+
+        want = plain()
+        check(np.array_equal(want.cpu().numpy(), per), f"plain K6 S={s}")
+        cases = [(f"coarse_count_blocked t{t} (S={s})",
+                  "coarse_count_blocked",
+                  lambda t=t: tk.coarse_count_blocked(pp, starts, pair, t),
+                  plain, want, 2 * s * RUN_BYTES + 8 + 4 * s)
+                 for t in tk.BLOCK_SLICES]
+        want_bits = int(np.bitwise_count(host).sum(dtype=np.int64))
+        cases.append((f"stream_popcount (S={s})", "stream_popcount",
+                      lambda: tk.stream_popcount(pool),
+                      lambda: tk.stream_plain(pool),
+                      tk.stream_plain(pool), host.nbytes + 8))
+        check(int(cases[-1][4]) == want_bits, f"plain stream S={s}")
+        for name, kernel, run, plain_fn, ref, nbytes in cases:
+            got = run()
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            check(err == 0 and got.shape == ref.shape,
+                  f"{name}: kernel != plain (max err {err})")
+            check(np.array_equal(got.cpu().numpy(),
+                                 per if kernel == "coarse_count_blocked"
+                                 else want_bits), f"{name} != numpy")
+            if s != SLICES:
+                checked[name] = {"kernel": kernel, "max_abs_err": err}
+                continue
+            ms = time_ms(run, 20)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            results[name] = {
+                "kernel": kernel, "ms": ms, "plain_ms": time_ms(plain_fn, 3),
+                "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+                "gb_per_s": nbytes / ms / 1e6, "max_abs_err": err,
+                "library_ms": None}
+            log(f"  {name:36s} {ms:8.4f} ms  {nbytes / ms / 1e6:7.1f} GB/s  "
+                f"bound {bound_ms:.4f} ms  plain "
+                f"{results[name]['plain_ms']:.3f} ms  exact")
+        log(f"probe phase: K6 at T {tk.BLOCK_SLICES} and stream_popcount "
+            f"match plain and numpy at S={s}")
+        del pool, pp, want
+    torch.cuda.empty_cache()
+    phase_s = time.monotonic() - t_phase
+    log(f"probe phase: {phase_s:.2f} s in all")
+    return {"launches": launches, "tool_s": seconds, "phase_s": phase_s,
+            "records": records, "kernels": results, "checked": checked}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1308,9 +1425,9 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     cuda_build.build_all()
-    log(f"build: {len(cuda_build.BUILD_SECONDS)} libraries in "
-        f"{time.monotonic() - t0:.2f} s "
-        f"{json.dumps(cuda_build.BUILD_SECONDS)}")
+    build_s = dict(cuda_build.BUILD_SECONDS)
+    log(f"build: {len(build_s)} libraries in "
+        f"{time.monotonic() - t0:.2f} s {json.dumps(build_s)}")
     if args.dense_qps_of:
         return dense_qps_only(root, card, smi, args.seed)
     if args.lone_latency_of:
@@ -1344,9 +1461,13 @@ def main(argv=None) -> int:
             bsi["data_s"] = gen_s
         finally:
             holder.close()
+    probes = probe_phase(device, args.seed)
+    kern.update(probes["kernels"])
 
     # Each kernel's launches come from the path it serves.
-    served = {"sparse_pair_count": sps, "probe_ok": bsi, "pair_count": bsi}
+    served = {"sparse_pair_count": sps, "probe_ok": bsi, "pair_count": bsi,
+              "coarse_count_blocked": probes,
+              "stream_popcount": probes}
     launches = {k: served.get(k, sl)["launches"][k] for k in KERNELS}
     entries = []
     for name, (source, replaces) in KERNELS.items():
@@ -1365,9 +1486,9 @@ def main(argv=None) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "slices": SLICES,
-         "seed": args.seed, "build_s": cuda_build.BUILD_SECONDS,
+         "seed": args.seed, "build_s": build_s,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
-         "bsi_slice": bsi,
+         "bsi_slice": bsi, "probes": probes,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -3,8 +3,11 @@
 //
 // Replaces the Pallas kernel pallas_probe_ok (pilosa_tpu/ops/kernels.py),
 // the JAX server's boot-time check that kernels compile and run on its
-// device at all. The port's server runs it once before it binds, on an
-// (8, 128) tensor, and refuses to start if it fails.
+// device at all, and the same x + 1 kernel of the JAX compile probe
+// (tools/probe_r5.py:211). The port's server runs it once before it
+// binds, on an (8, 128) tensor, and refuses to start if it fails; the
+// port's probe (pilosa_tpu_torch/tools/probe_r5.py kernels) runs it on
+// arange(1024).
 //
 // Bound: launch latency; 4 KB in and out is nothing to the card.
 #include <cuda_runtime.h>

@@ -1,4 +1,4 @@
-"""Build the CUDA kernels (K0-K5) with nvcc and load them with ctypes.
+"""Build the CUDA kernels (K0-K6) with nvcc and load them with ctypes.
 
 Each source under csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a at first use into csrc/_build/ (or
@@ -46,6 +46,11 @@ ENTRIES = {
     "pair_count_rows": ("pair_count", "pilosa_pair_count_rows",
                         [_P, _LL, _P, _I, _I, _P, _LL, _P, _P, _I, _P, _P]),
     "probe_ok": ("probe_ok", "pilosa_probe_ok", [_P, _I, _P]),
+    "coarse_count_blocked": ("coarse_count_blocked",
+                             "pilosa_coarse_count_blocked",
+                             [_PP, _PLL, _I, _P, _I, _I, _PROG, _I, _P, _P]),
+    "stream_popcount": ("coarse_count_blocked", "pilosa_stream_popcount",
+                        [_P, _LL, _P, _I, _P, _P]),
 }
 # One shared library per source.
 SOURCES = tuple(sorted({src for src, _, _ in ENTRIES.values()}))

@@ -20,6 +20,11 @@ replace (pilosa_tpu/ops/kernels.py):
   K5 pair_count (csrc/pair_count.cu): pair_count, for _pallas_pair_count
      / fused_pair_count, and pair_count_rows, its serving form over row
      runs of a staged pool.
+  K6 coarse_count_blocked (csrc/coarse_count_blocked.cu):
+     coarse_count_blocked, for the bandwidth probe's T-blocked
+     coarse_count_uniform (tools/probe_r5_bw.py:82), and stream_popcount,
+     the whole-pool popcount that probe takes as its ceiling. Both serve
+     the probe tools (pilosa_tpu_torch/tools/), not the serving path.
 
 Pools are (S, cap, 2048) int32 tensors holding uint32 words, and
 sorted-array pools (S, C, K) int16 tensors holding u16 values. A wrapper
@@ -55,7 +60,8 @@ _OPCODES = {"and": 1, "or": 2, "andnot": 3}
 _PUSH = 4
 
 LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
-            "sparse_pair_count": 0, "pair_count": 0, "probe_ok": 0}
+            "sparse_pair_count": 0, "pair_count": 0, "probe_ok": 0,
+            "coarse_count_blocked": 0, "stream_popcount": 0}
 _LAUNCH_MU = threading.Lock()
 
 
@@ -538,14 +544,84 @@ def probe_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
 
+def probe_add(x: torch.Tensor) -> torch.Tensor:
+    """K0 on a contiguous int32 tensor: adds 1 to every element, in place
+    on the card (the plain version's new tensor on the CPU). Returns the
+    result."""
+    if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() < 1:
+        raise ValueError("probe_add takes a non-empty contiguous int32 "
+                         "tensor")
+    if not _on_cuda(x):
+        return probe_plain(x)
+    rc = kernel_fn("probe_ok")(x.data_ptr(), x.numel(), _stream(x))
+    _launched("probe_ok", rc)
+    return x
+
+
 def probe_ok(device="cuda") -> bool:
     """The canary of the Pallas pallas_probe_ok: one launch adding 1 over
     an (8, 128) int32 tensor of zeros; True when every element reads 1.
     A build or launch failure raises."""
-    x = torch.zeros((8, 128), dtype=torch.int32, device=device)
-    if x.device.type == "cpu":
-        x = probe_plain(x)
-    else:
-        rc = kernel_fn("probe_ok")(x.data_ptr(), x.numel(), _stream(x))
-        _launched("probe_ok", rc)
+    x = probe_add(torch.zeros((8, 128), dtype=torch.int32, device=device))
     return bool((x == 1).all())
+
+
+# -- K6 coarse_count_blocked and stream_popcount -----------------------------
+
+BLOCK_SLICES = (1, 2, 4, 8, 16, 32)
+
+
+def coarse_count_blocked(views, starts, tree, t: int):
+    """K6: coarse_count_uniform with T consecutive slices per block, the
+    shape of the bandwidth probe's Pallas kernel. views: per leaf the
+    (S, cap, 2048) pool; starts: (L,) int32 run index per leaf, negative
+    = absent; t in BLOCK_SLICES, dividing S. Returns (1, S) int32; the
+    plain version is coarse_plain's uniform form."""
+    views = tuple(views)
+    _check_pools(views, run_aligned=True)
+    s = views[0].shape[0]
+    if t not in BLOCK_SLICES or s % t:
+        raise ValueError(f"T={t} must be one of {BLOCK_SLICES} and divide "
+                         f"S={s}")
+    if starts.dim() != 1 or starts.shape[0] != len(views):
+        raise ValueError(f"starts must be ({len(views)},), got "
+                         f"{tuple(starts.shape)}")
+    if not _on_cuda(*views, starts):
+        return coarse_plain(views, starts, True, tree, 1)
+    starts = starts.to(torch.int32).contiguous()
+    out = torch.empty((1, s), dtype=torch.int32, device=starts.device)
+    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree))
+    rc = kernel_fn("coarse_count_blocked")(
+        bases, strides, len(views), starts.data_ptr(), s, t, prog, prog_len,
+        out.data_ptr(), _stream(out))
+    _launched("coarse_count_blocked", rc)
+    return out
+
+
+def stream_plain(pool: torch.Tensor) -> torch.Tensor:
+    return popcount(pool).sum(dtype=torch.int64)
+
+
+def stream_popcount(pool: torch.Tensor) -> torch.Tensor:
+    """Set bits of a whole contiguous int32 tensor (uint32 words), as a
+    0-d int64 tensor: each word read once, the card's streaming ceiling
+    for a pool."""
+    if (pool.dtype != torch.int32 or not pool.is_contiguous()
+            or pool.numel() < 1):
+        raise ValueError("stream_popcount takes a non-empty contiguous "
+                         "int32 tensor")
+    if not _on_cuda(pool):
+        return stream_plain(pool)
+    if pool.data_ptr() % 16:
+        raise ValueError("stream_popcount reads 16-byte vectors: the "
+                         "tensor must start 16-byte aligned")
+    sms = torch.cuda.get_device_properties(pool.device).multi_processor_count
+    # Eight 256-thread blocks an SM: the SM's 2048 resident threads.
+    blocks = max(1, min(8 * sms, -(-pool.numel() // (4 * 256))))
+    partials = torch.empty(blocks, dtype=torch.int64, device=pool.device)
+    out = torch.empty((), dtype=torch.int64, device=pool.device)
+    rc = kernel_fn("stream_popcount")(
+        pool.data_ptr(), pool.numel(), partials.data_ptr(), blocks,
+        out.data_ptr(), _stream(out))
+    _launched("stream_popcount", rc)
+    return out

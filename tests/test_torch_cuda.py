@@ -1,4 +1,4 @@
-"""The CUDA kernels (K0-K5) against their plain PyTorch versions, on a
+"""The CUDA kernels (K0-K6) against their plain PyTorch versions, on a
 card.
 
 Marked `cuda`; each test skips without a card. This file imports no JAX,
@@ -223,3 +223,45 @@ def test_probe_ok_kernel(card):
     before = tk.LAUNCHES["probe_ok"]
     assert tk.probe_ok(card) is True
     assert tk.LAUNCHES["probe_ok"] == before + 1
+
+
+@pytest.mark.cuda
+def test_probe_add_kernel(card):
+    ramp = torch.arange(1024, dtype=torch.int32).reshape(8, 128)
+    got = tk.probe_add(ramp.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ramp + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", tk.BLOCK_SLICES)
+@pytest.mark.parametrize("tree", range(len(TREES)))
+def test_coarse_count_blocked_kernel(card, t, tree):
+    tree = TREES[tree]
+    n = nleaves(tree)
+    s = 64
+    rng = np.random.default_rng(100 + t)
+    ps = tuple(words(rng, (s, RUNS * 16, 2048)) for _ in range(n))
+    starts = torch.from_numpy(rng.integers(-1, RUNS, size=n).astype(np.int32))
+    starts[0] = 1  # at least one leaf present
+    want = tk.coarse_count_blocked(ps, starts, tree, t)
+    before = tk.LAUNCHES["coarse_count_blocked"]
+    got = tk.coarse_count_blocked(tuple(p.to(card) for p in ps),
+                                  starts.to(card), tree, t)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["coarse_count_blocked"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 4097, 3 * 2048 * 33 + 2])
+def test_stream_popcount_kernel(card, n):
+    rng = np.random.default_rng(n)
+    pool = torch.from_numpy(rng.integers(0, 1 << 32, size=n,
+                                         dtype=np.uint32).view(np.int32))
+    want = tk.stream_plain(pool)
+    got = tk.stream_popcount(pool.to(card))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and int(got) == int(want)
+    ones = torch.full((5, 32, 2048), -1, dtype=torch.int32, device=card)
+    assert int(tk.stream_popcount(ones)) == ones.numel() * 32
