@@ -2,14 +2,18 @@
 """Chip smoke test of the PyTorch + CUDA port (pilosa_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--dense-qps-of ROOT]
+    python3 chip_smoke.py [--seed N] [--dense-qps-of ROOT | --lone-latency-of
+                          ROOT | --sparse-qps-of ROOT | --kernel-times-of ROOT]
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc, and
-     run the K0 canary (ops.kernels.probe_ok);
+  2. build the CUDA kernels from pilosa_tpu_torch/csrc with nvcc (each
+     library's ptxas report of registers, stack and spills goes to
+     chiprun_out/ptxas/), and run the K0 canary (ops.kernels.probe_ok);
   3. kernels: every wrapper on the card at the main path's shapes, held
-     exactly against its plain PyTorch version, and timed;
+     exactly against its plain PyTorch version, and timed (CUDA events
+     over back-to-back calls, and the profiler's device time); K2 also
+     at its wide shape, 16 unique runs under 16 queries of a 4-leaf tree;
   4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
      whose frame `general` holds 8 dense random rows, one partial row
      and one row in odd slices only, served over HTTP on 127.0.0.1: the
@@ -21,8 +25,7 @@ Phases, each fatal on failure:
      measures the card's busy share of the second 16-client round;
   5. the sorted-array kernel K4 at the sparse slice's shapes (one pair of
      frame `sparse` over 960 x 16 containers), held exactly against its
-     plain version and timed, with its byte bound and the time its
-     binary searches' shared-memory lookups would take;
+     plain version and the host and timed, with its byte bound;
   6. the sparse slice over HTTP: frame `sparse` (rows 0-7 of 1,024-2,048
      values in every container of every slice, a fill of 1.6-3.1%, and
      row 8 in blocks 0-7 of even slices) and frame `mixed` (rows 0-1
@@ -71,6 +74,13 @@ Details go to chiprun_out/chip_smoke.json.
 With --dense-qps-of ROOT it runs phases 1, 2 and 4 only, built and
 served by the package under ROOT, and prints their QPS as one JSON line:
 run it alternately on two checkouts to compare their dense serving.
+--sparse-qps-of ROOT does the same with phase 6. --kernel-times-of ROOT
+runs phases 1 and 2 and then K4 at the chip shape and K2's two wrappers
+at the headline and the wide shape, on inputs made on the card from the
+seed, each held exactly against its plain version and timed, and prints
+the times and the ptxas report as one JSON line: run it on a parent and
+a change in turns (parent, change, change, parent) to compare their
+kernels on one card.
 With --lone-latency-of ROOT it runs phases 1 and 2 and the lone Counts
 of phase 4 only, 56 of them as in phase 4 and then 560 more, and prints
 their latency and the collector's full passes as one JSON line.
@@ -102,10 +112,6 @@ SPARSE_PARTIAL = 8   # frame `sparse`: blocks 0-7 of even slices only
 BUCKET = 32          # sorted-array rows hold one value per 32-wide bucket
 CLIENTS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-# Shared-memory lookups per second of an H100 SXM: one 4-byte bank
-# access per lane per clock, 32 lanes on each of 132 SMs at the
-# 1.98 GHz boost clock (NVIDIA's data sheet).
-SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 RUN_BYTES = 16 * 2048 * 4  # one 16-container row run
 BATCH_RUNS = 32            # distinct row runs read by a 16-query K1 batch
 
@@ -140,6 +146,11 @@ PROBE_SLICES = (SLICES, 3072)  # the bandwidth probe's sweep
 BSI_FIELD, BSI_MIN, BSI_MAX = "val", -32768, 32767
 BSI_ROWS = 18        # existence, sign, 16 magnitude planes
 FLAT_M = 15_360      # the ops-level pair at chip shape: 960 x 16 containers
+# K2's wide shape: 16 unique runs (its limit) under 16 queries of a
+# 4-leaf tree with one nested operand.
+WIDE_UNIQUE = 16
+WIDE_TREE = ["or", ["and", ["leaf", 0], ["leaf", 1]],
+             ["andnot", ["leaf", 2], ["leaf", 3]]]
 
 
 def log(msg: str) -> None:
@@ -412,7 +423,97 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of the kernels one call launches, by
+    torch.profiler over `reps` warm calls: the card's own time, without
+    the host gaps between calls that time_ms counts when a call's host
+    work outlasts its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def measure(cases, reps: int, plain_reps: int = 3) -> dict:
+    """Each (wrapper, kernel, kernel call, plain call, bytes moved) case:
+    the kernel held exactly against its plain version on the same card
+    tensors, then timed: `ms` by CUDA events over back-to-back calls,
+    `device_ms` by the profiler, the plain version by events (skipped
+    when plain_reps is 0)."""
+    import torch
+
+    results = {}
+    for name, kernel, run, plain, nbytes in cases:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0 and got.shape == want.shape,
+              f"{name}: kernel != plain (max err {err})")
+        del got, want
+        ms = time_ms(run, reps)
+        dev_ms = device_ms(run, reps)
+        plain_ms = time_ms(plain, plain_reps) if plain_reps else None
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = {"kernel": kernel, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes", "bytes": nbytes,
+                         "gb_per_s": nbytes / ms / 1e6, "max_abs_err": err}
+        plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "-"
+        log(f"  {name:36s} {kernel:20s} {ms:8.4f} ms (device {dev_ms:.4f})"
+            f"  {nbytes / ms / 1e6:7.1f} GB/s  bound {bound_ms:.4f} ms  "
+            f"plain {plain_s}  exact")
+    return results
+
+
 # -- phase 3: kernels ----------------------------------------------------------
+
+
+def shared_cases(views, uni, tab, tree, leaf_map, tag: str = ""):
+    """K2's two wrappers over `views` (U unique runs): the (U,) uniform
+    starts and the (U, S) table, as measure() cases."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    s, u, out_b = views[0].shape[0], len(views), 4 * views[0].shape[0]
+    return [
+        ("coarse_count_shared_uniform" + tag, "coarse_count_shared",
+         lambda: tk.coarse_count_shared_uniform(views, uni, tree, leaf_map),
+         lambda: tk.shared_plain(views, uni, True, tree, leaf_map),
+         u * s * RUN_BYTES + len(leaf_map) * out_b),
+        ("coarse_count_batch_per_slice" + tag, "coarse_count_shared",
+         lambda: tk.coarse_count_batch_per_slice(views, tab, tree, leaf_map),
+         lambda: tk.shared_plain(views, tab, False, tree, leaf_map),
+         u * s * RUN_BYTES + u * out_b + len(leaf_map) * out_b)]
+
+
+def random_runs(s: int, runs: int, device, seed: int):
+    """(s, 16 * runs, 2048) random int32 words on the card, and the (runs,)
+    and (runs, s) start forms of reading run u as unique run u."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pool = torch.randint(-2**31, 2**31, (s, runs * 16, 2048),
+                         dtype=torch.int32, device=device, generator=gen)
+    uni = torch.arange(runs, dtype=torch.int32, device=device)
+    return pool, uni, uni[:, None].expand(runs, s).contiguous()
+
+
+def wide_shared_cases(s: int, device, seed: int):
+    """K2 at the widest batch its limits allow: U = 16 random runs of s
+    slices, B = 16 queries of WIDE_TREE (4 leaves, one nested operand),
+    query q reading runs q, q + 5, q + 10 and q + 15 (mod 16)."""
+    pool, uni, tab = random_runs(s, WIDE_UNIQUE, device, seed + 2)
+    leaf_map = tuple(tuple((q + 5 * i) % WIDE_UNIQUE for i in range(4))
+                     for q in range(16))
+    return shared_cases((pool,) * WIDE_UNIQUE, uni, tab, WIDE_TREE,
+                        leaf_map, " (wide)")
 
 
 def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
@@ -457,7 +558,6 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     uni32 = dev(np.arange(BATCH_RUNS))
     tab32 = dev((np.arange(BATCH_RUNS)[:, None] + np.arange(s)[None, :])
                 % BATCH_RUNS)
-    leaf_map = tuple(pairs16)
     shared_uni = dev([lay[r].uniform for r in range(DENSE_ROWS)])
     shared_tab = dev(np.stack([lay[r].starts for r in range(DENSE_ROWS)]))
     idx = dev(np.stack([lay[PARTIAL_ROW].idx, lay[0].idx]))
@@ -484,38 +584,15 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
          lambda: tk.coarse_count_identity_batch(w2, tab32, pair_and),
          lambda: tk.coarse_plain(w2, tab32, False, pair_and, 16),
          BATCH_RUNS * s * RUN_BYTES + BATCH_RUNS * out_b + 16 * out_b),
-        ("coarse_count_shared_uniform", "coarse_count_shared",
-         lambda: tk.coarse_count_shared_uniform(p8, shared_uni, pair_and,
-                                                leaf_map),
-         lambda: tk.shared_plain(p8, shared_uni, True, pair_and, leaf_map),
-         DENSE_ROWS * s * RUN_BYTES + 16 * out_b),
-        ("coarse_count_batch_per_slice", "coarse_count_shared",
-         lambda: tk.coarse_count_batch_per_slice(p8, shared_tab, pair_and,
-                                                 leaf_map),
-         lambda: tk.shared_plain(p8, shared_tab, False, pair_and, leaf_map),
-         DENSE_ROWS * s * RUN_BYTES + DENSE_ROWS * out_b + 16 * out_b),
+        *shared_cases(p8, shared_uni, shared_tab, pair_and,
+                      tuple(pairs16)),
+        *wide_shared_cases(s, device, seed),
         ("tree_count_per_slice", "tree_count",
          lambda: tk.tree_count_per_slice(p2, idx[None], hit[None], pair_and),
          lambda: tk.tree_plain(p2, idx[None], hit[None], pair_and),
          int(hit_np.sum()) * 2048 * 4 + 2 * idx.numel() * 4 + out_b),
     ]
-    results = {}
-    for name, kernel, run, plain, nbytes in cases:
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(err == 0 and got.shape == want.shape,
-              f"{name}: kernel != plain (max err {err})")
-        ms = time_ms(run, 20)
-        plain_ms = time_ms(plain, 3)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        results[name] = {"kernel": kernel, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": "bytes",
-                         "bytes": nbytes,
-                         "gb_per_s": nbytes / ms / 1e6, "max_abs_err": err}
-        log(f"  {name:30s} {kernel:20s} {ms:8.4f} ms  "
-            f"{nbytes / ms / 1e6:7.1f} GB/s  bound {bound_ms:.4f} ms  "
-            f"plain {plain_ms:.3f} ms  exact")
+    results = measure(cases, 20)
     # The wrapper total over the same per-slice vector.
     total = int(tk.tree_count_pallas(pool, idx, hit, pair_and))
     want = host_count(words, "and", PARTIAL_ROW, 0)
@@ -726,10 +803,8 @@ def sparse_kernel_phase(holder, sp: SparseRows, device) -> dict:
     every slice) against its plain version (ops.kernels.sparse_pair_plain
     on the same card tensors), exactly, then both timed. Bound: the
     bytes the pair needs (the real values of both sides, the idx/hit and
-    cardinality reads, the output) over the memory rate. Beside it, a
-    design figure: the shared-memory lookups of K4's binary searches
-    (len_a * ceil(log2 len_b) per container pair) over
-    SMEM_LOOKUPS_PER_S."""
+    cardinality reads, the output) over the memory rate. The counts are
+    also held against the host's."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as tk
@@ -755,42 +830,57 @@ def sparse_kernel_phase(holder, sp: SparseRows, device) -> dict:
                       .to(device) for t in (ia, ha, ib, hb))
     args = (staged.values, staged.cards, staged.values, staged.cards, ia, ha,
             ib, hb)
-    got, want = tk.sparse_pair_count(*args), tk.sparse_pair_plain(*args)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(err == 0 and got.shape == want.shape == (s, 16),
-          f"sparse_pair_count: kernel != plain (max err {err})")
-    host = sp.inter((0, 1))
-    check((got.cpu().numpy() == host).all(), "sparse_pair_count != host")
-    ms = time_ms(lambda: tk.sparse_pair_count(*args), 50)
-    plain_ms = time_ms(lambda: tk.sparse_pair_plain(*args), 3)
-
+    got = tk.sparse_pair_count(*args).cpu().numpy()
+    check(got.shape == (s, 16) and (got == sp.inter((0, 1))).all(),
+          "sparse_pair_count != host")
     la = np.take_along_axis(staged.cards_host, tables[0][0], 1) * tables[0][1]
     lb = np.take_along_axis(staged.cards_host, tables[1][0], 1) * tables[1][1]
-    nbytes = (2 * int(la.sum() + lb.sum())   # the real values, once
-              + 4 * 4 * s * 16               # idx/hit of both sides
-              + 2 * 4 * s * 16               # one card per side and pair
-              + 4 * s * 16)                  # the output
-    both = (la > 0) & (lb > 0)
-    lookups = int((la[both].astype(np.int64)
-                   * np.ceil(np.log2(np.maximum(lb[both], 2)))).sum())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    lookups_ms = lookups / SMEM_LOOKUPS_PER_S * 1e3
-    # The lookups are the binary-search design's own work; a merge of the
-    # two sorted arrays needs ~la + lb steps, far under the byte time, so
-    # the function's floor is the bytes.
-    res = {"kernel": "sparse_pair_count", "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bytes_ms, "bound_by": "bytes",
-           "bytes": nbytes, "bytes_bound_ms": bytes_ms, "lookups": lookups,
-           "lookups_bound_ms": lookups_ms, "max_abs_err": err,
-           "pairs": s * 16, "pool_bytes": pool_bytes,
-           "dense_image_bytes": s * staged.capacity * 2048 * 4}
-    log(f"  sparse_pair_count {ms:8.4f} ms  bound {bytes_ms:.4f} ms (bytes); "
-        f"binary-search lookups {lookups_ms:.4f} ms  plain {plain_ms:.3f} ms"
-        f"  exact")
+    res = measure([sparse_pair_case(args, la, lb)], 50)["sparse_pair_count"]
+    res.update(pairs=s * 16, pool_bytes=pool_bytes,
+               dense_image_bytes=s * staged.capacity * 2048 * 4)
     del staged, args, ia, ha, ib, hb
     torch.cuda.empty_cache()
     return res
+
+
+def sparse_pair_case(args, la: np.ndarray, lb: np.ndarray):
+    """K4 over `args` as a measure() case. Bound: the bytes the pair
+    needs (the real values of both sides, la and lb of them, the idx/hit
+    and cardinality reads, the output) over the memory rate."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    pairs = la.size
+    nbytes = (2 * int(la.sum() + lb.sum())   # the real values, once
+              + 4 * 4 * pairs                # idx/hit of both sides
+              + 2 * 4 * pairs                # one card per side and pair
+              + 4 * pairs)                   # the output
+    return ("sparse_pair_count", "sparse_pair_count",
+            lambda: tk.sparse_pair_count(*args),
+            lambda: tk.sparse_pair_plain(*args), nbytes)
+
+
+def sparse_pair_inputs(sp: SparseRows, device):
+    """Rows 0 and 1 of `sp` as one sorted-array pool of (S, 32, 2048),
+    row r's block b at container 16 r + b, and the (S, 16) tables of
+    their pair: the chip shape of K4 without a Holder. Returns (K4's
+    arguments, la, lb)."""
+    import torch
+
+    s = sp.lens.shape[0]
+    j = np.arange(2048, dtype=np.uint32)
+    vals = (j * BUCKET + sp.off[:, :2]).astype(np.uint16)
+    vals[j >= sp.lens[:, :2, :, None]] = 0xFFFF
+    cards = np.ascontiguousarray(sp.lens[:, :2].reshape(s, 32))
+    blocks = np.broadcast_to(np.arange(16, dtype=np.int32), (s, 16))
+    one = np.ones((s, 16), dtype=np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    pool = dev(vals.reshape(s, 32, 2048).view(np.int16))
+    args = (pool, dev(cards), pool, dev(cards), dev(blocks), dev(one),
+            dev(blocks + 16), dev(one))
+    return args, cards[:, :16], cards[:, 16:]
 
 
 # -- phase 6: the sparse slice over HTTP -----------------------------------------
@@ -1392,6 +1482,74 @@ def lone_latency_only(root: Path, smi: str, seed: int) -> int:
     return 0
 
 
+def sparse_qps_only(root: Path, card: str, smi: str, seed: int) -> int:
+    """Phase 6 alone, served by the package under `root`, and its QPS
+    and busy share as one JSON line: run it once per tree, alternating,
+    to compare two trees' sorted-array serving in one call."""
+    import torch
+
+    words = make_words(SLICES, seed)
+    sp = SparseRows(SLICES, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        holder = build_holder(tmp, words)
+        try:
+            add_sparse_frames(holder, words, sp)
+            sps = sparse_phase(holder, words, sp, card, torch.device("cuda"))
+        finally:
+            holder.close()
+    print(json.dumps({"sparse_qps_of": str(root), "card": smi,
+                      "first_query_s": sps["first_query_s"],
+                      "collect_after_staging_ms":
+                          sps["collect_after_staging_ms"],
+                      "lone_qps": sps["lone_qps"],
+                      "concurrent_qps": sps["concurrent_qps"],
+                      "device_busy_share":
+                          sps["profile"]["device_busy_share"]}), flush=True)
+    return 0
+
+
+def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
+    """K4 at the chip shape and K2's two wrappers at the headline and the
+    wide shape, built and run by the package under `root`, each held
+    exactly against its plain version, timed, and printed as one JSON
+    line with the build's ptxas report. The inputs are made on the card
+    from the seed, the same for every tree: run it alternately on two
+    checkouts (parent, change, change, parent) to compare their kernels
+    on one card."""
+    import torch
+
+    device = torch.device("cuda")
+    args, la, lb = sparse_pair_inputs(SparseRows(SLICES, seed), device)
+    pool, uni, tab = random_runs(SLICES, DENSE_ROWS, device, seed + 1)
+    pairs16 = tuple(itertools.combinations(range(DENSE_ROWS), 2))[:16]
+    cases = [sparse_pair_case(args, la, lb),
+             *shared_cases((pool,) * DENSE_ROWS, uni, tab,
+                           ["and", ["leaf", 0], ["leaf", 1]], pairs16),
+             *wide_shared_cases(SLICES, device, seed)]
+    rows = measure(cases, 50, plain_reps=0)
+    print(json.dumps({"kernel_times_of": str(root), "card": smi,
+                      "rows": rows, "ptxas": ptxas}), flush=True)
+    return 0
+
+
+def save_ptxas(build_dir: Path, tag: str) -> dict:
+    """Copies the build's ptxas reports (nvcc -Xptxas -v, one log per
+    library) to chiprun_out/ptxas/<tag>/ and returns each library's
+    lines on registers, stack, spills and shared memory."""
+    out = REPO / "chiprun_out" / "ptxas" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    summary = {}
+    for path in sorted(Path(build_dir).glob("*.log")):
+        text = path.read_text(errors="replace")
+        (out / path.name).write_text(text)
+        summary[path.name.rsplit("-", 1)[0]] = [
+            line.split("info    :")[-1].strip()
+            for line in text.splitlines()
+            if "registers" in line or "stack frame" in line
+            or "Compiling entry" in line]
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1404,6 +1562,13 @@ def main(argv=None) -> int:
                          "by the package under ROOT, and print their "
                          "latency and the collector's passes as one JSON "
                          "line")
+    ap.add_argument("--sparse-qps-of", metavar="ROOT", type=Path,
+                    help="run only phase 6, served by the package under "
+                         "ROOT, and print its QPS as one JSON line")
+    ap.add_argument("--kernel-times-of", metavar="ROOT", type=Path,
+                    help="run only K4 and K2's timed shapes with the "
+                         "kernels of the package under ROOT, and print "
+                         "their times and ptxas report as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1412,7 +1577,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    root = (args.dense_qps_of or args.lone_latency_of or REPO).resolve()
+    root = (args.dense_qps_of or args.lone_latency_of or args.sparse_qps_of
+            or args.kernel_times_of or REPO).resolve()
     sys.path.insert(0, str(root))
     from pilosa_tpu_torch.ops import cuda_build
 
@@ -1428,10 +1594,17 @@ def main(argv=None) -> int:
     build_s = dict(cuda_build.BUILD_SECONDS)
     log(f"build: {len(build_s)} libraries in "
         f"{time.monotonic() - t0:.2f} s {json.dumps(build_s)}")
+    ptxas = save_ptxas(cuda_build.build_dir(), root.name)
+    for name in ("sparse_pair_count", "coarse_count_shared"):
+        log(f"ptxas {name}: {' | '.join(ptxas.get(name, []))}")
     if args.dense_qps_of:
         return dense_qps_only(root, card, smi, args.seed)
     if args.lone_latency_of:
         return lone_latency_only(root, smi, args.seed)
+    if args.sparse_qps_of:
+        return sparse_qps_only(root, card, smi, args.seed)
+    if args.kernel_times_of:
+        return kernel_times_only(root, smi, args.seed, ptxas)
     from pilosa_tpu_torch.ops import kernels as tk
 
     check(tk.probe_ok(torch.device("cuda")), "K0 canary")
@@ -1477,7 +1650,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "device_ms": main_row.get("device_ms"),
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms")})
@@ -1486,7 +1660,7 @@ def main(argv=None) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "slices": SLICES,
-         "seed": args.seed, "build_s": build_s,
+         "seed": args.seed, "build_s": build_s, "ptxas": ptxas,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
          "bsi_slice": bsi, "probes": probes,
          "kernels": entries}, indent=1))

@@ -21,7 +21,7 @@
 #include <cuda_runtime.h>
 
 // K1/K3 leaves: 2 + 62 rows of the deepest integer field and a 16-leaf
-// filter. K2 holds its unique words in registers: 16 of them.
+// filter. K2 streams at most 16 unique runs through shared memory.
 #define PILOSA_MAX_LEAVES 80
 #define PILOSA_SHARED_LEAVES 16
 #define PILOSA_MAX_BATCH 16

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _B = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _LL = ctypes.c_longlong
 _PP, _PLL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _PROG = ctypes.POINTER(ctypes.c_uint16)
@@ -34,8 +34,8 @@ ENTRIES = {
                      [_PP, _PLL, _I, _P, _I, _I, _I, _PROG, _I, _P, _P]),
     "coarse_count_shared": ("coarse_count_shared",
                             "pilosa_coarse_count_shared",
-                            [_PP, _PLL, _I, _P, _I, _I, _PROG, _I, _I, _B,
-                             _I, _P, _P]),
+                            [_PP, _PLL, _I, _P, _I, _PROG, _I, _I, _P,
+                             _P]),
     "tree_count": ("tree_count", "pilosa_tree_count",
                    [_PP, _PLL, _I, _P, _P, _I, _I, _PROG, _I, _P, _P]),
     "sparse_pair_count": ("sparse_pair_count", "pilosa_sparse_pair_count",

@@ -50,12 +50,15 @@ from .pool import CONTAINER_WORDS, ROW_SPAN
 
 # K1/K3 fold up to MAX_LEAVES unique leaves: the 2 + 62 rows of the
 # deepest integer field (bsi.field.MAX_BIT_DEPTH) and a 16-leaf filter.
-# K2 keeps its unique words in registers, MAX_SHARED_LEAVES of them.
+# K2 streams up to MAX_SHARED_LEAVES unique runs through shared memory,
+# for queries of at most that many leaves: a program of at most 16 leaf
+# ops and a push and a combine for each of at most 15 nested operands.
 MAX_LEAVES = 80
 MAX_SHARED_LEAVES = 16
 MAX_DEPTH = 8
 MAX_BATCH = 16
 _MAX_PROG = 768
+_MAX_SHARED_PROG = 48
 _OPCODES = {"and": 1, "or": 2, "andnot": 3}
 _PUSH = 4
 
@@ -140,14 +143,17 @@ def _check_pools(pools, run_aligned: bool) -> None:
                              f"multiple of {ROW_SPAN}")
 
 
-def _kernel_args(pools, prog: tuple, num_leaves: int = 0):
-    """The by-pointer arguments every fold kernel's C entry takes. The
-    program may read leaf positions below num_leaves (default: one per
-    pool; K2 maps more positions onto its unique pools)."""
-    num_leaves = num_leaves or len(pools)
-    if any((op >> 8) < 4 and (op & 255) >= num_leaves for op in prog):
+def _check_leaf_positions(prog: tuple, num_leaves: int) -> None:
+    if any((op >> 8) < _PUSH and (op & 255) >= num_leaves for op in prog):
         raise ValueError(f"tree reads a leaf beyond its {num_leaves} "
                          f"leaf positions")
+
+
+def _kernel_args(pools, prog: tuple):
+    """The by-pointer arguments every fold kernel's C entry takes. The
+    program reads leaf positions below len(pools): one per pool (K2's
+    programs name its unique runs)."""
+    _check_leaf_positions(prog, len(pools))
     bases = (ctypes.c_void_p * len(pools))(*[p.data_ptr() for p in pools])
     strides = (ctypes.c_longlong * len(pools))(
         *[p.shape[1] * CONTAINER_WORDS // 4 for p in pools])
@@ -257,6 +263,20 @@ def shared_plain(views, starts, uniform: bool, tree, leaf_map):
         for lm in leaf_map]).to(torch.int32)
 
 
+def shared_programs(tree, leaf_map) -> tuple:
+    """K2's per-query programs: tree_program(tree) once for each row of
+    leaf_map, with every leaf op's leaf position replaced by the unique
+    run it names, so the kernel picks a run's word by its index and keeps
+    no leaf map. Returns B tuples of 16-bit ops."""
+    prog = tree_program(tree)
+    if len(prog) > _MAX_SHARED_PROG:
+        raise ValueError(f"program of {len(prog)} ops beyond K2's "
+                         f"{_MAX_SHARED_PROG}")
+    _check_leaf_positions(prog, min(len(m) for m in leaf_map))
+    return tuple(tuple(op if op >> 8 >= _PUSH else (op & 0xFF00) | m[op & 255]
+                       for op in prog) for m in leaf_map)
+
+
 def _shared(views, starts, tree, leaf_map, uniform: bool):
     views = tuple(views)
     leaf_map = tuple(tuple(int(u) for u in m) for m in leaf_map)
@@ -269,17 +289,23 @@ def _shared(views, starts, tree, leaf_map, uniform: bool):
                          f"{MAX_BATCH} x {MAX_SHARED_LEAVES}")
     if not _on_cuda(*views, starts):
         return shared_plain(views, starts, uniform, tree, leaf_map)
-    starts = starts.to(torch.int32).contiguous()
+    if any(p.data_ptr() % 16 for p in views):
+        raise ValueError("K2 copies 16-byte vectors: pools must start "
+                         "16-byte aligned")
     s = views[0].shape[0]
-    num_leaves = len(leaf_map[0])
-    out = torch.empty((len(leaf_map), s), dtype=torch.int32,
+    # One launch for both layouts: the uniform starts are expanded to the
+    # (U, S) table on the card.
+    starts = starts.to(torch.int32)
+    if uniform:
+        starts = starts[:, None].expand(len(views), s)
+    starts = starts.contiguous()
+    progs = shared_programs(tree, leaf_map)
+    bases, strides, ops, _ = _kernel_args(views, sum(progs, ()))
+    out = torch.zeros((len(leaf_map), s), dtype=torch.int32,
                       device=starts.device)
-    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree),
-                                                  num_leaves)
     rc = kernel_fn("coarse_count_shared")(
-        bases, strides, len(views), starts.data_ptr(), int(uniform), s,
-        prog, prog_len, num_leaves, bytes(u for m in leaf_map for u in m),
-        len(leaf_map), out.data_ptr(), _stream(out))
+        bases, strides, len(views), starts.data_ptr(), s, ops,
+        len(progs[0]), len(progs), out.data_ptr(), _stream(out))
     _launched("coarse_count_shared", rc)
     return out
 
@@ -294,7 +320,8 @@ def coarse_count_batch_per_slice(views, starts, tree, leaf_map):
 
 def coarse_count_shared_uniform(views, starts, tree, leaf_map):
     """coarse_count_batch_per_slice for the uniform layout: starts
-    (U,). Returns (B, S) int32."""
+    (U,), expanded to the (U, S) table for the same launch. Returns
+    (B, S) int32."""
     return _shared(views, starts, tree, leaf_map, uniform=True)
 
 

@@ -34,14 +34,14 @@ def card():
     return torch.device("cuda")
 
 
-def pools(seed: int, n: int):
+def pools(seed: int, n: int, s: int = S):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        p = rng.integers(0, 1 << 32, size=(S, RUNS * 16, 2048),
+        p = rng.integers(0, 1 << 32, size=(s, RUNS * 16, 2048),
                          dtype=np.uint32)
         p[0, 16:32] = 0xFFFFFFFF
-        p[1, 32:48] = 0
+        p[min(1, s - 1), 32:48] = 0
         out.append(torch.from_numpy(p.view(np.int32)))
     return tuple(out)
 
@@ -71,17 +71,45 @@ def test_coarse_kernels(card, t):
     check(tk.coarse_count_uniform_batch, ps, (scalars,), tree, card)
 
 
+FLAT16 = ["and"] + [["leaf", i] for i in range(16)]
+NESTED16 = ["or"] + [["andnot", ["leaf", 2 * i], ["leaf", 2 * i + 1]]
+                     for i in range(8)]
+# K2 cases: (tree, queries B, unique runs U, slices S). Cases 0-3 are the
+# four TREES over 3 unique runs; the rest span B and U from 1 to 16
+# (U picks how many positions a thread folds: 4 up to U = 4, 2 up to 8,
+# 1 up to 16), 16-leaf trees flat and nested, and slice counts that
+# leave the tiles of a slice split between blocks.
+SHARED_CASES = {
+    **{str(t): (tree, 16, 3, S) for t, tree in enumerate(TREES)},
+    "b1": (TREES[0], 1, 2, S),
+    "u1": (TREES[1], 16, 1, S),
+    "u16-wide": (TREES[3], 16, 16, 37),
+    "flat16": (FLAT16, 16, 16, 3),
+    "nested16": (NESTED16, 7, 16, 3),
+    "s1": (TREES[3], 16, 5, 1),
+    "s37-u3": (TREES[2], 16, 3, 37),
+    "s37-u8": (TREES[0], 16, 8, 37),
+    "s131-u8": (TREES[3], 9, 8, 131),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", range(len(TREES)))
+@pytest.mark.parametrize("t", sorted(SHARED_CASES))
 def test_shared_kernels(card, t):
-    tree = TREES[t]
+    tree, batch, unique, s = SHARED_CASES[t]
     n = nleaves(tree)
-    rng = np.random.default_rng(10 + t)
-    ps = pools(10 + t, 3)
-    leaf_map = tuple(tuple(int(u) for u in rng.integers(0, 3, size=n))
-                     for _ in range(16))
+    seed = 10 + sorted(SHARED_CASES).index(t)
+    rng = np.random.default_rng(seed)
+    base = pools(seed, min(unique, 3), s)
+    ps = tuple(base[u % len(base)] for u in range(unique))
+    leaf_map = [[int(u) for u in rng.integers(0, unique, size=n)]
+                for _ in range(batch)]
+    leaf_map[0][0] = unique - 1  # every unique run is read
+    leaf_map = tuple(tuple(m) for m in leaf_map)
     table = torch.from_numpy(
-        rng.integers(-1, RUNS, size=(3, S)).astype(np.int32))
+        rng.integers(-1, RUNS, size=(unique, s)).astype(np.int32))
+    if unique > 2:
+        table[1] = -1  # a run absent from every slice
     check(tk.coarse_count_batch_per_slice, ps, (table,), tree, card,
           leaf_map)
     check(tk.coarse_count_shared_uniform, ps, (table[:, 0],), tree, card,
@@ -121,12 +149,8 @@ def sparse_pool(rng, s, c, k):
     return torch.from_numpy(vals.view(np.int16)), torch.from_numpy(cards)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ka,kb", [(128, 128), (4096, 256), (8, 4096),
-                                   (100, 36)])
-def test_sparse_pair_kernel(card, ka, kb):
+def random_pair_case(ka, kb, s=6, r=16):
     rng = np.random.default_rng(ka + kb)
-    s, r = 6, 16
     a_vals, a_cards = sparse_pool(rng, s, 24, ka)
     b_vals, b_cards = sparse_pool(rng, s, 40, kb)
     # b shares a's values in some containers, so the counts are not all 0.
@@ -138,13 +162,120 @@ def test_sparse_pair_kernel(card, ka, kb):
     tables = [torch.from_numpy(t.astype(np.int32)) for t in (
         rng.integers(0, 24, size=(s, r)), rng.random((s, r)) < 0.8,
         rng.integers(0, 8, size=(s, r)), rng.random((s, r)) < 0.8)]
-    args = (a_vals, a_cards, b_vals, b_cards, *tables)
+    return (a_vals, a_cards, b_vals, b_cards, *tables), None
+
+
+def crafted_pairs(case, rng):
+    """(a, b) value lists of the pairs a crafted case holds."""
+    def pick(n, lo=0, hi=65536):
+        return sorted(rng.choice(np.arange(lo, hi), size=n, replace=False))
+
+    def one(lst):
+        return [int(lst[int(rng.integers(len(lst)))])]
+
+    full = list(range(0, 65536, 16))
+    if case == "4096-1":
+        return [(full, one(full)), (full, [1]), (full, [65520]),
+                (full, [0]), (full, [])]
+    if case == "1-4096":
+        return [(b, a) for a, b in crafted_pairs("4096-1", rng)]
+    if case == "full":
+        return [(full, [x + 8 * (i % 2) for i, x in enumerate(full)]),
+                (full, full), (pick(4096), pick(4096))]
+    if case == "identical":
+        return [(v, v) for v in (pick(2000), pick(1), pick(4096), [65535])]
+    if case == "disjoint":
+        return [(list(range(0, 8192, 2)), list(range(1, 8192, 2))),
+                (pick(300, 0, 30000), pick(300, 30000))]
+    if case == "one-off":
+        out = []
+        for n in (2, 17, 1500, 4000):
+            a = pick(n)
+            held = set(a)
+            b = held - {a[int(rng.integers(n))]}
+            b.add(one([x for x in range(65536) if x not in held][:50])[0])
+            out.append((a, sorted(b)))
+        return out
+    if case == "ends":
+        return [([0, 7, 65535], [0, 65535]), ([0], [0]), ([65535], [65535]),
+                ([65535], [0]), (list(range(65536 - 30, 65536)),
+                                 [0, 65534, 65535])]
+    raise KeyError(case)
+
+
+def crafted_case(case, k):
+    """One pool a side: slice i, container j holds pair 16 * i + j of the
+    case, repeated to fill 2 slices x 16 sub-keys, at value capacity k
+    (odd k: containers that are not 16-byte aligned). The "full" case
+    gives its first a-container a card above k, which counts as k."""
+    rng = np.random.default_rng(len(case))
+    pairs = crafted_pairs(case, rng)
+    s, r = 2, 16
+    sides = []
+    for side in (0, 1):
+        vals = np.full((s, r, k), 0xFFFF, dtype=np.uint16)
+        cards = np.zeros((s, r), dtype=np.int32)
+        for q in range(s * r):
+            v = pairs[q % len(pairs)][side]
+            vals[q // r, q % r, :len(v)] = v
+            cards[q // r, q % r] = len(v)
+        if case == "full" and side == 0:
+            cards[0, 0] = k + 904
+        sides += [torch.from_numpy(vals.view(np.int16)),
+                  torch.from_numpy(cards)]
+    idx = torch.arange(r, dtype=torch.int32).repeat(s, 1)
+    one = torch.ones((s, r), dtype=torch.int32)
+    want = torch.tensor([[len(set(pairs[(i * r + j) % len(pairs)][0])
+                              & set(pairs[(i * r + j) % len(pairs)][1]))
+                          for j in range(r)] for i in range(s)],
+                        dtype=torch.int32)
+    return (*sides, idx, one, idx, one), want
+
+
+# K4 cases: random pools at four capacity pairs (ids ka-kb), crafted
+# pairs (lopsided, full, identical, disjoint, one value apart, 0 and 65535
+# at the ends; 4095 and 37 are odd capacities, so unaligned containers,
+# and their b pool starts 2 bytes past a 16-byte boundary on the card),
+# and 200 x 16 pairs of 2,048-value capacity: more than one grid's worth
+# of warps.
+SPARSE_CASES = {
+    "128-128": lambda: random_pair_case(128, 128),
+    "4096-256": lambda: random_pair_case(4096, 256),
+    "8-4096": lambda: random_pair_case(8, 4096),
+    "100-36": lambda: random_pair_case(100, 36),
+    "4096-1": lambda: crafted_case("4096-1", 4096),
+    "1-4096": lambda: crafted_case("1-4096", 4096),
+    "full": lambda: crafted_case("full", 4096),
+    "identical": lambda: crafted_case("identical", 4096),
+    "disjoint": lambda: crafted_case("disjoint", 4096),
+    "one-off": lambda: crafted_case("one-off", 4096),
+    "ends": lambda: crafted_case("ends", 4096),
+    "one-off-odd-k": lambda: crafted_case("one-off", 4095),
+    "ends-odd-k": lambda: crafted_case("ends", 37),
+    "200x16": lambda: random_pair_case(2048, 2048, s=200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_sparse_pair_kernel(card, case):
+    args, truth = SPARSE_CASES[case]()
     want = tk.sparse_pair_count(*args)
+    if truth is None:
+        assert want.sum() > 0
+    else:
+        assert torch.equal(want, truth)
+    on_card = [t.to(card) for t in args]
+    if case.endswith("odd-k"):
+        b = on_card[2]
+        flat = torch.empty(b.numel() + 1, dtype=b.dtype, device=card)
+        flat[1:] = b.reshape(-1)
+        on_card[2] = flat[1:].view(b.shape)
+        assert on_card[2].data_ptr() % 16 == 2
     before = tk.LAUNCHES["sparse_pair_count"]
-    got = tk.sparse_pair_count(*(t.to(card) for t in args))
+    got = tk.sparse_pair_count(*on_card)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["sparse_pair_count"] == before + 1
-    assert want.sum() > 0
     assert torch.equal(got.cpu(), want)
 
 

@@ -244,12 +244,19 @@ def test_tree_program_runs_like_fold_tree():
 
 
 def test_kernel_args_check_leaf_positions():
-    # K2 folds 4 leaf positions over 3 unique pools; K1/K3 one per pool.
+    # K2 folds 4 leaf positions over 3 unique pools (its programs name the
+    # unique runs); K1/K3 read one pool per leaf position.
     pools = torch_pools([make_pool(1)] * 3)
     prog = tk.tree_program(TREES["nested"])
-    assert tk._kernel_args(pools, prog, 4)[3] == len(prog)
+    shared = tk.shared_programs(TREES["nested"], ((0, 1, 2, 0),))[0]
+    assert tk._kernel_args(pools, shared)[3] == len(prog)
     with pytest.raises(ValueError):
         tk._kernel_args(pools, prog)
+    with pytest.raises(ValueError):  # a leaf position beyond the leaf map
+        tk.shared_programs(TREES["nested"], ((0, 1, 2),))
+    with pytest.raises(ValueError):  # a unique run beyond the pools
+        tk._kernel_args(pools, tk.shared_programs(TREES["and"],
+                                                  ((0, 3),))[0])
 
 
 def test_shared_batch_beyond_limits_raises():
@@ -258,3 +265,40 @@ def test_shared_batch_beyond_limits_raises():
     with pytest.raises(ValueError):
         tk.coarse_count_shared_uniform(pools, tt([0]), TREES["and"], leaf_map)
 
+
+
+SHARED_TREES = dict(TREES, wide16=["or"] + [
+    ["and", ["leaf", 2 * i], ["leaf", 2 * i + 1]] for i in range(8)])
+
+
+@pytest.mark.parametrize("name", sorted(SHARED_TREES))
+def test_shared_programs_fold_like_shared_plain(name):
+    # K2's per-query programs (unique run indices folded into the leaf
+    # ops), run as the kernel runs them, against shared_plain.
+    tree = SHARED_TREES[name]
+    n = nleaves(tree)
+    rng = np.random.default_rng(13)
+    unique = [make_pool(130 + u) for u in range(3)]
+    starts = starts_table(rng, 3)
+    leaf_map = tuple(tuple(int(u) for u in rng.integers(0, 3, size=n))
+                     for _ in range(5))
+    progs = tk.shared_programs(tree, leaf_map)
+    assert len(progs) == len(leaf_map)
+    assert all(len(p) == len(tk.tree_program(tree)) for p in progs)
+    runs = [np.stack([p[s, 16 * st:16 * st + 16] if st >= 0
+                      else np.zeros((16, W), np.uint32)
+                      for s, st in enumerate(starts[u])])
+            for u, p in enumerate(unique)]
+    got = np.stack([np.bitwise_count(run_program(p, runs)).sum(
+        axis=(1, 2)) for p in progs])
+    want = tk.shared_plain(torch_pools(unique), tt(starts), False, tree,
+                           leaf_map)
+    assert (got == want.numpy()).all()
+
+
+def test_shared_programs_name_unique_runs():
+    # Leaf ops carry the unique index; PUSH and combine ops stay as they
+    # are.
+    progs = tk.shared_programs(TREES["nested"], ((2, 0, 1, 2), (0, 0, 0, 0)))
+    assert progs == ((0x002, 0x100, 0x400, 0x001, 0x302, 0x600),
+                     (0x000, 0x100, 0x400, 0x000, 0x300, 0x600))
