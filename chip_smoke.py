@@ -12,7 +12,8 @@ Phases, each fatal on failure:
      chiprun_out/ptxas/), and run the K0 canary (ops.kernels.probe_ok);
   3. kernels: every wrapper on the card at the main path's shapes, held
      exactly against its plain PyTorch version, and timed (CUDA events
-     over back-to-back calls, and the profiler's device time); K2 also
+     over back-to-back calls, and the profiler's device time, left null
+     when its trace misses launches); K2 also
      at its wide shape, 16 unique runs under 16 queries of a 4-leaf tree;
   4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
      whose frame `general` holds 8 dense random rows, one partial row
@@ -53,7 +54,36 @@ Phases, each fatal on failure:
      answer is checked against the numpy truth; K0 (at server start), K5
      and K1 must launch, `count_host` must not move, and torch.profiler
      measures the card's busy share of a round of Sums;
-  9. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+  9. time-quantum Range over HTTP: index `tq` (quantum YMD, inherited by
+     its frame `events`) of 96 slices, rows 0-3, each (row, day) of April
+     2017 a seeded random 1/64 of the columns: the 30 day views stage
+     sorted-array, the month, the year and `standard` dense. Every single
+     day (no launch), the month (one view), 2 days (K4), 7 days (the days
+     demote to packed words: K1) and 29 days (K1's lone path), then
+     timestamped SetBits seen through GET .../views and Ranges (one over
+     a view that does not exist) and quantum inheritance over HTTP. Every
+     answer is checked against numpy; K1 and K4 must launch, no Range
+     may count on the host, and the staged and demoted bytes are
+     recorded. Then the path's kernels at its shapes, as the manager
+     resolves them: K1 over the 7- and 29-day covers (one demoted day
+     view a leaf), K4 over the 2-day pair (two sorted-array day views),
+     and K1 on the 29-leaf tree over 29 random runs of the headline's 960
+     slices; each held exactly against its plain version and the truth,
+     and timed beside its bound;
+ 10. TopN over HTTP: lone TopN(frame=general, n=100) on the 960 slices
+     of phase 4 (p50 / p90 of 200 calls), then index `t`, frame `topn`
+     (the repo's TopN configuration: 4096 rows, one container per row
+     per slice, ~30% bitmaps of ~25% fill, the rest arrays of
+     n ~ U[1, 4096], 10% absent; 64 slices) in every form: n, threshold,
+     ids, a src Bitmap, field / filters after SetRowAttrs over HTTP on
+     100 rows (and a Bitmap's attrs), tanimotoThreshold. Every answer is
+     checked against numpy with the card path's semantics; every TopN
+     must run on the card and launch K5, which is then held exactly
+     against its plain version and the truth at the `topn` shape and at
+     `general`'s (10 rows x 960 slices) and timed beside its byte bound
+     and the index table's bytes; torch.profiler measures the card's
+     busy share of a round of TopNs;
+ 11. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -61,7 +91,10 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 10. a `kernels` JSON line, the card line, and the final
+ 12. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-10, each path's counters set to 0 just before it;
+     K6's and the stream's from the probe path, the one they serve; the
+     count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
 
 Each HTTP phase runs one full pass of Python's cyclic collector right
@@ -98,6 +131,7 @@ import sys
 import tempfile
 import threading
 import time
+from datetime import datetime, timedelta
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +176,8 @@ BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count")
 PROBE_PATH = ("coarse_count_blocked", "stream_popcount", "probe_ok",
               "coarse_count")
 PROBE_SLICES = (SLICES, 3072)  # the bandwidth probe's sweep
+# The kernels only the probe path launches.
+PROBE_ONLY = ("coarse_count_blocked", "stream_popcount")
 # The integer field: the repo's own BSI configuration (bench.py:2079-2167).
 BSI_FIELD, BSI_MIN, BSI_MAX = "val", -32768, 32767
 BSI_ROWS = 18        # existence, sign, 16 magnitude planes
@@ -423,31 +459,77 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of the kernels one call launches, by
-    torch.profiler over `reps` warm calls: the card's own time, without
-    the host gaps between calls that time_ms counts when a call's host
-    work outlasts its kernels."""
+WARM_CALLS = 10  # calls traced before a window of traced()
+WINDOW = "chip_smoke.window"
+
+
+def traced(fn, warm):
+    """Runs warm() and then fn() under torch.profiler (CPU and CUDA
+    activity), fn inside a record_function window after a synchronize.
+    A trace lacks the kernels of the first calls made after it opens
+    (1-9 of 10 on the H100), so only device activity that starts inside
+    the window counts; the window's own annotation on the device
+    timeline does not. Returns ({kernel key: ([warm (start, end) µs],
+    [window (start, end) µs])}, fn's wall seconds, synchronize
+    included)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm()
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        with record_function(WINDOW):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == WINDOW)
+    cuda = torch.autograd.DeviceType.CUDA
+    held: dict = {}
+    for e in events:
+        if e.device_type == cuda and e.key != WINDOW:
+            r = e.time_range
+            held.setdefault(e.key, ([], []))[
+                window.start <= r.start <= window.end].append(
+                    (r.start, r.end))
+    return held, wall
+
+
+def device_ms(fn, reps: int):
+    """Mean device milliseconds of the kernels one call launches, by
+    torch.profiler over `reps` calls after WARM_CALLS (traced()): the
+    card's own time, without the host gaps between calls that time_ms
+    counts when a call's host work outlasts its kernels. Returns (ms,
+    missed): ms is None when the window holds a count of some activity
+    that is no multiple of reps; missed lists each activity whose warm
+    calls or window lack launches, with what each held."""
+    def calls(n):
+        for _ in range(n):
+            fn()
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    held, _wall = traced(lambda: calls(reps), lambda: calls(WARM_CALLS))
+    us = sum(b - a for _, ins in held.values() for a, b in ins)
+    missed = [{"key": key[:80], "warm_held": len(warm),
+               "warm_calls": WARM_CALLS, "held": len(ins), "calls": reps}
+              for key, (warm, ins) in held.items()
+              if len(ins) % reps or len(warm) % WARM_CALLS]
+    whole = all(m["held"] % reps == 0 for m in missed)
+    if not whole:
+        log(f"  (the window lacks launches: {missed})")
+    return (us / reps / 1e3 if whole else None), missed
 
 
 def measure(cases, reps: int, plain_reps: int = 3) -> dict:
     """Each (wrapper, kernel, kernel call, plain call, bytes moved) case:
     the kernel held exactly against its plain version on the same card
     tensors, then timed: `ms` by CUDA events over back-to-back calls,
-    `device_ms` by the profiler, the plain version by events (skipped
-    when plain_reps is 0)."""
+    `device_ms` by the profiler (null when its trace missed launches),
+    the plain version by events (skipped when plain_reps is 0)."""
     import torch
 
     results = {}
@@ -459,15 +541,17 @@ def measure(cases, reps: int, plain_reps: int = 3) -> dict:
               f"{name}: kernel != plain (max err {err})")
         del got, want
         ms = time_ms(run, reps)
-        dev_ms = device_ms(run, reps)
+        dev_ms, missed = device_ms(run, reps)
         plain_ms = time_ms(plain, plain_reps) if plain_reps else None
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         results[name] = {"kernel": kernel, "ms": ms, "device_ms": dev_ms,
+                         "trace_missed": missed,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": "bytes", "bytes": nbytes,
                          "gb_per_s": nbytes / ms / 1e6, "max_abs_err": err}
         plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "-"
-        log(f"  {name:36s} {kernel:20s} {ms:8.4f} ms (device {dev_ms:.4f})"
+        dev_s = f"{dev_ms:.4f}" if dev_ms is not None else "null"
+        log(f"  {name:36s} {kernel:20s} {ms:8.4f} ms (device {dev_s})"
             f"  {nbytes / ms / 1e6:7.1f} GB/s  bound {bound_ms:.4f} ms  "
             f"plain {plain_s}  exact")
     return results
@@ -684,23 +768,24 @@ def concurrent(host, port, queries, want, rounds: int = 1) -> float:
 
 
 def profiled(fn) -> dict:
-    """Run fn under torch.profiler (CUDA activity only) and report the
-    device time of every kernel against the wall time."""
+    """Run fn under torch.profiler (traced(), after WARM_CALLS small
+    kernels) and report the device time of every kernel that starts in
+    fn's window against its wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    kernels = {e.key: e.self_device_time_total
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+    def warm():
+        x = torch.zeros(1, device="cuda")
+        for _ in range(WARM_CALLS):
+            x += 1
+
+    held, wall = traced(fn, warm)
+    kernels = {key: sum(b - a for a, b in ins)
+               for key, (_, ins) in held.items() if ins}
     busy = sum(kernels.values()) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
-            "device_us_by_kernel": kernels}
+            "device_us_by_kernel": kernels,
+            "warm_held": {key[:80]: len(w) for key, (w, _) in held.items()}}
 
 
 def collect_after_staging(phase: str) -> float:
@@ -1046,8 +1131,8 @@ def bsi_kernel_phase(holder, truth: BsiTruth, device, seed: int) -> dict:
     from pilosa_tpu_torch.ops.cuda_build import kernel_fn
     from pilosa_tpu_torch.ops.pool import pack_bitmap
     from pilosa_tpu_torch.parallel.mesh import (build_sharded_index,
-                                                container_table, dense_row,
-                                                leaf_layout)
+                                                dense_row, leaf_layout,
+                                                row_table)
     from pilosa_tpu_torch.parallel.plan import canonical_tree
 
     s = truth.num_slices
@@ -1062,13 +1147,13 @@ def bsi_kernel_phase(holder, truth: BsiTruth, device, seed: int) -> dict:
     pool = staged.words
     lay = [leaf_layout(staged.keys_host, dense_row(staged, r))
            for r in range(BSI_ROWS)]
-    ones = np.ones(s, dtype=np.int64)
+    check(staged.row_ids.tolist() == list(range(BSI_ROWS)), "18 rows")
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    tables = [container_table(lay, ones), container_table(lay[2:], ones),
-              container_table(lay[1:2], ones)[0]]
+    table = row_table(staged.keys_host, BSI_ROWS)
+    tables = [table, table[2:], table[1]]
     # Bytes of the containers present (K5 reads no absent one): the top
     # plane of a uniform 16-bit field is nearly empty (only -32768 sets
     # it), so the view holds ~17 full rows.
@@ -1285,7 +1370,658 @@ def bsi_phase(holder, truth: BsiTruth, card: str, device) -> dict:
             "ms_per_query": ms, "after_writes_s": restage_s, "profile": busy}
 
 
-# -- phase 9: the on-chip probe tools -------------------------------------------
+# -- phase 9: time-quantum Range and timestamped writes -------------------------
+
+# Index `tq` (quantum YMD, inherited by its frame `events`), the repo's
+# time-quantum configuration (bench.py:1136-1139) at TIME_SLICES slices:
+# rows 0-3, each (row, day) of April 2017 a seeded random 1/64 of the
+# columns. The days stage sorted-array; the month, the year and
+# `standard` hold their union (~37% fill) and stage dense.
+TIME_SLICES = 96
+TIME_ROWS = 4
+TIME_DAYS = 30
+TIME_WRITE_ROW = 5   # the row the timestamped SetBits write
+# (name, first day, day after the last): a cover of one view each day,
+# one month view, 2 days (K4), 7 days and 29 days (K1's lone path).
+TIME_COVERS = (("month", 1, 31), ("2 days", 20, 22), ("7 days", 3, 10),
+               ("29 days", 1, 30))
+TIME_PATH = ("coarse_count", "sparse_pair_count")
+
+
+def day_str(d: int) -> str:
+    """Day d of April 2017 (d = 31 is May 1) as a PQL time."""
+    return (datetime(2017, 3, 31) + timedelta(days=d)).strftime(
+        "%Y-%m-%dT%H:%M")
+
+
+def time_pql(r: int, start: str, end: str) -> str:
+    return (f'Count(Range(rowID={r}, frame=events, start="{start}", '
+            f'end="{end}"))')
+
+
+def days_pql(r: int, d0: int, d1: int) -> str:
+    return time_pql(r, day_str(d0), day_str(d1))
+
+
+class TimeTruth:
+    """The day rows of each slice, made from the seed, and the truth of
+    every cover (and every single day) per row, summed over slices."""
+
+    def __init__(self, num_slices: int, seed: int):
+        self.num_slices, self.seed = num_slices, seed
+        self.covers = {(name, r): 0 for name, _, _ in TIME_COVERS
+                       for r in range(TIME_ROWS)}
+        self.days = np.zeros((TIME_ROWS, TIME_DAYS), dtype=np.int64)
+
+    def slice_days(self, s: int) -> np.ndarray:
+        """(rows, days, 16, 1024) uint64: each bit set with p = 1/64 (an
+        AND of six random words)."""
+        rng = np.random.default_rng([self.seed, 11, s])
+        w = rng.integers(0, 2**64, size=(TIME_ROWS, TIME_DAYS, 16, 1024),
+                         dtype=np.uint64)
+        for _ in range(5):
+            w &= rng.integers(0, 2**64, size=w.shape, dtype=np.uint64)
+        return w
+
+    def add(self, w: np.ndarray) -> None:
+        self.days += np.bitwise_count(w).sum(axis=(2, 3), dtype=np.int64)
+        for name, d0, d1 in TIME_COVERS:
+            u = np.bitwise_or.reduce(w[:, d0 - 1:d1 - 1], axis=1)
+            for r in range(TIME_ROWS):
+                self.covers[(name, r)] += int(
+                    np.bitwise_count(u[r]).sum(dtype=np.int64))
+
+
+def add_time_index(holder, truth: TimeTruth) -> float:
+    """Index `tq` with quantum YMD and frame `events` (which inherits
+    it), its views injected slice by slice as whole storage images: the
+    30 day views as array containers, and `standard`, `standard_2017`
+    and `standard_201704` as the union's bitmap containers. Built by a
+    pool of threads. Returns the seconds spent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    t0 = time.monotonic()
+    idx = holder.create_index("tq", time_quantum="YMD")
+    frame = idx.create_frame("events")
+    check(str(frame.time_quantum) == "YMD", "frame inherits YMD")
+    days = [frame.create_view_if_not_exists(f"standard_201704{d:02d}")
+            for d in range(1, TIME_DAYS + 1)]
+    unions = [frame.create_view_if_not_exists(v) for v in
+              ("standard", "standard_2017", "standard_201704")]
+
+    def one(s):
+        w = truth.slice_days(s)
+        bits = np.unpackbits(w.view(np.uint8), axis=-1, bitorder="little")
+        for d, view in enumerate(days):
+            bm = Bitmap()
+            for r in range(TIME_ROWS):
+                for b in range(16):
+                    bm.keys.append(r * 16 + b)
+                    bm.containers.append(Container(array=np.flatnonzero(
+                        bits[r, d, b]).astype(np.uint32)))
+            view.create_fragment_if_not_exists(s).replace(bm)
+        u = np.bitwise_or.reduce(w, axis=1)
+        for view in unions:
+            bm = Bitmap()
+            for r in range(TIME_ROWS):
+                for b in range(16):
+                    bm.keys.append(r * 16 + b)
+                    bm.containers.append(Container(bitmap=u[r, b].copy()))
+            view.create_fragment_if_not_exists(s).replace(bm)
+        return w
+
+    with ThreadPoolExecutor(8) as pool:
+        for w in pool.map(one, range(truth.num_slices)):
+            truth.add(w)
+    return time.monotonic() - t0
+
+
+def staged_bytes(mgr, index: str) -> dict:
+    """Bytes of every staged view of an index: packed words (dense) and
+    sorted arrays with their cardinalities (sparse)."""
+    out = {"dense": 0, "sparse": 0, "views_dense": 0, "views_sparse": 0}
+    for (i, _f, _v), sv in mgr._views.items():
+        if i != index:
+            continue
+        out["dense"] += sv.sharded.words.numel() * 4
+        out["views_dense"] += sv.sharded.capacity > 0
+        if sv.sparse is not None:
+            out["sparse"] += (sv.sparse.values.numel() * 2
+                              + sv.sparse.cards.numel() * 4)
+            out["views_sparse"] += 1
+    return out
+
+
+def resolved(holder, mgr, index: str, query: str, num_slices: int):
+    """What the manager resolves for the child of the Count `query`,
+    lowered as the executor lowers it: a dense _CountRequest, a
+    _SparseCount or an int. Staging aside, it launches nothing."""
+    from pilosa_tpu_torch.parallel.plan import _lower_tree
+    from pilosa_tpu_torch.pql.parser import parse_string
+
+    leaves: list = []
+    shape = _lower_tree(holder, index,
+                        parse_string(query).calls[0].children[0], leaves)
+    check(shape is not None, f"{query} lowers")
+    return mgr._resolve(index, shape, leaves, range(num_slices), num_slices)
+
+
+def request_case(name: str, req):
+    """The kernel count_batch runs for one dense _CountRequest, as a
+    measure() case against its plain version: K1's uniform or per-slice
+    form over whole-row runs, else K3 over gathered containers. Bound:
+    the runs (containers) present, read once, the start (index) tables
+    and the (S,) output."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    check(hasattr(req, "layouts"), f"{name}: a dense count request")
+    pools, lays, tree = req.pools, req.layouts, req.tree
+    s, out_b = pools[0].shape[0], 4 * pools[0].shape[0]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            pools[0].device)
+
+    if all(lay.uniform is not None for lay in lays):
+        starts = dev([lay.uniform for lay in lays])
+        runs = s * sum(lay.uniform >= 0 for lay in lays)
+        return (name, "coarse_count",
+                lambda: tk.coarse_count_uniform(pools, starts, tree),
+                lambda: tk.coarse_plain(pools, starts, True, tree, 1),
+                runs * RUN_BYTES + out_b)
+    if all(lay.starts is not None for lay in lays):
+        starts = dev(np.stack([lay.starts for lay in lays]))
+        runs = sum(int((lay.starts >= 0).sum()) for lay in lays)
+        return (name, "coarse_count",
+                lambda: tk.coarse_count_per_slice(pools, starts, tree),
+                lambda: tk.coarse_plain(pools, starts, False, tree, 1),
+                runs * RUN_BYTES + starts.numel() * 4 + out_b)
+    idx = dev(np.stack([lay.idx for lay in lays]))[None]
+    hit = dev(np.stack([lay.hit for lay in lays]))[None]
+    return (name, "tree_count",
+            lambda: tk.tree_count_per_slice(pools, idx, hit, tree),
+            lambda: tk.tree_plain(pools, idx, hit, tree),
+            int(hit.sum()) * 2048 * 4 + 2 * idx.numel() * 4 + out_b)
+
+
+def sparse_request_case(name: str, req, device):
+    """K4 on the one sorted-array group (ss, every slice) of a two-leaf
+    _SparseCount, as a measure() case (sparse_pair_case), and the
+    per-(slice, container) cardinalities of its two leaves."""
+    import torch
+
+    jobs = [j for j in req.jobs if j[0] == "ss"]
+    check(len(req.jobs) == 1 and len(jobs) == 1 and jobs[0][-1].all(),
+          f"{name}: one sorted-array group over every slice")
+    _, pa, pb, ia, ha, ib, hb, _sel = jobs[0]
+    args = (pa[0], pa[1], pb[0], pb[1], *(
+        torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
+        for t in (ia, ha, ib, hb)))
+    la = np.take_along_axis(pa[1].cpu().numpy(), ia, 1) * ha
+    lb = np.take_along_axis(pb[1].cpu().numpy(), ib, 1) * hb
+    return (name,) + sparse_pair_case(args, la, lb)[1:], la, lb
+
+
+def time_phase(holder, truth: TimeTruth, card: str, device) -> dict:
+    """Time Ranges over HTTP, each held against the numpy truth: every
+    single day (the days stage sorted-array and a lone leaf launches
+    nothing), a month (one dense view), 2 days (two sorted-array leaves:
+    K4), 7 days (a wider OR demotes the days to packed words: K1) and 29
+    days (beyond K2's 16 leaves: K1's lone path). Then timestamped
+    SetBits over HTTP, seen through GET .../views and Ranges (one over a
+    view that does not exist), and quantum inheritance over HTTP. The
+    counters are set to 0 just before the server starts and read after
+    the last query."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    tk.reset_launches()
+    srv = serve(holder, device=device)
+    host, port = srv.address
+    ex = srv.handler.executor
+    mgr = ex.mesh_manager()
+    c = Client(host, port)
+    ms = {}
+
+    def ask(q, want):
+        got = c.call("POST", "/index/tq/query", q)["results"][0]
+        check(got == want, (q, got, want))
+
+    def timed(q, want, n):
+        t0 = time.monotonic()
+        for _ in range(n):
+            ask(q, want)
+        return (time.monotonic() - t0) / n * 1e3
+
+    try:
+        t0 = time.monotonic()
+        for d in range(1, TIME_DAYS + 1):
+            for r in range(TIME_ROWS):
+                ask(days_pql(r, d, d + 1), int(truth.days[r, d - 1]))
+        torch.cuda.synchronize()
+        days_s = time.monotonic() - t0
+        sorted_bytes = staged_bytes(mgr, "tq")
+        check(sorted_bytes["views_sparse"] == TIME_DAYS,
+              f"the days staged sorted-array: {sorted_bytes}")
+        log(f"time phase: {TIME_DAYS * TIME_ROWS} single days (staging "
+            f"{TIME_DAYS} sorted-array views, {sorted_bytes['sparse']} B) "
+            f"in {days_s:.2f} s")
+        collect_ms = collect_after_staging("time phase")
+        k_before = dict(tk.LAUNCHES)
+        ask(days_pql(0, 5, 6), int(truth.days[0, 4]))
+        check(dict(tk.LAUNCHES) == k_before, "a single day launched nothing")
+        first = {}
+        for name, d0, d1 in TIME_COVERS:
+            t0 = time.monotonic()
+            for r in range(TIME_ROWS):
+                ask(days_pql(r, d0, d1), truth.covers[(name, r)])
+            torch.cuda.synchronize()
+            first[name] = time.monotonic() - t0
+            if name == "2 days":
+                check(tk.LAUNCHES["sparse_pair_count"]
+                      > k_before["sparse_pair_count"], "2 days launched K4")
+                # K4's inputs as the pair resolves now: the 7- and
+                # 29-day covers demote these views.
+                k4_case, la, lb = sparse_request_case(
+                    "sparse_pair_count (2 days)", resolved(
+                        holder, mgr, "tq", days_pql(1, d0, d1),
+                        TIME_SLICES), device)
+        demoted = staged_bytes(mgr, "tq")
+        log(f"time phase: first covers (staging and demotes included) "
+            f"{json.dumps(first)}; staged after the demotes {demoted}")
+        collect_after_staging("time phase (demoted)")
+        for name, d0, d1 in TIME_COVERS:
+            ms[name] = timed(days_pql(1, d0, d1), truth.covers[(name, 1)],
+                             PROFILED_CALLS)
+        busy = profiled(lambda: timed(days_pql(2, 1, 30),
+                                      truth.covers[("29 days", 2)],
+                                      PROFILED_CALLS))
+        # Timestamped writes: a new month and day view, and a Range whose
+        # cover holds a view that does not exist (May 1).
+        cols = [3, (1 << 20) * (TIME_SLICES - 1) + 5, 777_777]
+        for col in cols:
+            got = c.call("POST", "/index/tq/query",
+                         f"SetBit(rowID={TIME_WRITE_ROW}, frame=events, "
+                         f'columnID={col}, timestamp="2017-05-02T10:00")')
+            check(got == {"results": [True]}, ("SetBit", col, got))
+        views = c.call("GET", "/index/tq/frame/events/views")["views"]
+        check({"standard_201705", "standard_20170502"} <= set(views)
+              and len(views) == 3 + TIME_DAYS + 2, views)
+        # May (one new view), May 2, April 30 - May 2 (May 1 has no
+        # view), April (row 5 holds nothing there).
+        for start, end, want in (
+                ("2017-05-01T00:00", "2017-06-01T00:00", len(cols)),
+                ("2017-05-02T00:00", "2017-05-03T00:00", len(cols)),
+                ("2017-04-30T00:00", "2017-05-03T00:00", len(cols)),
+                ("2017-04-01T00:00", "2017-05-01T00:00", 0)):
+            ask(time_pql(TIME_WRITE_ROW, start, end), want)
+        absent_before = mgr.stats.get("absent_views", 0)
+        ask(time_pql(TIME_WRITE_ROW, "2017-05-01T00:00",
+                     "2017-05-02T00:00"), 0)
+        check(mgr.stats.get("absent_views", 0) == absent_before + 1,
+              "a cover of absent views answered without a launch")
+        # Quantum inheritance over HTTP.
+        c.call("POST", "/index/tq2", '{"options": {"timeQuantum": "YM"}}')
+        c.call("POST", "/index/tq2/frame/f", "{}")
+        c.call("POST", "/index/tq2/query", 'SetBit(rowID=1, frame=f, '
+               'columnID=9, timestamp="2017-04-02T09:00")')
+        views2 = c.call("GET", "/index/tq2/frame/f/views")["views"]
+        check(views2 == ["standard", "standard_2017", "standard_201704"],
+              views2)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        stats = dict(ex.stats)
+        mstats = dict(mgr.stats)
+        # K1 on the 7- and 29-day covers as the main path ran them: one
+        # staged (demoted) day view a leaf.
+        covers = {name: resolved(holder, mgr, "tq", days_pql(1, d0, d1),
+                                 TIME_SLICES)
+                  for name, d0, d1 in TIME_COVERS
+                  if name in ("7 days", "29 days")}
+    finally:
+        c.close()
+        srv.close()
+    kern = time_kernel_cases(truth, covers, k4_case, la, lb, device)
+    log(f"time phase on {card}: ms per Count(Range) {json.dumps(ms)}")
+    log(f"time phase launches {launches}; executor {stats}")
+    log(f"time phase profile ({PROFILED_CALLS} Counts of 29 days): device "
+        f"busy "
+        f"{busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s wall = "
+        f"{busy['device_busy_share']:.4f}")
+    log(f"time phase stats {json.dumps(mstats, sort_keys=True)}")
+    for k in TIME_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the time path")
+    check(stats.get("count_host", 0) == 0, "no time Range on the host")
+    check(mstats.get("sparse_demote", 0) >= 29, "the days demoted")
+    return {"launches": launches, "stats": stats, "mesh_stats": mstats,
+            "slices": TIME_SLICES, "collect_after_staging_ms": collect_ms,
+            "single_days_s": days_s, "first_cover_s": first,
+            "ms_per_query": ms, "profile": busy,
+            "staged_sorted_array": sorted_bytes,
+            "staged_after_demotes": demoted, "kernels": kern}
+
+
+def time_kernel_cases(truth: TimeTruth, covers: dict, k4_case, la, lb,
+                      device) -> dict:
+    """The time path's kernels at its own shapes, each held exactly
+    against its plain version and timed, and its total against the
+    numpy truth: K1 over the 7- and 29-day covers (one pool a leaf, 96
+    slices), K4 over the 2-day pair, and K1 on the 29-day tree over 29
+    random row runs at the headline's SLICES, where K1 fills the card."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    cover_cases = {name: request_case(f"coarse_count ({name})", req)
+                   for name, req in covers.items()}
+    for name, case in cover_cases.items():
+        got = int(case[2]().sum())
+        check(got == truth.covers[(name, 1)],
+              (case[0], got, truth.covers[(name, 1)]))
+    inter = k4_case[2]().cpu().numpy()
+    check(op_count("or", inter, la, lb) == truth.covers[("2 days", 1)],
+          "K4 over 2 days = truth")
+    req_tree = covers["29 days"].tree
+    pool, starts, _tab = random_runs(SLICES, TIME_DAYS - 1, device,
+                                     truth.seed + 5)
+    pools = (pool,) * (TIME_DAYS - 1)
+    wide = (f"coarse_count (29 days, S={SLICES})", "coarse_count",
+            lambda: tk.coarse_count_uniform(pools, starts, req_tree),
+            lambda: tk.coarse_plain(pools, starts, True, req_tree, 1),
+            (TIME_DAYS - 1) * SLICES * RUN_BYTES + 4 * SLICES)
+    log("time phase kernels (row 1; each held exactly against its plain "
+        "version):")
+    out = measure([*cover_cases.values(), k4_case, wide], 20)
+    del pool, pools
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: TopN, its rank cache and the attribute stores --------------------
+
+# Index `t`, frame `topn`: the repo's own TopN configuration
+# (bench.py:114-150, 1979-2019) at TOPN_SLICES slices: 4096 rows, one
+# container (block 0) per row per slice, ~30% bitmaps of ~25% fill, the
+# rest sorted arrays of n ~ U[1, 4096], 10% of rows absent per slice.
+# Row 0 is a bitmap in every slice: the src of the Tanimoto query.
+TOPN_SLICES = 64
+TOPN_ROWS = 4096
+TOPN_N = 100
+TOPN_LONE_CALLS = 200  # lone TopN(frame=general, n=100) over HTTP
+TOPN_TIMED_CALLS = 50  # lone TopN(frame=topn, n=100), timed
+PROFILED_CALLS = 20    # the round torch.profiler reads
+TOPN_ATTR_ROWS = np.arange(0, TOPN_ROWS, 41)[:100]  # SetRowAttrs targets
+TOPN_TANIMOTO = 10
+TOPN_PATH = ("pair_count", "probe_ok")
+
+
+class TopnTruth:
+    """Per-row totals over the slices: `counts` (bits), `inter` (bits in
+    common with row 0)."""
+
+    def __init__(self, num_slices: int, seed: int):
+        self.num_slices, self.seed = num_slices, seed
+        self.counts = np.zeros(TOPN_ROWS, dtype=np.int64)
+        self.inter = np.zeros(TOPN_ROWS, dtype=np.int64)
+
+    def slice_rows(self, s: int):
+        """(words (rows, 1024) uint64, bitmap rows, {array row: sorted
+        uint32 values}) of slice s."""
+        rng = np.random.default_rng([self.seed, 13, s])
+        present = rng.random(TOPN_ROWS) >= 0.1
+        is_bm = rng.random(TOPN_ROWS) < 0.3
+        present[0] = is_bm[0] = True
+        bm_rows = np.flatnonzero(present & is_bm)
+        w = np.zeros((TOPN_ROWS, 1024), dtype=np.uint64)
+        w[bm_rows] = (rng.integers(0, 2**64, size=(len(bm_rows), 1024),
+                                   dtype=np.uint64)
+                      & rng.integers(0, 2**64, size=(len(bm_rows), 1024),
+                                     dtype=np.uint64))
+        perm = rng.permutation(65536).astype(np.uint32)
+        arr_rows = np.flatnonzero(present & ~is_bm)
+        ns = rng.integers(1, 4097, size=len(arr_rows))
+        starts = rng.integers(0, 65536 - ns)
+        arrays = {int(r): np.sort(perm[a:a + n])
+                  for r, a, n in zip(arr_rows, starts, ns)}
+        if arrays:
+            pos = np.concatenate([v.astype(np.int64) + (r << 16)
+                                  for r, v in arrays.items()])
+            np.bitwise_or.at(w.view(np.uint8).reshape(-1), pos >> 3,
+                             (1 << (pos & 7)).astype(np.uint8))
+        return w, bm_rows, arrays
+
+    def add(self, w: np.ndarray) -> None:
+        self.counts += np.bitwise_count(w).sum(axis=1, dtype=np.int64)
+        self.inter += np.bitwise_count(w & w[0]).sum(axis=1, dtype=np.int64)
+
+    @staticmethod
+    def rank(counts, n: int, thr: int = 1, ids=None, keep=None):
+        """TopN's pairs on the card path: exact totals at or above the
+        threshold, by count then id; `ids` restricts the rows (and n is
+        then 0), `keep` is the attr filter."""
+        rows = np.arange(len(counts))
+        sel = counts >= max(thr, 1)
+        if ids is not None:
+            sel &= np.isin(rows, ids)
+            n = 0
+        if keep is not None:
+            sel &= keep
+        order = np.lexsort((rows[sel], -counts[sel]))
+        out = [{"id": int(r), "count": int(k)} for r, k in
+               zip(rows[sel][order], counts[sel][order])]
+        return out[:n] if n else out
+
+    def tanimoto(self, t: int, n: int = 0):
+        src = int(self.counts[0])
+        full, inter = self.counts, self.inter
+        band = (full > src * t / 100.0) & (full < src * 100.0 / t) & (inter > 0)
+        union = np.maximum(full + src - inter, 1)
+        sim = -(-100 * inter // union)
+        return self.rank(np.where(band & (sim > t), inter, 0), n)
+
+
+def add_topn_index(holder, truth: TopnTruth) -> float:
+    """Index `t`, frame `topn`: slice by slice as whole storage images
+    (the rank cache is rebuilt from each image), by a pool of threads.
+    Returns the seconds spent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    t0 = time.monotonic()
+    view = holder.create_index("t").create_frame(
+        "topn").create_view_if_not_exists("standard")
+
+    def one(s):
+        w, bm_rows, arrays = truth.slice_rows(s)
+        bm = Bitmap()
+        for r in sorted(set(bm_rows.tolist()) | set(arrays)):
+            bm.keys.append(r * 16)
+            bm.containers.append(Container(array=arrays[r]) if r in arrays
+                                 else Container(bitmap=w[r].copy()))
+        view.create_fragment_if_not_exists(s).replace(bm)
+        return w
+
+    with ThreadPoolExecutor(8) as pool:
+        for w in pool.map(one, range(truth.num_slices)):
+            truth.add(w)
+    return time.monotonic() - t0
+
+
+def general_topn(words: np.ndarray, n: int):
+    counts = np.bitwise_count(words).sum(axis=(0, 2, 3), dtype=np.int64)
+    return TopnTruth.rank(counts, n)
+
+
+def rows_case(mgr, key, want: np.ndarray, name: str) -> dict:
+    """K5 over a staged view at its serving shape, as TopN runs it
+    (every row, b = none), held exactly against its plain version
+    (plain timed once: it takes seconds) and its totals against `want`
+    (the numpy truth by row id), and timed. Bound: the containers
+    present, read once, the index table and the (R,) output."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    sv = mgr._views[key]
+    pool, a_idx = sv.sharded.words, sv.row_table()
+    present = int((a_idx >= 0).sum())
+    nbytes = present * 8192 + a_idx.numel() * 4 + 8 * a_idx.shape[0]
+    got = tk.pair_count_rows(pool, a_idx).cpu().numpy()
+    check(got.tolist() == want[sv.sharded.row_ids.astype(np.int64)].tolist(),
+          f"{name}: K5 = truth")
+    res = measure([(name, "pair_count",
+                    lambda: tk.pair_count_rows(pool, a_idx),
+                    lambda: tk.pair_rows_plain(pool, a_idx, "and", None,
+                                               None, None), nbytes)],
+                  20, plain_reps=1)[name]
+    res.update(library_ms=None, index_table_bytes=a_idx.numel() * 4,
+               pool_bytes=pool.numel() * 4, containers_present=present,
+               shape=list(a_idx.shape))
+    log(f"  {name}: index table {a_idx.numel() * 4} B, pool "
+        f"{pool.numel() * 4} B, {present} containers present")
+    return res
+
+
+def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
+               device) -> dict:
+    """TopN over HTTP: lone TopN(frame=general, n=100) on the headline's
+    960 slices (p50 / p90 of TOPN_LONE_CALLS calls), then frame `topn`
+    in every form (n, threshold, ids, a src Bitmap, field / filters
+    after SetRowAttrs over HTTP on 100 rows, tanimotoThreshold), each
+    held against the numpy truth with the card path's semantics, and a
+    Bitmap's attrs. K5 at the `topn` shape against its plain version.
+    The counters are set to 0 just before the server starts (it
+    launches K0) and read after the last query."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    want_general = general_topn(words, TOPN_N)
+    thr = int(np.sort(truth.counts)[-300])
+    ids = sorted(np.random.default_rng(truth.seed).choice(
+        TOPN_ROWS, 50, replace=False).tolist()) + [TOPN_ROWS + 7]
+    cats = {int(r): "ab"[k % 2] for k, r in enumerate(TOPN_ATTR_ROWS)}
+    keep_a = np.zeros(TOPN_ROWS, dtype=bool)
+    keep_a[[r for r, v in cats.items() if v == "a"]] = True
+    queries = [
+        (f"TopN(frame=topn, n={TOPN_N})", truth.rank(truth.counts, TOPN_N)),
+        (f"TopN(frame=topn, n={TOPN_N}, threshold={thr})",
+         truth.rank(truth.counts, TOPN_N, thr)),
+        (f"TopN(frame=topn, threshold={thr})",
+         truth.rank(truth.counts, 0, thr)),
+        (f"TopN(frame=topn, ids={json.dumps(ids).replace(' ', '')})",
+         truth.rank(truth.counts, 0, ids=ids)),
+        (f"TopN(Bitmap(rowID=0, frame=topn), frame=topn, n={TOPN_N})",
+         truth.rank(truth.inter, TOPN_N)),
+        (f'TopN(frame=topn, n=10, field="cat", filters=["a"])',
+         truth.rank(truth.counts, 10, keep=keep_a)),
+        (f"TopN(Bitmap(rowID=0, frame=topn), frame=topn, "
+         f"tanimotoThreshold={TOPN_TANIMOTO})",
+         truth.tanimoto(TOPN_TANIMOTO)),
+    ]
+    tk.reset_launches()
+    srv = serve(holder, device=device)
+    host, port = srv.address
+    ex = srv.handler.executor
+    mgr = ex.mesh_manager()
+    c = Client(host, port)
+
+    def ask(index, q, want):
+        got = c.call("POST", f"/index/{index}/query", q)["results"][0]
+        check(got == want, (q, str(got)[:200], str(want)[:200]))
+
+    def lat(index, q, want, n):
+        out = []
+        for _ in range(n):
+            t0 = time.monotonic()
+            ask(index, q, want)
+            out.append((time.monotonic() - t0) * 1e3)
+        return {"calls": n, "p50_ms": float(np.percentile(out, 50)),
+                "p90_ms": float(np.percentile(out, 90)),
+                "mean_ms": float(np.mean(out))}
+
+    try:
+        gq = f"TopN(frame=general, n={TOPN_N})"
+        t0 = time.monotonic()
+        ask("i", gq, want_general)
+        general_first_s = time.monotonic() - t0
+        lone = lat("i", gq, want_general, TOPN_LONE_CALLS)
+        log(f"topn phase: lone {gq} over HTTP at {SLICES} slices: p50 "
+            f"{lone['p50_ms']:.3f} ms, p90 {lone['p90_ms']:.3f} ms "
+            f"({TOPN_LONE_CALLS} calls; first {general_first_s:.2f} s)")
+        t0 = time.monotonic()
+        ask("t", *queries[0])
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        staged = staged_bytes(mgr, "t")
+        table_b = mgr._views[("t", "topn", "standard")].rows_dev.numel() * 4
+        log(f"topn phase: first TopN (staging {staged['dense']} B, index "
+            f"table {table_b} B) {first_s:.2f} s")
+        collect_ms = collect_after_staging("topn phase")
+        body = " ".join(f'SetRowAttrs(frame=topn, rowID={r}, cat="{v}")'
+                        for r, v in cats.items())
+        got = c.call("POST", "/index/t/query", body)
+        check(got == {"results": [None] * len(cats)}, "SetRowAttrs")
+        r0 = int(TOPN_ATTR_ROWS[2])
+        got = c.call("POST", "/index/t/query",
+                     f"Bitmap(rowID={r0}, frame=topn)")["results"][0]
+        check(got["attrs"] == {"cat": cats[r0]}, ("Bitmap attrs", got["attrs"]))
+        for q, want in queries:
+            ask("t", q, want)
+        check(len(queries[-1][1]) > 0, "the Tanimoto band holds rows")
+        topn_lat = lat("t", queries[0][0], queries[0][1], TOPN_TIMED_CALLS)
+        busy = profiled(lambda: lat("t", queries[0][0], queries[0][1],
+                                    PROFILED_CALLS))
+        log(f"topn phase: TopN(frame=topn, n={TOPN_N}) p50 "
+            f"{topn_lat['p50_ms']:.3f} ms, p90 {topn_lat['p90_ms']:.3f} ms")
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        stats = dict(ex.stats)
+        mstats = dict(mgr.stats)
+        kern = {
+            "pair_count_rows (TopN, frame topn)": rows_case(
+                mgr, ("t", "topn", "standard"), truth.counts,
+                f"pair_count_rows (TopN, {TOPN_ROWS} rows x {TOPN_SLICES} "
+                f"slices)"),
+            "pair_count_rows (TopN, frame general)": rows_case(
+                mgr, ("i", "general", "standard"), np.bitwise_count(
+                    words).sum(axis=(0, 2, 3), dtype=np.int64),
+                f"pair_count_rows (TopN, {words.shape[1]} rows x "
+                f"{words.shape[0]} slices)")}
+    finally:
+        c.close()
+        srv.close()
+    log(f"topn phase on {card}: launches {launches}; executor {stats}")
+    log(f"topn phase profile ({PROFILED_CALLS} TopNs of frame topn): "
+        f"device busy "
+        f"{busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s wall = "
+        f"{busy['device_busy_share']:.4f}")
+    log(f"topn phase stats {json.dumps(mstats, sort_keys=True)}")
+    for k in TOPN_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the TopN path")
+    check(stats.get("topn_host", 0) == 0 and stats.get("topn_device", 0)
+          == 1 + TOPN_LONE_CALLS + 1 + len(queries) + TOPN_TIMED_CALLS
+          + PROFILED_CALLS,
+          f"every TopN on the card: {stats}")
+    check(mstats.get("kernel:pair_count_rows", 0) >= stats["topn_device"],
+          "each TopN counted on K5")
+    return {"launches": launches, "stats": stats, "mesh_stats": mstats,
+            "slices": TOPN_SLICES, "rows": TOPN_ROWS,
+            "lone_general": lone, "general_first_s": general_first_s,
+            "topn_latency": topn_lat, "first_query_s": first_s,
+            "collect_after_staging_ms": collect_ms, "staged": staged,
+            "index_table_bytes": table_b, "profile": busy, "kernels": kern}
+
+
+# -- phase 11: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -1632,16 +2368,37 @@ def main(argv=None) -> int:
             kern.update(bsi_kernel_phase(holder, truth, device, args.seed))
             bsi = bsi_phase(holder, truth, card, device)
             bsi["data_s"] = gen_s
+            ttruth = TimeTruth(TIME_SLICES, args.seed)
+            gen_s = add_time_index(holder, ttruth)
+            gc.collect()
+            log(f"time data: {TIME_SLICES} slices x {TIME_DAYS} days of "
+                f"{TIME_ROWS} rows made and injected in {gen_s:.2f} s")
+            tq = time_phase(holder, ttruth, card, device)
+            tq["data_s"] = gen_s
+            kern.update(tq["kernels"])
+            ntruth = TopnTruth(TOPN_SLICES, args.seed)
+            gen_s = add_topn_index(holder, ntruth)
+            gc.collect()
+            log(f"topn data: {TOPN_SLICES} slices of {TOPN_ROWS} rows made "
+                f"and injected in {gen_s:.2f} s")
+            topn = topn_phase(holder, words, ntruth, card, device)
+            topn["data_s"] = gen_s
+            kern.update(topn["kernels"])
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
     kern.update(probes["kernels"])
 
-    # Each kernel's launches come from the path it serves.
-    served = {"sparse_pair_count": sps, "probe_ok": bsi, "pair_count": bsi,
-              "coarse_count_blocked": probes,
-              "stream_popcount": probes}
-    launches = {k: served.get(k, sl)["launches"][k] for k in KERNELS}
+    # Each kernel's launches: the sum over the serving paths, each counted
+    # from 0 just before it was driven; K6 and the stream serve only the
+    # probe path, whose own loops the other kernels' counts leave out.
+    paths = {"dense": sl, "sparse": sps, "bsi": bsi, "time": tq,
+             "topn": topn, "probes": probes}
+    by_path = {k: {p: r["launches"][k] for p, r in paths.items()}
+               for k in KERNELS}
+    launches = {k: sum(n for p, n in by_path[k].items()
+                       if (p == "probes") == (k in PROBE_ONLY))
+                for k in KERNELS}
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rows = {w: r for w, r in kern.items() if r["kernel"] == name}
@@ -1649,6 +2406,7 @@ def main(argv=None) -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": main_row["ms"], "device_ms": main_row.get("device_ms"),
             "plain_ms": main_row["plain_ms"],
@@ -1662,7 +2420,8 @@ def main(argv=None) -> int:
          "cuda": torch.version.cuda, "slices": SLICES,
          "seed": args.seed, "build_s": build_s, "ptxas": ptxas,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
-         "bsi_slice": bsi, "probes": probes,
+         "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
+         "probes": probes,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

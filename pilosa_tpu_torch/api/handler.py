@@ -1,10 +1,17 @@
 """HTTP handler: the routes of this slice, with the JAX handler's JSON
 bodies and status codes.
 
-  POST /index/{index}                 create an index   -> {}
-  POST /index/{index}/frame/{frame}   create a frame    -> {}
-  POST /index/{index}/query           PQL body          -> {"results": [...]}
-  GET  /schema                                          -> {"indexes": [...]}
+  POST  /index/{index}                 create an index   -> {}
+  PATCH /index/{index}/time-quantum    {"timeQuantum"}   -> {}
+  POST  /index/{index}/frame/{frame}   create a frame    -> {}
+  PATCH /index/{index}/frame/{frame}/time-quantum        -> {}
+  GET   /index/{index}/frame/{frame}/views               -> {"views": [...]}
+  POST  /index/{index}/query           PQL body          -> {"results": [...]}
+        (?slices=0,1 restricts the slices; ?columnAttrs=true adds
+        "columnAttrs", the attrs of the columns in Bitmap results)
+  GET   /schema                                          -> {"indexes": [...]}
+
+A Bitmap result is {"attrs", "bits"}, a TopN result [{"id", "count"}].
 
 Errors answer {"error": message}: 404 for a missing index, frame or
 integer field, 409 for one that exists, 422 for a value outside a field's
@@ -19,6 +26,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 from ..bsi.field import FieldNotFoundError, FieldValueError
 from ..core.row import Row
+from ..core.timequantum import parse_time_quantum
 from ..errors import (FrameExistsError, FrameNotFoundError, IndexExistsError,
                       IndexNotFoundError, PilosaError)
 from ..pql import ParseError, parse_string
@@ -58,6 +66,8 @@ def _result_to_json(result):
     if isinstance(result, Row):
         return {"attrs": result.attrs,
                 "bits": [int(c) for c in result.columns()]}
+    if isinstance(result, list):  # TopN pairs
+        return [{"id": int(k), "count": int(n)} for k, n in result]
     return result  # int, bool, a Sum/Min/Max {value, count}, or None
 
 
@@ -91,9 +101,16 @@ class Handler:
         self._routes: List[Route] = []
         r = self._add_route
         r("POST", r"/index/(?P<index>[^/]+)", self._post_index)
+        r("PATCH", r"/index/(?P<index>[^/]+)/time-quantum",
+          self._patch_index_time_quantum)
         r("POST", r"/index/(?P<index>[^/]+)/query", self._post_query)
         r("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)",
           self._post_frame)
+        r("PATCH",
+          r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/time-quantum",
+          self._patch_frame_time_quantum)
+        r("GET", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/views",
+          self._get_frame_views)
         r("GET", r"/schema", self._get_schema)
 
     def _add_route(self, method: str, pattern: str, fn: Callable):
@@ -136,12 +153,34 @@ class Handler:
         opts = _decode_options(body, {
             "rowLabel": "row_label", "inverseEnabled": "inverse_enabled",
             "cacheType": "cache_type", "cacheSize": "cache_size",
-            "fields": "fields"})
+            "timeQuantum": "time_quantum", "fields": "fields"})
         idx = self.holder.index(pv["index"])
         if idx is None:
             raise IndexNotFoundError()
         idx.create_frame(pv["frame"], **opts)
         return _json_resp({})
+
+    def _patch_index_time_quantum(self, pv, params, body) -> Response:
+        q = json.loads(body.decode() or "{}").get("timeQuantum", "")
+        idx = self.holder.index(pv["index"])
+        if idx is None:
+            raise IndexNotFoundError()
+        idx.set_time_quantum(parse_time_quantum(q))
+        return _json_resp({})
+
+    def _patch_frame_time_quantum(self, pv, params, body) -> Response:
+        q = json.loads(body.decode() or "{}").get("timeQuantum", "")
+        f = self.holder.frame(pv["index"], pv["frame"])
+        if f is None:
+            raise FrameNotFoundError()
+        f.set_time_quantum(parse_time_quantum(q))
+        return _json_resp({})
+
+    def _get_frame_views(self, pv, params, body) -> Response:
+        f = self.holder.frame(pv["index"], pv["frame"])
+        if f is None:
+            raise FrameNotFoundError()
+        return _json_resp({"views": sorted(f.views)})
 
     def _post_query(self, pv, params, body) -> Response:
         slices = [int(s) for s in params.get("slices", "").split(",")
@@ -153,4 +192,20 @@ class Handler:
             return _json_resp({"error": str(e)}, _error_status(e))
         except (PilosaError, ParseError) as e:
             return _json_resp({"error": str(e)}, 400)
-        return _json_resp({"results": [_result_to_json(r) for r in results]})
+        out = {"results": [_result_to_json(r) for r in results]}
+        if params.get("columnAttrs") == "true":
+            out["columnAttrs"] = [{"id": cid, "attrs": attrs} for cid, attrs
+                                  in self._column_attr_sets(pv["index"],
+                                                            results)]
+        return _json_resp(out)
+
+    def _column_attr_sets(self, index: str, results):
+        """(column, attrs) of every column in the Bitmap results that has
+        attrs, by column."""
+        idx = self.holder.index(index)
+        if idx is None:
+            return []
+        cols = sorted({int(c) for r in results if isinstance(r, Row)
+                       for c in r.columns()})
+        return [(c, a) for c in cols
+                if (a := idx.column_attr_store.attrs(c))]

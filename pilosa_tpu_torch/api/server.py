@@ -50,7 +50,7 @@ class APIServer:
                 self.end_headers()
                 self.wfile.write(resp.body)
 
-            do_GET = do_POST = _dispatch
+            do_GET = do_POST = do_PATCH = _dispatch
 
         # Herds of concurrent clients overflow the default backlog of 5.
         srv_cls = type("_PilosaHTTPServer", (ThreadingHTTPServer,),

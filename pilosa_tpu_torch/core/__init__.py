@@ -1,11 +1,18 @@
-"""Data model: Holder > Index > Frame > View > Fragment, and Row."""
+"""Data model: Holder > Index > Frame > View > Fragment, and Row; the
+rank cache, the attribute stores and the time-quantum views."""
 
-from .fragment import Fragment
+from .attr import AttrStore
+from .cache import LRUCache, RankCache
+from .fragment import Fragment, TopOptions
 from .frame import Frame
 from .holder import Holder
 from .index import Index
 from .row import Row
+from .timequantum import (TimeQuantum, parse_time_quantum, views_by_time,
+                          views_by_time_range)
 from .view import VIEW_INVERSE, VIEW_STANDARD, View
 
-__all__ = ["Fragment", "Frame", "Holder", "Index", "Row", "View",
-           "VIEW_INVERSE", "VIEW_STANDARD"]
+__all__ = ["AttrStore", "Fragment", "Frame", "Holder", "Index",
+           "LRUCache", "RankCache", "Row", "TimeQuantum", "TopOptions",
+           "View", "VIEW_INVERSE", "VIEW_STANDARD", "parse_time_quantum",
+           "views_by_time", "views_by_time_range"]

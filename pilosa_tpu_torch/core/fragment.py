@@ -3,23 +3,29 @@
 A reduced copy of the JAX package's Fragment: the roaring file (a
 snapshot region followed by an op log, rewritten by temp + rename every
 MAX_OP_N ops), an exclusive flock, per-bit writes, bulk import, row
-materialization, and the mutation `generation` the device stager reads
-to know when its image went stale (parallel/serve.py restages the view).
+materialization, the mutation `generation` the device stager reads to
+know when its image went stale (parallel/serve.py restages the view),
+and the rank cache of row counts behind the host TopN (`top`), kept in
+`<fragment>.cache` as the JAX package keeps it.
 
 Bit addressing: pos = rowID * SLICE_WIDTH + (columnID % SLICE_WIDTH).
 """
 
 from __future__ import annotations
 
+import bisect
 import fcntl
+import json
 import os
 import threading
-from typing import Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from .. import SLICE_WIDTH
 from ..roaring import Bitmap
+from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE, new_cache, \
+    sort_pairs
 from .row import Row
 
 # Snapshot after this many logged ops.
@@ -43,16 +49,36 @@ class _MutationEpoch:
 MUTATION_EPOCH = _MutationEpoch()
 
 
+class TopOptions:
+    """Options of Fragment.top, the host TopN of one slice."""
+
+    def __init__(self, n=0, src=None, row_ids=None, min_threshold=0,
+                 filter_field="", filter_values=None, tanimoto_threshold=0):
+        self.n = n
+        self.src = src  # Row, or None
+        self.row_ids = row_ids or []
+        self.min_threshold = min_threshold
+        self.filter_field = filter_field
+        self.filter_values = filter_values or []
+        self.tanimoto_threshold = tanimoto_threshold
+
+
 class Fragment:
     """One (frame, view, slice) of data."""
 
     def __init__(self, path: str, index: str, frame: str, view: str,
-                 slice_: int):
+                 slice_: int, cache_type: str = CACHE_TYPE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 row_attr_store=None):
         self.path = path
         self.index = index
         self.frame = frame
         self.view = view
         self.slice = slice_
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.cache = new_cache(cache_type, cache_size)
+        self.row_attr_store = row_attr_store
         self._mu = threading.RLock()
         self.storage = Bitmap()
         self.op_n = 0
@@ -82,9 +108,15 @@ class Fragment:
                     self.storage.write_to(f)
             self._op_file = open(self.path, "ab", buffering=0)
             self.storage.op_writer = self._op_file
+            self._load_cache()
+
+    @property
+    def cache_path(self) -> str:
+        return self.path + ".cache"
 
     def close(self):
         with self._mu:
+            self.flush_cache()
             self.storage.op_writer = None
             if self._op_file is not None:
                 self._op_file.close()
@@ -107,6 +139,25 @@ class Fragment:
         with self._mu:
             return self.storage.count()
 
+    def row_count(self, row_id: int) -> int:
+        """Bits set in one row, from its containers' cardinalities."""
+        with self._mu:
+            keys = self.storage.keys
+            lo = bisect.bisect_left(keys, row_id * 16)
+            hi = bisect.bisect_left(keys, row_id * 16 + 16)
+            return sum(self.storage.containers[i].n for i in range(lo, hi))
+
+    def row_counts(self) -> Dict[int, int]:
+        """{row id: bits set} over every row with a container, in one
+        pass over the containers."""
+        with self._mu:
+            keys = np.asarray(self.storage.keys, dtype=np.int64)
+            ns = np.fromiter((c.n for c in self.storage.containers),
+                             dtype=np.int64, count=len(keys))
+        rows, inv = np.unique(keys >> 4, return_inverse=True)
+        sums = np.bincount(inv, weights=ns, minlength=len(rows))
+        return dict(zip(rows.tolist(), sums.astype(np.int64).tolist()))
+
     # -- writes ------------------------------------------------------------
 
     def _pos(self, row_id: int, column_id: int) -> int:
@@ -116,12 +167,16 @@ class Fragment:
         """Set a bit, logging the op. True if it was newly set."""
         with self._mu:
             changed = self.storage.add(self._pos(row_id, column_id))
+            if changed:
+                self.cache.add(row_id, self.row_count(row_id))
             self._mutated()
             return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         with self._mu:
             changed = self.storage.remove(self._pos(row_id, column_id))
+            if changed:
+                self.cache.add(row_id, self.row_count(row_id))
             self._mutated()
             return changed
 
@@ -145,6 +200,10 @@ class Fragment:
         pos = rows * np.uint64(SLICE_WIDTH) + cols % np.uint64(SLICE_WIDTH)
         with self._mu:
             self.storage.add_many(pos)
+            counts = self.row_counts()
+            for r in np.unique(rows).tolist():
+                self.cache.bulk_add(r, counts.get(r, 0))
+            self.cache.invalidate()
             self._bump()
             self.snapshot()
 
@@ -155,6 +214,8 @@ class Fragment:
         with self._mu:
             bitmap.op_writer = self._op_file
             self.storage = bitmap
+            self.cache = new_cache(self.cache_type, self.cache_size)
+            self.rebuild_cache()
             self._bump()
 
     def snapshot(self):
@@ -172,3 +233,119 @@ class Fragment:
             self._op_file = open(self.path, "ab", buffering=0)
             self.storage.op_writer = self._op_file
             self.op_n = 0
+
+    # -- the rank cache --------------------------------------------------------
+
+    def flush_cache(self):
+        """Write the cache's pairs to `<fragment>.cache` (JSON [[id, n],
+        ...], temp + rename), as the JAX package does."""
+        with self._mu:
+            pairs = self.cache.top() or [(i, self.cache.get(i))
+                                         for i in self.cache.ids()]
+            tmp = self.cache_path + ".tmp"
+            try:
+                with open(tmp, "w") as f:
+                    json.dump([[int(i), int(n)] for i, n in pairs], f)
+                os.replace(tmp, self.cache_path)
+            except OSError:
+                pass
+
+    def _load_cache(self):
+        """Fill the cache from `<fragment>.cache`, recounting each listed
+        row from storage; rebuild it from storage when the file is
+        missing or unreadable."""
+        try:
+            with open(self.cache_path) as f:
+                pairs = json.load(f)
+        except (OSError, ValueError):
+            self.rebuild_cache()
+            return
+        counts = self.row_counts()
+        for id_, _n in pairs:
+            self.cache.bulk_add(int(id_), counts.get(int(id_), 0))
+        self.cache.recalculate()
+
+    def rebuild_cache(self):
+        """Recount every row with a container into the cache."""
+        with self._mu:
+            counts = self.row_counts()
+            for r, n in counts.items():
+                self.cache.bulk_add(r, n)
+            if counts:
+                self.cache.recalculate()
+
+    # -- TopN ----------------------------------------------------------------
+
+    def _top_pairs(self, row_ids: Sequence[int]) -> List[Tuple[int, int]]:
+        """The rank cache's pairs when no ids are asked for; otherwise
+        each asked row recounted from storage, zeros dropped, sorted."""
+        if not row_ids:
+            return self.cache.top()
+        pairs = [(r, self.row_count(r)) for r in row_ids]
+        return sort_pairs([(r, n) for r, n in pairs if n > 0])
+
+    def top(self, opt: TopOptions) -> List[Tuple[int, int]]:
+        """Top rows by count in this slice: the rank cache's candidates
+        (or opt.row_ids recounted), filtered by the threshold, the row
+        attrs and the Tanimoto band, and recounted against opt.src."""
+        with self._mu:
+            return self._top(opt)
+
+    def _top(self, opt: TopOptions) -> List[Tuple[int, int]]:
+        pairs = self._top_pairs(opt.row_ids)
+        n = 0 if opt.row_ids else opt.n
+        filters = (set(opt.filter_values)
+                   if opt.filter_field and opt.filter_values else None)
+        tanimoto = 0
+        min_tan = max_tan = 0.0
+        src_count = 0
+        if opt.tanimoto_threshold > 0 and opt.src is not None:
+            tanimoto = opt.tanimoto_threshold
+            src_count = opt.src.count()
+            min_tan = src_count * tanimoto / 100.0
+            max_tan = src_count * 100.0 / tanimoto
+
+        results: List[Tuple[int, int]] = []  # sorted by count desc, id asc
+
+        def push(pair):
+            bisect.insort(results, pair, key=lambda p: (-p[1], p[0]))
+
+        for row_id, cnt in pairs:
+            if cnt <= 0:
+                continue
+            if tanimoto > 0:
+                if cnt <= min_tan or cnt >= max_tan:
+                    continue
+            elif cnt < opt.min_threshold:
+                continue
+            if filters is not None:
+                if self.row_attr_store is None:
+                    continue
+                attr = self.row_attr_store.attrs(row_id)
+                if not attr or attr.get(opt.filter_field) not in filters:
+                    continue
+            if n == 0 or len(results) < n:
+                count = cnt
+                if opt.src is not None:
+                    count = opt.src.intersection_count(self.row(row_id))
+                if count == 0:
+                    continue
+                if tanimoto > 0:
+                    t = -(-100 * count // (cnt + src_count - count))  # ceil
+                    if t <= tanimoto:
+                        continue
+                elif count < opt.min_threshold:
+                    continue
+                push((row_id, count))
+                if n > 0 and len(results) == n and opt.src is None:
+                    break
+                continue
+            threshold = results[-1][1]
+            if threshold < opt.min_threshold or cnt < threshold:
+                break
+            count = opt.src.intersection_count(self.row(row_id))
+            if count < threshold:
+                continue
+            push((row_id, count))
+            results[:] = results[:n] if n else results
+        return results[:n] if n else results

@@ -1,8 +1,9 @@
-"""Frame: a table of rows owning its views, with the JSON `.meta` the
-JAX package writes (rowLabel, inverseEnabled, cacheType, cacheSize,
-timeQuantum, fields). Integer fields live in `bsi.<field>` views. This
-port serves no time quantums; that meta value is kept and reported as it
-was read."""
+"""Frame: a table of rows owning its views and its row attribute store
+(`attrs.db`), with the JSON `.meta` the JAX package writes (rowLabel,
+inverseEnabled, cacheType, cacheSize, timeQuantum, fields). Integer
+fields live in `bsi.<field>` views. A bit written with a timestamp also
+lands in the time views of the frame's quantum ("standard_2017", ...)
+and, with inverse storage, in their inverse twins."""
 
 from __future__ import annotations
 
@@ -10,9 +11,13 @@ import json
 import os
 import re
 import threading
+from datetime import datetime
 from typing import Dict, Optional, Sequence
 
 from ..bsi.field import FieldNotFoundError, FieldSchema, FieldValueError
+from .attr import AttrStore
+from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
+from .timequantum import TimeQuantum, views_by_time
 from .view import VIEW_INVERSE, VIEW_STANDARD, View
 
 DEFAULT_ROW_LABEL = "rowID"
@@ -30,7 +35,9 @@ class Frame:
     def __init__(self, path: str, index: str, name: str,
                  row_label: str = DEFAULT_ROW_LABEL,
                  inverse_enabled: bool = False,
-                 cache_type: str = "ranked", cache_size: int = 50000,
+                 cache_type: str = CACHE_TYPE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 time_quantum: str = "",
                  fields: Optional[Sequence] = None):
         validate_name(name)
         self.path = path
@@ -39,10 +46,11 @@ class Frame:
         self.meta = {"rowLabel": row_label,
                      "inverseEnabled": bool(inverse_enabled),
                      "cacheType": cache_type, "cacheSize": cache_size,
-                     "timeQuantum": "", "fields": []}
+                     "timeQuantum": str(time_quantum), "fields": []}
         self.fields: Dict[str, FieldSchema] = _coerce_fields(fields)
         self.views: Dict[str, View] = {}
         self._create_mu = threading.Lock()
+        self.row_attr_store = AttrStore(os.path.join(path, "attrs.db"))
 
     @property
     def row_label(self) -> str:
@@ -51,6 +59,10 @@ class Frame:
     @property
     def inverse_enabled(self) -> bool:
         return bool(self.meta["inverseEnabled"])
+
+    @property
+    def time_quantum(self) -> TimeQuantum:
+        return TimeQuantum(self.meta["timeQuantum"])
 
     @property
     def meta_path(self) -> str:
@@ -66,6 +78,7 @@ class Frame:
                 self.fields = _coerce_fields(self.meta["fields"])
         else:
             self._save_meta()
+        self.row_attr_store.open()
         for name in sorted(os.listdir(self.path)):
             if os.path.isdir(os.path.join(self.path, name)):
                 self._open_view(name)
@@ -74,6 +87,11 @@ class Frame:
         for v in self.views.values():
             v.close()
         self.views = {}
+        self.row_attr_store.close()
+
+    def set_time_quantum(self, q: TimeQuantum):
+        self.meta["timeQuantum"] = str(q)
+        self._save_meta()
 
     def _meta_doc(self) -> dict:
         return {**self.meta, "fields": [
@@ -121,7 +139,9 @@ class Frame:
     # -- views ---------------------------------------------------------------
 
     def _open_view(self, name: str) -> View:
-        v = View(os.path.join(self.path, name), self.index, self.name, name)
+        v = View(os.path.join(self.path, name), self.index, self.name, name,
+                 self.meta["cacheType"], self.meta["cacheSize"],
+                 self.row_attr_store)
         v.open()
         self.views = {**self.views, name: v}
         return v
@@ -143,17 +163,28 @@ class Frame:
 
     # -- writes ------------------------------------------------------------
 
-    def set_bit(self, row_id: int, column_id: int) -> bool:
-        """Set on the standard view and, when enabled, the inverse view
-        with row and column swapped."""
-        changed = self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
-            row_id, column_id)
+    def set_bit(self, row_id: int, column_id: int,
+                t: Optional[datetime] = None) -> bool:
+        """Set on the standard view and, with a time t, on each of its
+        time views under the frame's quantum; with inverse storage, also
+        on the inverse view and its time views, row and column
+        swapped."""
+        views = [VIEW_STANDARD]
         if self.inverse_enabled:
-            changed |= self.create_view_if_not_exists(VIEW_INVERSE).set_bit(
-                column_id, row_id)
+            views.append(VIEW_INVERSE)
+        changed = False
+        for base in views:
+            names = [base] + (views_by_time(base, t, self.time_quantum)
+                              if t is not None else [])
+            a, b = ((row_id, column_id) if base == VIEW_STANDARD
+                    else (column_id, row_id))
+            for name in names:
+                changed |= self.create_view_if_not_exists(name).set_bit(a, b)
         return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
+        """Clear on the standard view and the inverse view; time views
+        keep the bit, as in the JAX package."""
         v = self.views.get(VIEW_STANDARD)
         changed = v.clear_bit(row_id, column_id) if v else False
         iv = self.views.get(VIEW_INVERSE)

@@ -1,5 +1,7 @@
-"""Index: a namespace of frames with the JSON `.meta` the JAX package
-writes (columnLabel, timeQuantum)."""
+"""Index: a namespace of frames and the column attribute store
+(`attrs.db`), with the JSON `.meta` the JAX package writes (columnLabel,
+timeQuantum). A frame created without a time quantum takes the
+index's."""
 
 from __future__ import annotations
 
@@ -9,7 +11,9 @@ import threading
 from typing import Dict, Optional
 
 from ..errors import FrameExistsError
+from .attr import AttrStore
 from .frame import Frame, validate_name
+from .timequantum import TimeQuantum
 
 DEFAULT_COLUMN_LABEL = "columnID"
 
@@ -22,13 +26,26 @@ class Index:
         self.path = path
         self.name = name
         self.meta = {"columnLabel": column_label,
-                     "timeQuantum": time_quantum}
+                     "timeQuantum": str(time_quantum)}
         self.frames: Dict[str, Frame] = {}
         self._create_mu = threading.Lock()
+        self.column_attr_store = AttrStore(os.path.join(path, "attrs.db"))
 
     @property
     def column_label(self) -> str:
         return self.meta["columnLabel"]
+
+    @property
+    def time_quantum(self) -> TimeQuantum:
+        return TimeQuantum(self.meta["timeQuantum"])
+
+    def set_time_quantum(self, q: TimeQuantum):
+        self.meta["timeQuantum"] = str(q)
+        self._save_meta()
+
+    def _save_meta(self):
+        with open(self.meta_path, "w") as f:
+            json.dump(self.meta, f)
 
     @property
     def meta_path(self) -> str:
@@ -40,8 +57,8 @@ class Index:
             with open(self.meta_path) as f:
                 self.meta.update(json.load(f))
         else:
-            with open(self.meta_path, "w") as f:
-                json.dump(self.meta, f)
+            self._save_meta()
+        self.column_attr_store.open()
         for name in sorted(os.listdir(self.path)):
             if os.path.isdir(os.path.join(self.path, name)):
                 self._open_frame(name)
@@ -50,6 +67,7 @@ class Index:
         for f in self.frames.values():
             f.close()
         self.frames = {}
+        self.column_attr_store.close()
 
     def _open_frame(self, name: str, **options) -> Frame:
         frame = Frame(os.path.join(self.path, name), self.name, name,
@@ -72,12 +90,18 @@ class Index:
         with self._create_mu:
             if name in self.frames:
                 raise FrameExistsError()
-            return self._open_frame(name, **options)
+            return self._create_frame(name, **options)
 
     def create_frame_if_not_exists(self, name: str, **options) -> Frame:
         with self._create_mu:
             f = self.frames.get(name)
-            return f if f is not None else self._open_frame(name, **options)
+            return f if f is not None else self._create_frame(name,
+                                                              **options)
+
+    def _create_frame(self, name: str, **options) -> Frame:
+        # A new frame takes the index's time quantum unless it names one.
+        options.setdefault("time_quantum", self.meta["timeQuantum"])
+        return self._open_frame(name, **options)
 
     def to_dict(self) -> dict:
         return {"name": self.name, "meta": dict(self.meta),

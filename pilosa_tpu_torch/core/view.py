@@ -1,5 +1,6 @@
-"""View: one orientation of a frame ("standard" or "inverse"), owning
-its fragments by slice under <view>/fragments/<slice>."""
+"""View: one orientation of a frame ("standard" or "inverse"), or one of
+their time-quantum views ("standard_2017", ...), owning its fragments by
+slice under <view>/fragments/<slice>."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import threading
 from typing import Dict, Optional
 
 from .. import SLICE_WIDTH
+from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from .fragment import MUTATION_EPOCH, Fragment
 
 VIEW_STANDARD = "standard"
@@ -18,11 +20,17 @@ _FRAGMENT_FILE_RE = re.compile(r"^\d+$")
 
 
 class View:
-    def __init__(self, path: str, index: str, frame: str, name: str):
+    def __init__(self, path: str, index: str, frame: str, name: str,
+                 cache_type: str = CACHE_TYPE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 row_attr_store=None):
         self.path = path
         self.index = index
         self.frame = frame
         self.name = name
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.row_attr_store = row_attr_store
         self.fragments: Dict[int, Fragment] = {}
         self._create_mu = threading.Lock()
 
@@ -43,7 +51,9 @@ class View:
 
     def _open_fragment(self, slice_: int) -> Fragment:
         frag = Fragment(os.path.join(self.fragments_path, str(slice_)),
-                        self.index, self.frame, self.name, slice_)
+                        self.index, self.frame, self.name, slice_,
+                        self.cache_type, self.cache_size,
+                        self.row_attr_store)
         frag.open()
         # Copy-on-write: readers iterate fragments without the lock.
         self.fragments = {**self.fragments, slice_: frag}

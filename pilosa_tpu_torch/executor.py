@@ -14,8 +14,20 @@ search over the magnitude planes, one tree count per probe. A filter
 that does not lower sends the aggregate to the host folds of bsi.host
 (`stats["bsi_host"]`).
 
-Bitmap and Range calls materialize roaring rows per slice on the host;
-SetBit / ClearBit / SetValue write through the frame.
+TopN runs on the card from exact per-row counts (MeshManager.top_n, K5)
+in every argument form; when the card cannot serve it (a src child that
+does not lower, filters without a field, a Tanimoto threshold without a
+src or above 100) it runs the JAX package's two-phase host TopN over the
+fragments' rank caches (`top_n_host`): an approximate pass, then an
+exact recount of the candidate ids. `stats["topn_device"]` and
+`stats["topn_host"]` show the path.
+
+Bitmap and Range calls materialize roaring rows per slice on the host; a
+time Range ORs the row over the views that cover [start, end). A root
+Bitmap result carries the row's attrs (or the column's, for a column
+Bitmap). SetBit (with an optional timestamp) / ClearBit / SetValue write
+through the frame; SetRowAttrs / SetColumnAttrs through the attribute
+stores.
 """
 
 from __future__ import annotations
@@ -28,18 +40,28 @@ from . import resolve_device
 from .bsi import host as bsi_host
 from .bsi import lower as bsi_lower
 from .bsi.field import ROW_PLANE0, ROW_SIGN, FieldNotFoundError
+from .core.cache import add_to_pairs, sort_pairs
+from .core.fragment import TopOptions
+from .core.index import DEFAULT_COLUMN_LABEL
 from .core.row import Row
+from .core.timequantum import parse_time, views_by_time_range
 from .core.view import VIEW_INVERSE, VIEW_STANDARD
 from .errors import FrameNotFoundError, IndexNotFoundError, \
     IndexRequiredError, QueryError
 from .parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
 from .parallel.plan import DEFAULT_FRAME, _lower_tree, canonical_tree
 from .ops.bsi import sum_from_plane_dicts
-from .pql import Call, Query
+from .pql import Call, Cond, Query
 
 _BINOPS = {"Intersect": "intersect", "Union": "union",
            "Difference": "difference"}
 _BSI_AGGREGATES = ("Sum", "Min", "Max")
+_WRITE_CALLS = ("ClearBit", "SetBit", "SetValue", "SetRowAttrs",
+                "SetColumnAttrs")
+
+# The host TopN's threshold when none is given (the card path's
+# rank_pairs keeps no row under one bit either).
+MIN_THRESHOLD = 1
 
 
 class Executor:
@@ -74,27 +96,40 @@ class Executor:
 
     def execute(self, index: str, q: Query,
                 slices: Optional[Sequence[int]] = None) -> list:
-        """Execute each call in order; one result per call."""
+        """Execute each call in order; one result per call. With `slices`
+        given, a Bitmap is taken as a column Bitmap when it names the
+        default column label ("columnID"), and it then reads no slice;
+        without them, by the index's own label over the inverse view's
+        slices (as the JAX package does)."""
         if not index:
             raise IndexRequiredError()
         idx = self.holder.index(index)
+        need = any(c.name not in _WRITE_CALLS for c in q.calls)
+        column_label = DEFAULT_COLUMN_LABEL
+        defaulted = False
         if slices:
             slices = list(slices)
-            inverse_slices = []
         else:
-            if idx is None:
-                raise IndexNotFoundError()
-            slices = list(range(idx.max_slice() + 1))
-            inverse_slices = list(range(idx.max_inverse_slice() + 1))
+            slices = []
+            if need:
+                if idx is None:
+                    raise IndexNotFoundError()
+                defaulted = True
+                slices = list(range(idx.max_slice() + 1))
+                column_label = idx.column_label
+        if q.calls and all(c.name == "SetRowAttrs" for c in q.calls):
+            return self._execute_bulk_set_row_attrs(index, q.calls)
         results = []
         for call in q.calls:
             call_slices = slices
-            if call.name == "Bitmap" and idx is not None:
-                f = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
+            if call.name == "Bitmap" and need:
+                f = self.holder.frame(index,
+                                      call.args.get("frame") or DEFAULT_FRAME)
                 if f is None:
                     raise FrameNotFoundError()
-                if call.is_inverse(f.row_label, idx.column_label):
-                    call_slices = inverse_slices
+                if call.is_inverse(f.row_label, column_label):
+                    call_slices = (list(range(idx.max_inverse_slice() + 1))
+                                   if defaulted else [])
             results.append(self._execute_call(index, call, call_slices))
         return results
 
@@ -103,7 +138,14 @@ class Executor:
             return self._execute_count(index, c, slices)
         if c.name == "SetBit":
             f, row_id, col_id = self._bit_args(index, c)
-            return f.set_bit(row_id, col_id)
+            ts = c.args.get("timestamp")
+            t = None
+            if isinstance(ts, str):
+                try:
+                    t = parse_time(ts)
+                except ValueError:
+                    raise QueryError(f"invalid date: {ts}") from None
+            return f.set_bit(row_id, col_id, t)
         if c.name == "ClearBit":
             f, row_id, col_id = self._bit_args(index, c)
             return f.clear_bit(row_id, col_id)
@@ -111,10 +153,33 @@ class Executor:
             return self._execute_set_value(index, c)
         if c.name in _BSI_AGGREGATES:
             return self._execute_bsi_aggregate(index, c, slices)
+        if c.name == "TopN":
+            return self._execute_top_n(index, c, slices)
+        if c.name == "SetRowAttrs":
+            return self._execute_bulk_set_row_attrs(index, [c])[0]
+        if c.name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(index, c)
         row = Row()
         for s in slices:
             row.merge(self._bitmap_slice(index, c, s))
+        if c.name == "Bitmap":
+            row.attrs = self._bitmap_attrs(index, c)
         return row
+
+    def _bitmap_attrs(self, index: str, c: Call) -> dict:
+        """The attrs of a root Bitmap: the column's when it names the
+        index's column label, else the row's."""
+        idx = self.holder.index(index)
+        if idx is None:
+            return {}
+        col_id, col_ok = c.uint_arg(idx.column_label)
+        if col_ok:
+            return idx.column_attr_store.attrs(col_id)
+        f = idx.frame(c.args.get("frame") or DEFAULT_FRAME)
+        if f is None:
+            return {}
+        row_id, _ = c.uint_arg(f.row_label)
+        return f.row_attr_store.attrs(row_id)
 
     # -- bitmap calls (host) -------------------------------------------------
 
@@ -163,23 +228,45 @@ class Executor:
         return frag.row(id_) if frag is not None else Row()
 
     def _range_slice(self, index: str, c: Call, slice_: int) -> Row:
-        """Range(frame=f, field <op> N) over one slice: the plane ladder
-        folded over the field's bsi fragment. Time-quantum Range
-        (start/end) is not ported."""
+        """Range over one slice: with a field comparison (frame=f,
+        field <op> N) the plane ladder folded over the field's bsi
+        fragment; else the time Range (frame=f, rowID=r, start=...,
+        end=...), the row ORed over the views that cover [start, end),
+        empty when the frame has no time quantum."""
         frame = c.args.get("frame") or DEFAULT_FRAME
         f = self.holder.frame(index, frame)
         if f is None:
             raise FrameNotFoundError()
-        fc = bsi_lower.field_cond(c)
-        if fc is None:
-            raise QueryError(f"{c.name}() needs one field comparison (time "
-                             f"ranges are not served by this port)")
-        fname, cond = fc
-        schema = f.bsi_field(fname)
-        if schema is None:
-            raise FieldNotFoundError(frame, fname)
-        frag = self.holder.fragment(index, frame, schema.view, slice_)
-        return bsi_host.range_row(frag, schema, cond.op, cond.value)
+        conds = [k for k, v in c.args.items() if isinstance(v, Cond)]
+        if len(conds) > 1:
+            raise QueryError(f"{c.name}() accepts one field comparison, "
+                             f"got {len(conds)}")
+        if conds:
+            fname, cond = conds[0], c.args[conds[0]]
+            schema = f.bsi_field(fname)
+            if schema is None:
+                raise FieldNotFoundError(frame, fname)
+            frag = self.holder.fragment(index, frame, schema.view, slice_)
+            return bsi_host.range_row(frag, schema, cond.op, cond.value)
+        row_id, _ = c.uint_arg(f.row_label)
+        start, end = c.args.get("start"), c.args.get("end")
+        if not isinstance(start, str):
+            raise QueryError("Range() start time required")
+        if not isinstance(end, str):
+            raise QueryError("Range() end time required")
+        try:
+            start_t, end_t = parse_time(start), parse_time(end)
+        except ValueError:
+            raise QueryError("cannot parse Range() time") from None
+        q = f.time_quantum
+        if not str(q):
+            return Row()
+        out = Row()
+        for vname in views_by_time_range(VIEW_STANDARD, start_t, end_t, q):
+            frag = self.holder.fragment(index, frame, vname, slice_)
+            if frag is not None:
+                out = out.union(frag.row(row_id))
+        return out
 
     # -- count ---------------------------------------------------------------
 
@@ -350,6 +437,151 @@ class Executor:
                 # smallest; min mirrors.
                 mag, n = search(base, big_mag=(sign > 0) == maximize)
                 return sign * mag, n
+        return None
+
+    # -- TopN --------------------------------------------------------------
+
+    def _execute_top_n(self, index: str, c: Call, slices: List[int]):
+        """TopN from exact per-row counts on the card (MeshManager.top_n)
+        or, when the card cannot serve its form, top_n_host."""
+        pairs = self._top_n_device(index, c, slices) if slices else None
+        if pairs is not None:
+            self._inc("topn_device")
+            return pairs
+        self._inc("topn_host")
+        return self.top_n_host(index, c, slices)
+
+    def _top_n_device(self, index: str, c: Call, slices: List[int]):
+        """MeshManager.top_n for every form of the call, or None for the
+        forms the host path serves (and reports the errors of): a src
+        that does not lower, filters without a field, a Tanimoto
+        threshold above 100 or without a src."""
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        if tanimoto > 100:
+            return None
+        frame = c.args.get("frame") or DEFAULT_FRAME
+        attr_predicate = None
+        filters = c.args.get("filters")
+        field = c.args.get("field") or ""
+        if filters and field:
+            f = self.holder.frame(index, frame)
+            if f is None:
+                return None
+            store, allowed = f.row_attr_store, set(filters)
+
+            def attr_predicate(row_id):
+                attr = store.attrs(row_id)
+                return bool(attr) and attr.get(field) in allowed
+        elif filters:
+            return None
+        if tanimoto and not c.children:
+            return None
+        src = None
+        if c.children:
+            if len(c.children) > 1:
+                return None
+            leaves: list = []
+            tree = _lower_tree(self.holder, index, c.children[0], leaves)
+            if tree is None or not leaves:
+                return None
+            src = (tree, leaves)
+        n, _ = c.uint_arg("n")
+        row_ids, _ = c.uint_slice_arg("ids")
+        min_threshold, _ = c.uint_arg("threshold")
+        return self.mesh_manager().top_n(
+            index, frame, VIEW_STANDARD, slices,
+            self._num_slices(index, slices), 0 if row_ids else n, row_ids,
+            min_threshold, src=src,
+            attr_predicate=attr_predicate, tanimoto_threshold=tanimoto)
+
+    def top_n_host(self, index: str, c: Call, slices: List[int]):
+        """The JAX package's host TopN: each slice's top pairs from its
+        rank cache, summed by id; then, unless ids were asked for, an
+        exact recount of those candidate ids, trimmed to n."""
+        row_ids, _ = c.uint_slice_arg("ids")
+        n, _ = c.uint_arg("n")
+        pairs = self._top_n_host_slices(index, c, slices)
+        if not pairs or row_ids:
+            return pairs
+        other = c.clone()
+        other.args["ids"] = sorted(p[0] for p in pairs)
+        trimmed = self._top_n_host_slices(index, other, slices)
+        return trimmed[:n] if n and n < len(trimmed) else trimmed
+
+    def _top_n_host_slices(self, index: str, c: Call, slices: List[int]):
+        pairs: list = []
+        for s in slices:
+            pairs = add_to_pairs(pairs, self._top_n_slice(index, c, s))
+        return sort_pairs(pairs)
+
+    def _top_n_slice(self, index: str, c: Call, slice_: int):
+        """One slice of the host TopN (Fragment.top)."""
+        frame = c.args.get("frame") or DEFAULT_FRAME
+        n, _ = c.uint_arg("n")
+        field = c.args.get("field") or ""
+        row_ids, _ = c.uint_slice_arg("ids")
+        min_threshold, _ = c.uint_arg("threshold")
+        filters = c.args.get("filters") or []
+        tanimoto, _ = c.uint_arg("tanimotoThreshold")
+        src = None
+        if len(c.children) == 1:
+            src = self._bitmap_slice(index, c.children[0], slice_)
+        elif len(c.children) > 1:
+            raise QueryError("TopN() can only have one input bitmap")
+        frag = self.holder.fragment(index, frame, VIEW_STANDARD, slice_)
+        if frag is None:
+            return []
+        if tanimoto > 100:
+            raise QueryError("Tanimoto Threshold is from 1 to 100 only")
+        return frag.top(TopOptions(
+            n=n, src=src, row_ids=row_ids,
+            min_threshold=min_threshold or MIN_THRESHOLD,
+            filter_field=field, filter_values=filters,
+            tanimoto_threshold=tanimoto))
+
+    # -- attribute writes ----------------------------------------------------
+
+    def _execute_bulk_set_row_attrs(self, index: str, calls) -> list:
+        """SetRowAttrs(frame=f, rowID=r, key=value, ...) calls, merged per
+        frame and written to each frame's row store in one
+        transaction."""
+        by_frame: dict = {}
+        for c in calls:
+            frame = c.args.get("frame")
+            if not isinstance(frame, str):
+                raise QueryError("SetRowAttrs() frame required")
+            f = self.holder.frame(index, frame)
+            if f is None:
+                raise FrameNotFoundError()
+            row_id, ok = c.uint_arg(f.row_label)
+            if not ok:
+                raise QueryError(
+                    f"SetRowAttrs() row field '{f.row_label}' required")
+            attrs = dict(c.args)
+            attrs.pop("frame", None)
+            attrs.pop(f.row_label, None)
+            by_frame.setdefault(frame, {}).setdefault(row_id, {}).update(
+                attrs)
+        for frame, items in by_frame.items():
+            self.holder.frame(index, frame).row_attr_store.set_bulk_attrs(
+                items)
+        return [None] * len(calls)
+
+    def _execute_set_column_attrs(self, index: str, c: Call):
+        """SetColumnAttrs(id=N or <column label>=N, key=value, ...)."""
+        idx = self.holder.index(index)
+        if idx is None:
+            raise IndexNotFoundError()
+        id_, ok = c.uint_arg("id")
+        col_name = "id"
+        if not ok:
+            id_, ok = c.uint_arg(idx.column_label)
+            if not ok:
+                raise QueryError("SetColumnAttrs() id required")
+            col_name = idx.column_label
+        attrs = dict(c.args)
+        attrs.pop(col_name, None)
+        idx.column_attr_store.set_attrs(id_, attrs)
         return None
 
     # -- writes --------------------------------------------------------------

@@ -502,14 +502,16 @@ def count_batch(tree, pools: Sequence[torch.Tensor],
     return combine_counts(per, dev(mask)), name
 
 
-def container_table(layouts: Sequence[LeafLayout],
-                    mask: np.ndarray) -> np.ndarray:
-    """(P, S, 16) int32 container index of each row's layout, -1 where
-    the container is absent or the slice is outside `mask`: the a_idx
-    of kernels.pair_count_rows."""
-    idx = np.stack([np.where(lay.hit != 0, lay.idx, -1) for lay in layouts])
-    idx[:, np.asarray(mask) == 0] = -1
-    return idx.astype(np.int32)
+def row_table(keys_host: np.ndarray, num_rows: int) -> np.ndarray:
+    """(num_rows, S, 16) int32 container index of every dense row of a
+    staged pool, -1 where the container is absent: the a_idx of
+    kernels.pair_count_rows for all rows, in one pass over the keys."""
+    s, _cap = keys_host.shape
+    out = np.full((num_rows, s, ROW_SPAN), -1, dtype=np.int32)
+    si, ci = np.nonzero(keys_host != INVALID_KEY)
+    k = keys_host[si, ci]
+    out[k // ROW_SPAN, si, k % ROW_SPAN] = ci
+    return out
 
 
 def materialize_block(tree, pools: Sequence[torch.Tensor],

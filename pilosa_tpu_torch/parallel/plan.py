@@ -1,15 +1,20 @@
 """PQL call tree -> the numbered op tree the count kernels fold.
 
 Bitmap leaves (a row on the standard view, or a column on the inverse
-view) combined by Intersect / Union / Difference, and Range(frame=f,
-field <op> N) over an integer field's plane rows (bsi.lower), lower to a
-nested op list plus the (frame, view, row_id, required) leaf list.
+view) combined by Intersect / Union / Difference, Range(frame=f,
+field <op> N) over an integer field's plane rows (bsi.lower), and the
+time Range(frame=f, rowID=r, start=..., end=...) as an OR of the row
+over the views that cover the time range, lower to a nested op list
+plus the (frame, view, row_id, required) leaf list. A time view's leaf
+is not required: a view or fragment that does not exist reads as an
+empty row.
 canonical_tree then puts the tree in the form the kernels fold best:
 leaves deduplicated by (frame, view, row) and numbered by first use, and
 the deepest operand of every and/or first, so the BSI ladders become
 left-deep chains in the kernels' accumulator. Anything else returns
-None and the executor answers on the host: time-quantum Range, and trees
-beyond the kernels' limits (ops.kernels.MAX_LEAVES unique leaves,
+None and the executor answers on the host: a time Range on a frame
+without a quantum or whose cover is wider than MAX_RANGE_VIEWS, and
+trees beyond the kernels' limits (ops.kernels.MAX_LEAVES unique leaves,
 MAX_DEPTH held values, their program length).
 """
 
@@ -18,14 +23,20 @@ from __future__ import annotations
 from typing import List, Optional
 
 from ..bsi.lower import lower_cond
+from ..core.timequantum import parse_time, views_by_time_range
 from ..core.view import VIEW_INVERSE, VIEW_STANDARD
 from ..ops.kernels import tree_program
+from ..pql.ast import Cond
 
 # Frame used when a query doesn't name one.
 DEFAULT_FRAME = "general"
 
 # Call names evaluable on device, keyed to bitwise combiners.
 _TREE_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot"}
+
+# Views a time Range may OR on the card; a wider cover (fine quanta over
+# a long range) goes to the host.
+MAX_RANGE_VIEWS = 32
 
 
 # The recursive helpers below are module functions, not nested closures:
@@ -114,7 +125,9 @@ def _lower_call(holder, index: str, c, leaves: List[tuple]):
             return ["leaf"]
         return None  # both/neither/disabled inverse -> host path
     if c.name == "Range":
-        return lower_cond(holder, index, c, leaves)
+        if any(isinstance(v, Cond) for v in c.args.values()):
+            return lower_cond(holder, index, c, leaves)
+        return _lower_range(holder, index, c, leaves)
     op = _TREE_OPS.get(c.name)
     if op is None or not c.children:
         return None
@@ -125,6 +138,38 @@ def _lower_call(holder, index: str, c, leaves: List[tuple]):
             return None
         parts.append(sub)
     return [op] + parts
+
+
+def _lower_range(holder, index: str, c, leaves: List[tuple]):
+    """Range(frame=f, rowID=r, start=..., end=...) as an OR of row r
+    over the views covering [start, end), each leaf not required; None
+    (host path) without a quantum, a row argument or parseable times,
+    or with more than MAX_RANGE_VIEWS views."""
+    idx = holder.index(index)
+    if idx is None:
+        return None
+    frame = c.args.get("frame") or DEFAULT_FRAME
+    f = idx.frame(frame)
+    if f is None:
+        return None
+    try:
+        row_id, ok = c.uint_arg(f.row_label)
+    except TypeError:
+        return None
+    start, end = c.args.get("start"), c.args.get("end")
+    if not ok or not isinstance(start, str) or not isinstance(end, str):
+        return None
+    try:
+        views = views_by_time_range(VIEW_STANDARD, parse_time(start),
+                                    parse_time(end), f.time_quantum)
+    except ValueError:
+        return None
+    if not views or len(views) > MAX_RANGE_VIEWS:
+        return None
+    leaves.extend((frame, v, row_id, False) for v in views)
+    if len(views) == 1:
+        return ["leaf"]
+    return ["or"] + [["leaf"] for _ in views]
 
 
 def _lower_tree(holder, index: str, c, leaves: List[tuple]) -> Optional[list]:

@@ -19,6 +19,17 @@ the slices by format pair into dd, sd, ds and ss groups. Any other tree
 pins the view dense (_demote_to_dense), restages it, and serves it on
 the dense kernels.
 
+A leaf that is not required (a time view of Range) may name a view that
+does not exist: it reads as an absent row of a view the query stages
+anyway, and a count whose every view is absent is 0 with no launch.
+
+Per-row counts (TopN, and the plane counts of the integer fields) run
+on K5's serving form, kernels.pair_count_rows, with the index table of
+every row of a staged view built in one pass over its keys and kept on
+the card with the view (mesh.row_table). TopN's argument forms (n,
+threshold, ids, a src tree, attr filters, the Tanimoto band) apply on
+the host to those exact totals (rank_pairs, tanimoto_rank).
+
 Staged views are restaged whole when any of their fragments moved
 generation (a write), and on first use.
 """
@@ -42,11 +53,79 @@ from ..ops.pool import pack_bitmap, pack_sparse
 from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
                    SparseShardedIndex,
                    build_sharded_index, build_sparse_sharded_index,
-                   container_table, count_batch, count_sparse_pair,
+                   count_batch, count_sparse_pair,
                    dense_row, global_row_ids, leaf_layout, materialize_block,
-                   pick_slice_formats, resolve_row_indices,
+                   pick_slice_formats, resolve_row_indices, row_table,
                    slice_format_stats, slice_mask, split_bitmaps_by_format)
 from .plan import _tree_signature
+
+# Rows one pair_count_rows launch takes (its grid's y limit).
+MAX_ROWS_PER_LAUNCH = 65535
+
+
+def rank_pairs(all_rows, counts, n: int, row_ids, min_threshold: int,
+               attr_predicate=None) -> List[Tuple[int, int]]:
+    """TopN's semantics over exact per-row totals: the asked ids (its
+    exact phase), the threshold, n, and the attr filter walked over the
+    sorted rows until n match. As in the JAX package, `threshold`
+    filters the exact totals, not each slice's partial count; a row
+    needs at least one bit whatever the threshold."""
+    if len(all_rows) == 0:
+        return []
+    if row_ids:
+        want = np.asarray(sorted(row_ids), dtype=np.uint64)
+        i = np.searchsorted(all_rows, want)
+        ok = i < len(all_rows)
+        ok &= all_rows[np.minimum(i, len(all_rows) - 1)] == want
+        pairs = [(int(r), int(counts[j])) for r, j in zip(want[ok], i[ok])
+                 if counts[j] >= max(min_threshold, 1)
+                 and (attr_predicate is None or attr_predicate(int(r)))]
+        pairs.sort(key=lambda p: (-p[1], p[0]))
+        return pairs
+    keep = np.nonzero(counts >= max(min_threshold, 1))[0]
+    keep = keep[np.lexsort((all_rows[keep], -counts[keep]))]
+    if attr_predicate is None:
+        if n:
+            keep = keep[:n]
+        return [(int(all_rows[j]), int(counts[j])) for j in keep]
+    out = []
+    for j in keep:
+        if attr_predicate(int(all_rows[j])):
+            out.append((int(all_rows[j]), int(counts[j])))
+            if n and len(out) == n:
+                break
+    return out
+
+
+def tanimoto_rank(all_rows, full, inter, src_count: int, n: int,
+                  tanimoto: int, row_ids, attr_predicate=None
+                  ) -> List[Tuple[int, int]]:
+    """The Tanimoto band over exact counts: a row is a candidate when its
+    full count lies strictly inside (|src| t / 100, |src| 100 / t), and
+    kept when ceil(100 |row ∩ src| / |row ∪ src|) exceeds t; pairs carry
+    |row ∩ src|."""
+    if src_count == 0:
+        return []
+    min_tan = src_count * tanimoto / 100.0
+    max_tan = src_count * 100.0 / tanimoto
+    wanted = set(int(r) for r in row_ids) if row_ids else None
+    pairs: List[Tuple[int, int]] = []
+    for j in np.lexsort((all_rows, -inter)):
+        if wanted is not None and int(all_rows[j]) not in wanted:
+            continue
+        cnt, count = int(full[j]), int(inter[j])
+        if cnt <= min_tan or cnt >= max_tan or count == 0:
+            continue
+        t = -(-100 * count // (cnt + src_count - count))  # ceil
+        if t <= tanimoto:
+            continue
+        if attr_predicate is not None and not attr_predicate(
+                int(all_rows[j])):
+            continue
+        pairs.append((int(all_rows[j]), count))
+        if n and len(pairs) == n:
+            break
+    return pairs
 
 
 class StagedView:
@@ -55,7 +134,8 @@ class StagedView:
     staged dense; slice_formats[s] is 1 where slice s serves from it."""
 
     __slots__ = ("sharded", "sparse", "slice_formats", "slice_gens",
-                 "num_slices", "layouts", "sparse_layouts", "validated")
+                 "num_slices", "layouts", "sparse_layouts", "validated",
+                 "rows_dev")
 
     def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
                  sparse: Optional[SparseShardedIndex] = None,
@@ -70,6 +150,16 @@ class StagedView:
         self.sparse_layouts: Dict[int, tuple] = {}  # dense id -> (idx, hit)
         # MUTATION_EPOCH.n when the generations were last found current.
         self.validated = -1
+        # (R, S, 16) int32 row_table on the pool's device, built on the
+        # first per-row count.
+        self.rows_dev: Optional[torch.Tensor] = None
+
+    def row_table(self) -> torch.Tensor:
+        if self.rows_dev is None:
+            self.rows_dev = torch.from_numpy(row_table(
+                self.sharded.keys_host, len(self.sharded.row_ids))).to(
+                    self.sharded.words.device)
+        return self.rows_dev
 
     def layout(self, dense_id: int):
         lay = self.layouts.get(dense_id)
@@ -231,25 +321,37 @@ class MeshManager:
         staging: a _SparseCount when a view holds a sorted-array pool and
         the tree is one the format groups serve, else a _CountRequest for
         the dense kernels (other trees demote the sorted-array views
-        first). None when a view cannot be staged or the slices reach
-        past it."""
+        first). A leaf that is not required and names a view that does
+        not exist reads as an absent row of another staged view; when no
+        leaf's view exists the count is 0, returned as the int. None
+        when a view cannot be staged or the slices reach past it."""
         tree = _tree_signature(shape)
         with self._mu:
             staged: Dict[Tuple[str, str], StagedView] = {}
-            for frame, view, _row, _req in leaves:
-                if (frame, view) not in staged:
-                    sv = self.refresh(index, frame, view, num_slices)
-                    if sv is None:
-                        return None
-                    staged[(frame, view)] = sv
+            absent = set()
+            for frame, view, _row, req in leaves:
+                key = (frame, view)
+                if key in staged or key in absent:
+                    continue
+                if not req and self.holder.view(index, frame, view) is None:
+                    absent.add(key)
+                    continue
+                sv = self.refresh(index, frame, view, num_slices)
+                if sv is None:
+                    return None
+                staged[key] = sv
             mask = slice_mask(num_slices, slices)
             if mask is None:
                 return None
+            if not staged:
+                self._inc("absent_views")
+                return 0
             if any(sv.sparse is not None for sv in staged.values()):
                 op = self._sparse_shape_kind(tree)
                 if op is not None:
-                    return self._sparse_request(tree, op, leaves, staged,
-                                                mask, num_slices)
+                    return self._sparse_request(
+                        tree, op, leaves, self._legs(staged, absent, leaves),
+                        mask, num_slices)
                 self._inc("fallback_sparse_shape")
                 for (frame, view), sv in list(staged.items()):
                     if sv.sparse is not None:
@@ -259,14 +361,26 @@ class MeshManager:
                             return None
                         staged[(frame, view)] = sv
             pools, layouts, keys = [], [], []
-            for frame, view, row_id, _req in leaves:
-                sv = staged[(frame, view)]
-                dense = dense_row(sv.sharded, row_id)
+            for sv, dense in self._legs(staged, absent, leaves):
                 pools.append(sv.sharded.words)
                 layouts.append(sv.layout(dense))
                 keys.append((id(sv.sharded.words), dense))
         return _CountRequest(tree, tuple(pools), tuple(layouts), tuple(keys),
                              mask)
+
+    @staticmethod
+    def _legs(staged, absent, leaves) -> List[Tuple[StagedView, int]]:
+        """(staged view, dense row id) of each leaf; a leaf of an absent
+        view reads one past the last row of the first staged view."""
+        spare = next(iter(staged.values()))
+        out = []
+        for frame, view, row_id, _req in leaves:
+            if (frame, view) in absent:
+                out.append((spare, len(spare.sharded.row_ids)))
+            else:
+                sv = staged[(frame, view)]
+                out.append((sv, dense_row(sv.sharded, row_id)))
+        return out
 
     # -- serving -------------------------------------------------------------
 
@@ -278,6 +392,9 @@ class MeshManager:
         if req is None:
             self._inc("fallback")
             return None
+        if isinstance(req, int):
+            self._inc("count")
+            return req
         if isinstance(req, _SparseCount):
             total = self._run_sparse(req)
             self._inc("sparse_count")
@@ -303,7 +420,7 @@ class MeshManager:
             with self._lone_mu:
                 self._counts_inflight -= 1
 
-    # -- integer-field plane counts ------------------------------------------
+    # -- per-row counts: TopN and the integer-field planes ------------------
 
     def _staged_dense(self, index: str, frame: str, view: str,
                       num_slices: int) -> Optional[StagedView]:
@@ -314,32 +431,36 @@ class MeshManager:
             sv = self._demote_to_dense((index, frame, view), num_slices)
         return sv
 
-    def bsi_plane_counts(self, index: str, frame: str, view: str,
-                         slices: Sequence[int], num_slices: int, src=None,
-                         rows: Optional[Sequence[int]] = None
-                         ) -> Optional[Dict[int, int]]:
-        """Per-row counts over a ``bsi.<field>`` view as {row_id: count},
-        from one launch of K5's serving form (kernels.pair_count_rows):
-        every row the staged view holds, or only `rows`. With `src` =
-        (numbered tree, leaves) from plan._lower_tree, the counts are
-        |row ∩ src|: a src that is one row of this view is read from the
-        pool, any other is materialized once as an (S, 16, 2048) block.
-        A view staged sorted-array is demoted to packed words first. None
-        when a view cannot be staged or the slices reach past it."""
+    def _row_counts(self, index: str, frame: str, view: str,
+                    slices: Sequence[int], num_slices: int, src=None,
+                    rows: Optional[Sequence[int]] = None,
+                    with_full: bool = False):
+        """(row ids (R,) uint64, counts (R,) int64) of every row the
+        staged view holds, or only of `rows`, from K5's serving form
+        (kernels.pair_count_rows), one launch per MAX_ROWS_PER_LAUNCH
+        rows. With `src` = (numbered tree, leaves) from plan._lower_tree
+        the counts are |row ∩ src|: a src that is one row of this view
+        is read from the pool, any other is materialized once as an
+        (S, 16, 2048) block. A view staged sorted-array is demoted to
+        packed words first. with_full adds the counts without src, from
+        a second launch over the same staged image: (row ids, src
+        counts, full counts). None when a view cannot be staged or the
+        slices reach past it."""
         with self._mu:
             sv = self._staged_dense(index, frame, view, num_slices)
             mask = slice_mask(num_slices, slices)
             if sv is None or mask is None:
                 return None
-            row_ids = [int(r) for r in sv.sharded.row_ids]
-            if rows is not None:
-                wanted = set(rows)
-                row_ids = [r for r in row_ids if r in wanted]
-            if not row_ids:
-                return {}
+            all_rows = sv.sharded.row_ids
+            sel = (None if rows is None else
+                   np.nonzero(np.isin(all_rows, np.asarray(
+                       list(rows), dtype=np.uint64)))[0])
+            row_ids = all_rows if sel is None else all_rows[sel]
+            if not len(row_ids):
+                none = np.zeros(0, dtype=np.int64)
+                return (row_ids, none) + ((none,) if with_full else ())
             pool = sv.sharded.words
-            a_idx = container_table(
-                [sv.layout(dense_row(sv.sharded, r)) for r in row_ids], mask)
+            table = sv.row_table()
             b = {}
             if src is not None:
                 tree, leaves = src
@@ -350,27 +471,108 @@ class MeshManager:
                                                             num_slices)
                         if staged[(f, v)] is None:
                             return None
-                lays = [staged[(f, v)].layout(
-                    dense_row(staged[(f, v)].sharded, r))
-                        for f, v, r, _req in leaves]
+                dense = [dense_row(staged[(f, v)].sharded, r)
+                         for f, v, r, _req in leaves]
                 if tree == ["leaf", 0] and leaves[0][:2] == (frame, view):
-                    b = {"b_pool": pool, "b_idx": container_table(
-                        lays, np.ones(num_slices))[0]}
+                    b = {"b_pool": pool, "b_dense": dense[0]}
                 else:
-                    pools = [staged[(f, v)].sharded.words
-                             for f, v, _r, _q in leaves]
-                    b = {"b_block": (tree, pools, lays)}
-        # The launch runs outside _mu: the locals hold the pools it reads.
+                    b = {"b_block": (tree, [staged[(f, v)].sharded.words
+                                            for f, v, _r, _q in leaves],
+                                     [staged[(f, v)].layout(d) for
+                                      (f, v, _r, _q), d in zip(leaves,
+                                                               dense)])}
+        # The launches run outside _mu: the locals hold what they read.
         dev = pool.device
-        if "b_idx" in b:
-            b["b_idx"] = torch.from_numpy(b["b_idx"]).to(dev)
+        if "b_dense" in b:
+            d = b.pop("b_dense")
+            b["b_idx"] = (table[d] if d < table.shape[0] else torch.full(
+                table.shape[1:], -1, dtype=torch.int32, device=dev))
         elif "b_block" in b:
             b["b_block"] = materialize_block(*b["b_block"])
-        counts = kernels.pair_count_rows(
-            pool, torch.from_numpy(a_idx).to(dev), "and", **b)
+        a_idx = table if sel is None else table[torch.from_numpy(sel).to(
+            dev)]
+        if not mask.all():
+            keep = torch.from_numpy(mask != 0).to(dev)[None, :, None]
+            a_idx = torch.where(keep, a_idx, -1)
+        out = (row_ids, self._pair_rows(pool, a_idx, b))
+        return out + (self._pair_rows(pool, a_idx, {}),) if with_full else out
+
+    def _pair_rows(self, pool, a_idx, b) -> np.ndarray:
+        """kernels.pair_count_rows over a_idx's rows, MAX_ROWS_PER_LAUNCH
+        a launch, as int64 numpy totals."""
+        parts = []
+        for lo in range(0, a_idx.shape[0], MAX_ROWS_PER_LAUNCH):
+            parts.append(kernels.pair_count_rows(
+                pool, a_idx[lo:lo + MAX_ROWS_PER_LAUNCH].contiguous(),
+                "and", **b))
+            self._inc("kernel:pair_count_rows")
+        return (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu(
+        ).numpy()
+
+    def bsi_plane_counts(self, index: str, frame: str, view: str,
+                         slices: Sequence[int], num_slices: int, src=None,
+                         rows: Optional[Sequence[int]] = None
+                         ) -> Optional[Dict[int, int]]:
+        """Per-row counts over a ``bsi.<field>`` view as {row_id: count}
+        (_row_counts): every row the view holds, or only `rows`, each
+        ANDed with `src` when given. None when a view cannot be
+        staged."""
+        out = self._row_counts(index, frame, view, slices, num_slices,
+                               src=src, rows=rows)
+        if out is None:
+            return None
         self._inc("bsi_aggregate")
-        self._inc("kernel:pair_count_rows")
-        return dict(zip(row_ids, counts.tolist()))
+        return dict(zip(out[0].tolist(), out[1].tolist()))
+
+    def row_counts(self, index: str, frame: str, view: str,
+                   slices: Sequence[int], num_slices: int):
+        """Exact per-row counts over the slices: (row ids, counts int64)
+        or None. The JAX package's MeshManager.row_counts."""
+        return self._row_counts(index, frame, view, slices, num_slices)
+
+    def row_counts_src(self, index: str, frame: str, view: str, src_shape,
+                       src_leaves, slices: Sequence[int], num_slices: int):
+        """Exact per-row |row ∩ src| over the slices, src a lowered tree:
+        (row ids, counts int64) or None. The JAX package's
+        MeshManager.row_counts_src."""
+        return self._row_counts(index, frame, view, slices, num_slices,
+                                src=(src_shape, src_leaves))
+
+    def top_n(self, index: str, frame: str, view: str,
+              slices: Sequence[int], num_slices: int, n: int,
+              row_ids: Sequence[int], min_threshold: int,
+              src: Optional[tuple] = None, attr_predicate=None,
+              tanimoto_threshold: int = 0
+              ) -> Optional[List[Tuple[int, int]]]:
+        """TopN in every argument form from exact counts on the card,
+        with the host semantics of rank_pairs / tanimoto_rank. With
+        `row_ids` this is also TopN's exact phase. With `src` = (numbered
+        tree, leaves) the counts are |row ∩ src|; the Tanimoto band takes
+        the full counts, the src counts and |src| (two K5 launches and a
+        Count). None when a view cannot be staged."""
+        rows = row_ids or None
+        if tanimoto_threshold > 0:
+            if src is None:
+                return None
+            out = self._row_counts(index, frame, view, slices, num_slices,
+                                   src=src, rows=rows, with_full=True)
+            src_count = (None if out is None else
+                         self.count(index, src[0], src[1], slices,
+                                    num_slices))
+            if src_count is None:
+                return None
+            self._inc("topn")
+            all_rows, inter, full = out
+            return tanimoto_rank(all_rows, full, inter, src_count,
+                                 0 if row_ids else n, tanimoto_threshold,
+                                 row_ids, attr_predicate)
+        out = self._row_counts(index, frame, view, slices, num_slices,
+                               src=src, rows=rows)
+        if out is None:
+            return None
+        self._inc("topn")
+        return rank_pairs(out[0], out[1], n, row_ids, min_threshold,
+                          attr_predicate)
 
     # -- sorted-array serving ------------------------------------------------
 
@@ -385,7 +587,7 @@ class MeshManager:
             return tree[0]
         return None
 
-    def _sparse_request(self, tree, op: str, leaves, staged, mask,
+    def _sparse_request(self, tree, op: str, leaves, legs, mask,
                         num_slices: int) -> _SparseCount:
         """The format groups of a count over sorted-array pools. The
         slices split by the leaves' format pair into at most four groups:
@@ -395,19 +597,19 @@ class MeshManager:
         sorted-array leaf needs no kernel: its count is the cardinality
         table at the row's containers. A view whose dense pool is empty
         (every populated slice went sorted-array) serves every slice
-        from the sorted-array pool, where absent containers read 0. Call
-        under _mu."""
+        from the sorted-array pool, where absent containers read 0.
+        legs: _legs' (staged view, dense row id) of each leaf. Call under
+        _mu."""
         sel = mask.astype(bool)
-        host_total, jobs, legs = 0, [], []
-        for frame, view, row_id, _req in leaves:
-            sv = staged[(frame, view)]
-            dense = dense_row(sv.sharded, row_id)
+        host_total, jobs, leg_list = 0, [], []
+        for sv, dense in legs:
             has_dense = sv.sharded.capacity > 0
-            legs.append((
+            leg_list.append((
                 sv, sv.layout(dense) if has_dense else None,
                 sv.sparse_layout(dense) if sv.sparse is not None else None,
                 sv.slice_formats.astype(bool) if has_dense
                 else np.ones(num_slices, dtype=bool)))
+        legs = leg_list
         if op == "leaf":
             sv, d_lay, s_lay, fmts = legs[0]
             if (sel & fmts).any():

@@ -66,6 +66,21 @@ class Call:
                 f"could not convert {v!r} to uint64 in Call.uint_arg")
         return v & 0xFFFFFFFFFFFFFFFF, True
 
+    def uint_slice_arg(self, key: str):
+        """(values, present) of a list argument such as ids=[1, 2].
+        Raises TypeError when it is not a list of integers."""
+        if key not in self.args:
+            return [], False
+        v = self.args[key]
+        if not isinstance(v, (list, tuple)) or any(
+                isinstance(x, bool) or not isinstance(x, int) for x in v):
+            raise TypeError(f"unexpected type in uint_slice_arg, val {v!r}")
+        return [x & 0xFFFFFFFFFFFFFFFF for x in v], True
+
+    def clone(self) -> "Call":
+        return Call(self.name, dict(self.args),
+                    [c.clone() for c in self.children])
+
     def is_inverse(self, row_label: str, column_label: str) -> bool:
         """True for a Bitmap() that names a column and no row: it reads
         the inverse view."""

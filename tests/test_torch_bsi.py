@@ -41,6 +41,7 @@ from pilosa_tpu_torch.ops import bsi as tbsi
 from pilosa_tpu_torch.ops import kernels as tk
 from pilosa_tpu_torch.parallel.plan import _lower_tree, canonical_tree
 from pilosa_tpu_torch.pql import parse_string
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPS = (">", ">=", "<", "<=", "==", "!=")
 PAIR_OPS = ("and", "or", "xor", "andnot")

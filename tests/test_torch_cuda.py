@@ -117,6 +117,27 @@ def test_shared_kernels(card, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 29])
+def test_coarse_kernels_over_a_time_cover(card, n):
+    """K1 as a time Range of n views runs it: the OR of n optional leaves
+    in the planner's canonical form, each leaf its own pool (one staged
+    day view a leaf), with uniform and per-slice starts."""
+    from pilosa_tpu_torch.parallel.plan import canonical_tree
+
+    tree = canonical_tree(["or"] + [["leaf"]] * n,
+                          [("f", f"standard_{d}", 1, False)
+                           for d in range(n)], [])
+    rng = np.random.default_rng(40 + n)
+    ps = pools(40 + n, n)
+    scalars = torch.from_numpy(
+        rng.integers(-1, RUNS, size=n).astype(np.int32))
+    table = torch.from_numpy(
+        rng.integers(-1, RUNS, size=(n, S)).astype(np.int32))
+    check(tk.coarse_count_uniform, ps, (scalars,), tree, card)
+    check(tk.coarse_count_per_slice, ps, (table,), tree, card)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t", range(len(TREES)))
 def test_tree_count_kernel(card, t):
     tree = TREES[t]
@@ -232,12 +253,35 @@ def crafted_case(case, k):
     return (*sides, idx, one, idx, one), want
 
 
+def day_pair_case(s=3):
+    """Two day views of a time cover, as the 2-day Range pairs them: a
+    pool each of 4 rows x 16 containers, every bit set with p = 1/64,
+    the pair reading row 1 (containers 16-31) of both."""
+    rng = np.random.default_rng(64)
+    sides, bits = [], []
+    for _ in range(2):
+        b = rng.random((s, 64, 65536)) < 1 / 64
+        cards = b.sum(axis=2).astype(np.int32)
+        vals = np.full((s, 64, int(cards.max())), 0xFFFF, dtype=np.uint16)
+        for i in range(s):
+            for j in range(64):
+                vals[i, j, :cards[i, j]] = np.flatnonzero(b[i, j])
+        sides += [torch.from_numpy(vals.view(np.int16)),
+                  torch.from_numpy(cards)]
+        bits.append(b)
+    idx = torch.arange(16, 32, dtype=torch.int32).repeat(s, 1)
+    one = torch.ones((s, 16), dtype=torch.int32)
+    want = (bits[0][:, 16:32] & bits[1][:, 16:32]).sum(axis=2)
+    return (*sides, idx, one, idx, one), torch.from_numpy(
+        want.astype(np.int32))
+
+
 # K4 cases: random pools at four capacity pairs (ids ka-kb), crafted
 # pairs (lopsided, full, identical, disjoint, one value apart, 0 and 65535
 # at the ends; 4095 and 37 are odd capacities, so unaligned containers,
 # and their b pool starts 2 bytes past a 16-byte boundary on the card),
-# and 200 x 16 pairs of 2,048-value capacity: more than one grid's worth
-# of warps.
+# 200 x 16 pairs of 2,048-value capacity: more than one grid's worth
+# of warps, and two day views of a time cover.
 SPARSE_CASES = {
     "128-128": lambda: random_pair_case(128, 128),
     "4096-256": lambda: random_pair_case(4096, 256),
@@ -253,6 +297,7 @@ SPARSE_CASES = {
     "one-off-odd-k": lambda: crafted_case("one-off", 4095),
     "ends-odd-k": lambda: crafted_case("ends", 37),
     "200x16": lambda: random_pair_case(2048, 2048, s=200),
+    "day-pair": day_pair_case,
 }
 
 
@@ -396,3 +441,57 @@ def test_stream_popcount_kernel(card, n):
     assert got.dtype == torch.int64 and int(got) == int(want)
     ones = torch.full((5, 32, 2048), -1, dtype=torch.int32, device=card)
     assert int(tk.stream_popcount(ones)) == ones.numel() * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_kind", ["none", "row", "block"])
+def test_pair_count_rows_at_the_topn_shape(card, b_kind):
+    """K5 at the TopN configuration's shape: 4096 rows, one container
+    per row per slice (10% absent), against its plain version."""
+    rng = np.random.default_rng(4096 + len(b_kind))
+    s, rows = 4, 4096
+    pool = words(rng, (s, rows, 2048)).to(card)
+    a_idx = np.full((rows, s, 16), -1, dtype=np.int32)
+    a_idx[:, :, 0] = np.arange(rows)[:, None]
+    a_idx[rng.random((rows, s)) < 0.1, 0] = -1
+    a_idx = torch.from_numpy(a_idx).to(card)
+    kw = {}
+    if b_kind == "row":
+        kw = {"b_pool": pool, "b_idx": a_idx[7]}
+    elif b_kind == "block":
+        kw = {"b_block": words(rng, (s, 16, 2048)).to(card)}
+    before = tk.LAUNCHES["pair_count"]
+    got = tk.pair_count_rows(pool, a_idx, "and", **kw)
+    want = tk.pair_rows_plain(pool, a_idx, "and", kw.get("b_pool"),
+                              kw.get("b_idx"), kw.get("b_block"))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["pair_count"] == before + 1
+    assert torch.equal(got.cpu(), want.cpu()) and int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_row_counts_chunk_past_one_launch(card, tmp_path):
+    """A view of 70,000 rows (one launch takes 65,535): two launches,
+    and every row's count equals what was written (r % 5 + 1 bits)."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import serve as tserve
+
+    n_rows = 70_000
+    rows = np.repeat(np.arange(n_rows), np.arange(n_rows) % 5 + 1)
+    cols = np.concatenate([np.arange(k % 5 + 1) * 7 for k in range(n_rows)])
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        frag = h.create_index("i").create_frame("f").create_view_if_not_exists(
+            "standard").create_fragment_if_not_exists(0)
+        frag.import_bits(rows, cols)
+        mgr = Executor(h, device=card).mesh_manager()
+        ids, counts = mgr.row_counts("i", "f", "standard", [0], 1)
+        torch.cuda.synchronize()
+        assert mgr.stats["kernel:pair_count_rows"] == -(
+            -n_rows // tserve.MAX_ROWS_PER_LAUNCH) == 2
+        assert ids.tolist() == list(range(n_rows))
+        assert counts.tolist() == (np.arange(n_rows) % 5 + 1).tolist()
+    finally:
+        h.close()

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package, and
 it never drops to the CPU behind the caller's back."""
 
+import json
 import os
 import re
 import subprocess
@@ -9,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "pilosa_tpu_torch"
@@ -30,18 +32,26 @@ def post(path, body):
     with urllib.request.urlopen(req) as r:
         return json.loads(r.read())
 
-post("/index/i", "{}")
+post("/index/i", '{"options": {"timeQuantum": "YMD"}}')
 post("/index/i/frame/f", "{}")
-post("/index/i/query", "SetBit(rowID=1, frame=f, columnID=7)")
+post("/index/i/query", 'SetBit(rowID=1, frame=f, columnID=7, '
+                       'timestamp="2017-04-02T09:00")')
 post("/index/i/query", "SetBit(rowID=2, frame=f, columnID=7)")
+post("/index/i/query", 'SetRowAttrs(frame=f, rowID=2, cat="a")')
 out = post("/index/i/query",
-           "Count(Intersect(Bitmap(rowID=1, frame=f), Bitmap(rowID=2, frame=f)))")
+           "Count(Intersect(Bitmap(rowID=1, frame=f), Bitmap(rowID=2, frame=f)))"
+           ' Count(Range(rowID=1, frame=f, start="2017-04-01T00:00",'
+           ' end="2017-05-01T00:00"))'
+           ' TopN(frame=f, n=1, field="cat", filters=["a"])')
 srv.close()
 h.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
-print(json.dumps({"results": out["results"], "bad": bad}))
+new = [m for m in ("pilosa_tpu_torch.core.timequantum",
+                   "pilosa_tpu_torch.core.cache",
+                   "pilosa_tpu_torch.core.attr") if m not in sys.modules]
+print(json.dumps({"results": out["results"], "bad": bad, "unused": new}))
 """
 
 
@@ -51,7 +61,9 @@ def test_served_query_imports_no_jax():
         [sys.executable, "-c", SERVE_ONE_QUERY, str(REPO)], env=env,
         capture_output=True, text=True, timeout=120, check=True)
     last = out.stdout.strip().splitlines()[-1]
-    assert last == '{"results": [1], "bad": []}', out.stderr
+    assert json.loads(last) == {
+        "results": [1, 1, [{"id": 2, "count": 1}]], "bad": [],
+        "unused": []}, out.stderr
 
 
 def test_no_source_names_the_jax_package():
@@ -74,8 +86,11 @@ def test_cuda_without_card_raises(tmp_path):
     h = Holder(str(tmp_path))
     h.open()
     try:
+        from pilosa_tpu_torch.api.server import serve
+
         for make in (resolve_device, lambda d: Executor(h, device=d),
-                     lambda d: MeshManager(h, device=d)):
+                     lambda d: MeshManager(h, device=d),
+                     lambda d: serve(h, device=d)):
             with pytest.raises(RuntimeError, match="cuda"):
                 make("cuda")
         # The default is the card, too.

@@ -16,6 +16,7 @@ from pilosa_tpu.ops import kernels as jk
 from pilosa_tpu_torch.ops import kernels as tk
 from pilosa_tpu_torch.ops.bitops import fold_tree
 from pilosa_tpu_torch.parallel.mesh import combine_counts
+from torch_threads import one_torch_thread  # noqa: F401
 
 W = 2048
 S = 3        # slices

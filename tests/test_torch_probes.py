@@ -25,6 +25,7 @@ from pilosa_tpu_torch.ops import kernels as tk
 from pilosa_tpu_torch.tools import (probe_r5, probe_r5_bw, profile_headline,
                                     profile_stage)
 from tools.probe_r5_bw import coarse_count_uniform as jax_blocked
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 S, CAP = 8, 32

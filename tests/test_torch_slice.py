@@ -33,6 +33,7 @@ from pilosa_tpu_torch.parallel.mesh import (build_sharded_index, count_rows,
                                             leaf_layout, staged_from_numpy)
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.roaring import Bitmap, Container
+from torch_threads import one_torch_thread  # noqa: F401
 
 NUM_SLICES = 2
 DENSE_ROWS = (0, 1, 2, 3)
@@ -367,3 +368,56 @@ def test_quickstart_http_json_matches_jax(tmp_path):
         jh.close()
         th.close()
 
+
+
+C1_QUERIES = ["Bitmap(col=5, frame=g)", "Bitmap(columnID=5, frame=g)",
+              "Count(Bitmap(col=5, frame=g))",
+              "Count(Bitmap(columnID=5, frame=g))"]
+
+
+def c1_answers(execute, queries):
+    out = []
+    for q in queries:
+        try:
+            out.append(as_plain(execute(q)))
+        except Exception as e:  # noqa: BLE001 — compared by type name
+            out.append(("error", type(e).__name__))
+    return out
+
+
+@pytest.mark.parametrize("slices", [[0], None])
+def test_explicit_slices_with_a_custom_column_label(tmp_path, slices):
+    """With ?slices= given, a Bitmap is a column Bitmap only when it names
+    the default label "columnID" (and then reads no slice); without them,
+    by the index's own label. Index `i` has columnLabel "col" and an
+    inverse-enabled frame `g` with bits (1, 5) and (2, 5)."""
+    import shutil
+
+    jh = JaxHolder(str(tmp_path / "jax"))
+    jh.open()
+    g = jh.create_index("i", column_label="col").create_frame(
+        "g", inverse_enabled=True)
+    g.set_bit(1, 5)
+    g.set_bit(2, 5)
+    jh.close()
+    shutil.copytree(tmp_path / "jax", tmp_path / "torch")
+    jh = JaxHolder(str(tmp_path / "jax"))
+    jh.open()
+    try:
+        jex = JaxExecutor(jh, use_device=False)
+        want = c1_answers(
+            lambda q: jex.execute("i", jax_parse(q), slices)[0], C1_QUERIES)
+    finally:
+        jh.close()
+    h = Holder(str(tmp_path / "torch"))
+    h.open()
+    try:
+        ex = Executor(h, device="cpu")
+        got = c1_answers(
+            lambda q: ex.execute("i", parse_string(q), slices)[0], C1_QUERIES)
+    finally:
+        h.close()
+    assert got == want
+    assert got[0] == ("row", [1, 2])
+    if slices:
+        assert got[1] == ("row", [])

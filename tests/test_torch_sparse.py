@@ -33,6 +33,7 @@ from pilosa_tpu_torch.ops.pool import pack_bitmap, pack_sparse
 from pilosa_tpu_torch.parallel import mesh as tm
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.roaring import Bitmap
+from torch_threads import one_torch_thread  # noqa: F401
 
 # Every container boundary of the roaring array form (as in
 # tests/test_sparse_format.py): empty, singletons at both edges and at
