@@ -83,7 +83,21 @@ Phases, each fatal on failure:
      `general`'s (10 rows x 960 slices) and timed beside its byte bound
      and the index table's bytes; torch.profiler measures the card's
      busy share of a round of TopNs;
- 11. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 11. writes over HTTP on frame `general` at 960 slices, under the
+     holder's `group` WAL policy (the server's default; the bulk loads
+     go through Fragment.replace and write no op records): 200 rounds,
+     each a batch of 1, 16 or 256 SetBit / ClearBit calls into existing
+     containers of rows 0-7 from up to 16 clients, then a Count(
+     Intersect) held against numpy with the writes applied and timed
+     (p50 / p90); every round's refresh must be a scatter (one K7
+     launch, the manager's stats deltas). Then a write into a new row
+     (a restage, timed beside the scatters), then 16 clients at once
+     SetBit-ing into the newest slice (write QPS, fsyncs, ops per
+     commit). K7 is held exactly against its plain version at the
+     rounds' batch shapes and at (960, 1024) entries, and timed beside
+     its byte bound. The bsi phase's SetValues also scatter; the time
+     phase's writes into sorted-array day views restage, by design;
+ 12. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -91,8 +105,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 12. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-10, each path's counters set to 0 just before it;
+ 13. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-11, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -131,6 +145,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from datetime import datetime, timedelta
 from pathlib import Path
 
@@ -168,11 +183,15 @@ KERNELS = {
     "stream_popcount": ("pilosa_tpu_torch/csrc/coarse_count_blocked.cu",
                         "tools/probe_r5_bw.py:144 (the XLA whole-pool "
                         "popcount, no Pallas call)"),
+    "apply_writes": ("pilosa_tpu_torch/csrc/apply_writes.cu",
+                     "pilosa_tpu/parallel/mesh.py:1997 (the XLA program "
+                     "compile_serve_apply_writes, no Pallas call)"),
 }
 # The kernels each served path must launch.
 DENSE_PATH = ("coarse_count", "coarse_count_shared", "tree_count")
 SPARSE_PATH = ("sparse_pair_count", "coarse_count")
-BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count")
+BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count",
+            "apply_writes")
 PROBE_PATH = ("coarse_count_blocked", "stream_popcount", "probe_ok",
               "coarse_count")
 PROBE_SLICES = (SLICES, 3072)  # the bandwidth probe's sweep
@@ -217,13 +236,15 @@ def make_words(num_slices: int, seed: int) -> np.ndarray:
     return w
 
 
-def build_holder(path: str, words: np.ndarray):
+def build_holder(path: str, words: np.ndarray, wal=None):
     """A port Holder whose index `i`, frame `general` holds `words`,
-    injected as whole storage images (per-bit writes would take hours)."""
+    injected as whole storage images (per-bit writes would take hours;
+    `replace` writes no op records). `wal` is its WAL policy
+    (core/wal.WalConfig; None: the bare Holder's `never`)."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.roaring import Bitmap, Container
 
-    h = Holder(path)
+    h = Holder(path) if wal is None else Holder(path, wal=wal)
     h.open()
     view = h.create_index_if_not_exists("i").create_frame_if_not_exists(
         "general").create_view_if_not_exists("standard")
@@ -499,9 +520,9 @@ def traced(fn, warm):
     return held, wall
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, warm_calls: int = WARM_CALLS):
     """Mean device milliseconds of the kernels one call launches, by
-    torch.profiler over `reps` calls after WARM_CALLS (traced()): the
+    torch.profiler over `reps` calls after `warm_calls` (traced()): the
     card's own time, without the host gaps between calls that time_ms
     counts when a call's host work outlasts its kernels. Returns (ms,
     missed): ms is None when the window holds a count of some activity
@@ -512,12 +533,12 @@ def device_ms(fn, reps: int):
             fn()
 
     fn()
-    held, _wall = traced(lambda: calls(reps), lambda: calls(WARM_CALLS))
+    held, _wall = traced(lambda: calls(reps), lambda: calls(warm_calls))
     us = sum(b - a for _, ins in held.values() for a, b in ins)
     missed = [{"key": key[:80], "warm_held": len(warm),
-               "warm_calls": WARM_CALLS, "held": len(ins), "calls": reps}
+               "warm_calls": warm_calls, "held": len(ins), "calls": reps}
               for key, (warm, ins) in held.items()
-              if len(ins) % reps or len(warm) % WARM_CALLS]
+              if len(ins) % reps or len(warm) % warm_calls]
     whole = all(m["held"] % reps == 0 for m in missed)
     if not whole:
         log(f"  (the window lacks launches: {missed})")
@@ -1361,8 +1382,13 @@ def bsi_phase(holder, truth: BsiTruth, card: str, device) -> dict:
     log(f"bsi phase profile (20 Sums): device busy "
         f"{busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s wall = "
         f"{busy['device_busy_share']:.4f}")
+    log(f"bsi phase: the SetValue writes reached the staged views as "
+        f"{mstats.get('incremental', 0)} scatters (K7 launches "
+        f"{launches['apply_writes']}); {mstats.get('stage', 0)} stagings in "
+        f"all, {mstats.get('refresh_pick_restage', 0)} restages picked")
     for k in BSI_PATH:
         check(launches[k] > 0, f"kernel {k} launched on the bsi path")
+    check(mstats.get("incremental", 0) > 0, "the SetValues scattered")
     check(stats.get("count_host", 0) == 0 and stats.get("bsi_host", 0) == 0,
           "nothing counted on the host")
     return {"launches": launches, "stats": stats, "mesh_stats": mstats,
@@ -1645,6 +1671,7 @@ def time_phase(holder, truth: TimeTruth, card: str, device) -> dict:
         # Timestamped writes: a new month and day view, and a Range whose
         # cover holds a view that does not exist (May 1).
         cols = [3, (1 << 20) * (TIME_SLICES - 1) + 5, 777_777]
+        st0 = dict(mgr.stats)
         for col in cols:
             got = c.call("POST", "/index/tq/query",
                          f"SetBit(rowID={TIME_WRITE_ROW}, frame=events, "
@@ -1661,6 +1688,8 @@ def time_phase(holder, truth: TimeTruth, card: str, device) -> dict:
                 ("2017-04-30T00:00", "2017-05-03T00:00", len(cols)),
                 ("2017-04-01T00:00", "2017-05-01T00:00", 0)):
             ask(time_pql(TIME_WRITE_ROW, start, end), want)
+        refresh = {k: mgr.stats.get(k, 0) - st0.get(k, 0)
+                   for k in ("stage", "incremental", "refresh_pick_restage")}
         absent_before = mgr.stats.get("absent_views", 0)
         ask(time_pql(TIME_WRITE_ROW, "2017-05-01T00:00",
                      "2017-05-02T00:00"), 0)
@@ -1695,6 +1724,12 @@ def time_phase(holder, truth: TimeTruth, card: str, device) -> dict:
         f"{busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s wall = "
         f"{busy['device_busy_share']:.4f}")
     log(f"time phase stats {json.dumps(mstats, sort_keys=True)}")
+    log(f"time phase: the timestamped writes and the Ranges after them "
+        f"staged {refresh['stage']} times ({refresh['refresh_pick_restage']}"
+        f" of them restages of views with a sorted-array pool, which have "
+        f"no scatter; the rest new views, and restages after the new row "
+        f"{TIME_WRITE_ROW} added containers) and scattered "
+        f"{refresh['incremental']} times")
     for k in TIME_PATH:
         check(launches[k] > 0, f"kernel {k} launched on the time path")
     check(stats.get("count_host", 0) == 0, "no time Range on the host")
@@ -1704,7 +1739,8 @@ def time_phase(holder, truth: TimeTruth, card: str, device) -> dict:
             "single_days_s": days_s, "first_cover_s": first,
             "ms_per_query": ms, "profile": busy,
             "staged_sorted_array": sorted_bytes,
-            "staged_after_demotes": demoted, "kernels": kern}
+            "staged_after_demotes": demoted, "writes_refresh": refresh,
+            "kernels": kern}
 
 
 def time_kernel_cases(truth: TimeTruth, covers: dict, k4_case, la, lb,
@@ -2021,7 +2057,285 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
             "index_table_bytes": table_b, "profile": busy, "kernels": kern}
 
 
-# -- phase 11: the on-chip probe tools -------------------------------------------
+# -- phase 11: writes into the staged image ------------------------------------
+
+WRITE_ROUNDS = 200
+WRITE_BATCHES = (1, 16, 256)  # SetBit / ClearBit calls a round, in turn
+WRITERS = 16                  # concurrent clients (rounds and the herd)
+WRITER_OPS = 100              # SetBits each herd client sends
+WRITE_PATH = ("apply_writes", "coarse_count")
+K7_WIDE = (SLICES, 1024)      # K7 held at a shape above a launch floor
+SECTOR = 32                   # bytes the card moves to touch one word
+
+
+def flip_bits(words: np.ndarray, rows, cols, set_: np.ndarray) -> None:
+    """Apply SetBit (set_) / ClearBit writes at (row, column) to the
+    (S, rows, 16, 1024) uint64 truth."""
+    cols = np.asarray(cols, dtype=np.int64)
+    s, o = cols >> 20, cols & ((1 << 20) - 1)
+    b, i = o >> 16, o & 0xFFFF
+    bit = np.left_shift(np.uint64(1), (i & 63).astype(np.uint64))
+    idx = (s, np.asarray(rows), b, i >> 6)
+    for k in range(len(cols)):  # one at a time: a word may repeat
+        at = tuple(a[k] for a in idx)
+        words[at] = (words[at] | bit[k]) if set_[k] else (
+            words[at] & ~bit[k])
+
+
+def k7_case(name: str, pool, batch, reps: int = 200) -> dict:
+    """K7 on a clone of a staged pool against its plain version on
+    another clone, the same (S, B) card batches; timed by events and by
+    the profiler. Bound: a 32-byte sector read and written per live
+    entry, and each entry's 16 bytes read, over the card's memory
+    rate."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    a, b = pool.clone(), pool.clone()
+    tk.scatter_words(a, *batch)
+    tk.scatter_plain(b, *batch)
+    torch.cuda.synchronize()
+    err = 0 if torch.equal(a, b) else int(
+        (a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    check(err == 0, f"{name}: K7 != plain")
+    live = int(((batch[0] >= 0) & (batch[0] < pool.shape[1])).sum())
+    nbytes = live * 2 * SECTOR + batch[0].numel() * 16
+    ms = time_ms(lambda: tk.scatter_words(a, *batch), reps)
+    # A trace lacks the first launches after it opens (20 of K7's in a
+    # run with 10 warm calls): warm it for longer.
+    dev_ms, missed = device_ms(lambda: tk.scatter_words(a, *batch), reps,
+                               warm_calls=100)
+    plain_ms = time_ms(lambda: tk.scatter_plain(b, *batch), 10)
+    del a, b
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dev_s = f"{dev_ms:.4f}" if dev_ms is not None else "null"
+    log(f"  {name:36s} apply_writes {ms:8.4f} ms (device {dev_s})  "
+        f"bound {bound_ms:.5f} ms  plain {plain_ms:.3f} ms  exact")
+    return {"kernel": "apply_writes", "ms": ms, "device_ms": dev_ms,
+            "trace_missed": missed, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "entries": int(batch[0].numel()), "live_entries": live,
+            "shape": list(batch[0].shape), "library_ms": None,
+            "max_abs_err": err}
+
+
+def write_phase(holder, words: np.ndarray, card: str, device,
+                seed: int) -> dict:
+    """Writes mixed with queries over HTTP on frame `general` (dense, 960
+    slices) under the holder's `group` policy: WRITE_ROUNDS rounds, each
+    a batch of W in WRITE_BATCHES SetBit / ClearBit calls into existing
+    containers of rows 0-7 (from up to WRITERS clients at once), then a
+    timed Count(Intersect) held against numpy with the writes applied;
+    every round's refresh must be a scatter (the stats deltas). Then a
+    write into a new row, which must restage, timed beside the scatters;
+    then WRITERS clients sending SetBits at once into the newest slice
+    (write QPS, fsyncs, ops per commit). K7 is then held against its
+    plain version at the rounds' batch shapes and at K7_WIDE. The
+    counters are set to 0 just before the server starts and read after
+    the last query. `words` is updated to the written state."""
+    import torch
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.parallel import serve as tserve
+
+    rng = np.random.default_rng(seed + 7)
+    frags = list(holder.view("i", "general", "standard").fragments.values())
+    policy = frags[0]._wal.cfg.fsync_policy
+    check(policy == "group", f"the holder writes under group, not {policy}")
+    batches: dict = {}
+    real_apply = tserve.apply_writes
+    current = {"w": None}
+
+    def recording_apply(staged, *batch):
+        batches.setdefault(current["w"], tuple(np.array(a) for a in batch))
+        return real_apply(staged, *batch)
+
+    def wal_totals():
+        return (sum(f._wal.fsyncs for f in frags),
+                sum(f._wal.committed_ops for f in frags))
+
+    tk.reset_launches()
+    srv = serve(holder, device=device)
+    host, port = srv.address
+    ex = srv.handler.executor
+    mgr = ex.mesh_manager()
+    clients = [Client(host, port) for _ in range(WRITERS)]
+    pool_ex = ThreadPoolExecutor(WRITERS)
+    c = clients[0]
+    tserve.apply_writes = recording_apply
+    try:
+        t0 = time.monotonic()
+        check(c.count(pql("and", 0, 1)) == host_count(words, "and", 0, 1),
+              "first Count")
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        log(f"write phase: first query (staging) {first_s:.2f} s")
+        collect_ms = collect_after_staging("write phase")
+        lat = {w: [] for w in WRITE_BATCHES}
+        paths = []
+        write_s = {w: 0.0 for w in WRITE_BATCHES}
+        for k in range(WRITE_ROUNDS):
+            w = WRITE_BATCHES[k % len(WRITE_BATCHES)]
+            current["w"] = w
+            cols = np.unique(rng.integers(0, SLICES << 20, size=w))
+            while len(cols) < w:
+                cols = np.unique(np.concatenate([cols, rng.integers(
+                    0, SLICES << 20, size=w - len(cols))]))
+            rows = rng.integers(0, DENSE_ROWS, size=w)
+            set_ = rng.random(w) < 0.5
+            calls = [f"{'SetBit' if s_ else 'ClearBit'}(rowID={r}, "
+                     f"frame=general, columnID={col})"
+                     for r, col, s_ in zip(rows, cols, set_)]
+            parts = [calls[j::WRITERS] for j in range(min(w, WRITERS))]
+            before = dict(mgr.stats)
+            t0 = time.monotonic()
+            list(pool_ex.map(lambda j: clients[j].call(
+                "POST", "/index/i/query", " ".join(parts[j])),
+                range(len(parts))))
+            write_s[w] += time.monotonic() - t0
+            flip_bits(words, rows, cols, set_)
+            a, b = (int(x) for x in rng.choice(DENSE_ROWS, 2, replace=False))
+            want = host_count(words, "and", a, b)
+            t0 = time.monotonic()
+            got = c.count(pql("and", a, b))
+            lat[w].append((time.monotonic() - t0) * 1e3)
+            check(got == want, ("post-write Count", k, w, got, want))
+            d = {key: mgr.stats.get(key, 0) - before.get(key, 0)
+                 for key in ("incremental", "stage")}
+            paths.append("incremental" if d == {"incremental": 1, "stage": 0}
+                         else json.dumps(d))
+        every = [x for w in WRITE_BATCHES for x in lat[w]]
+        post = {"p50_ms": float(np.percentile(every, 50)),
+                "p90_ms": float(np.percentile(every, 90)),
+                "by_batch": {str(w): {
+                    "rounds": len(lat[w]),
+                    "p50_ms": float(np.percentile(lat[w], 50)),
+                    "p90_ms": float(np.percentile(lat[w], 90)),
+                    "write_s_per_round": write_s[w] / len(lat[w])}
+                    for w in WRITE_BATCHES}}
+        by_path = dict(Counter(paths))
+        log(f"write phase on {card}: the Count after each round's writes, "
+            f"p50 {post['p50_ms']:.3f} ms, p90 {post['p90_ms']:.3f} ms over "
+            f"{WRITE_ROUNDS} rounds; by W {json.dumps(post['by_batch'])}")
+        log(f"write phase: refresh path per round {json.dumps(by_path)}")
+        check(by_path == {"incremental": WRITE_ROUNDS},
+              f"every round scattered: {by_path}")
+        sv = mgr._views[("i", "general", "standard")]
+        inc_ewma_ms = (sv.inc_ewma_s or 0.0) * 1e3
+        # A write into a new row adds a container: a restage.
+        before = dict(mgr.stats)
+        col = int(rng.integers(0, SLICES << 20))
+        c.call("POST", "/index/i/query",
+               f"SetBit(rowID={DENSE_ROWS + 12}, frame=general, "
+               f"columnID={col})")
+        t0 = time.monotonic()
+        got = c.count(f"Count(Bitmap(rowID={DENSE_ROWS + 12}))")
+        torch.cuda.synchronize()
+        restage_ms = (time.monotonic() - t0) * 1e3
+        check(got == 1, ("Count of the new row", got))
+        d = {key: mgr.stats.get(key, 0) - before.get(key, 0)
+             for key in ("incremental", "stage", "stage_us")}
+        check(d["stage"] == 1 and d["incremental"] == 0,
+              f"the churn write restaged: {d}")
+        collect_after_staging("write phase (restage)")
+        sv2 = mgr._views[("i", "general", "standard")]
+        for _ in range(100):  # the staging's measurement lands on a worker
+            if sv2.last_stage_s is not None:
+                break
+            time.sleep(0.01)
+        restage = {"count_ms": restage_ms, "stage_us": d["stage_us"],
+                   "last_stage_s": sv2.last_stage_s,
+                   "scatter_ewma_ms": inc_ewma_ms}
+        log(f"write phase: the churn write's Count {restage_ms:.1f} ms "
+            f"(restage {d['stage_us'] / 1e3:.1f} ms on the host, "
+            f"{(sv2.last_stage_s or 0) * 1e3:.1f} ms to the card's "
+            f"completion) against a scatter's {inc_ewma_ms:.3f} ms "
+            f"(the gate's estimate) and the post-write Count p50 "
+            f"{post['p50_ms']:.3f} ms")
+        # The herd: WRITERS clients at once into the newest slice, where
+        # new columns arrive.
+        herd_cols = ((SLICES - 1) << 20) + rng.choice(
+            1 << 20, size=(WRITERS, WRITER_OPS), replace=False)
+        herd_rows = rng.integers(0, DENSE_ROWS, size=(WRITERS, WRITER_OPS))
+        fs0, ops0 = wal_totals()
+
+        def herd(j):
+            cl = clients[j]
+            return [cl.call("POST", "/index/i/query",
+                            f"SetBit(rowID={r}, frame=general, "
+                            f"columnID={col})")["results"][0]
+                    for r, col in zip(herd_rows[j], herd_cols[j])]
+
+        current["w"] = "herd"
+        t0 = time.monotonic()
+        acks = list(pool_ex.map(herd, range(WRITERS)))
+        herd_s = time.monotonic() - t0
+        fs1, ops1 = wal_totals()
+        flip_bits(words, herd_rows.ravel(), herd_cols.ravel(),
+                  np.ones(herd_cols.size, dtype=bool))
+        n = WRITERS * WRITER_OPS
+        herd_out = {"writes": n, "seconds": herd_s, "write_qps": n / herd_s,
+                    "fsyncs": fs1 - fs0, "ops": ops1 - ops0,
+                    "ops_per_commit": (ops1 - ops0) / max(1, fs1 - fs0),
+                    "changed": int(sum(sum(bool(x) for x in a)
+                                       for a in acks))}
+        check(herd_out["ops"] == n and 0 < herd_out["fsyncs"] < n,
+              f"the herd's writes shared commits: {herd_out}")
+        got = c.count(pql("and", 0, 1))
+        check(got == host_count(words, "and", 0, 1), ("after the herd", got))
+        log(f"write phase: {WRITERS} clients x {WRITER_OPS} SetBits into "
+            f"slice {SLICES - 1}: {herd_out['write_qps']:.1f} writes/s, "
+            f"{herd_out['fsyncs']} fsyncs for {herd_out['ops']} ops "
+            f"({herd_out['ops_per_commit']:.2f} ops per commit)")
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        stats = dict(ex.stats)
+        mstats = dict(mgr.stats)
+        # K7 against its plain version: the rounds' batches, then K7_WIDE
+        # unique targets (distinct words, random slots) per slice.
+        pool = mgr._views[("i", "general", "standard")].sharded.words
+        kern = {}
+        for w in WRITE_BATCHES:
+            dev = tuple(torch.from_numpy(np.ascontiguousarray(a).view(
+                np.int32)).to(device) for a in batches[w])
+            kern[f"apply_writes (round batch, W={w})"] = k7_case(
+                f"apply_writes (W={w}: {tuple(dev[0].shape)})", pool, dev)
+        s_, b_ = K7_WIDE
+        g = torch.Generator(device=device).manual_seed(seed)
+        wide = (torch.randint(0, pool.shape[1], (s_, b_), generator=g,
+                              device=device, dtype=torch.int32),
+                (torch.arange(b_, device=device, dtype=torch.int32) * 2)
+                .repeat(s_, 1),
+                torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
+                              device=device, dtype=torch.int32),
+                torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
+                              device=device, dtype=torch.int32))
+        kern["apply_writes (960 x 1024)"] = k7_case(
+            f"apply_writes ({s_} x {b_} entries)", pool, wide)
+    finally:
+        tserve.apply_writes = real_apply
+        pool_ex.shutdown()
+        for cl in clients:
+            cl.close()
+        srv.close()
+    log(f"write phase launches {launches}; executor {stats}")
+    log(f"write phase stats {json.dumps(mstats, sort_keys=True)}")
+    for k in WRITE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the write path")
+    check(launches["apply_writes"] == mstats.get("incremental", 0),
+          "one K7 launch a scatter")
+    return {"launches": launches, "stats": stats, "mesh_stats": mstats,
+            "first_query_s": first_s, "collect_after_staging_ms": collect_ms,
+            "post_write_count": post, "paths": by_path,
+            "restage": restage, "herd": herd_out, "kernels": kern,
+            "policy": policy}
+
+
+# -- phase 12: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -2350,8 +2664,11 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     words = make_words(SLICES, args.seed)
     sp = SparseRows(SLICES, args.seed)
+    from pilosa_tpu_torch.core.wal import FSYNC_GROUP, WalConfig
+
     with tempfile.TemporaryDirectory() as tmp:
-        holder = build_holder(tmp, words)
+        # The server's default policy: an acknowledged write is durable.
+        holder = build_holder(tmp, words, wal=WalConfig(FSYNC_GROUP))
         try:
             add_sparse_frames(holder, words, sp)
             log(f"data: {SLICES} slices ({SLICES << 20} columns) in "
@@ -2384,6 +2701,9 @@ def main(argv=None) -> int:
             topn = topn_phase(holder, words, ntruth, card, device)
             topn["data_s"] = gen_s
             kern.update(topn["kernels"])
+            gc.collect()
+            writes = write_phase(holder, words, card, device, args.seed)
+            kern.update(writes["kernels"])
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
@@ -2393,7 +2713,7 @@ def main(argv=None) -> int:
     # from 0 just before it was driven; K6 and the stream serve only the
     # probe path, whose own loops the other kernels' counts leave out.
     paths = {"dense": sl, "sparse": sps, "bsi": bsi, "time": tq,
-             "topn": topn, "probes": probes}
+             "topn": topn, "writes": writes, "probes": probes}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()}
                for k in KERNELS}
     launches = {k: sum(n for p, n in by_path[k].items()
@@ -2421,7 +2741,7 @@ def main(argv=None) -> int:
          "seed": args.seed, "build_s": build_s, "ptxas": ptxas,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
-         "probes": probes,
+         "write_slice": writes, "probes": probes,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -4,7 +4,8 @@ Run a node:  python -m pilosa_tpu_torch.api.server -d DIR -b HOST:PORT
 (add --device cpu to serve without a card, and
 --sparse-density-threshold 0 to stage every slice as packed words; the
 flag's default comes from $PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD when
-that is set).
+that is set). --fsync-policy {never,group,always} sets when a write is
+acknowledged (core/wal.py); the default, `group`, is the JAX server's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
+from ..core.wal import FSYNC_GROUP, FSYNC_POLICIES, WalConfig
 from ..parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
 
 THRESHOLD_ENV = "PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD"
@@ -108,6 +110,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"as sorted arrays; <= 0 stages all dense "
                          f"(default: ${THRESHOLD_ENV}, else "
                          f"{DEFAULT_SPARSE_DENSITY_THRESHOLD})")
+    ap.add_argument("--fsync-policy", choices=FSYNC_POLICIES,
+                    default=FSYNC_GROUP,
+                    help="when a SetBit / ClearBit is acknowledged: after "
+                         "a group-commit fsync covers its op record "
+                         "(group, the default), after its own fsync "
+                         "(always), or at once, without fsync (never)")
     return ap.parse_args(argv)
 
 
@@ -116,7 +124,7 @@ def main(argv=None) -> None:
 
     args = parse_args(argv)
     host, _, port = args.bind.rpartition(":")
-    holder = Holder(args.data_dir)
+    holder = Holder(args.data_dir, wal=WalConfig(args.fsync_policy))
     holder.open()
     srv = serve(holder, args.device, host or "127.0.0.1", int(port),
                 args.sparse_density_threshold)

@@ -2,11 +2,13 @@
 
 A reduced copy of the JAX package's Fragment: the roaring file (a
 snapshot region followed by an op log, rewritten by temp + rename every
-MAX_OP_N ops), an exclusive flock, per-bit writes, bulk import, row
-materialization, the mutation `generation` the device stager reads to
-know when its image went stale (parallel/serve.py restages the view),
-and the rank cache of row counts behind the host TopN (`top`), kept in
-`<fragment>.cache` as the JAX package keeps it.
+MAX_OP_N ops), an exclusive flock, per-bit writes behind the commit
+barrier of its WAL policy (core/wal.py), bulk import, row
+materialization, the mutation `generation` and log the device stager
+reads to bring its image up to date (parallel/serve.py scatters the
+logged bits into it, or restages the view), and the rank cache of row
+counts behind the host TopN (`top`), kept in `<fragment>.cache` as the
+JAX package keeps it.
 
 Bit addressing: pos = rowID * SLICE_WIDTH + (columnID % SLICE_WIDTH).
 """
@@ -18,7 +20,7 @@ import fcntl
 import json
 import os
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,6 +29,7 @@ from ..roaring import Bitmap
 from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE, new_cache, \
     sort_pairs
 from .row import Row
+from .wal import FSYNC_NEVER, WalCommitter, WalConfig
 
 # Snapshot after this many logged ops.
 MAX_OP_N = 2000
@@ -69,7 +72,7 @@ class Fragment:
     def __init__(self, path: str, index: str, frame: str, view: str,
                  slice_: int, cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 row_attr_store=None):
+                 row_attr_store=None, wal: Optional[WalConfig] = None):
         self.path = path
         self.index = index
         self.frame = frame
@@ -82,9 +85,19 @@ class Fragment:
         self._mu = threading.RLock()
         self.storage = Bitmap()
         self.op_n = 0
-        # Bumped by every mutation; the stager compares it with the
-        # generation it staged at.
+        # The durability policy: a bare Fragment writes through without
+        # fsync, as the JAX package's does; servers pass their policy.
+        self._wal = WalCommitter(wal if wal is not None
+                                 else WalConfig(FSYNC_NEVER))
+        # The mutation log the stager reads (log_since): one (op 0 = set
+        # / 1 = clear, pos, churn) per write, churn when the write added
+        # or removed a container (a scatter cannot add or drop a slot).
+        # `generation` counts writes; a reset (import, replace) moves it
+        # past every logged entry, so every consumer restages.
         self.generation = 0
+        self._log: List[Tuple[int, int, bool]] = []
+        self._log_base = 0
+        self._log_limit = 8192
         self._op_file = None
         self._lock_file = None
 
@@ -107,7 +120,8 @@ class Fragment:
                 with open(self.path, "wb") as f:
                     self.storage.write_to(f)
             self._op_file = open(self.path, "ab", buffering=0)
-            self.storage.op_writer = self._op_file
+            self._wal.retarget(self._op_file)
+            self.storage.op_writer = self._wal
             self._load_cache()
 
     @property
@@ -117,6 +131,7 @@ class Fragment:
     def close(self):
         with self._mu:
             self.flush_cache()
+            self._wal.detach()
             self.storage.op_writer = None
             if self._op_file is not None:
                 self._op_file.close()
@@ -164,31 +179,64 @@ class Fragment:
         return row_id * SLICE_WIDTH + (column_id % SLICE_WIDTH)
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
-        """Set a bit, logging the op. True if it was newly set."""
+        """Set a bit, logging the op; returns once the op record is
+        durable under the WAL policy. True if it was newly set."""
         with self._mu:
-            changed = self.storage.add(self._pos(row_id, column_id))
+            pos = self._pos(row_id, column_id)
+            churn = self.storage._find_key(pos >> 16) < 0
+            changed = self.storage.add(pos)
+            seq = self._wal.seq()
+            self._log_append(0, pos, churn)
             if changed:
                 self.cache.add(row_id, self.row_count(row_id))
-            self._mutated()
-            return changed
+            self._count_op()
+        self._wal.wait_durable(seq)
+        return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         with self._mu:
-            changed = self.storage.remove(self._pos(row_id, column_id))
+            pos = self._pos(row_id, column_id)
+            changed = self.storage.remove(pos)
+            seq = self._wal.seq()
+            churn = changed and self.storage._find_key(pos >> 16) < 0
+            self._log_append(1, pos, churn)
             if changed:
                 self.cache.add(row_id, self.row_count(row_id))
-            self._mutated()
-            return changed
+            self._count_op()
+        self._wal.wait_durable(seq)
+        return changed
 
-    def _bump(self):
-        self.generation += 1
-        MUTATION_EPOCH.bump()
-
-    def _mutated(self):
-        self._bump()
+    def _count_op(self):
         self.op_n += 1
         if self.op_n > MAX_OP_N:
             self.snapshot()
+
+    # -- the mutation log ------------------------------------------------------
+
+    def _log_append(self, op: int, pos: int, churn: bool):
+        self.generation += 1
+        MUTATION_EPOCH.bump()
+        self._log.append((op, pos, churn))
+        if len(self._log) > self._log_limit:
+            drop = len(self._log) - self._log_limit
+            del self._log[:drop]
+            self._log_base += drop
+
+    def _log_reset(self):
+        """A whole-storage change (import, replace): consumers at any
+        earlier generation must restage."""
+        self.generation += 1
+        MUTATION_EPOCH.bump()
+        self._log.clear()
+        self._log_base = self.generation
+
+    def log_since(self, gen: int) -> Optional[List[Tuple[int, int, bool]]]:
+        """The writes after generation `gen`, or None when the log no
+        longer reaches back that far (pruned or reset: restage)."""
+        with self._mu:
+            if gen < self._log_base or gen > self.generation:
+                return None
+            return self._log[gen - self._log_base:]
 
     def import_bits(self, row_ids: Sequence[int],
                     column_ids: Sequence[int]):
@@ -204,7 +252,7 @@ class Fragment:
             for r in np.unique(rows).tolist():
                 self.cache.bulk_add(r, counts.get(r, 0))
             self.cache.invalidate()
-            self._bump()
+            self._log_reset()
             self.snapshot()
 
     def replace(self, bitmap: Bitmap):
@@ -212,15 +260,16 @@ class Fragment:
         next snapshot() writes it out (bulk loaders that would take
         hours through per-bit writes)."""
         with self._mu:
-            bitmap.op_writer = self._op_file
+            bitmap.op_writer = self._wal
             self.storage = bitmap
             self.cache = new_cache(self.cache_type, self.cache_size)
             self.rebuild_cache()
-            self._bump()
+            self._log_reset()
 
     def snapshot(self):
         """Rewrite the file as a bare snapshot (temp + rename) and
-        restart the op log after it."""
+        restart the op log after it. Buffered op records drain into the
+        old file (the snapshot already holds their bits)."""
         with self._mu:
             tmp = self.path + ".snapshotting"
             with open(tmp, "wb") as f:
@@ -228,10 +277,12 @@ class Fragment:
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self.path)
-            if self._op_file is not None:
-                self._op_file.close()
-            self._op_file = open(self.path, "ab", buffering=0)
-            self.storage.op_writer = self._op_file
+            old, self._op_file = self._op_file, open(self.path, "ab",
+                                                     buffering=0)
+            self._wal.retarget(self._op_file)
+            if old is not None:
+                old.close()
+            self.storage.op_writer = self._wal
             self.op_n = 0
 
     # -- the rank cache --------------------------------------------------------

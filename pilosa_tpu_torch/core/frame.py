@@ -38,9 +38,10 @@ class Frame:
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  time_quantum: str = "",
-                 fields: Optional[Sequence] = None):
+                 fields: Optional[Sequence] = None, wal=None):
         validate_name(name)
         self.path = path
+        self.wal = wal  # core/wal.WalConfig, or None: never
         self.index = index
         self.name = name
         self.meta = {"rowLabel": row_label,
@@ -141,7 +142,7 @@ class Frame:
     def _open_view(self, name: str) -> View:
         v = View(os.path.join(self.path, name), self.index, self.name, name,
                  self.meta["cacheType"], self.meta["cacheSize"],
-                 self.row_attr_store)
+                 self.row_attr_store, wal=self.wal)
         v.open()
         self.views = {**self.views, name: v}
         return v

@@ -1,5 +1,7 @@
 """Holder: the root of a node's data directory, one subdirectory per
-index."""
+index. Its WAL policy (core/wal.WalConfig) reaches every fragment; a
+bare Holder writes through without fsync (`never`), the server passes
+its --fsync-policy (default `group`)."""
 
 from __future__ import annotations
 
@@ -9,11 +11,13 @@ from typing import Dict, List, Optional
 
 from ..errors import IndexExistsError
 from .index import Index
+from .wal import WalConfig
 
 
 class Holder:
-    def __init__(self, path: str):
+    def __init__(self, path: str, wal: Optional[WalConfig] = None):
         self.path = path
+        self.wal = wal
         self.indexes: Dict[str, Index] = {}
         self._create_mu = threading.Lock()
 
@@ -31,7 +35,8 @@ class Holder:
         self.indexes = {}
 
     def _open_index(self, name: str, **options) -> Index:
-        idx = Index(os.path.join(self.path, name), name, **options)
+        idx = Index(os.path.join(self.path, name), name, wal=self.wal,
+                    **options)
         idx.open()
         self.indexes = {**self.indexes, name: idx}
         return idx

@@ -21,9 +21,10 @@ DEFAULT_COLUMN_LABEL = "columnID"
 class Index:
     def __init__(self, path: str, name: str,
                  column_label: str = DEFAULT_COLUMN_LABEL,
-                 time_quantum: str = ""):
+                 time_quantum: str = "", wal=None):
         validate_name(name)
         self.path = path
+        self.wal = wal  # core/wal.WalConfig, or None: never
         self.name = name
         self.meta = {"columnLabel": column_label,
                      "timeQuantum": str(time_quantum)}
@@ -71,7 +72,7 @@ class Index:
 
     def _open_frame(self, name: str, **options) -> Frame:
         frame = Frame(os.path.join(self.path, name), self.name, name,
-                      **options)
+                      wal=self.wal, **options)
         frame.open()
         self.frames = {**self.frames, name: frame}
         return frame

@@ -25,6 +25,10 @@ replace (pilosa_tpu/ops/kernels.py):
      coarse_count_uniform (tools/probe_r5_bw.py:82), and stream_popcount,
      the whole-pool popcount that probe takes as its ceiling. Both serve
      the probe tools (pilosa_tpu_torch/tools/), not the serving path.
+  K7 apply_writes (csrc/apply_writes.cu): scatter_words, the write
+     scatter into a staged pool, for the XLA program
+     compile_serve_apply_writes (pilosa_tpu/parallel/mesh.py:1997), no
+     Pallas call. It updates the pool in place.
 
 Pools are (S, cap, 2048) int32 tensors holding uint32 words, and
 sorted-array pools (S, C, K) int16 tensors holding u16 values. A wrapper
@@ -64,7 +68,8 @@ _PUSH = 4
 
 LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
             "sparse_pair_count": 0, "pair_count": 0, "probe_ok": 0,
-            "coarse_count_blocked": 0, "stream_popcount": 0}
+            "coarse_count_blocked": 0, "stream_popcount": 0,
+            "apply_writes": 0}
 _LAUNCH_MU = threading.Lock()
 
 
@@ -652,3 +657,57 @@ def stream_popcount(pool: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), _stream(out))
     _launched("stream_popcount", rc)
     return out
+
+
+# -- K7 apply_writes -----------------------------------------------------------
+
+
+def scatter_plain(words, slot, word, set_mask, clear_mask):
+    """(w & ~clear) | set at each in-bounds (slot, word) entry, in place
+    by advanced indexing; entries with slot outside [0, cap) or word
+    outside [0, 2048) drop. Shapes as scatter_words'."""
+    w = words if words.dim() == 3 else words.unsqueeze(0)
+    sl, wd, sm, cm = (t.reshape(w.shape[0], -1)
+                      for t in (slot, word, set_mask, clear_mask))
+    keep = (sl >= 0) & (sl < w.shape[1]) & (wd >= 0) & (wd < CONTAINER_WORDS)
+    s_idx = torch.arange(w.shape[0], device=w.device)[:, None].expand_as(sl)
+    s_idx, sl, wd = s_idx[keep], sl[keep], wd[keep]
+    w[s_idx, sl, wd] = (w[s_idx, sl, wd] & ~cm[keep]) | sm[keep]
+    return words
+
+
+def scatter_words(words, slot, word, set_mask, clear_mask):
+    """K7: (w & ~clear_mask) | set_mask at unique (slot, word) targets of
+    a staged pool, in place, with the contract of the JAX package's
+    ops/pool.scatter_words (vmapped over slices by its
+    compile_serve_apply_writes). words: contiguous (S, cap, 2048) int32
+    with (S, B) batches, or (cap, 2048) with (B,) batches; slot and word
+    int32, the masks int32 holding uint32 bits. An entry with slot
+    outside [0, cap) (padding rides slot = cap) drops, as mode="drop"
+    drops it. Targets must be unique per slice (plan_slice_mutations).
+    Returns words."""
+    if (words.dtype != torch.int32 or words.dim() not in (2, 3)
+            or words.shape[-1] != CONTAINER_WORDS
+            or not words.is_contiguous()):
+        raise ValueError("scatter_words takes a contiguous (S, cap, 2048) "
+                         "or (cap, 2048) int32 pool")
+    want = tuple(words.shape[:1]) if words.dim() == 3 else ()
+    batch = (slot, word, set_mask, clear_mask)
+    for t in batch:
+        if (t.dtype != torch.int32 or t.dim() != len(want) + 1
+                or tuple(t.shape[:-1]) != want or not t.is_contiguous()
+                or t.shape != slot.shape):
+            raise ValueError("scatter_words batches must be contiguous "
+                             f"int32 tensors of one shape {want + ('B',)}")
+    if not _on_cuda(words, *batch):
+        return scatter_plain(words, *batch)
+    if slot.numel() == 0:
+        return words
+    s = words.shape[0] if words.dim() == 3 else 1
+    cap = words.shape[-2]
+    rc = kernel_fn("apply_writes")(
+        words.data_ptr(), s, cap, slot.data_ptr(), word.data_ptr(),
+        set_mask.data_ptr(), clear_mask.data_ptr(), int(slot.shape[-1]),
+        _stream(words))
+    _launched("apply_writes", rc)
+    return words

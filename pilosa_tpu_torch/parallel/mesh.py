@@ -28,7 +28,8 @@ import torch
 from ..ops import kernels
 from ..ops.bitops import (fold_tree, popcount, sparse_op_counts,
                           sparse_probe_intersect_counts)
-from ..ops.pool import CONTAINER_WORDS, INVALID_KEY, ROW_SPAN, pool_keys
+from ..ops.pool import (CONTAINER_WORDS, INVALID_KEY, ROW_SPAN,
+                        mutation_batch_width, pad_mutation_plan, pool_keys)
 from ..roaring import ARRAY_MAX_SIZE
 
 # Host bytes packed per host-to-device copy while staging.
@@ -95,6 +96,38 @@ def build_sharded_index(slices: Sequence, device,
                 buf[si - lo, :len(slices[si][1])] = slices[si][1]
         words[lo:hi].copy_(torch.from_numpy(buf.view(np.int32)))
     return ShardedIndex(words=words, keys_host=keys, row_ids=row_ids)
+
+
+def pack_mutation_batches(per_slice, num_slices: int, capacity: int):
+    """Stack per-slice plan_slice_mutations results into padded (S, B)
+    batches (slot int32, word int32, set_mask uint32, clear_mask
+    uint32) for apply_writes. per_slice: {slice: plan}. B is the power
+    of two of the widest slice's plan; padding rides slot = capacity,
+    which the scatter drops (ops.pool.pad_mutation_plan). Only the
+    written slices are padded one by one; the rest start as padding."""
+    widest = max((len(v[0]) for v in per_slice.values()), default=0)
+    b = mutation_batch_width(widest)
+    out = (np.full((num_slices, b), capacity, dtype=np.int32),
+           np.zeros((num_slices, b), dtype=np.int32),
+           np.zeros((num_slices, b), dtype=np.uint32),
+           np.zeros((num_slices, b), dtype=np.uint32))
+    for si, plan in per_slice.items():
+        for dst, src in zip(out, pad_mutation_plan(plan, capacity, b)):
+            dst[si] = src
+    return out
+
+
+def apply_writes(staged: ShardedIndex, slot, word, set_mask, clear_mask
+                 ) -> ShardedIndex:
+    """Scatter pack_mutation_batches' (S, B) batches into the staged
+    pool, in place (K7, kernels.scatter_words): one copy of the four
+    batches to the card, one launch. The keys and the row table do not
+    change, so the same ShardedIndex comes back."""
+    host = np.stack([np.ascontiguousarray(a).view(np.int32)
+                     for a in (slot, word, set_mask, clear_mask)])
+    dev = torch.from_numpy(host).to(staged.words.device)
+    kernels.scatter_words(staged.words, dev[0], dev[1], dev[2], dev[3])
+    return staged
 
 
 def staged_from_numpy(keys_host: np.ndarray, words, row_ids: np.ndarray,

@@ -30,8 +30,17 @@ the card with the view (mesh.row_table). TopN's argument forms (n,
 threshold, ids, a src tree, attr filters, the Tanimoto band) apply on
 the host to those exact totals (rank_pairs, tanimoto_rank).
 
-Staged views are restaged whole when any of their fragments moved
-generation (a write), and on first use.
+Writes reach a staged dense view as a scatter (refresh): each slice's
+fragment log since the staged generation folds into final bit states,
+which plan into unique (slot, word, set, clear) entries per slice, and
+one K7 launch (kernels.scatter_words) updates the pool in place, ordered
+on the stream after every count kernel already queued on it. The keys
+never change, so a view's layouts and row table survive a scatter. A
+write that added or removed a container, a log pruned past the staged
+generation, a new or dropped fragment, a view with a sorted-array pool,
+or a set the planner cannot place restages the view whole, as does the
+measured cost gate when a restage has been cheaper than a scatter. A
+view is staged whole on first use.
 """
 
 from __future__ import annotations
@@ -49,11 +58,12 @@ import torch
 from .. import resolve_device
 from ..core.fragment import MUTATION_EPOCH
 from ..ops import kernels
-from ..ops.pool import pack_bitmap, pack_sparse
+from ..ops.pool import (fold_log_entries, pack_bitmap, pack_sparse,
+                        plan_slice_mutations)
 from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
-                   SparseShardedIndex,
+                   SparseShardedIndex, apply_writes,
                    build_sharded_index, build_sparse_sharded_index,
-                   count_batch, count_sparse_pair,
+                   count_batch, count_sparse_pair, pack_mutation_batches,
                    dense_row, global_row_ids, leaf_layout, materialize_block,
                    pick_slice_formats, resolve_row_indices, row_table,
                    slice_format_stats, slice_mask, split_bitmaps_by_format)
@@ -131,11 +141,17 @@ def tanimoto_rank(all_rows, full, inter, src_count: int, n: int,
 class StagedView:
     """One (index, frame, view)'s staged pools + what they were staged
     from. `sparse` is the sorted-array pool, or None when every slice
-    staged dense; slice_formats[s] is 1 where slice s serves from it."""
+    staged dense; slice_formats[s] is 1 where slice s serves from it.
+    The cost gate's state: `last_stage_s` (this view's staging, measured
+    to the card's completion; None until measured), `inc_ewma_s` (the
+    moving mean of its scatters, carried across a restage of the same
+    key), `inc_spend_s` (the scatters' sum since the staging) and
+    `inc_count`."""
 
     __slots__ = ("sharded", "sparse", "slice_formats", "slice_gens",
                  "num_slices", "layouts", "sparse_layouts", "validated",
-                 "rows_dev")
+                 "rows_dev", "last_stage_s", "inc_ewma_s", "inc_spend_s",
+                 "inc_count")
 
     def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
                  sparse: Optional[SparseShardedIndex] = None,
@@ -153,6 +169,10 @@ class StagedView:
         # (R, S, 16) int32 row_table on the pool's device, built on the
         # first per-row count.
         self.rows_dev: Optional[torch.Tensor] = None
+        self.last_stage_s: Optional[float] = None
+        self.inc_ewma_s: Optional[float] = None
+        self.inc_spend_s = 0.0
+        self.inc_count = 0
 
     def row_table(self) -> torch.Tensor:
         if self.rows_dev is None:
@@ -218,6 +238,9 @@ class MeshManager:
     """Stages holder views onto the card and serves Count."""
 
     _MAX_BATCH = 16
+    # A staging whose measurement failed counts at least this long, so
+    # the gate does not read a fast failure as a cheap restage.
+    _FAILED_STAGE_FLOOR_S = 60.0
 
     def __init__(self, holder, device="cuda",
                  sparse_density_threshold: float =
@@ -235,6 +258,12 @@ class MeshManager:
         self._batch_thread: Optional[threading.Thread] = None
         self._lone_mu = threading.Lock()
         self._counts_inflight = 0
+        # The cost gate's measurements: a worker waits on a CUDA event
+        # recorded after the staging or the scatter (_measure_async).
+        self._measure_q: "queue.Queue" = queue.Queue(maxsize=64)
+        self._measure_thread: Optional[threading.Thread] = None
+        self._inc_ewma_s: Optional[float] = None  # all views: a gauge
+        self._scattered = False  # the first scatter runs unmeasured
 
     def _inc(self, key: str, n: int = 1) -> None:
         with self._stats_mu:
@@ -244,23 +273,105 @@ class MeshManager:
 
     def refresh(self, index: str, frame: str, view: str,
                 num_slices: int) -> Optional[StagedView]:
-        """An up-to-date StagedView, restaged when stale; None when the
-        frame does not exist. Each slice's format is picked under its
-        fragment's lock, with the previous image's formats as the
-        hysteresis input. Call under _mu."""
+        """An up-to-date StagedView, or None when the frame does not
+        exist. Writes since the staging scatter into the pool when every
+        written slice can take them (_scatter_pending), else the view
+        restages whole (_stage). Call under _mu."""
         if self.holder.frame(index, frame) is None:
             return None
         key = (index, frame, view)
         epoch = MUTATION_EPOCH.n  # read before the walk: a racing write
         sv = self._views.get(key)  # leaves the stamp behind, never ahead
-        if sv is not None and sv.num_slices == num_slices and (
-                sv.validated == epoch or all(
-                    self._gen(index, frame, view, s) == g
-                    for s, g in enumerate(sv.slice_gens))):
+        if sv is None or sv.num_slices != num_slices:
+            return self._stage(key, num_slices, epoch)
+        if sv.validated == epoch:
+            return sv
+        pending: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        new_gens = list(sv.slice_gens)
+        v = self.holder.view(index, frame, view)
+        frags = v.fragments if v is not None else {}
+        for s in range(num_slices):
+            frag = frags.get(s)
+            staged = sv.slice_gens[s]
+            if frag is None:
+                if staged is None:
+                    continue
+                return self._stage(key, num_slices, epoch)  # dropped
+            if staged is None or staged[0] is not frag:
+                return self._stage(key, num_slices, epoch)  # a new object
+            if frag.generation == staged[1]:
+                continue  # an int read: the lock only where it moved
+            with frag._mu:
+                gen = frag.generation
+                entries = frag.log_since(staged[1])
+            if entries is None or any(e[2] for e in entries):
+                return self._stage(key, num_slices, epoch)
+            pending[s] = fold_log_entries(entries)
+            new_gens[s] = (frag, gen)
+        if not pending:
             sv.validated = epoch
             return sv
+        if sv.sparse is not None:
+            # A sorted-array pool has no scatter (an insert shifts every
+            # value after it), and it is the small one: restage.
+            self._inc("refresh_pick_restage")
+            return self._stage(key, num_slices, epoch)
+        # The cost gate, per view: restage when this view's staging has
+        # cost less than its scatters; probe with a restage once the
+        # scatters have spent 20x a staging, which re-measures it.
+        probe = (sv.last_stage_s is not None
+                 and sv.inc_spend_s > 20.0 * sv.last_stage_s)
+        inc_est = sv.inc_ewma_s
+        if probe or (inc_est is not None and sv.last_stage_s is not None
+                     and sv.last_stage_s < inc_est):
+            self._inc("refresh_pick_restage")
+            if probe:
+                self._inc("refresh_probe_restage")
+            else:
+                # Decay on a restage the gate chose (a probe carries no
+                # evidence against the scatter), so one slow scatter
+                # cannot hold the gate on restaging for good.
+                sv.inc_ewma_s = inc_est * 0.9
+            return self._stage(key, num_slices, epoch)
+        return self._scatter_pending(key, sv, pending, new_gens, epoch)
+
+    def _scatter_pending(self, key, sv: StagedView, pending, new_gens,
+                         epoch: int) -> StagedView:
+        """Plan each written slice's final bit states against the staged
+        keys and scatter them into the pool with one K7 launch; restage
+        instead when a set lands in a container the image lacks. The
+        scatter's cost, host planning to the card's completion, feeds
+        the view's estimate (the manager's first scatter excepted)."""
         t0 = time.monotonic()
-        prev = sv.slice_formats if sv is not None else None
+        try:
+            per_slice = {s: plan_slice_mutations(
+                sv.sharded.keys_host[s], sv.sharded.row_ids, pos, val)
+                for s, (pos, val) in pending.items()}
+        except KeyError:
+            return self._stage(key, sv.num_slices, epoch)
+        apply_writes(sv.sharded, *pack_mutation_batches(
+            per_slice, sv.sharded.num_slices, sv.sharded.capacity))
+        sv.slice_gens = new_gens
+        sv.validated = epoch
+        sv.inc_count += 1
+        self._inc("incremental")
+        self._inc("refresh_pick_incremental")
+        if self._scattered:
+            self._measure_async(sv.sharded.words, t0,
+                                lambda dt, ok=True, sv=sv:
+                                self._record_inc_sample(sv, dt, ok))
+        self._scattered = True
+        return sv
+
+    def _stage(self, key, num_slices: int, epoch: int) -> StagedView:
+        """Stage the view whole. Each slice's format is picked under its
+        fragment's lock, with the previous image's formats as the
+        hysteresis input; the previous image's scatter estimate carries
+        over. Call under _mu."""
+        index, frame, view = key
+        t0 = time.monotonic()
+        old = self._views.get(key)
+        prev = old.slice_formats if old is not None else None
         thr = (0.0 if key in self._dense_pins
                else float(self.sparse_density_threshold))
         formats = np.zeros(num_slices, dtype=np.uint8)
@@ -296,10 +407,76 @@ class MeshManager:
             sharded = build_sharded_index(packed, self.device)
         sv = StagedView(sharded, gens, num_slices, sparse, formats)
         sv.validated = epoch
+        sv.inc_ewma_s = old.inc_ewma_s if old is not None else None
         self._views[key] = sv
         self._inc("stage")
         self._inc("stage_us", int((time.monotonic() - t0) * 1e6))
+        self._measure_async(sv.sharded.words, t0,
+                            lambda dt, ok=True, sv=sv:
+                            self._record_stage_sample(sv, dt, ok))
         return sv
+
+    # -- the cost gate's measurements ----------------------------------------
+
+    def _record_stage_sample(self, sv: StagedView, elapsed: float,
+                             ok: bool = True) -> None:
+        """A failed measurement counts at least the view's scatter
+        estimate (else _FAILED_STAGE_FLOOR_S), so a fast failure never
+        reads as a cheap restage."""
+        if not ok:
+            floor = sv.inc_ewma_s
+            elapsed = max(elapsed, floor if floor is not None
+                          else self._FAILED_STAGE_FLOOR_S)
+        sv.last_stage_s = elapsed
+
+    def _record_inc_sample(self, sv: StagedView, dt: float,
+                           ok: bool = True) -> None:
+        if not ok:  # a failure's time says nothing of a scatter's cost
+            return
+        with self._stats_mu:
+            sv.inc_ewma_s = (dt if sv.inc_ewma_s is None
+                             else 0.5 * (dt + sv.inc_ewma_s))
+            self._inc_ewma_s = (dt if self._inc_ewma_s is None
+                                else 0.5 * (dt + self._inc_ewma_s))
+            self.stats["inc_ewma_us"] = int(self._inc_ewma_s * 1e6)
+            sv.inc_spend_s += dt
+
+    def _measure_async(self, words: torch.Tensor, t0: float, on_done) -> None:
+        """on_done(seconds since t0) once the card has finished the work
+        queued so far on words' stream: a CUDA event recorded now, which
+        a daemon worker waits on, so the caller does not block. On the
+        CPU the work is already done and on_done runs at once. A full
+        queue records the time so far (a lower bound) instead."""
+        if words.device.type != "cuda":
+            on_done(time.monotonic() - t0)
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(words.device))
+        if self._measure_thread is None:
+            self._measure_thread = threading.Thread(
+                target=self._measure_loop, name="mesh-cost-measure",
+                daemon=True)
+            self._measure_thread.start()
+        try:
+            self._measure_q.put_nowait((ev, t0, on_done))
+        except queue.Full:
+            on_done(time.monotonic() - t0)
+
+    def _measure_loop(self):
+        while True:
+            ev, t0, on_done = self._measure_q.get()
+            ok = True
+            try:
+                ev.synchronize()
+            except Exception:  # noqa: BLE001 — the query surfaces it
+                ok = False
+            elapsed = time.monotonic() - t0
+            try:
+                on_done(elapsed, ok)
+            except Exception:  # noqa: BLE001 — never kill the worker
+                pass
+            finally:
+                self._measure_q.task_done()
 
     def _demote_to_dense(self, key, num_slices: int) -> Optional[StagedView]:
         """Pin `key` to packed words and restage it: a tree only the dense
@@ -310,10 +487,6 @@ class MeshManager:
         self._inc("sparse_demote")
         self._views.pop(key, None)
         return self.refresh(*key, num_slices)
-
-    def _gen(self, index, frame, view, s):
-        frag = self.holder.fragment(index, frame, view, s)
-        return None if frag is None else (frag, frag.generation)
 
     def _resolve(self, index: str, shape, leaves, slices: Sequence[int],
                  num_slices: int):

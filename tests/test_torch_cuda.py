@@ -1,4 +1,4 @@
-"""The CUDA kernels (K0-K6) against their plain PyTorch versions, on a
+"""The CUDA kernels (K0-K7) against their plain PyTorch versions, on a
 card.
 
 Marked `cuda`; each test skips without a card. This file imports no JAX,
@@ -493,5 +493,127 @@ def test_row_counts_chunk_past_one_launch(card, tmp_path):
             -n_rows // tserve.MAX_ROWS_PER_LAUNCH) == 2
         assert ids.tolist() == list(range(n_rows))
         assert counts.tolist() == (np.arange(n_rows) % 5 + 1).tolist()
+    finally:
+        h.close()
+
+
+# -- K7 apply_writes -----------------------------------------------------------
+
+# (S, cap, B, live targets a slice): padding past `live`, a single
+# slice, and a full batch with no padding.
+SCATTER_CASES = [(1, 16, 8, 3), (5, 48, 64, 40), (37, 16, 256, 256),
+                 (3, 32, 1024, 700)]
+
+
+def scatter_batches(seed: int, s: int, cap: int, b: int, live: int):
+    """int32 (S, B) slot / word / set / clear tensors on the CPU: `live`
+    unique targets a slice, the rest padding at slot = cap; one word of
+    slice 0 both set and cleared, and two entries past the word range
+    and below slot 0, which drop."""
+    rng = np.random.default_rng(seed)
+    slot = np.full((s, b), cap, dtype=np.int32)
+    word = np.zeros((s, b), dtype=np.int32)
+    for si in range(s):
+        flat = rng.choice(cap * 2048, size=live, replace=False)
+        slot[si, :live], word[si, :live] = flat // 2048, flat % 2048
+    sm = rng.integers(0, 1 << 32, size=(s, b), dtype=np.uint32)
+    cm = rng.integers(0, 1 << 32, size=(s, b), dtype=np.uint32)
+    sm[0, 0], cm[0, 0] = 0x0000FFFF, 0xFFFF0000
+    if live + 2 <= b:
+        slot[0, live], word[0, live] = 0, 2048
+        slot[0, live + 1] = -1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+                 for a in (slot, word, sm, cm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_apply_writes_kernel(card, case):
+    s, cap, b, live = case
+    rng = np.random.default_rng(b)
+    words = torch.from_numpy(rng.integers(
+        0, 1 << 32, size=(s, cap, 2048), dtype=np.uint32).view(np.int32))
+    batch = scatter_batches(b, s, cap, b, live)
+    ref = words.clone()
+    want = tk.scatter_plain(words.clone(), *batch)
+    before = tk.LAUNCHES["apply_writes"]
+    dev = words.to(card)
+    got = tk.scatter_words(dev, *(t.to(card) for t in batch))
+    torch.cuda.synchronize()
+    assert got is dev and tk.LAUNCHES["apply_writes"] == before + 1
+    assert torch.equal(dev.cpu(), want)
+    assert not torch.equal(want, ref)
+
+
+@pytest.mark.cuda
+def test_scatter_is_ordered_after_queued_counts(card):
+    """K2 batches queued on a pool before a scatter read the words as
+    they were; one queued after reads them as written. All run on the
+    one stream, with no synchronize between them."""
+    tree, n = TREES[3], nleaves(TREES[3])
+    ps = pools(77, 1)
+    pool = ps[0].to(card)
+    table = torch.zeros((1, S), dtype=torch.int32)
+    leaf_map = tuple(tuple(0 for _ in range(n)) for _ in range(16))
+    # Every word of run 0 (slots 0-15) of every slice: set the low half,
+    # clear the high half.
+    slots = torch.arange(16, dtype=torch.int32).repeat_interleave(2048)
+    words = torch.arange(2048, dtype=torch.int32).repeat(16)
+    batch = [slots.repeat(S, 1), words.repeat(S, 1),
+             torch.full((S, slots.numel()), 0x0000FFFF, dtype=torch.int32),
+             torch.full((S, slots.numel()), -65536, dtype=torch.int32)]
+    want_before = tk.coarse_count_batch_per_slice(ps, table, tree, leaf_map)
+    after_cpu = tk.scatter_plain(ps[0].clone(), *batch)
+    want_after = tk.coarse_count_batch_per_slice((after_cpu,), table, tree,
+                                                 leaf_map)
+    dev_table = table.to(card)
+    queued = [tk.coarse_count_batch_per_slice((pool,), dev_table, tree,
+                                              leaf_map) for _ in range(8)]
+    tk.scatter_words(pool, *(t.contiguous().to(card) for t in batch))
+    after = tk.coarse_count_batch_per_slice((pool,), dev_table, tree,
+                                            leaf_map)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r.cpu(), want_before) for r in queued)
+    assert torch.equal(after.cpu(), want_after)
+    assert not torch.equal(want_before, want_after)
+
+
+@pytest.mark.cuda
+def test_refresh_scatters_writes_on_the_card(card, tmp_path):
+    """Writes into existing containers reach the staged view as one K7
+    launch a refresh; a new row restages. Counts equal the host's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        f = h.create_index("i").create_frame("f")
+        view = f.create_view_if_not_exists("standard")
+        rng = np.random.default_rng(3)
+        cols = rng.choice(3 << 20, size=20000, replace=False)
+        for s in range(3):  # rows 0 and 1 hold the same columns
+            c = cols[(cols >> 20) == s]
+            view.create_fragment_if_not_exists(s).import_bits(
+                np.repeat([0, 1], c.size), np.tile(c, 2))
+        # Threshold 0: dense, the image a scatter serves (sorted-array
+        # views restage).
+        ex = Executor(h, device=card, sparse_density_threshold=0)
+        pql = parse_string("Count(Intersect(Bitmap(rowID=0, frame=f), "
+                           "Bitmap(rowID=1, frame=f)))")
+        assert ex.execute("i", pql)[0] == 20000
+        mgr = ex.mesh_manager()
+        before = tk.LAUNCHES["apply_writes"]
+        for c in cols[:50]:
+            f.clear_bit(1, int(c))
+        assert ex.execute("i", pql)[0] == 19950
+        assert tk.LAUNCHES["apply_writes"] == before + 1
+        assert mgr.stats["incremental"] == 1 and mgr.stats["stage"] == 1
+        f.set_bit(5, 1)
+        assert ex.execute("i", parse_string(
+            "Count(Bitmap(rowID=5, frame=f))"))[0] == 1
+        assert mgr.stats["stage"] == 2
+        assert tk.LAUNCHES["apply_writes"] == before + 1
     finally:
         h.close()

@@ -173,7 +173,10 @@ def test_write_restages_view(port_holder):
     assert ex.execute("i", parse_string(
         "ClearBit(rowID=1, frame=g, columnID=3)"))[0] is True
     assert ex.execute("i", q)[0] == before
-    assert ex.mesh_manager().stats["stage"] == 3
+    # Both writes land in an existing container of the staged view, so
+    # each reaches it as a scatter, not a restage.
+    stats = ex.mesh_manager().stats
+    assert stats["stage"] == 1 and stats["incremental"] == 2
 
 
 def test_staged_from_numpy_round_trip(data_dir, port_holder):
