@@ -15,6 +15,12 @@ Phases, each fatal on failure:
      over back-to-back calls, and the profiler's device time, left null
      when its trace misses launches); K2 also
      at its wide shape, 16 unique runs under 16 queries of a 4-leaf tree;
+     then K1's slice sweep (S in 24, 96, 240, 960 x a lone pair, the
+     29-leaf OR of a time cover and a 16-query uniform batch, over
+     random runs; at 960 also the per-slice form fed the uniform starts
+     expanded on the card) and K3 at the time path's 96 slices, each
+     held exactly against its plain version beside its byte bound. The
+     ptxas report of K1 and K6 must show no spill;
   4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
      whose frame `general` holds 8 dense random rows, one partial row
      and one row in odd slices only, served over HTTP on 127.0.0.1: the
@@ -122,8 +128,9 @@ With --dense-qps-of ROOT it runs phases 1, 2 and 4 only, built and
 served by the package under ROOT, and prints their QPS as one JSON line:
 run it alternately on two checkouts to compare their dense serving.
 --sparse-qps-of ROOT does the same with phase 6. --kernel-times-of ROOT
-runs phases 1 and 2 and then K4 at the chip shape and K2's two wrappers
-at the headline and the wide shape, on inputs made on the card from the
+runs phases 1 and 2 and then K4 at the chip shape, K2's two wrappers
+at the headline and the wide shape, K1's slice sweep of phase 3 and K6
+at T = 1, 4 and 32 over 960 slices, on inputs made on the card from the
 seed, each held exactly against its plain version and timed, and prints
 the times and the ptxas report as one JSON line: run it on a parent and
 a change in turns (parent, change, change, parent) to compare their
@@ -621,6 +628,125 @@ def wide_shared_cases(s: int, device, seed: int):
                         leaf_map, " (wide)")
 
 
+# K1's slice sweep: the shapes the tiled fold (csrc/coarse_tiles.cuh) was
+# built for, from a few slices (cut into chunks) to the headline's 960
+# (whole runs): a lone pair, the time path's 29-leaf OR and a 16-query
+# uniform batch (query q reads runs 2q and 2q+1), over BATCH_RUNS random
+# runs of each slice count.
+SWEEP_SLICES = (24, 96, 240, 960)
+SWEEP_OR_LEAVES = 29
+K6_SWEEP_T = (1, 4, 32)
+
+
+def or_tree(n: int):
+    """The planner's canonical OR of n optional views: a time cover."""
+    from pilosa_tpu_torch.parallel.plan import canonical_tree
+
+    return canonical_tree(["or"] + [["leaf"]] * n,
+                          [("f", f"standard_{d}", 1, False)
+                           for d in range(n)], [])
+
+
+def k1_sweep_cases(pool, uni):
+    """K1 on one slice count's pool of BATCH_RUNS random runs: the lone
+    pair, the 29-leaf OR and the 16-query batch, as measure() cases with
+    their byte bounds (each run read once, each count written once)."""
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    s = pool.shape[0]
+    pair = ["and", ["leaf", 0], ["leaf", 1]]
+    or29 = or_tree(SWEEP_OR_LEAVES)
+    p2, p29 = (pool, pool), (pool,) * SWEEP_OR_LEAVES
+    u2, u29 = uni[:2], uni[:SWEEP_OR_LEAVES]
+    return [
+        (f"coarse_count sweep (pair, S={s})", "coarse_count",
+         lambda: tk.coarse_count_uniform(p2, u2, pair),
+         lambda: tk.coarse_plain(p2, u2, True, pair, 1),
+         2 * s * RUN_BYTES + 4 * s),
+        (f"coarse_count sweep (29-leaf OR, S={s})", "coarse_count",
+         lambda: tk.coarse_count_uniform(p29, u29, or29),
+         lambda: tk.coarse_plain(p29, u29, True, or29, 1),
+         SWEEP_OR_LEAVES * s * RUN_BYTES + 4 * s),
+        (f"coarse_count sweep (16-query batch, S={s})", "coarse_count",
+         lambda: tk.coarse_count_uniform_batch(p2, uni, pair),
+         lambda: tk.coarse_plain(p2, uni, True, pair, 16),
+         BATCH_RUNS * s * RUN_BYTES + 16 * 4 * s)]
+
+
+def k1_sweep(device, seed: int, reps: int, plain_reps: int = 3) -> dict:
+    """K1's slice sweep, one slice count at a time (each pool freed
+    before the next), every case held exactly against coarse_plain and
+    timed; at the headline's slices also the per-slice form with the
+    uniform starts expanded to its (L, S) table on the card, the one
+    start form K1 would keep without its uniform form."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    results = {}
+    for s in SWEEP_SLICES:
+        pool, uni, _tab = random_runs(s, BATCH_RUNS, device, seed + s)
+        cases = k1_sweep_cases(pool, uni)
+        if s == SLICES:
+            pair = ["and", ["leaf", 0], ["leaf", 1]]
+            p2, u2 = (pool, pool), uni[:2]
+            cases.append((
+                f"coarse_count sweep (pair, S={s}, per-slice form, "
+                "starts expanded on the card)", "coarse_count",
+                lambda: tk.coarse_count_per_slice(
+                    p2, u2[:, None].expand(2, s).contiguous(), pair),
+                lambda: tk.coarse_plain(p2, u2, True, pair, 1),
+                2 * s * RUN_BYTES + 4 * s))
+        results.update(measure(cases, reps, plain_reps))
+        del pool, uni, _tab, cases
+        torch.cuda.empty_cache()
+    return results
+
+
+def tree_count_case(s: int, device, seed: int):
+    """K3 (tree_count_per_slice) on a pair of random runs over s slices,
+    gathered container by container, 3 in 4 containers present: the
+    one-block-per-slice grid at few slices."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    pool, _uni, _tab = random_runs(s, 2, device, seed + 3)
+    rng = np.random.default_rng(seed + s)
+    idx = torch.from_numpy(np.broadcast_to(
+        np.arange(2)[:, None, None] * 16 + np.arange(16)[None, None],
+        (2, s, 16)).astype(np.int32)).to(device)[None].contiguous()
+    hit_np = (rng.random((1, 2, s, 16)) < 0.75).astype(np.int32)
+    hit = torch.from_numpy(hit_np).to(device)
+    pair = ["and", ["leaf", 0], ["leaf", 1]]
+    p2 = (pool, pool)
+    return (f"tree_count_per_slice (S={s})", "tree_count",
+            lambda: tk.tree_count_per_slice(p2, idx, hit, pair),
+            lambda: tk.tree_plain(p2, idx, hit, pair),
+            int(hit_np.sum()) * 2048 * 4 + 2 * idx.numel() * 4 + 4 * s)
+
+
+def k6_cases(device, seed: int, ts=K6_SWEEP_T):
+    """K6 (coarse_count_blocked) at T in ts over the probe's pool at the
+    headline's slices (a pair over cap 32), against coarse_plain's
+    uniform form; the same inputs for every tree."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    pool = torch.randint(-2**31, 2**31, (SLICES, 32, 2048),
+                         dtype=torch.int32, device=device, generator=gen)
+    starts = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    pair = ["and", ["leaf", 0], ["leaf", 1]]
+    pp = (pool, pool)
+    return [(f"coarse_count_blocked t{t} (S={SLICES})",
+             "coarse_count_blocked",
+             lambda t=t: tk.coarse_count_blocked(pp, starts, pair, t),
+             lambda: tk.coarse_plain(pp, starts, True, pair, 1),
+             2 * SLICES * RUN_BYTES + 8 + 4 * SLICES) for t in ts]
+
+
 def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     """Each wrapper at the main path's shapes against its plain version
     (ops.kernels.coarse_plain / shared_plain / tree_plain, called
@@ -703,6 +829,10 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     want = host_count(words, "and", PARTIAL_ROW, 0)
     check(total == want, f"tree_count_pallas {total} != host {want}")
     del staged, pool, wide, w2
+    torch.cuda.empty_cache()
+    log("kernel phase: K1's slice sweep and K3 at the time path's slices")
+    results.update(k1_sweep(device, seed, 20))
+    results.update(measure([tree_count_case(TIME_SLICES, device, seed)], 20))
     torch.cuda.empty_cache()
     return results
 
@@ -2559,8 +2689,10 @@ def sparse_qps_only(root: Path, card: str, smi: str, seed: int) -> int:
 
 
 def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
-    """K4 at the chip shape and K2's two wrappers at the headline and the
-    wide shape, built and run by the package under `root`, each held
+    """K4 at the chip shape, K2's two wrappers at the headline and the
+    wide shape, K1's slice sweep (k1_sweep) and K6 at T in K6_SWEEP_T
+    over the headline's slices, built and run by the package under
+    `root`, each held
     exactly against its plain version, timed, and printed as one JSON
     line with the build's ptxas report. The inputs are made on the card
     from the seed, the same for every tree: run it alternately on two
@@ -2577,6 +2709,10 @@ def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
                            ["and", ["leaf", 0], ["leaf", 1]], pairs16),
              *wide_shared_cases(SLICES, device, seed)]
     rows = measure(cases, 50, plain_reps=0)
+    del cases, pool, uni, tab
+    torch.cuda.empty_cache()
+    rows.update(k1_sweep(device, seed, 50, plain_reps=0))
+    rows.update(measure(k6_cases(device, seed), 50, plain_reps=0))
     print(json.dumps({"kernel_times_of": str(root), "card": smi,
                       "rows": rows, "ptxas": ptxas}), flush=True)
     return 0
@@ -2616,9 +2752,10 @@ def main(argv=None) -> int:
                     help="run only phase 6, served by the package under "
                          "ROOT, and print its QPS as one JSON line")
     ap.add_argument("--kernel-times-of", metavar="ROOT", type=Path,
-                    help="run only K4 and K2's timed shapes with the "
-                         "kernels of the package under ROOT, and print "
-                         "their times and ptxas report as one JSON line")
+                    help="run only the timed shapes of K4, K2, K1's slice "
+                         "sweep and K6 with the kernels of the package "
+                         "under ROOT, and print their times and ptxas "
+                         "report as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2645,7 +2782,8 @@ def main(argv=None) -> int:
     log(f"build: {len(build_s)} libraries in "
         f"{time.monotonic() - t0:.2f} s {json.dumps(build_s)}")
     ptxas = save_ptxas(cuda_build.build_dir(), root.name)
-    for name in ("sparse_pair_count", "coarse_count_shared"):
+    for name in ("sparse_pair_count", "coarse_count_shared", "coarse_count",
+                 "coarse_count_blocked"):
         log(f"ptxas {name}: {' | '.join(ptxas.get(name, []))}")
     if args.dense_qps_of:
         return dense_qps_only(root, card, smi, args.seed)
@@ -2657,6 +2795,11 @@ def main(argv=None) -> int:
         return kernel_times_only(root, smi, args.seed, ptxas)
     from pilosa_tpu_torch.ops import kernels as tk
 
+    for name in ("coarse_count", "coarse_count_blocked"):
+        spills = [line for line in ptxas.get(name, []) if "spill" in line]
+        check(spills and all("0 bytes spill stores, 0 bytes spill loads"
+                             in line for line in spills),
+              f"ptxas reports no spill in {name}: {spills}")
     check(tk.probe_ok(torch.device("cuda")), "K0 canary")
     log("K0 canary: ok")
 

@@ -1,13 +1,12 @@
 // K6 coarse_count_blocked: per-slice popcount of a bitmap-op tree over
-// uniform 16-container row runs, T consecutive slices per block; and
+// uniform 16-container row runs, T consecutive slices per tile; and
 // stream_popcount, the popcount of a whole pool, the card's streaming
 // ceiling for the same words.
 //
 // coarse_count_blocked replaces the Pallas kernel of the bandwidth probe
 // (tools/probe_r5_bw.py:82, coarse_count_uniform, kernel :40-52): its
 // grid step fetches T consecutive slices of every leaf at one row-run
-// index per leaf. It lies only on the probe path, which sweeps T; the
-// serving path keeps K1 (one block per slice).
+// index per leaf. It lies only on the probe path, which sweeps T.
 //
 // stream_popcount stands in for the XLA whole-pool popcount that the JAX
 // probes take as their ceiling (tools/probe_r5_bw.py:144-149). torch has
@@ -18,69 +17,34 @@
 // pair over 960 slices: 252 MB, 75 us at 3.35 TB/s); the stream reads
 // the pool once. The fold and __popc are a few integer ops per 16 bytes.
 //
-// Design. K6: grid (S / T); block g folds slices g*T .. g*T + T - 1 in
-// turn, each with K1's walk (16-byte loads, neighbouring threads on
-// neighbouring addresses, the fold program of fold.cuh in registers)
-// and one block reduction per slice into out[0, s]. No atomics, so the
-// result is the same from run to run. Fewer, longer blocks keep fewer
-// loads in flight at a time; that is what the probe measures.
+// Design. K6 v2 runs K1's tiled fold (coarse_tiles.cuh) with t = T: a
+// tile is T consecutive slices of one chunk of the run, and the host
+// picks the chunk count C from S / T and the SM count, so T is a tiling
+// choice and no longer sets how much of the card is busy (v1, one block
+// per T slices, ran T = 32 over 960 slices as 30 blocks at 7% of the
+// bound). Each thread keeps 128 bytes in flight, and the loads run on
+// across the slices of its tile; each slice's block sum is stored, or
+// added with one integer atomicAdd into the zeroed out[0, s] when C > 1:
+// exact, and the same every run.
 // stream_popcount: a grid-stride loop of four 16-byte loads a thread,
 // one int64 partial per block, then a single block sums the partials in
 // a fixed order, so the total is deterministic too.
-#include "fold.cuh"
-
-__global__ void __launch_bounds__(PILOSA_THREADS)
-coarse_count_blocked_kernel(const __grid_constant__ Pools pools,
-                            const int* __restrict__ starts, int num_leaves,
-                            int t, const __grid_constant__ Prog prog,
-                            int* __restrict__ out) {
-  __shared__ int red[32];
-  __shared__ const uint4* run[PILOSA_MAX_LEAVES];
-  const long long s0 = (long long)blockIdx.x * t;
-  if (threadIdx.x < num_leaves) {
-    const int l = threadIdx.x;
-    const int st = starts[l];
-    run[l] = st < 0 ? nullptr
-                    : pools.base[l] + s0 * pools.slice_stride[l] +
-                          (long long)st * PILOSA_RUN_VEC;
-  }
-  __syncthreads();
-  for (int j = 0; j < t; ++j) {
-    int count = 0;
-    for (int i = threadIdx.x; i < PILOSA_RUN_VEC; i += blockDim.x) {
-      count += popc4(fold(prog, [&](int l) {
-        const uint4* r = run[l];
-        return r != nullptr ? __ldg(r + j * pools.slice_stride[l] + i)
-                            : zero4();
-      }));
-    }
-    count = block_sum(count, red);
-    if (threadIdx.x == 0) out[s0 + j] = count;
-  }
-}
+#include "coarse_tiles.cuh"
 
 // starts: device int32 (num_leaves,), one run index per leaf, negative =
-// absent; out: device int32 (1, num_slices). t must divide num_slices
-// and be one of 1, 2, 4, 8, 16, 32.
+// absent; t: one of 1, 2, 4, 8, 16, 32, dividing num_slices; chunks: 1,
+// 2, 4 or 8 (ops/kernels.py coarse_tiles); out: device int32
+// (1, num_slices), zeroed here (cudaMemsetAsync) when chunks > 1.
 extern "C" int pilosa_coarse_count_blocked(const void* const* bases,
                                            const long long* strides,
                                            int num_leaves, const int* starts,
-                                           int num_slices, int t,
-                                           const unsigned short* ops,
-                                           int prog_len, int* out,
+                                           int num_slices, int t, int chunks,
+                                           const unsigned* steps,
+                                           int num_steps, int* out,
                                            void* stream) {
-  Pools pools;
-  Prog prog;
-  int rc = pilosa_pack(bases, strides, num_leaves, ops, prog_len, &pools,
-                       &prog);
-  if (rc != 0) return rc;
-  if (t < 1 || t > 32 || (t & (t - 1)) != 0 || num_slices < 1 ||
-      num_slices % t != 0)
-    return (int)cudaErrorInvalidValue;
-  coarse_count_blocked_kernel<<<num_slices / t, PILOSA_THREADS, 0,
-                                (cudaStream_t)stream>>>(
-      pools, starts, num_leaves, t, prog, out);
-  return (int)cudaGetLastError();
+  return coarse_tiles_launch(bases, strides, num_leaves, starts, 1, 1,
+                             num_slices, chunks, t, steps, num_steps,
+                             out, stream);
 }
 
 __device__ __forceinline__ long long block_sum64(long long v,

@@ -4,7 +4,8 @@ Each source under csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a at first use into csrc/_build/ (or
 $PILOSA_TORCH_BUILD_DIR), named by a hash of the sources so an edit
 rebuilds and an unchanged tree reuses the library. All missing
-libraries build at once, one nvcc process per source.
+libraries build at once, one nvcc process per source. The hash covers
+every header under csrc/, so a header edit rebuilds every library.
 """
 
 from __future__ import annotations
@@ -27,11 +28,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL = ctypes.c_longlong
 _PP, _PLL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _PROG = ctypes.POINTER(ctypes.c_uint16)
+_STEPS = ctypes.POINTER(ctypes.c_uint32)
 
 # Wrapper name -> (source csrc/<source>.cu, C entry point, argument types).
 ENTRIES = {
     "coarse_count": ("coarse_count", "pilosa_coarse_count",
-                     [_PP, _PLL, _I, _P, _I, _I, _I, _PROG, _I, _P, _P]),
+                     [_PP, _PLL, _I, _P, _I, _I, _I, _I, _STEPS, _I, _P,
+                      _P]),
     "coarse_count_shared": ("coarse_count_shared",
                             "pilosa_coarse_count_shared",
                             [_PP, _PLL, _I, _P, _I, _PROG, _I, _I, _P,
@@ -48,7 +51,8 @@ ENTRIES = {
     "probe_ok": ("probe_ok", "pilosa_probe_ok", [_P, _I, _P]),
     "coarse_count_blocked": ("coarse_count_blocked",
                              "pilosa_coarse_count_blocked",
-                             [_PP, _PLL, _I, _P, _I, _I, _PROG, _I, _P, _P]),
+                             [_PP, _PLL, _I, _P, _I, _I, _I, _STEPS, _I,
+                              _P, _P]),
     "stream_popcount": ("coarse_count_blocked", "pilosa_stream_popcount",
                         [_P, _LL, _P, _I, _P, _P]),
     "apply_writes": ("apply_writes", "pilosa_apply_writes",
@@ -76,7 +80,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for src in (CSRC / "fold.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"

@@ -9,7 +9,8 @@ replace (pilosa_tpu/ops/kernels.py):
   K0 probe_ok (csrc/probe_ok.cu): probe_ok, for pallas_probe_ok;
   K1 coarse_count (csrc/coarse_count.cu): coarse_count_per_slice,
      coarse_count_identity_batch, coarse_count_uniform,
-     coarse_count_uniform_batch;
+     coarse_count_uniform_batch, on the tiled fold of
+     csrc/coarse_tiles.cuh (tiles planned by coarse_tiles);
   K2 coarse_count_shared (csrc/coarse_count_shared.cu):
      coarse_count_batch_per_slice, coarse_count_shared_uniform;
   K3 tree_count (csrc/tree_count.cu): tree_count_per_slice, and
@@ -22,7 +23,8 @@ replace (pilosa_tpu/ops/kernels.py):
      runs of a staged pool.
   K6 coarse_count_blocked (csrc/coarse_count_blocked.cu):
      coarse_count_blocked, for the bandwidth probe's T-blocked
-     coarse_count_uniform (tools/probe_r5_bw.py:82), and stream_popcount,
+     coarse_count_uniform (tools/probe_r5_bw.py:82) on K1's tiled fold,
+     and stream_popcount,
      the whole-pool popcount that probe takes as its ceiling. Both serve
      the probe tools (pilosa_tpu_torch/tools/), not the serving path.
   K7 apply_writes (csrc/apply_writes.cu): scatter_words, the write
@@ -42,6 +44,7 @@ LAUNCHES counts kernel launches per kernel, and only launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -135,6 +138,38 @@ def _on_cuda(*tensors) -> bool:
     raise ValueError(f"count kernel inputs on mixed devices: {kinds}")
 
 
+def leaf_steps(prog: tuple) -> tuple:
+    """K1 and K6's form of an accumulator program (csrc/coarse_tiles.cuh):
+    one 32-bit step a leaf op, so the kernel's loads run ahead over a
+    flat list of leaves. Bits 0-7 hold the leaf, 8-9 its op (0 load, 1
+    and, 2 or, 3 andnot), bit 10 saves the accumulator before it (a
+    nested operand begins), bits 11-14 count the saved values combined
+    back after it and bits 15-30 hold their ops, two bits each, the first
+    lowest. Raises ValueError for a program tree_program does not make:
+    a first op or a nested operand that does not start with a load, a
+    combine with nothing saved, values left saved."""
+    steps: list = []
+    push, sp = False, 0
+    for op in prog:
+        kind = op >> 8
+        if kind < _PUSH:
+            if kind and (push or not steps):
+                raise ValueError(f"op {op:#x} combines into nothing")
+            steps.append(op & 0xFF | kind << 8 | push << 10)
+            push = False
+        elif kind == _PUSH and not push and steps and sp < MAX_DEPTH - 1:
+            push, sp = True, sp + 1
+        elif _PUSH < kind < 8 and not push and sp:
+            pops = steps[-1] >> 11 & 15
+            steps[-1] += 1 << 11 | (kind - _PUSH) << (15 + 2 * pops)
+            sp -= 1
+        else:
+            raise ValueError(f"op {op:#x} out of place in {prog}")
+    if push or sp or not steps:
+        raise ValueError(f"unbalanced program {prog}")
+    return tuple(steps)
+
+
 def _check_pools(pools, run_aligned: bool) -> None:
     s = pools[0].shape[0]
     for p in pools:
@@ -154,15 +189,36 @@ def _check_leaf_positions(prog: tuple, num_leaves: int) -> None:
                          f"leaf positions")
 
 
-def _kernel_args(pools, prog: tuple):
-    """The by-pointer arguments every fold kernel's C entry takes. The
-    program reads leaf positions below len(pools): one per pool (K2's
-    programs name its unique runs)."""
+def _pool_args(pools, prog: tuple):
+    """Each pool's base pointer and slice pitch (uint4 vectors), as every
+    fold kernel's C entry takes them. The program reads leaf positions
+    below len(pools): one per pool (K2's programs name its unique runs)."""
     _check_leaf_positions(prog, len(pools))
     bases = (ctypes.c_void_p * len(pools))(*[p.data_ptr() for p in pools])
     strides = (ctypes.c_longlong * len(pools))(
         *[p.shape[1] * CONTAINER_WORDS // 4 for p in pools])
-    return bases, strides, (ctypes.c_uint16 * len(prog))(*prog), len(prog)
+    return bases, strides
+
+
+def _kernel_args(pools, prog: tuple):
+    """_pool_args and the program, as the fold.cuh kernels take them."""
+    return (*_pool_args(pools, prog), (ctypes.c_uint16 * len(prog))(*prog),
+            len(prog))
+
+
+@functools.lru_cache(maxsize=4096)
+def _step_array(prog: tuple):
+    """leaf_steps(prog) as the uint32 array K1 and K6's C entries read
+    (and never write): made once per program."""
+    steps = leaf_steps(prog)
+    return (ctypes.c_uint32 * len(steps))(*steps), len(steps)
+
+
+def _tiled_args(pools, tree):
+    """The by-pointer arguments of K1 and K6's C entries: pools, slice
+    pitches and the tree's leaf steps."""
+    prog = tree_program(tree)
+    return (*_pool_args(pools, prog), *_step_array(prog))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -205,6 +261,49 @@ def coarse_plain(pools, starts, uniform: bool, tree, batch: int):
     return out
 
 
+# K1 and K6 cut every run into tiles (csrc/coarse_tiles.cuh): a 256-thread
+# block folds TILE_UNROLL positions a thread at once, so a step of a
+# block covers TILE_STEP_VEC of a run's RUN_VEC 16-byte vectors, and a
+# run is cut into at most MAX_CHUNKS chunks of whole steps. The host picks
+# the fewest chunks that give every SM TILES_PER_SM tiles; with more than
+# one, the C entry zeroes the output on the card before the chunks add
+# into it.
+TILE_THREADS = 256
+TILE_UNROLL = 4
+RUN_VEC = ROW_SPAN * CONTAINER_WORDS // 4
+TILE_STEP_VEC = TILE_THREADS * TILE_UNROLL
+MAX_CHUNKS = RUN_VEC // TILE_STEP_VEC
+TILES_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=1024)
+def coarse_tiles(s: int, batch: int, sms: int, t: int = 1) -> int:
+    """The chunk count C of a K1 / K6 launch over s slices, batch queries
+    and t consecutive slices a tile, on a card of `sms` SMs: the fewest
+    chunks (a power of two up to MAX_CHUNKS) that make s / t * batch * C
+    tiles at least TILES_PER_SM * sms; 1 where s / t * batch already
+    fills the card. The kernel's grid is (s / t * C, batch): block (x, y)
+    folds query y, slices (x // C) * t .. + t - 1 and vectors
+    [x % C, x % C + 1) * RUN_VEC / C of each run."""
+    if s < 1 or batch < 1 or t < 1 or s % t:
+        raise ValueError(f"no tiling of S={s}, B={batch}, T={t}")
+    chunks = 1
+    while chunks < MAX_CHUNKS and s // t * batch * chunks < TILES_PER_SM * sms:
+        chunks *= 2
+    return chunks
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def _coarse(pools, starts, tree, batch: int, uniform: bool):
     pools = tuple(pools)
     _check_pools(pools, run_aligned=True)
@@ -212,11 +311,12 @@ def _coarse(pools, starts, tree, batch: int, uniform: bool):
         return coarse_plain(pools, starts, uniform, tree, batch)
     starts = starts.to(torch.int32).contiguous()
     s = pools[0].shape[0]
+    chunks = coarse_tiles(s, batch, _sms(starts.device))
     out = torch.empty((batch, s), dtype=torch.int32, device=starts.device)
-    bases, strides, prog, prog_len = _kernel_args(pools, tree_program(tree))
+    bases, strides, steps, n_steps = _tiled_args(pools, tree)
     rc = kernel_fn("coarse_count")(
         bases, strides, len(pools), starts.data_ptr(), int(uniform), batch,
-        s, prog, prog_len, out.data_ptr(), _stream(out))
+        s, chunks, steps, n_steps, out.data_ptr(), _stream(out))
     _launched("coarse_count", rc)
     return out
 
@@ -604,8 +704,9 @@ BLOCK_SLICES = (1, 2, 4, 8, 16, 32)
 
 
 def coarse_count_blocked(views, starts, tree, t: int):
-    """K6: coarse_count_uniform with T consecutive slices per block, the
-    shape of the bandwidth probe's Pallas kernel. views: per leaf the
+    """K6: coarse_count_uniform with T consecutive slices per tile, the
+    shape of the bandwidth probe's Pallas kernel, on K1's tiled fold
+    (coarse_tiles with t = T). views: per leaf the
     (S, cap, 2048) pool; starts: (L,) int32 run index per leaf, negative
     = absent; t in BLOCK_SLICES, dividing S. Returns (1, S) int32; the
     plain version is coarse_plain's uniform form."""
@@ -621,11 +722,12 @@ def coarse_count_blocked(views, starts, tree, t: int):
     if not _on_cuda(*views, starts):
         return coarse_plain(views, starts, True, tree, 1)
     starts = starts.to(torch.int32).contiguous()
+    chunks = coarse_tiles(s, 1, _sms(starts.device), t)
     out = torch.empty((1, s), dtype=torch.int32, device=starts.device)
-    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree))
+    bases, strides, steps, n_steps = _tiled_args(views, tree)
     rc = kernel_fn("coarse_count_blocked")(
-        bases, strides, len(views), starts.data_ptr(), s, t, prog, prog_len,
-        out.data_ptr(), _stream(out))
+        bases, strides, len(views), starts.data_ptr(), s, t, chunks, steps,
+        n_steps, out.data_ptr(), _stream(out))
     _launched("coarse_count_blocked", rc)
     return out
 

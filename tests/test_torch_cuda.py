@@ -46,25 +46,67 @@ def pools(seed: int, n: int, s: int = S):
     return tuple(out)
 
 
+def to_card(cpu_pools, card):
+    """The pools on the card, each distinct tensor copied once (leaves
+    may share a pool)."""
+    moved = {}
+    return tuple(moved.setdefault(id(p), p.to(card)) for p in cpu_pools)
+
+
 def check(fn, cpu_pools, args, tree, card, *extra):
+    """fn on the card equals its plain version on the CPU exactly, and two
+    launches give equal results."""
     want = fn(cpu_pools, *args, tree, *extra)
-    got = fn(tuple(p.to(card) for p in cpu_pools),
-             *(a.to(card) for a in args), tree, *extra)
+    dev_pools, dev_args = to_card(cpu_pools, card), [a.to(card) for a in args]
+    got = [fn(dev_pools, *dev_args, tree, *extra) for _ in range(2)]
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want), fn.__name__
+    assert torch.equal(got[0].cpu(), want), fn.__name__
+    assert torch.equal(got[1].cpu(), want), fn.__name__
+
+
+def sms(card) -> int:
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+L = [["leaf", i] for i in range(80)]
+OR29 = ["or"] + L[:29]
+MIXED80 = ["andnot", ["or"] + L[:40], ["and"] + L[40:80]]
+DEEP8 = ["and", L[0], ["or", L[1], ["andnot", L[2], ["and", L[3], [
+    "or", L[4], ["andnot", L[5], ["and", L[6], L[7]]]]]]]]
+# K1 beyond the four TREES at S = 5: (tree, slices, queries), the slices
+# given against the card's SM count so that S * B lands just under or
+# just over it (the tile planner's chunk count changes there), and
+# trees of 29 and 80 leaves and of depth 8. Starts are drawn with
+# absent leaves (-1) mixed in.
+COARSE_CASES = {
+    "s-under-sms": (TREES[3], lambda n: n - 1, 1),
+    "s-over-sms": (TREES[0], lambda n: n + 1, 1),
+    "sb-under-sms": (TREES[1], lambda n: n // 16, 16),
+    "sb-over-sms": (TREES[2], lambda n: n // 16 + 1, 16),
+    "29-leaves-over-sms": (OR29, lambda n: n + 1, 1),
+    "80-leaves": (MIXED80, lambda n: 24, 1),
+    "deep8": (DEEP8, lambda n: 7, 3),
+    "headline-960": (TREES[0], lambda n: 960, 1),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", range(len(TREES)))
+@pytest.mark.parametrize("t", [*range(len(TREES)), *COARSE_CASES])
 def test_coarse_kernels(card, t):
-    tree = TREES[t]
+    if t in COARSE_CASES:
+        tree, slices, batch = COARSE_CASES[t]
+        s, seed = slices(sms(card)), 60 + list(COARSE_CASES).index(t)
+    else:
+        tree, s, batch, seed = TREES[t], S, 3, t
     n = nleaves(tree)
-    rng = np.random.default_rng(t)
-    ps = pools(t, n)
+    rng = np.random.default_rng(seed)
+    base = pools(seed, min(n, 3), s)
+    ps = tuple(base[i % len(base)] for i in range(n))
     table = torch.from_numpy(
-        rng.integers(-1, RUNS, size=(3 * n, S)).astype(np.int32))
+        rng.integers(-1, RUNS, size=(batch * n, s)).astype(np.int32))
     scalars = torch.from_numpy(
-        rng.integers(-1, RUNS, size=3 * n).astype(np.int32))
+        rng.integers(-1, RUNS, size=batch * n).astype(np.int32))
+    scalars[0] = table[0, 0] = 1  # the first leaf present
     check(tk.coarse_count_per_slice, ps, (table[:n],), tree, card)
     check(tk.coarse_count_identity_batch, ps, (table,), tree, card)
     check(tk.coarse_count_uniform, ps, (scalars[:n],), tree, card)
@@ -117,22 +159,27 @@ def test_shared_kernels(card, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slices", ["5", "sms-1", "96", "sms+1"])
 @pytest.mark.parametrize("n", [7, 29])
-def test_coarse_kernels_over_a_time_cover(card, n):
+def test_coarse_kernels_over_a_time_cover(card, n, slices):
     """K1 as a time Range of n views runs it: the OR of n optional leaves
     in the planner's canonical form, each leaf its own pool (one staged
-    day view a leaf), with uniform and per-slice starts."""
+    day view a leaf), with uniform and per-slice starts, at 5 slices, at
+    the time path's 96 and just under and over the card's SM count."""
     from pilosa_tpu_torch.parallel.plan import canonical_tree
 
+    s = {"sms-1": sms(card) - 1, "sms+1": sms(card) + 1}.get(slices)
+    s = s or int(slices)
     tree = canonical_tree(["or"] + [["leaf"]] * n,
                           [("f", f"standard_{d}", 1, False)
                            for d in range(n)], [])
-    rng = np.random.default_rng(40 + n)
-    ps = pools(40 + n, n)
+    rng = np.random.default_rng(40 + n + s)
+    base = pools(40 + n, 3, s)
+    ps = tuple(base[d % 3].clone() for d in range(n))
     scalars = torch.from_numpy(
         rng.integers(-1, RUNS, size=n).astype(np.int32))
     table = torch.from_numpy(
-        rng.integers(-1, RUNS, size=(n, S)).astype(np.int32))
+        rng.integers(-1, RUNS, size=(n, s)).astype(np.int32))
     check(tk.coarse_count_uniform, ps, (scalars,), tree, card)
     check(tk.coarse_count_per_slice, ps, (table,), tree, card)
 
@@ -409,24 +456,48 @@ def test_probe_add_kernel(card):
     assert torch.equal(got.cpu(), ramp + 1)
 
 
+BLOCKED_TREES = [*TREES, OR29, MIXED80]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", tk.BLOCK_SLICES)
-@pytest.mark.parametrize("tree", range(len(TREES)))
+@pytest.mark.parametrize("tree", range(len(BLOCKED_TREES)))
 def test_coarse_count_blocked_kernel(card, t, tree):
-    tree = TREES[tree]
+    tree = BLOCKED_TREES[tree]
     n = nleaves(tree)
     s = 64
     rng = np.random.default_rng(100 + t)
-    ps = tuple(words(rng, (s, RUNS * 16, 2048)) for _ in range(n))
+    base = [words(rng, (s, RUNS * 16, 2048)) for _ in range(min(n, 4))]
+    ps = tuple(base[i % len(base)] for i in range(n))
     starts = torch.from_numpy(rng.integers(-1, RUNS, size=n).astype(np.int32))
     starts[0] = 1  # at least one leaf present
     want = tk.coarse_count_blocked(ps, starts, tree, t)
     before = tk.LAUNCHES["coarse_count_blocked"]
-    got = tk.coarse_count_blocked(tuple(p.to(card) for p in ps),
-                                  starts.to(card), tree, t)
+    dev = to_card(ps, card)
+    got = [tk.coarse_count_blocked(dev, starts.to(card), tree, t)
+           for _ in range(2)]
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["coarse_count_blocked"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert tk.LAUNCHES["coarse_count_blocked"] == before + 2
+    assert torch.equal(got[0].cpu(), want) and torch.equal(got[1].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 32])
+@pytest.mark.parametrize("s", [960, 3072])
+def test_coarse_count_blocked_kernel_at_the_probe_sizes(card, t, s):
+    """K6 over the probe's pools (a pair over cap 32) at its two slice
+    counts, against its plain version on the card: T = 1 keeps whole
+    runs, T = 32 cuts them into the most chunks."""
+    gen = torch.Generator(device=card).manual_seed(s + t)
+    pool = torch.randint(-2**31, 2**31, (s, 32, 2048), dtype=torch.int32,
+                         device=card, generator=gen)
+    starts = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    tree = TREES[t % 3]
+    want = tk.coarse_plain((pool, pool), starts, True, tree, 1)
+    got = [tk.coarse_count_blocked((pool, pool), starts, tree, t)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
 
 
 @pytest.mark.cuda
