@@ -18,9 +18,11 @@ Phases, each fatal on failure:
      then K1's slice sweep (S in 24, 96, 240, 960 x a lone pair, the
      29-leaf OR of a time cover and a 16-query uniform batch, over
      random runs; at 960 also the per-slice form fed the uniform starts
-     expanded on the card) and K3 at the time path's 96 slices, each
-     held exactly against its plain version beside its byte bound. The
-     ptxas report of K1 and K6 must show no spill;
+     expanded on the card) and K3's (a pair and the 29-leaf OR, 3 in 4
+     containers present, over the same slice counts, gathered and over a
+     container table, and a tree of Count(Range(val > 1000))'s shape at
+     960 slices), each held exactly against its plain version beside its
+     byte bound. The ptxas report of K1, K3 and K6 must show no spill;
   4. the dense slice: a Holder of 960 slices (1,006,632,960 columns)
      whose frame `general` holds 8 dense random rows, one partial row
      and one row in odd slices only, served over HTTP on 127.0.0.1: the
@@ -47,9 +49,11 @@ Phases, each fatal on failure:
   7. K5 (pair_count) at the integer field's shapes: the flat pair of each
      op at (15,360, 2048) and at an M that is no multiple of a block, and
      the serving form over the staged `bsi.val` view as the Sum runs it
-     (no b, b = the sign row, b = a filter block); plus K1 on the
-     canonical tree of Count(Range(val > 1000)) and the K0 canary. Each
-     held exactly against its plain version and timed beside its bound;
+     (no b, b = the sign row, b = a filter block); plus K3 on the
+     canonical tree of Count(Range(val > 1000)) (over the view's row
+     table, as the serving path runs it, and gathered; with device
+     time) and the K0 canary. Each held exactly against its plain version
+     and timed beside its bound;
   8. the integer-field slice over HTTP: field `val` of frame `general`
      (min -32768, max 32767: 16 planes; uniform values in half the
      columns of all 960 slices, made slice by slice from the seed) serves
@@ -100,9 +104,12 @@ Phases, each fatal on failure:
      (a restage, timed beside the scatters), then 16 clients at once
      SetBit-ing into the newest slice (write QPS, fsyncs, ops per
      commit). K7 is held exactly against its plain version at the
-     rounds' batch shapes and at (960, 1024) entries, and timed beside
-     its byte bound. The bsi phase's SetValues also scatter; the time
-     phase's writes into sorted-array day views restage, by design;
+     rounds' batch shapes, at (960, 1024) entries and over 8-4096 unique
+     sorted entries a slice, and timed beside its byte bound and the
+     scattered-sector probe over the same sectors (csrc/sector_probe.cu,
+     a measurement, not a kernel). The bsi phase's SetValues also
+     scatter; the time phase's writes into sorted-array day views
+     restage, by design;
  12. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
@@ -129,12 +136,14 @@ served by the package under ROOT, and prints their QPS as one JSON line:
 run it alternately on two checkouts to compare their dense serving.
 --sparse-qps-of ROOT does the same with phase 6. --kernel-times-of ROOT
 runs phases 1 and 2 and then K4 at the chip shape, K2's two wrappers
-at the headline and the wide shape, K1's slice sweep of phase 3 and K6
-at T = 1, 4 and 32 over 960 slices, on inputs made on the card from the
-seed, each held exactly against its plain version and timed, and prints
-the times and the ptxas report as one JSON line: run it on a parent and
-a change in turns (parent, change, change, parent) to compare their
-kernels on one card.
+at the headline and the wide shape, K1's and K3's slice sweeps of phase
+3, K6 at T = 1, 4 and 32 over 960 slices, and K7 at (960, 1024) and over
+phase 11's sweep beside the scattered-sector probe, on inputs made on
+the card from the seed, each held exactly against its plain version and
+timed, and prints the times and the ptxas report as one JSON line: run
+it on a parent and a change in turns (parent, change, change, parent) to
+compare their kernels on one card (the forms and the probe a parent
+lacks are left out of its line).
 With --lone-latency-of ROOT it runs phases 1 and 2 and the lone Counts
 of phase 4 only, 56 of them as in phase 4 and then 560 more, and prints
 their latency and the collector's full passes as one JSON line.
@@ -552,12 +561,14 @@ def device_ms(fn, reps: int, warm_calls: int = WARM_CALLS):
     return (us / reps / 1e3 if whole else None), missed
 
 
-def measure(cases, reps: int, plain_reps: int = 3) -> dict:
+def measure(cases, reps: int, plain_reps: int = 3,
+            warm_calls: int = WARM_CALLS) -> dict:
     """Each (wrapper, kernel, kernel call, plain call, bytes moved) case:
     the kernel held exactly against its plain version on the same card
     tensors, then timed: `ms` by CUDA events over back-to-back calls,
-    `device_ms` by the profiler (null when its trace missed launches),
-    the plain version by events (skipped when plain_reps is 0)."""
+    `device_ms` by the profiler after warm_calls traced calls (null when
+    its trace missed launches), the plain version by events (skipped
+    when plain_reps is 0)."""
     import torch
 
     results = {}
@@ -569,7 +580,7 @@ def measure(cases, reps: int, plain_reps: int = 3) -> dict:
               f"{name}: kernel != plain (max err {err})")
         del got, want
         ms = time_ms(run, reps)
-        dev_ms, missed = device_ms(run, reps)
+        dev_ms, missed = device_ms(run, reps, warm_calls)
         plain_ms = time_ms(plain, plain_reps) if plain_reps else None
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         results[name] = {"kernel": kernel, "ms": ms, "device_ms": dev_ms,
@@ -703,27 +714,94 @@ def k1_sweep(device, seed: int, reps: int, plain_reps: int = 3) -> dict:
     return results
 
 
-def tree_count_case(s: int, device, seed: int):
-    """K3 (tree_count_per_slice) on a pair of random runs over s slices,
-    gathered container by container, 3 in 4 containers present: the
-    one-block-per-slice grid at few slices."""
+# K3's slice sweep (the tiled fold in table mode): a pair and the time
+# path's 29-leaf OR over random runs, 3 in 4 containers present, at the
+# sweep's slice counts; then a tree of Count(Range(val > 1000))'s shape
+# at the headline's 960 slices: 18 rows, the top plane nearly empty.
+K3_PRESENT = 0.75
+K3_TOP_PRESENT = 0.001
+
+
+def k3_cases(pool, tree, rows, present, tag: str):
+    """K3 on `pool` (whole random runs) with leaf l reading run rows[l],
+    container j present with probability present[l]: the gathered
+    (1, L, S, 16) idx / hit form (tree_count_per_slice, which every
+    version of the package takes) and, where the package has it, the
+    serving form over the leaves' rows of one (R, S, 16) container
+    table on the card (tree_count_rows), as measure() cases. Bounds: the
+    containers present, read once, the index (both idx and hit for the
+    gathered form, one table row a leaf for the table form) and the (S,)
+    out."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as tk
 
-    pool, _uni, _tab = random_runs(s, 2, device, seed + 3)
-    rng = np.random.default_rng(seed + s)
-    idx = torch.from_numpy(np.broadcast_to(
-        np.arange(2)[:, None, None] * 16 + np.arange(16)[None, None],
-        (2, s, 16)).astype(np.int32)).to(device)[None].contiguous()
-    hit_np = (rng.random((1, 2, s, 16)) < 0.75).astype(np.int32)
-    hit = torch.from_numpy(hit_np).to(device)
+    s, runs = pool.shape[0], pool.shape[1] // 16
+    gen = torch.Generator(device=pool.device).manual_seed(len(rows) + s)
+    table = (torch.arange(runs * 16, dtype=torch.int32, device=pool.device)
+             .view(runs, 1, 16).expand(runs, s, 16).contiguous())
+    p = torch.tensor(present, device=pool.device)[:, None, None]
+    keep = torch.rand((len(rows), s, 16), device=pool.device,
+                      generator=gen) < p
+    sel = torch.tensor(rows, device=pool.device)
+    table[sel] = torch.where(keep, table[sel], -1)
+    idx = table[sel].clamp(min=0)[None].contiguous()
+    hit = (table[sel] >= 0).to(torch.int32)[None].contiguous()
+    views = (pool,) * len(rows)
+    cont_b = int(hit.sum()) * 2048 * 4
+    out = [(f"tree_count_per_slice ({tag}, S={s})", "tree_count",
+            lambda: tk.tree_count_per_slice(views, idx, hit, tree),
+            lambda: tk.tree_plain(views, idx, hit, tree),
+            cont_b + 2 * idx.numel() * 4 + 4 * s)]
+    if hasattr(tk, "tree_count_rows"):
+        req = [[table[r] for r in rows]]
+        out.append((f"tree_count_rows ({tag}, S={s})", "tree_count",
+                    lambda: tk.tree_count_rows(views, req, tree),
+                    lambda: tk.rows_plain(views, req, tree),
+                    cont_b + len(rows) * s * 64 + 4 * s))
+    return out
+
+
+def range_tree():
+    """The canonical tree of Count(Range(val > 1000)) over the repo's
+    16-plane field, and each leaf's row (0 existence, 1 sign, 2-17 the
+    planes)."""
+    from pilosa_tpu_torch.bsi import FieldSchema, cond_tree, to_shape
+    from pilosa_tpu_torch.parallel.plan import canonical_tree
+
+    schema = FieldSchema(BSI_FIELD, BSI_MIN, BSI_MAX)
+    raw, leaves = [], []
+    tree = canonical_tree(to_shape(cond_tree(schema, ">", 1000), "general",
+                                   schema.view, raw), raw, leaves)
+    return tree, [lf[2] for lf in leaves]
+
+
+def k3_sweep(device, seed: int, reps: int, plain_reps: int = 3) -> dict:
+    """K3's slice sweep and the Range-shaped tree (k3_cases), one pool at
+    a time, each case held exactly against its plain version and timed."""
+    import torch
+
+    results = {}
     pair = ["and", ["leaf", 0], ["leaf", 1]]
-    p2 = (pool, pool)
-    return (f"tree_count_per_slice (S={s})", "tree_count",
-            lambda: tk.tree_count_per_slice(p2, idx, hit, pair),
-            lambda: tk.tree_plain(p2, idx, hit, pair),
-            int(hit_np.sum()) * 2048 * 4 + 2 * idx.numel() * 4 + 4 * s)
+    for s in SWEEP_SLICES:
+        pool, _uni, _tab = random_runs(s, BATCH_RUNS, device, seed + s)
+        cases = (k3_cases(pool, pair, [0, 1], [K3_PRESENT] * 2, "pair")
+                 + k3_cases(pool, or_tree(SWEEP_OR_LEAVES),
+                            list(range(SWEEP_OR_LEAVES)),
+                            [K3_PRESENT] * SWEEP_OR_LEAVES, "29-leaf OR"))
+        results.update(measure(cases, reps, plain_reps))
+        del pool, _uni, _tab, cases
+        torch.cuda.empty_cache()
+    tree, rows = range_tree()
+    pool, _uni, _tab = random_runs(SLICES, BSI_ROWS, device, seed + 18)
+    present = [K3_TOP_PRESENT if r == BSI_ROWS - 1 else 1.0 for r in rows]
+    # The Range tree runs ~0.7 ms: warm the trace for longer.
+    results.update(measure(k3_cases(pool, tree, rows, present,
+                                    "Range val > 1000 shape"), reps,
+                           plain_reps, warm_calls=50))
+    del pool, _uni, _tab
+    torch.cuda.empty_cache()
+    return results
 
 
 def k6_cases(device, seed: int, ts=K6_SWEEP_T):
@@ -756,7 +834,8 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     from pilosa_tpu_torch.ops import kernels as tk
     from pilosa_tpu_torch.ops.pool import pack_bitmap
     from pilosa_tpu_torch.parallel.mesh import (build_sharded_index,
-                                                dense_row, leaf_layout)
+                                                dense_row, index_row,
+                                                leaf_layout)
 
     s = words.shape[0]
     frags = [holder.fragment("i", "general", "standard", i) for i in range(s)]
@@ -795,6 +874,9 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     hit = dev(np.stack([lay[PARTIAL_ROW].hit, lay[0].hit]))
     hit_np = np.stack([lay[PARTIAL_ROW].hit, lay[0].hit])
     p2, p8 = (pool, pool), (pool,) * DENSE_ROWS
+    # K3's serving form reads the leaves' container indexes on the card.
+    k3_rows = [[index_row(lay[PARTIAL_ROW], device),
+                index_row(lay[0], device)]]
 
     # (wrapper, kernel, kernel call, plain call, bytes moved)
     out_b = 4 * s
@@ -818,6 +900,10 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
         *shared_cases(p8, shared_uni, shared_tab, pair_and,
                       tuple(pairs16)),
         *wide_shared_cases(s, device, seed),
+        ("tree_count_rows", "tree_count",
+         lambda: tk.tree_count_rows(p2, k3_rows, pair_and),
+         lambda: tk.rows_plain(p2, k3_rows, pair_and),
+         int(hit_np.sum()) * 2048 * 4 + 2 * s * 64 + out_b),
         ("tree_count_per_slice", "tree_count",
          lambda: tk.tree_count_per_slice(p2, idx[None], hit[None], pair_and),
          lambda: tk.tree_plain(p2, idx[None], hit[None], pair_and),
@@ -828,11 +914,11 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
     total = int(tk.tree_count_pallas(pool, idx, hit, pair_and))
     want = host_count(words, "and", PARTIAL_ROW, 0)
     check(total == want, f"tree_count_pallas {total} != host {want}")
-    del staged, pool, wide, w2
+    del staged, pool, wide, w2, k3_rows
     torch.cuda.empty_cache()
-    log("kernel phase: K1's slice sweep and K3 at the time path's slices")
+    log("kernel phase: K1's and K3's slice sweeps")
     results.update(k1_sweep(device, seed, 20))
-    results.update(measure([tree_count_case(TIME_SLICES, device, seed)], 20))
+    results.update(k3_sweep(device, seed, 20))
     torch.cuda.empty_cache()
     return results
 
@@ -1358,11 +1444,20 @@ def bsi_kernel_phase(holder, truth: BsiTruth, device, seed: int) -> dict:
     r_pools = (pool,) * len(leaves)
     r_idx = dev(np.stack([x.idx for x in r_lay])[None])
     r_hit = dev(np.stack([x.hit for x in r_lay])[None])
-    cases.append(("tree_count_per_slice (Range val > 1000)", "tree_count",
-                  lambda: tk.tree_count_per_slice(r_pools, r_idx, r_hit, tree),
-                  lambda: tk.tree_plain(r_pools, r_idx, r_hit, tree),
-                  int(sum(x.hit.sum() for x in r_lay)) * 8192
-                  + 2 * r_idx.numel() * 4 + 4 * s))
+    r_rows = [[a_all[x.row] for x in r_lay]]
+    present_b = int(sum(x.hit.sum() for x in r_lay)) * 8192
+    # K3 in its serving form (the leaves' rows of the view's container
+    # index on the card) and the gathered form, with device time: each call runs ~0.7 ms, so the
+    # trace is warmed for longer.
+    k3 = measure([
+        ("tree_count_rows (Range val > 1000)", "tree_count",
+         lambda: tk.tree_count_rows(r_pools, r_rows, tree),
+         lambda: tk.rows_plain(r_pools, r_rows, tree),
+         present_b + len(leaves) * s * 64 + 4 * s),
+        ("tree_count_per_slice (Range val > 1000)", "tree_count",
+         lambda: tk.tree_count_per_slice(r_pools, r_idx, r_hit, tree),
+         lambda: tk.tree_plain(r_pools, r_idx, r_hit, tree),
+         present_b + 2 * r_idx.numel() * 4 + 4 * s)], 20, warm_calls=50)
     results = {}
     for name, kernel, run, plain, nbytes in cases:
         got, want = run(), plain()
@@ -1379,6 +1474,7 @@ def bsi_kernel_phase(holder, truth: BsiTruth, device, seed: int) -> dict:
                          "max_abs_err": err, "library_ms": None}
         log(f"  {name:42s} {ms:8.4f} ms  {nbytes / ms / 1e6:7.1f} GB/s  "
             f"bound {bound_ms:.4f} ms  plain {plain_ms:.3f} ms  exact")
+    results.update(k3)
     check(len(leaves) == BSI_ROWS, f"Range tree has {len(leaves)} leaves")
     # The Sum's plane counts against the truth.
     counts = tk.pair_count_rows(pool, a_all).tolist()
@@ -1667,9 +1763,10 @@ def resolved(holder, mgr, index: str, query: str, num_slices: int):
 def request_case(name: str, req):
     """The kernel count_batch runs for one dense _CountRequest, as a
     measure() case against its plain version: K1's uniform or per-slice
-    form over whole-row runs, else K3 over gathered containers. Bound:
-    the runs (containers) present, read once, the start (index) tables
-    and the (S,) output."""
+    form over whole-row runs, else K3 over the leaves' container indexes
+    kept on the card (StagedView.index_row). Bound:
+    the runs (containers) present, read once, the start tables (the
+    leaves' table rows) and the (S,) output."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as tk
@@ -1696,12 +1793,12 @@ def request_case(name: str, req):
                 lambda: tk.coarse_count_per_slice(pools, starts, tree),
                 lambda: tk.coarse_plain(pools, starts, False, tree, 1),
                 runs * RUN_BYTES + starts.numel() * 4 + out_b)
-    idx = dev(np.stack([lay.idx for lay in lays]))[None]
-    hit = dev(np.stack([lay.hit for lay in lays]))[None]
+    rows = [[get(lay.row) for get, lay in zip(req.index_rows, lays)]]
+    present = sum(int(lay.hit.sum()) for lay in lays)
     return (name, "tree_count",
-            lambda: tk.tree_count_per_slice(pools, idx, hit, tree),
-            lambda: tk.tree_plain(pools, idx, hit, tree),
-            int(hit.sum()) * 2048 * 4 + 2 * idx.numel() * 4 + out_b)
+            lambda: tk.tree_count_rows(pools, rows, tree),
+            lambda: tk.rows_plain(pools, rows, tree),
+            present * 2048 * 4 + len(lays) * s * 64 + out_b)
 
 
 def sparse_request_case(name: str, req, device):
@@ -2195,6 +2292,8 @@ WRITERS = 16                  # concurrent clients (rounds and the herd)
 WRITER_OPS = 100              # SetBits each herd client sends
 WRITE_PATH = ("apply_writes", "coarse_count")
 K7_WIDE = (SLICES, 1024)      # K7 held at a shape above a launch floor
+K7_SWEEP = (8, 64, 256, 1024, 4096)  # K7's entries a slice, at SLICES
+K7_CAP = 160                  # the headline view's capacity: 10 row runs
 SECTOR = 32                   # bytes the card moves to touch one word
 
 
@@ -2212,12 +2311,32 @@ def flip_bits(words: np.ndarray, rows, cols, set_: np.ndarray) -> None:
             words[at] & ~bit[k])
 
 
+def k7_offsets(pool, batch):
+    """The flat word offsets (int64) of a K7 batch's live entries into
+    `pool`, in entry order."""
+    import torch
+
+    slot, word = batch[0], batch[1]
+    s, cap = pool.shape[0], pool.shape[1]
+    live = (slot >= 0) & (slot < cap) & (word >= 0) & (word < 2048)
+    s_idx = torch.arange(s, device=slot.device)[:, None].expand_as(slot)
+    flat = (s_idx * cap + slot.long()) * 2048 + word.long()
+    return flat[live].contiguous()
+
+
+def k7_sectors(offsets) -> int:
+    """The 32-byte sectors (8 words) a set of word offsets touches."""
+    import torch
+
+    return int(torch.unique(offsets // 8).numel())
+
+
 def k7_case(name: str, pool, batch, reps: int = 200) -> dict:
     """K7 on a clone of a staged pool against its plain version on
-    another clone, the same (S, B) card batches; timed by events and by
-    the profiler. Bound: a 32-byte sector read and written per live
-    entry, and each entry's 16 bytes read, over the card's memory
-    rate."""
+    another clone, the same (S, B) card batches, timed by events and by
+    the profiler. Bound: a 32-byte sector read and written for each
+    sector the live entries touch, and each entry's 16 bytes read, over
+    the card's memory rate. Returns {name: row}."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as tk
@@ -2229,25 +2348,114 @@ def k7_case(name: str, pool, batch, reps: int = 200) -> dict:
     err = 0 if torch.equal(a, b) else int(
         (a.to(torch.int64) - b.to(torch.int64)).abs().max())
     check(err == 0, f"{name}: K7 != plain")
-    live = int(((batch[0] >= 0) & (batch[0] < pool.shape[1])).sum())
-    nbytes = live * 2 * SECTOR + batch[0].numel() * 16
+    offsets = k7_offsets(pool, batch)
+    live, sectors = int(offsets.numel()), k7_sectors(offsets)
+    nbytes = sectors * 2 * SECTOR + batch[0].numel() * 16
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plain_ms = time_ms(lambda: tk.scatter_plain(b, *batch), 10)
     ms = time_ms(lambda: tk.scatter_words(a, *batch), reps)
-    # A trace lacks the first launches after it opens (20 of K7's in a
-    # run with 10 warm calls): warm it for longer.
+    # A trace lacks the first launches after it opens (20 of K7's in a run
+    # with 10 warm calls): warm it for longer.
     dev_ms, missed = device_ms(lambda: tk.scatter_words(a, *batch), reps,
                                warm_calls=100)
-    plain_ms = time_ms(lambda: tk.scatter_plain(b, *batch), 10)
     del a, b
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     dev_s = f"{dev_ms:.4f}" if dev_ms is not None else "null"
-    log(f"  {name:36s} apply_writes {ms:8.4f} ms (device {dev_s})  "
+    log(f"  {name:44s} apply_writes {ms:8.4f} ms (device {dev_s})  "
         f"bound {bound_ms:.5f} ms  plain {plain_ms:.3f} ms  exact")
-    return {"kernel": "apply_writes", "ms": ms, "device_ms": dev_ms,
-            "trace_missed": missed, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
-            "entries": int(batch[0].numel()), "live_entries": live,
-            "shape": list(batch[0].shape), "library_ms": None,
-            "max_abs_err": err}
+    return {name: {"kernel": "apply_writes", "ms": ms, "device_ms": dev_ms,
+                   "trace_missed": missed, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "bytes": nbytes, "entries": int(batch[0].numel()),
+                   "live_entries": live, "sectors": sectors,
+                   "shape": list(batch[0].shape), "library_ms": None,
+                   "max_abs_err": err}}
+
+
+PROBE_FLIP = 0x80000001  # the bits the probe's exactness check flips
+
+
+def sector_case(name: str, pool, batch, reps: int = 200) -> dict:
+    """The scattered-sector probe (kernels.sector_probe, a measurement,
+    not a kernel of any path) over the sectors of a K7 batch's live
+    entries in the same order and in K7's block size, held exactly against its plain version with PROBE_FLIP, then timed
+    with flip 0 by events and by the profiler. Its bytes: a 32-byte
+    sector read and written a sector and 8 bytes an offset. Returns
+    {name: row}, or {} where the package has no probe."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    if not hasattr(tk, "sector_probe"):
+        return {}
+    offsets = k7_offsets(pool, batch)
+    a, b = pool.clone(), pool.clone()
+    tk.sector_probe(a, offsets, PROBE_FLIP)
+    tk.sector_probe_plain(b, offsets, PROBE_FLIP)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{name}: probe != plain")
+    sectors = k7_sectors(offsets)
+    nbytes = sectors * 2 * SECTOR + offsets.numel() * 8
+
+    def run():
+        tk.sector_probe(a, offsets, 0)
+
+    ms = time_ms(run, reps)
+    dev_ms, missed = device_ms(run, reps, warm_calls=100)
+    del a, b
+    dev_s = f"{dev_ms:.4f}" if dev_ms is not None else "null"
+    log(f"  {name:44s} sector_probe {ms:8.4f} ms (device {dev_s})  "
+        f"{sectors} sectors, {nbytes / (dev_ms or ms) / 1e6:7.1f} GB/s")
+    return {name: {"kernel": "sector_probe", "ms": ms, "device_ms": dev_ms,
+                   "trace_missed": missed, "bytes": nbytes,
+                   "sectors": sectors, "offsets": int(offsets.numel()),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "max_abs_err": 0}}
+
+
+def k7_sweep_batch(s: int, cap: int, b: int, device, seed: int):
+    """(S, b) batches of b unique targets a slice, sorted by (slot,
+    word) as the planner sorts them, with random masks: the four int32
+    card tensors."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.rand((s, cap * 2048), device=device, generator=g).topk(
+        b, dim=1).indices.sort(dim=1).values
+    masks = [torch.randint(-2**31, 2**31 - 1, (s, b), generator=g,
+                           device=device, dtype=torch.int32)
+             for _ in range(2)]
+    return ((flat // 2048).to(torch.int32).contiguous(),
+            (flat % 2048).to(torch.int32).contiguous(), *masks)
+
+
+def k7_sweep(pool, device, seed: int) -> dict:
+    """K7 at K7_WIDE (random slots, words 0, 2, .., 2046 a slice) and at
+    every entry count of K7_SWEEP, each beside the scattered-sector
+    probe over the same sectors (k7_case, sector_case)."""
+    import torch
+
+    s_, b_ = K7_WIDE
+    g = torch.Generator(device=device).manual_seed(seed)
+    wide = (torch.randint(0, pool.shape[1], (s_, b_), generator=g,
+                          device=device, dtype=torch.int32),
+            (torch.arange(b_, device=device, dtype=torch.int32) * 2)
+            .repeat(s_, 1),
+            torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
+                          device=device, dtype=torch.int32),
+            torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
+                          device=device, dtype=torch.int32))
+    out = k7_case(f"apply_writes ({s_} x {b_})", pool, wide)
+    out.update(sector_case(f"sector_probe ({s_} x {b_})", pool, wide))
+    for b in K7_SWEEP:
+        batch = k7_sweep_batch(pool.shape[0], pool.shape[1], b, device,
+                               seed + b)
+        out.update(k7_case(f"apply_writes sweep ({pool.shape[0]} x {b})",
+                           pool, batch))
+        out.update(sector_case(f"sector_probe ({pool.shape[0]} x {b})",
+                               pool, batch))
+        del batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def write_phase(holder, words: np.ndarray, card: str, device,
@@ -2261,7 +2469,9 @@ def write_phase(holder, words: np.ndarray, card: str, device,
     write into a new row, which must restage, timed beside the scatters;
     then WRITERS clients sending SetBits at once into the newest slice
     (write QPS, fsyncs, ops per commit). K7 is then held against its
-    plain version at the rounds' batch shapes and at K7_WIDE. The
+    plain version at the rounds' batch shapes, at K7_WIDE and over the
+    K7_SWEEP entry counts, each sweep shape beside the scattered-sector
+    probe (k7_sweep). The
     counters are set to 0 just before the server starts and read after
     the last query. `words` is updated to the written state."""
     import torch
@@ -2426,26 +2636,16 @@ def write_phase(holder, words: np.ndarray, card: str, device,
         stats = dict(ex.stats)
         mstats = dict(mgr.stats)
         # K7 against its plain version: the rounds' batches, then K7_WIDE
-        # unique targets (distinct words, random slots) per slice.
+        # unique targets (distinct words, random slots) per slice and the
+        # K7_SWEEP batches, each beside the scattered-sector probe.
         pool = mgr._views[("i", "general", "standard")].sharded.words
         kern = {}
         for w in WRITE_BATCHES:
             dev = tuple(torch.from_numpy(np.ascontiguousarray(a).view(
                 np.int32)).to(device) for a in batches[w])
-            kern[f"apply_writes (round batch, W={w})"] = k7_case(
-                f"apply_writes (W={w}: {tuple(dev[0].shape)})", pool, dev)
-        s_, b_ = K7_WIDE
-        g = torch.Generator(device=device).manual_seed(seed)
-        wide = (torch.randint(0, pool.shape[1], (s_, b_), generator=g,
-                              device=device, dtype=torch.int32),
-                (torch.arange(b_, device=device, dtype=torch.int32) * 2)
-                .repeat(s_, 1),
-                torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
-                              device=device, dtype=torch.int32),
-                torch.randint(-2**31, 2**31 - 1, (s_, b_), generator=g,
-                              device=device, dtype=torch.int32))
-        kern["apply_writes (960 x 1024)"] = k7_case(
-            f"apply_writes ({s_} x {b_} entries)", pool, wide)
+            kern.update(k7_case(f"apply_writes (round batch, W={w})",
+                                pool, dev))
+        kern.update(k7_sweep(pool, device, seed))
     finally:
         tserve.apply_writes = real_apply
         pool_ex.shutdown()
@@ -2690,9 +2890,11 @@ def sparse_qps_only(root: Path, card: str, smi: str, seed: int) -> int:
 
 def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
     """K4 at the chip shape, K2's two wrappers at the headline and the
-    wide shape, K1's slice sweep (k1_sweep) and K6 at T in K6_SWEEP_T
-    over the headline's slices, built and run by the package under
-    `root`, each held
+    wide shape, K1's slice sweep (k1_sweep), K6 at T in K6_SWEEP_T over
+    the headline's slices, K3's slice sweep and Range-shaped tree
+    (k3_sweep), and K7 at K7_WIDE and over K7_SWEEP beside the
+    scattered-sector probe (k7_sweep, on a random pool of the headline
+    view's shape), built and run by the package under `root`, each held
     exactly against its plain version, timed, and printed as one JSON
     line with the build's ptxas report. The inputs are made on the card
     from the seed, the same for every tree: run it alternately on two
@@ -2713,6 +2915,11 @@ def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
     torch.cuda.empty_cache()
     rows.update(k1_sweep(device, seed, 50, plain_reps=0))
     rows.update(measure(k6_cases(device, seed), 50, plain_reps=0))
+    rows.update(k3_sweep(device, seed, 50, plain_reps=0))
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    pool = torch.randint(-2**31, 2**31, (SLICES, K7_CAP, 2048),
+                         dtype=torch.int32, device=device, generator=gen)
+    rows.update(k7_sweep(pool, device, seed))
     print(json.dumps({"kernel_times_of": str(root), "card": smi,
                       "rows": rows, "ptxas": ptxas}), flush=True)
     return 0
@@ -2752,10 +2959,11 @@ def main(argv=None) -> int:
                     help="run only phase 6, served by the package under "
                          "ROOT, and print its QPS as one JSON line")
     ap.add_argument("--kernel-times-of", metavar="ROOT", type=Path,
-                    help="run only the timed shapes of K4, K2, K1's slice "
-                         "sweep and K6 with the kernels of the package "
-                         "under ROOT, and print their times and ptxas "
-                         "report as one JSON line")
+                    help="run only the timed shapes of K4, K2, K1's and "
+                         "K3's slice sweeps, K6 and K7's sweep (with the "
+                         "scattered-sector probe) with the kernels of the "
+                         "package under ROOT, and print their times and "
+                         "ptxas report as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2783,7 +2991,7 @@ def main(argv=None) -> int:
         f"{time.monotonic() - t0:.2f} s {json.dumps(build_s)}")
     ptxas = save_ptxas(cuda_build.build_dir(), root.name)
     for name in ("sparse_pair_count", "coarse_count_shared", "coarse_count",
-                 "coarse_count_blocked"):
+                 "coarse_count_blocked", "tree_count", "apply_writes"):
         log(f"ptxas {name}: {' | '.join(ptxas.get(name, []))}")
     if args.dense_qps_of:
         return dense_qps_only(root, card, smi, args.seed)
@@ -2795,7 +3003,7 @@ def main(argv=None) -> int:
         return kernel_times_only(root, smi, args.seed, ptxas)
     from pilosa_tpu_torch.ops import kernels as tk
 
-    for name in ("coarse_count", "coarse_count_blocked"):
+    for name in ("coarse_count", "coarse_count_blocked", "tree_count"):
         spills = [line for line in ptxas.get(name, []) if "spill" in line]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                              in line for line in spills),

@@ -1,4 +1,5 @@
-"""Build the CUDA kernels (K0-K7) with nvcc and load them with ctypes.
+"""Build the CUDA kernels (K0-K7, and the sector probe) with nvcc and
+load them with ctypes.
 
 Each source under csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a at first use into csrc/_build/ (or
@@ -40,7 +41,7 @@ ENTRIES = {
                             [_PP, _PLL, _I, _P, _I, _PROG, _I, _I, _P,
                              _P]),
     "tree_count": ("tree_count", "pilosa_tree_count",
-                   [_PP, _PLL, _I, _P, _P, _I, _I, _PROG, _I, _P, _P]),
+                   [_PP, _PLL, _I, _PP, _I, _I, _I, _STEPS, _I, _P, _P]),
     "sparse_pair_count": ("sparse_pair_count", "pilosa_sparse_pair_count",
                           [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                            _I, _I, _P, _P]),
@@ -57,6 +58,8 @@ ENTRIES = {
                         [_P, _LL, _P, _I, _P, _P]),
     "apply_writes": ("apply_writes", "pilosa_apply_writes",
                      [_P, _I, _I, _P, _P, _P, _P, _I, _P]),
+    "sector_probe": ("sector_probe", "pilosa_sector_probe",
+                     [_P, _P, _LL, ctypes.c_uint32, _P]),
 }
 # One shared library per source.
 SOURCES = tuple(sorted({src for src, _, _ in ENTRIES.values()}))

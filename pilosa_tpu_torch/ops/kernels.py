@@ -13,8 +13,10 @@ replace (pilosa_tpu/ops/kernels.py):
      csrc/coarse_tiles.cuh (tiles planned by coarse_tiles);
   K2 coarse_count_shared (csrc/coarse_count_shared.cu):
      coarse_count_batch_per_slice, coarse_count_shared_uniform;
-  K3 tree_count (csrc/tree_count.cu): tree_count_per_slice, and
-     tree_count_pallas over it;
+  K3 tree_count (csrc/tree_count.cu): tree_count_rows, over rows of
+     container index tables kept on the card, and tree_count_per_slice /
+     tree_count_pallas, which pass it a gathered index, on the tiled fold
+     of csrc/coarse_tiles.cuh;
   K4 sparse_pair_count (csrc/sparse_pair_count.cu): sparse_pair_count
      over two sorted-array pools, and pallas_sparse_pair_counts with the
      Pallas function's flat contract;
@@ -30,7 +32,9 @@ replace (pilosa_tpu/ops/kernels.py):
   K7 apply_writes (csrc/apply_writes.cu): scatter_words, the write
      scatter into a staged pool, for the XLA program
      compile_serve_apply_writes (pilosa_tpu/parallel/mesh.py:1997), no
-     Pallas call. It updates the pool in place.
+     Pallas call. It updates the pool in place. sector_probe
+     (csrc/sector_probe.cu) measures its ceiling, the card's scattered
+     read-modify-write rate; it serves no path.
 
 Pools are (S, cap, 2048) int32 tensors holding uint32 words, and
 sorted-array pools (S, C, K) int16 tensors holding u16 values. A wrapper
@@ -72,7 +76,7 @@ _PUSH = 4
 LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
             "sparse_pair_count": 0, "pair_count": 0, "probe_ok": 0,
             "coarse_count_blocked": 0, "stream_popcount": 0,
-            "apply_writes": 0}
+            "apply_writes": 0, "sector_probe": 0}
 _LAUNCH_MU = threading.Lock()
 
 
@@ -139,15 +143,16 @@ def _on_cuda(*tensors) -> bool:
 
 
 def leaf_steps(prog: tuple) -> tuple:
-    """K1 and K6's form of an accumulator program (csrc/coarse_tiles.cuh):
-    one 32-bit step a leaf op, so the kernel's loads run ahead over a
-    flat list of leaves. Bits 0-7 hold the leaf, 8-9 its op (0 load, 1
-    and, 2 or, 3 andnot), bit 10 saves the accumulator before it (a
-    nested operand begins), bits 11-14 count the saved values combined
-    back after it and bits 15-30 hold their ops, two bits each, the first
-    lowest. Raises ValueError for a program tree_program does not make:
-    a first op or a nested operand that does not start with a load, a
-    combine with nothing saved, values left saved."""
+    """K1, K3 and K6's form of an accumulator program
+    (csrc/coarse_tiles.cuh): one 32-bit step a leaf op, so the kernel's
+    loads run ahead over a flat list of leaves. Bits 0-7 hold the leaf,
+    8-9 its op (0 load, 1 and, 2 or, 3 andnot), bit 10 saves the
+    accumulator before it (a nested operand begins), bits 11-14 count
+    the saved values combined back after it and bits 15-30 hold their
+    ops, two bits each, the first lowest. Raises ValueError for a program
+    tree_program does not make: a first op or a nested operand that does
+    not start with a load, a combine with nothing saved, values left
+    saved."""
     steps: list = []
     push, sp = False, 0
     for op in prog:
@@ -201,22 +206,22 @@ def _pool_args(pools, prog: tuple):
 
 
 def _kernel_args(pools, prog: tuple):
-    """_pool_args and the program, as the fold.cuh kernels take them."""
+    """_pool_args and the program, as K2's C entry takes them."""
     return (*_pool_args(pools, prog), (ctypes.c_uint16 * len(prog))(*prog),
             len(prog))
 
 
 @functools.lru_cache(maxsize=4096)
 def _step_array(prog: tuple):
-    """leaf_steps(prog) as the uint32 array K1 and K6's C entries read
+    """leaf_steps(prog) as the uint32 array K1, K3 and K6's C entries read
     (and never write): made once per program."""
     steps = leaf_steps(prog)
     return (ctypes.c_uint32 * len(steps))(*steps), len(steps)
 
 
 def _tiled_args(pools, tree):
-    """The by-pointer arguments of K1 and K6's C entries: pools, slice
-    pitches and the tree's leaf steps."""
+    """The by-pointer arguments of K1, K3 and K6's C entries: pools,
+    slice pitches and the tree's leaf steps."""
     prog = tree_program(tree)
     return (*_pool_args(pools, prog), *_step_array(prog))
 
@@ -261,10 +266,11 @@ def coarse_plain(pools, starts, uniform: bool, tree, batch: int):
     return out
 
 
-# K1 and K6 cut every run into tiles (csrc/coarse_tiles.cuh): a 256-thread
-# block folds TILE_UNROLL positions a thread at once, so a step of a
-# block covers TILE_STEP_VEC of a run's RUN_VEC 16-byte vectors, and a
-# run is cut into at most MAX_CHUNKS chunks of whole steps. The host picks
+# K1, K3 and K6 cut every run into tiles (csrc/coarse_tiles.cuh): a
+# 256-thread block folds TILE_UNROLL positions a thread at once, so a
+# step of a block covers TILE_STEP_VEC of a run's RUN_VEC 16-byte
+# vectors, and a run is cut into at most MAX_CHUNKS chunks of whole
+# steps. The host picks
 # the fewest chunks that give every SM TILES_PER_SM tiles; with more than
 # one, the C entry zeroes the output on the card before the chunks add
 # into it.
@@ -278,13 +284,14 @@ TILES_PER_SM = 4
 
 @functools.lru_cache(maxsize=1024)
 def coarse_tiles(s: int, batch: int, sms: int, t: int = 1) -> int:
-    """The chunk count C of a K1 / K6 launch over s slices, batch queries
-    and t consecutive slices a tile, on a card of `sms` SMs: the fewest
-    chunks (a power of two up to MAX_CHUNKS) that make s / t * batch * C
-    tiles at least TILES_PER_SM * sms; 1 where s / t * batch already
-    fills the card. The kernel's grid is (s / t * C, batch): block (x, y)
-    folds query y, slices (x // C) * t .. + t - 1 and vectors
-    [x % C, x % C + 1) * RUN_VEC / C of each run."""
+    """The chunk count C of a K1 / K3 / K6 launch over s slices, batch
+    queries and t consecutive slices a tile, on a card of `sms` SMs: the
+    fewest chunks (a power of two up to MAX_CHUNKS) that make
+    s / t * batch * C tiles at least TILES_PER_SM * sms; 1 where
+    s / t * batch already fills the card. The kernel's grid is
+    (s / t * C, batch): block (x, y) folds query y, slices
+    (x // C) * t .. + t - 1 and vectors [x % C, x % C + 1) * RUN_VEC / C
+    of each run."""
     if s < 1 or batch < 1 or t < 1 or s % t:
         raise ValueError(f"no tiling of S={s}, B={batch}, T={t}")
     chunks = 1
@@ -451,27 +458,78 @@ def tree_plain(views, idx, hit, tree):
     return out
 
 
+def rows_plain(views, rows, tree):
+    """tree_count_rows' plain version: each leaf's containers gathered
+    through its index row."""
+    s = views[0].shape[0]
+    out = torch.empty((len(rows), s), dtype=torch.int32,
+                      device=views[0].device)
+    absent = torch.full((s, ROW_SPAN), -1, dtype=torch.int32,
+                        device=views[0].device)
+    for b, req in enumerate(rows):
+        def leaf(i, req=req):
+            return gather_containers(
+                views[i], absent if req[i] is None else req[i])
+
+        out[b] = popcount(fold_tree(tree, leaf)).sum(dim=(1, 2))
+    return out
+
+
+def tree_count_rows(views, rows, tree):
+    """K3 (csrc/tree_count.cu, on the tiled fold): per-(query, slice)
+    counts of `tree` over rows that are not whole runs, each leaf read
+    container by container through its row of a container index table.
+    views: per leaf position the (S, cap, 2048) pool; rows: B <=
+    MAX_BATCH sequences of L entries, rows[b][l] the (S, 16) int32
+    container index of query b's leaf l in views[l] (-1 = absent
+    container; a row of parallel/mesh.row_table) on the pool's device,
+    or None for an absent leaf. The kernel reads the index from the
+    card: only the argument block goes up. Returns (B, S) int32."""
+    views = tuple(views)
+    _check_pools(views, run_aligned=False)
+    s = views[0].shape[0]
+    rows = [tuple(req) for req in rows]
+    if (not 1 <= len(rows) <= MAX_BATCH
+            or any(len(req) != len(views) for req in rows)):
+        raise ValueError(f"tree_count_rows takes 1-{MAX_BATCH} queries of "
+                         f"{len(views)} index rows")
+    given = [r for req in rows for r in req if r is not None]
+    if any(r.dtype != torch.int32 or tuple(r.shape) != (s, ROW_SPAN)
+           or not r.is_contiguous() for r in given):
+        raise ValueError(f"index rows must be contiguous ({s}, {ROW_SPAN}) "
+                         "int32 tensors")
+    if not _on_cuda(*views, *given):
+        return rows_plain(views, rows, tree)
+    dev = views[0].device
+    chunks = coarse_tiles(s, len(rows), _sms(dev))
+    out = torch.empty((len(rows), s), dtype=torch.int32, device=dev)
+    bases, strides, steps, n_steps = _tiled_args(views, tree)
+    ptrs = (ctypes.c_void_p * (len(rows) * len(views)))(
+        *[None if r is None else r.data_ptr() for req in rows for r in req])
+    rc = kernel_fn("tree_count")(bases, strides, len(views), ptrs,
+                                 len(rows), s, chunks, steps, n_steps,
+                                 out.data_ptr(), _stream(out))
+    _launched("tree_count", rc)
+    return out
+
+
 def tree_count_per_slice(views, idx, hit, tree):
     """Per-(query, slice) counts over a per-container gather. views:
     per leaf position the (S, cap, 2048) pool; idx, hit: (B, L, S, 16)
-    int32 container index within the slice and presence (1) flag.
-    Returns (B, S) int32."""
+    int32 container index within the slice and presence (1) flag. On the
+    card the index, -1 where hit is 0, goes to tree_count_rows as B x L
+    index rows, MAX_BATCH queries a launch. Returns (B, S) int32."""
     views = tuple(views)
     _check_pools(views, run_aligned=False)
-    if idx.dim() != 4 or idx.shape != hit.shape or idx.shape[1] != len(views):
+    if (idx.dim() != 4 or idx.shape != hit.shape
+            or idx.shape[1] != len(views)
+            or tuple(idx.shape[2:]) != (views[0].shape[0], ROW_SPAN)):
         raise ValueError("idx/hit must be (B, L, S, 16) for L pools")
     if not _on_cuda(*views, idx, hit):
         return tree_plain(views, idx, hit, tree)
-    idx = idx.to(torch.int32).contiguous()
-    hit = hit.to(torch.int32).contiguous()
-    batch, _, s, _ = idx.shape
-    out = torch.empty((batch, s), dtype=torch.int32, device=idx.device)
-    bases, strides, prog, prog_len = _kernel_args(views, tree_program(tree))
-    rc = kernel_fn("tree_count")(
-        bases, strides, len(views), idx.data_ptr(), hit.data_ptr(), batch, s,
-        prog, prog_len, out.data_ptr(), _stream(out))
-    _launched("tree_count", rc)
-    return out
+    index = torch.where(hit != 0, idx.to(torch.int32), -1).contiguous()
+    return torch.cat([tree_count_rows(views, index[b:b + MAX_BATCH], tree)
+                      for b in range(0, index.shape[0], MAX_BATCH)])
 
 
 def tree_count_pallas(words, idx, hit, tree):
@@ -763,7 +821,6 @@ def stream_popcount(pool: torch.Tensor) -> torch.Tensor:
 
 # -- K7 apply_writes -----------------------------------------------------------
 
-
 def scatter_plain(words, slot, word, set_mask, clear_mask):
     """(w & ~clear) | set at each in-bounds (slot, word) entry, in place
     by advanced indexing; entries with slot outside [0, cap) or word
@@ -806,10 +863,42 @@ def scatter_words(words, slot, word, set_mask, clear_mask):
     if slot.numel() == 0:
         return words
     s = words.shape[0] if words.dim() == 3 else 1
-    cap = words.shape[-2]
+    b = int(slot.shape[-1])
     rc = kernel_fn("apply_writes")(
-        words.data_ptr(), s, cap, slot.data_ptr(), word.data_ptr(),
-        set_mask.data_ptr(), clear_mask.data_ptr(), int(slot.shape[-1]),
+        words.data_ptr(), s, words.shape[-2], slot.data_ptr(),
+        word.data_ptr(), set_mask.data_ptr(), clear_mask.data_ptr(), b,
         _stream(words))
     _launched("apply_writes", rc)
+    return words
+
+
+def _int32_bits(x: int) -> int:
+    """uint32 bits as the int32 value holding them."""
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def sector_probe_plain(words, offsets, flip: int):
+    flat = words.view(-1)
+    flat[offsets] ^= _int32_bits(flip)
+    return words
+
+
+def sector_probe(words, offsets, flip: int = 0):
+    """The card's scattered 32-byte read-modify-write rate, K7's ceiling
+    (csrc/sector_probe.cu), a measurement beside the kernels: xor `flip`
+    (uint32 bits) into the words of a contiguous int32 tensor at unique
+    int64 flat word offsets, in place, one offset a thread in blocks of
+    256 threads, as K7 runs. Returns words."""
+    if (words.dtype != torch.int32 or not words.is_contiguous()
+            or offsets.dtype != torch.int64 or offsets.dim() != 1
+            or not offsets.is_contiguous() or not 0 <= flip < 1 << 32):
+        raise ValueError("sector_probe takes contiguous int32 words, (n,) "
+                         "int64 offsets and a uint32 flip")
+    if not _on_cuda(words, offsets):
+        return sector_probe_plain(words, offsets, flip)
+    if offsets.numel() == 0:
+        return words
+    rc = kernel_fn("sector_probe")(words.data_ptr(), offsets.data_ptr(),
+                                   offsets.numel(), flip, _stream(words))
+    _launched("sector_probe", rc)
     return words

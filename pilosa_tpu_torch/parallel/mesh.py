@@ -10,8 +10,9 @@ Leaf rows are resolved on the host (resolve_row_indices,
 coarse_row_starts). A row staged as one aligned 16-container run in
 every slice that holds it is `coarse` and its count reads whole runs
 (K1/K2); when that run sits at one index in every slice the layout is
-`uniform` and a single start per leaf serves all slices. Other rows
-gather container by container (K3). count_batch picks the kernel.
+`uniform` and a single start per leaf serves all slices. Other rows are
+read container by container through their container index (index_row,
+kept on the card with a staged view), K3. count_batch picks the kernel.
 
 Slices of low fill stage instead as sorted u16 value arrays
 (SparseShardedIndex, pick_slice_formats); count_sparse_pair counts a
@@ -420,6 +421,7 @@ class LeafLayout(NamedTuple):
     #                                None = not coarse
     uniform: Optional[int]         # one run index for every slice
     #                                (-1 = absent everywhere), or None
+    row: int                       # dense row id
 
 
 def leaf_layout(keys_host: np.ndarray, dense_id: int) -> LeafLayout:
@@ -428,13 +430,13 @@ def leaf_layout(keys_host: np.ndarray, dense_id: int) -> LeafLayout:
     if coarse is None and not hit.any():
         # Staged nowhere: an absent leaf, every slice reads zero.
         starts = np.full(keys_host.shape[0], -1, dtype=np.int32)
-        return LeafLayout(idx, hit.astype(np.int32), starts, -1)
+        return LeafLayout(idx, hit.astype(np.int32), starts, -1, dense_id)
     if coarse is None:
-        return LeafLayout(idx, hit.astype(np.int32), None, None)
+        return LeafLayout(idx, hit.astype(np.int32), None, None, dense_id)
     starts_h, valid = coarse
     starts = np.where(valid != 0, starts_h, -1).astype(np.int32)
     uniform = int(starts[0]) if (starts == starts[0]).all() else None
-    return LeafLayout(idx, hit.astype(np.int32), starts, uniform)
+    return LeafLayout(idx, hit.astype(np.int32), starts, uniform, dense_id)
 
 
 def slice_mask(num_slices: int, slices: Sequence[int]) -> Optional[np.ndarray]:
@@ -482,11 +484,15 @@ def shared_plan(leaf_keys: Sequence[Sequence]):
 
 def count_batch(tree, pools: Sequence[torch.Tensor],
                 layouts: Sequence[Sequence[LeafLayout]], mask: np.ndarray,
-                leaf_keys=None):
+                leaf_keys=None, index_rows=None):
     """Counts of B queries of one tree shape: pools[l] is leaf position
     l's staged words (the same for every query), layouts[b][l] query b's
     leaf l. leaf_keys (as for shared_plan) lets repeated leaves share
-    reads. Returns (per-query totals, name of the wrapper that ran)."""
+    reads. K3, for rows that are not whole runs, reads each leaf's
+    index_row on the card: index_rows[l], a callable, returns it for a
+    dense id of pool l where the caller keeps it there (a staged view
+    does); without index_rows it goes up now. Returns (per-query totals,
+    name of the wrapper that ran)."""
     device = pools[0].device
     batch, num_leaves = len(layouts), len(pools)
 
@@ -527,11 +533,11 @@ def count_batch(tree, pools: Sequence[torch.Tensor],
                 per = kernels.coarse_count_identity_batch(pools, starts, tree)
                 name = "coarse_count_identity_batch"
     else:
-        shape = (batch, num_leaves) + flat[0].idx.shape
-        idx = dev(np.stack([lay.idx for lay in flat]).reshape(shape))
-        hit = dev(np.stack([lay.hit for lay in flat]).reshape(shape))
-        per = kernels.tree_count_per_slice(pools, idx, hit, tree)
-        name = "tree_count_per_slice"
+        rows = [[index_row(lay, device) if index_rows is None
+                 else index_rows[l](lay.row) for l, lay in enumerate(req)]
+                for req in layouts]
+        per = kernels.tree_count_rows(pools, rows, tree)
+        name = "tree_count_rows"
     return combine_counts(per, dev(mask)), name
 
 
@@ -554,6 +560,16 @@ def materialize_block(tree, pools: Sequence[torch.Tensor],
     return fold_tree(tree, lambda l: kernels.gather_words(
         pools[l], torch.from_numpy(layouts[l].idx).to(pools[l].device),
         torch.from_numpy(layouts[l].hit).to(pools[l].device))).contiguous()
+
+
+def index_row(layout: LeafLayout, device) -> Optional[torch.Tensor]:
+    """A leaf's (S, 16) int32 container index on `device`, -1 where a
+    container is absent: its row of row_table, the index K3
+    (kernels.tree_count_rows) reads. None for a row staged nowhere."""
+    if not layout.hit.any():
+        return None
+    return torch.from_numpy(np.where(layout.hit != 0, layout.idx, -1).astype(
+        np.int32)).to(device)
 
 
 def count_rows(staged: Sequence[ShardedIndex], tree, row_ids: Sequence[int],

@@ -28,7 +28,11 @@ on K5's serving form, kernels.pair_count_rows, with the index table of
 every row of a staged view built in one pass over its keys and kept on
 the card with the view (mesh.row_table). TopN's argument forms (n,
 threshold, ids, a src tree, attr filters, the Tanimoto band) apply on
-the host to those exact totals (rank_pairs, tanimoto_rank).
+the host to those exact totals (rank_pairs, tanimoto_rank). A Count
+over rows that are not whole runs (K3, kernels.tree_count_rows) reads
+each leaf's row of that index, kept on the card with the view from the
+row's first such Count on (StagedView.index_row), so a later Count
+uploads only the kernel's argument block.
 
 Writes reach a staged dense view as a scatter (refresh): each slice's
 fragment log since the staged generation folds into final bit states,
@@ -64,8 +68,9 @@ from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
                    SparseShardedIndex, apply_writes,
                    build_sharded_index, build_sparse_sharded_index,
                    count_batch, count_sparse_pair, pack_mutation_batches,
-                   dense_row, global_row_ids, leaf_layout, materialize_block,
-                   pick_slice_formats, resolve_row_indices, row_table,
+                   dense_row, global_row_ids, index_row, leaf_layout,
+                   materialize_block, pick_slice_formats,
+                   resolve_row_indices, row_table,
                    slice_format_stats, slice_mask, split_bitmaps_by_format)
 from .plan import _tree_signature
 
@@ -149,9 +154,9 @@ class StagedView:
     `inc_count`."""
 
     __slots__ = ("sharded", "sparse", "slice_formats", "slice_gens",
-                 "num_slices", "layouts", "sparse_layouts", "validated",
-                 "rows_dev", "last_stage_s", "inc_ewma_s", "inc_spend_s",
-                 "inc_count")
+                 "num_slices", "layouts", "sparse_layouts", "index_rows",
+                 "validated", "rows_dev", "last_stage_s", "inc_ewma_s",
+                 "inc_spend_s", "inc_count")
 
     def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
                  sparse: Optional[SparseShardedIndex] = None,
@@ -164,6 +169,9 @@ class StagedView:
         self.num_slices = num_slices
         self.layouts: Dict[int, object] = {}  # dense id -> LeafLayout
         self.sparse_layouts: Dict[int, tuple] = {}  # dense id -> (idx, hit)
+        # dense id -> its index_row on the pool's device (64 bytes a
+        # slice), from the row's first K3 Count on.
+        self.index_rows: Dict[int, Optional[torch.Tensor]] = {}
         # MUTATION_EPOCH.n when the generations were last found current.
         self.validated = -1
         # (R, S, 16) int32 row_table on the pool's device, built on the
@@ -188,6 +196,13 @@ class StagedView:
                 self.sharded.keys_host, dense_id)
         return lay
 
+    def index_row(self, dense_id: int) -> Optional[torch.Tensor]:
+        """The row's container index as K3 reads it, kept on the card."""
+        if dense_id not in self.index_rows:
+            self.index_rows[dense_id] = index_row(
+                self.layout(dense_id), self.sharded.words.device)
+        return self.index_rows[dense_id]
+
     def sparse_layout(self, dense_id: int):
         """(idx, hit) (S, 16) of a row against the sorted-array keys."""
         lay = self.sparse_layouts.get(dense_id)
@@ -198,12 +213,13 @@ class StagedView:
 
 
 class _CountRequest:
-    __slots__ = ("tree", "pools", "layouts", "leaf_keys", "mask", "done",
-                 "result", "error")
+    __slots__ = ("tree", "pools", "index_rows", "layouts", "leaf_keys",
+                 "mask", "done", "result", "error")
 
-    def __init__(self, tree, pools, layouts, leaf_keys, mask):
+    def __init__(self, tree, pools, index_rows, layouts, leaf_keys, mask):
         self.tree = tree
         self.pools = pools
+        self.index_rows = index_rows  # per leaf, StagedView.index_row
         self.layouts = layouts
         self.leaf_keys = leaf_keys
         self.mask = mask
@@ -533,13 +549,14 @@ class MeshManager:
                         if sv is None:
                             return None
                         staged[(frame, view)] = sv
-            pools, layouts, keys = [], [], []
+            pools, index_rows, layouts, keys = [], [], [], []
             for sv, dense in self._legs(staged, absent, leaves):
                 pools.append(sv.sharded.words)
+                index_rows.append(sv.index_row)
                 layouts.append(sv.layout(dense))
                 keys.append((id(sv.sharded.words), dense))
-        return _CountRequest(tree, tuple(pools), tuple(layouts), tuple(keys),
-                             mask)
+        return _CountRequest(tree, tuple(pools), tuple(index_rows),
+                             tuple(layouts), tuple(keys), mask)
 
     @staticmethod
     def _legs(staged, absent, leaves) -> List[Tuple[StagedView, int]]:
@@ -792,7 +809,8 @@ class MeshManager:
                 host_total = int(per[sel & fmts].sum())
                 self._inc("sparse_leaf_host")
             if (sel & ~fmts).any():
-                jobs.append(("dd", [sv.sharded.words], [d_lay], sel & ~fmts))
+                jobs.append(("dd", [sv.sharded.words], [d_lay],
+                             [sv.index_row], sel & ~fmts))
             return _SparseCount(tree, op, host_total, jobs)
         (sva, da, sa, fa), (svb, db, sb, fb) = legs
         for gk, gsel in (("dd", sel & ~fa & ~fb), ("sd", sel & fa & ~fb),
@@ -801,7 +819,8 @@ class MeshManager:
                 continue
             if gk == "dd":
                 jobs.append((gk, [sva.sharded.words, svb.sharded.words],
-                             [da, db], gsel))
+                             [da, db], [sva.index_row, svb.index_row],
+                             gsel))
                 continue
             pool_a, (ia, ha) = (
                 ((sva.sparse.values, sva.sparse.cards), sa) if gk[0] == "s"
@@ -819,7 +838,8 @@ class MeshManager:
         for job in req.jobs:
             gk, gmask = job[0], job[-1].astype(np.int64)
             if gk == "dd":
-                totals, name = count_batch(req.tree, job[1], [job[2]], gmask)
+                totals, name = count_batch(req.tree, job[1], [job[2]],
+                                           gmask, index_rows=job[3])
                 total += int(totals[0])
             else:
                 total += count_sparse_pair(req.op, *job[:-1], gmask)
@@ -867,7 +887,8 @@ class MeshManager:
         first = distinct[0]
         totals, kernel = count_batch(
             first.tree, first.pools, [r.layouts for r in distinct],
-            first.mask, leaf_keys=[r.leaf_keys for r in distinct])
+            first.mask, leaf_keys=[r.leaf_keys for r in distinct],
+            index_rows=first.index_rows)
         self._inc(f"kernel:{kernel}")
         if len(distinct) > 1:
             self._inc("batched", len(distinct))

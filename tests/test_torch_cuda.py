@@ -1,5 +1,5 @@
-"""The CUDA kernels (K0-K7) against their plain PyTorch versions, on a
-card.
+"""The CUDA kernels (K0-K7, and the sector probe) against their plain
+PyTorch versions, on a card.
 
 Marked `cuda`; each test skips without a card. This file imports no JAX,
 so it runs on a machine without it:
@@ -184,18 +184,76 @@ def test_coarse_kernels_over_a_time_cover(card, n, slices):
     check(tk.coarse_count_per_slice, ps, (table,), tree, card)
 
 
+# K3 cases: (tree, queries), each at every slice count of K3_SLICES (5,
+# the time path's 96, the headline's 960, and just under and over the
+# card's SM count, where the tile planner's chunk count changes): the
+# four TREES, 29- and 80-leaf trees, one of depth 8, and a batch that
+# tree_count_per_slice splits into launches of MAX_BATCH queries.
+K3_TREES = {**{str(t): (tree, 4) for t, tree in enumerate(TREES)},
+            "or29": (OR29, 2), "mixed80": (MIXED80, 1), "deep8": (DEEP8, 3),
+            "split": (TREES[0], tk.MAX_BATCH + 4)}
+K3_SLICES = ["5", "sms-1", "96", "sms+1", "960"]
+
+
+def card_pools(seed: int, n: int, s: int, card):
+    """n random (s, RUNS * 16, 2048) int32 pools made on the card."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randint(-2**31, 2**31, (s, RUNS * 16, 2048),
+                               dtype=torch.int32, device=card, generator=gen)
+                 for _ in range(n))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", range(len(TREES)))
-def test_tree_count_kernel(card, t):
-    tree = TREES[t]
+@pytest.mark.parametrize("slices", K3_SLICES)
+@pytest.mark.parametrize("t", sorted(K3_TREES))
+def test_tree_count_kernel(card, t, slices):
+    """K3 against its plain versions on the same card tensors, given a
+    gathered (B, L, S, 16) idx/hit (tree_count_per_slice, which passes
+    it as B x L index rows) and rows of per-leaf container index tables
+    (tree_count_rows), with absent containers, leaves absent in some
+    slices and absent leaves."""
+    tree, batch = K3_TREES[t]
+    s = {"sms-1": sms(card) - 1, "sms+1": sms(card) + 1}.get(slices)
+    s = s or int(slices)
     n = nleaves(tree)
-    rng = np.random.default_rng(20 + t)
-    ps = pools(20 + t, n)
-    idx = torch.from_numpy(
-        rng.integers(0, RUNS * 16, size=(4, n, S, 16)).astype(np.int32))
-    hit = torch.from_numpy(
-        (rng.random((4, n, S, 16)) < 0.7).astype(np.int32))
-    check(tk.tree_count_per_slice, ps, (idx, hit), tree, card)
+    seed = 20 + sorted(K3_TREES).index(t)
+    base = card_pools(seed, min(n, 3), s, card)
+    ps = tuple(base[i % len(base)] for i in range(n))
+    gen = torch.Generator(device=card).manual_seed(seed + s)
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, shape, dtype=torch.int32, device=card,
+                             generator=gen)
+
+    idx = rand((batch, n, s, 16), RUNS * 16)
+    hit = (rand((batch, n, s, 16), 10) < 7).to(torch.int32)
+    for _ in range(2):
+        before = tk.LAUNCHES["tree_count"]
+        got = tk.tree_count_per_slice(ps, idx, hit, tree)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["tree_count"] == before + -(-batch //
+                                                       tk.MAX_BATCH)
+        assert torch.equal(got, tk.tree_plain(ps, idx, hit, tree))
+    batch = min(batch, tk.MAX_BATCH)
+    tables = []
+    for _ in range(n):
+        tab = rand((3, s, 16), RUNS * 16)
+        tab[rand((3, s, 16), 10) < 3] = -1
+        tab[0, :, 0] = -1            # a row missing its first container
+        tab[1, s // 2] = -1          # a row absent from one slice
+        tables.append(tab.contiguous())
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(-1, 3, size=(batch, n)).tolist()
+    picks[0][0] = 0
+    rows = [[tables[l][r] if r >= 0 else None for l, r in enumerate(req)]
+            for req in picks]
+    before = tk.LAUNCHES["tree_count"]
+    got = tk.tree_count_rows(ps, rows, tree)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["tree_count"] == before + 1
+    want = tk.rows_plain(ps, rows, tree)
+    assert torch.equal(got, want)
+    assert (want > 0).any()
 
 
 def sparse_pool(rng, s, c, k):
@@ -571,9 +629,11 @@ def test_row_counts_chunk_past_one_launch(card, tmp_path):
 # -- K7 apply_writes -----------------------------------------------------------
 
 # (S, cap, B, live targets a slice): padding past `live`, a single
-# slice, and a full batch with no padding.
+# slice, a full batch with no padding, and the bulk shapes of the
+# headline's 960 slices (one block and four blocks a slice).
 SCATTER_CASES = [(1, 16, 8, 3), (5, 48, 64, 40), (37, 16, 256, 256),
-                 (3, 32, 1024, 700)]
+                 (3, 32, 1024, 700), (960, 16, 1024, 1000),
+                 (960, 32, 4096, 4000)]
 
 
 def scatter_batches(seed: int, s: int, cap: int, b: int, live: int):
@@ -614,6 +674,21 @@ def test_apply_writes_kernel(card, case):
     assert got is dev and tk.LAUNCHES["apply_writes"] == before + 1
     assert torch.equal(dev.cpu(), want)
     assert not torch.equal(want, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 1023, 1024, 1025, 100_000])
+def test_sector_probe_kernel(card, n):
+    """The scattered read-modify-write probe against its plain version:
+    unique random offsets over a (960, 16, 2048) pool."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    words = torch.randint(-2**31, 2**31, (960, 16, 2048), dtype=torch.int32,
+                          device=card, generator=gen)
+    offs = torch.randperm(words.numel(), device=card, generator=gen)[:n]
+    want = tk.sector_probe_plain(words.clone(), offs, 0x80000001)
+    got = tk.sector_probe(words, offs, 0x80000001)
+    torch.cuda.synchronize()
+    assert got is words and torch.equal(words, want)
 
 
 @pytest.mark.cuda

@@ -143,7 +143,7 @@ def test_queries_match_jax(data_dir):
         # Every lowerable Count ran on the device path.
         assert ex.stats["count_device"] == 10
         stats = ex.mesh_manager().stats
-        assert stats["kernel:tree_count_per_slice"] >= 3
+        assert stats["kernel:tree_count_rows"] >= 3
         assert stats["kernel:coarse_count_uniform"] >= 3
     finally:
         h.close()
@@ -235,7 +235,7 @@ def test_row_without_its_first_container_counts_every_slice(tmp_path):
         staged = build_sharded_index(
             [pack_bitmap(view.fragment(s).storage) for s in range(2)], "cpu")
         assert leaf_layout(staged.keys_host, 0).starts is None
-        assert ex.mesh_manager().stats["kernel:tree_count_per_slice"] == 3
+        assert ex.mesh_manager().stats["kernel:tree_count_rows"] == 3
     finally:
         h.close()
 

@@ -636,7 +636,10 @@ def test_restage_keeps_a_boundary_slice_sorted(tmp_path):
 def test_concurrent_sparse_counts_under_restages(data_dir):
     """Threads count sorted-array, mixed and sd pairs while a writer keeps
     restaging the dense frame they read (a row no query reads): every
-    answer stays exact. A short switch interval forces interleavings."""
+    answer stays exact. A short switch interval forces interleavings.
+    Each write adds or removes a whole container (one bit of row 7 set
+    and cleared in turn), so every refresh that sees a write restages,
+    whatever the scatter's cost gate would pick."""
     import sys
     import threading
 
@@ -661,10 +664,9 @@ def test_concurrent_sparse_counts_under_restages(data_dir):
                     errors.append((queries[i], got, want[i]))
 
         def writer():
-            col = 0
             while not stop.is_set():
-                dn.set_bit(7, col)
-                col += 1
+                dn.set_bit(7, 0)
+                dn.clear_bit(7, 0)
 
         sys.setswitchinterval(1e-5)
         w = threading.Thread(target=writer)

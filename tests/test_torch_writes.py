@@ -498,6 +498,13 @@ def test_log_pruned_past_its_limit_restages(tmp_path, writes, restaged):
 
 
 def test_layouts_survive_a_scatter_and_go_with_a_restage(tmp_path):
+    """A view's leaf layouts, its row table and its rows' container
+    indexes survive a scatter and go with a restage. Rows 1 and 2 hold
+    one container of slice 0 (row 2 one of slice 1 too), not whole runs,
+    so K3 counts them through their container indexes, kept on the card
+    with the view (StagedView.index_row, kernels.tree_count_rows): after
+    a scatter it reads the same indexes over the written words, and after
+    a restage indexes built from the new keys."""
     h, f = seed_frame(PORT, tmp_path, [(1, c) for c in range(0, 600, 3)]
                       + [(2, c) for c in range(0, 600, 2)]
                       + [(2, SLICE_WIDTH + 9)], frame="g")
@@ -507,25 +514,39 @@ def test_layouts_survive_a_scatter_and_go_with_a_restage(tmp_path):
         pql = "Count(Intersect(Bitmap(frame=g, rowID=1), " \
               "Bitmap(frame=g, rowID=2)))"
         assert q(PORT, ex, pql) == [100]
+        assert mgr.stats["kernel:tree_count_rows"] == 1
+        sv = mgr._views[("i", "g", "standard")]
+        rows = dict(sv.index_rows)
+        # K3 keeps its two rows' indexes, not the view's whole table.
+        assert len(rows) == 2 and sv.rows_dev is None
         assert ex.execute("i", parse_string("TopN(frame=g, n=2)"))[0] == [
             (2, 301), (1, 200)]
-        sv = mgr._views[("i", "g", "standard")]
         layouts, table = dict(sv.layouts), sv.rows_dev
         assert layouts and table is not None
+        for dense, idx in rows.items():
+            assert torch.equal(idx, table[dense])
         f.set_bit(1, 1)      # existing containers: a scatter
         f.clear_bit(2, 0)
         assert q(PORT, ex, pql) == [99]
+        assert mgr.stats["kernel:tree_count_rows"] == 2
         assert ex.execute("i", parse_string("TopN(frame=g, n=2)"))[0] == [
             (2, 300), (1, 201)]
         assert mgr._views[("i", "g", "standard")] is sv
         assert all(sv.layouts[k] is v for k, v in layouts.items())
+        assert all(sv.index_rows[k] is v for k, v in rows.items())
         assert sv.rows_dev is table
         assert gate_stats(mgr.stats)["incremental"] == 1
         f.set_bit(7, 5)      # a new row: a restage
         assert q(PORT, ex, "Count(Bitmap(frame=g, rowID=7))") == [1]
+        assert mgr.stats["kernel:tree_count_rows"] == 3
         fresh = mgr._views[("i", "g", "standard")]
+        seven = fresh.sharded.row_ids.tolist().index(7)
         assert fresh is not sv and fresh.rows_dev is None
-        assert set(fresh.layouts) == {fresh.sharded.row_ids.tolist().index(7)}
+        assert set(fresh.layouts) == {seven}
+        assert set(fresh.index_rows) == {seven}
+        idx = fresh.index_rows[seven]
+        assert tuple(idx.shape) == (2, 16) and int(idx[0, 0]) >= 0
+        assert (idx[0, 1:] == -1).all() and (idx[1:] == -1).all()
         assert gate_stats(mgr.stats)["stage"] == 2
     finally:
         h.close()
