@@ -46,7 +46,27 @@ Phases, each fatal on failure:
      tree that demotes `sparse` to packed words and a pair that then
      runs K1. Every answer is checked against the host; K4's counter,
      each format group and the demote must show;
-  7. K5 (pair_count) at the integer field's shapes: the flat pair of each
+  7. the card-memory governor over HTTP at 960 slices: index `r` gets a
+     copy of `general`, and four views (`general` dense, `sparse`
+     sorted-array, `mixed`, `r`'s `general`; 3.21 GB) are served under a
+     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 20
+     round-robin rounds of a Count(Intersect) on each, every answer
+     equal to numpy, evictions required, and after each Count the staged
+     bytes within the budget (over it by one view at most while a query
+     holds its views) and torch.cuda.memory_allocated following them
+     within 64 MB; then 16 clients at once, a Count on every frame each.
+     Then a real torch.cuda.OutOfMemoryError: a ballast leaves less free
+     memory than `general` needs, but enough with `sparse` and `mixed`
+     evicted, and the ladder stages it on its retry (exact, on the
+     card); with only `mixed` resident and too little memory even
+     without it, the host answers (fallback_oom). A budget below one
+     view answers on the host with nothing staged, and ?explain=true
+     says why; DELETE /index/r/frame/general frees that view's bytes
+     within 1 MB, and the frame recreated under its name answers from
+     its new data. K1 and K4 must launch. Every other serving phase must
+     end with fallback_oom, fallback_hbm_infeasible,
+     fallback_quarantined and plan_quarantined at 0;
+  8. K5 (pair_count) at the integer field's shapes: the flat pair of each
      op at (15,360, 2048) and at an M that is no multiple of a block, and
      the serving form over the staged `bsi.val` view as the Sum runs it
      (no b, b = the sign row, b = a filter block); plus K3 on the
@@ -54,7 +74,7 @@ Phases, each fatal on failure:
      table, as the serving path runs it, and gathered; with device
      time) and the K0 canary. Each held exactly against its plain version
      and timed beside its bound;
-  8. the integer-field slice over HTTP: field `val` of frame `general`
+  9. the integer-field slice over HTTP: field `val` of frame `general`
      (min -32768, max 32767: 16 planes; uniform values in half the
      columns of all 960 slices, made slice by slice from the seed) serves
      Sum, Min and Max with and without the filter Bitmap(frame=general,
@@ -64,7 +84,7 @@ Phases, each fatal on failure:
      answer is checked against the numpy truth; K0 (at server start), K5
      and K1 must launch, `count_host` must not move, and torch.profiler
      measures the card's busy share of a round of Sums;
-  9. time-quantum Range over HTTP: index `tq` (quantum YMD, inherited by
+ 10. time-quantum Range over HTTP: index `tq` (quantum YMD, inherited by
      its frame `events`) of 96 slices, rows 0-3, each (row, day) of April
      2017 a seeded random 1/64 of the columns: the 30 day views stage
      sorted-array, the month, the year and `standard` dense. Every single
@@ -80,7 +100,7 @@ Phases, each fatal on failure:
      and K1 on the 29-leaf tree over 29 random runs of the headline's 960
      slices; each held exactly against its plain version and the truth,
      and timed beside its bound;
- 10. TopN over HTTP: lone TopN(frame=general, n=100) on the 960 slices
+ 11. TopN over HTTP: lone TopN(frame=general, n=100) on the 960 slices
      of phase 4 (p50 / p90 of 200 calls), then index `t`, frame `topn`
      (the repo's TopN configuration: 4096 rows, one container per row
      per slice, ~30% bitmaps of ~25% fill, the rest arrays of
@@ -93,7 +113,7 @@ Phases, each fatal on failure:
      `general`'s (10 rows x 960 slices) and timed beside its byte bound
      and the index table's bytes; torch.profiler measures the card's
      busy share of a round of TopNs;
- 11. writes over HTTP on frame `general` at 960 slices, under the
+ 12. writes over HTTP on frame `general` at 960 slices, under the
      holder's `group` WAL policy (the server's default; the bulk loads
      go through Fragment.replace and write no op records): 200 rounds,
      each a batch of 1, 16 or 256 SetBit / ClearBit calls into existing
@@ -110,7 +130,7 @@ Phases, each fatal on failure:
      a measurement, not a kernel). The bsi phase's SetValues also
      scatter; the time phase's writes into sorted-array day views
      restage, by design;
- 12. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 13. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -118,8 +138,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 13. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-11, each path's counters set to 0 just before it;
+ 14. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-12, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -138,7 +158,7 @@ run it alternately on two checkouts to compare their dense serving.
 runs phases 1 and 2 and then K4 at the chip shape, K2's two wrappers
 at the headline and the wide shape, K1's and K3's slice sweeps of phase
 3, K6 at T = 1, 4 and 32 over 960 slices, and K7 at (960, 1024) and over
-phase 11's sweep beside the scattered-sector probe, on inputs made on
+phase 12's sweep beside the scattered-sector probe, on inputs made on
 the card from the seed, each held exactly against its plain version and
 timed, and prints the times and the ptxas report as one JSON line: run
 it on a parent and a change in turns (parent, change, change, parent) to
@@ -1348,6 +1368,375 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
             "concurrent_qps": conc_qps, "profile": busy, "clients": CLIENTS,
             "staged_bytes_sparse": staged_bytes,
             "staged_bytes_dense_image": dense_bytes}
+
+
+# -- the card-memory governor: budget, a real OOM, infeasible, DELETE ----------
+
+RES_FRAMES = (("i", "general"), ("i", "sparse"), ("i", "mixed"),
+              ("r", "general"))
+RES_ROUNDS = 20          # round-robin rounds, each a Count on every frame
+RES_BUDGET_SHARE = 0.6   # the budget's share of the four views' bytes
+RES_SLACK = 64 << 20     # memory_allocated's room over staged_bytes
+RES_DELETE_SLACK = 1 << 20
+RES_INFEASIBLE_BUDGET = 100 << 20  # below any view at 960 slices
+RES_MIN_BYTES = 3_000_000_000      # the four views hold at least this
+RES_PATH = ("coarse_count", "sparse_pair_count")
+FALLBACKS = ("fallback_oom", "fallback_hbm_infeasible",
+             "fallback_quarantined", "plan_quarantined")
+
+
+def add_copy_frame(holder, src: str, frame: str, dst: str) -> float:
+    """Index `dst`, frame `frame`: a copy of index `src`'s frame, slice by
+    slice (storage clones; `replace` writes no op records). Seconds."""
+    t0 = time.monotonic()
+    view = holder.create_index_if_not_exists(dst).create_frame_if_not_exists(
+        frame).create_view_if_not_exists("standard")
+    src_view = holder.view(src, frame, "standard")
+    for s, frag in sorted(src_view.fragments.items()):
+        view.create_fragment_if_not_exists(s).replace(frag.storage.clone())
+    return time.monotonic() - t0
+
+
+def res_queries(words: np.ndarray, sp: SparseRows, rounds: int) -> list:
+    """(index, frame, PQL, answer) of each round-robin Count: a pair of
+    rows of the frame, another pair each round."""
+    pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+    dense = {p: host_count(words, "and", *p) for p in pairs[:rounds]}
+    mixed = (int(sp.inter((0, 1))[0::2].sum())
+             + host_count(words[1::2], "and", 0, 1))
+    out = []
+    for r in range(rounds):
+        a, b = pairs[r % len(pairs)]
+        for index, frame in RES_FRAMES:
+            if frame == "mixed":
+                out.append((index, frame, fpql("and", 0, frame, 1, frame),
+                            mixed))
+            elif frame == "sparse":
+                out.append((index, frame, fpql("and", a, frame, b, frame),
+                            int(sp.inter((a, b)).sum())))
+            else:
+                out.append((index, frame, fpql("and", a, frame, b, frame),
+                            dense[(a, b)]))
+    return out
+
+
+def res_count(c: Client, index: str, pql_: str) -> int:
+    return c.call("POST", f"/index/{index}/query", pql_)["results"][0]
+
+
+def no_fallback(phase: str, stats: dict) -> None:
+    """No query of the phase was served off the card unnoticed."""
+    bad = {k: stats.get(k, 0) for k in FALLBACKS if stats.get(k, 0)}
+    check(not bad, f"{phase}: nothing left the card ({bad})")
+
+
+def view_need(holder, index: str, frame: str) -> int:
+    """Bytes staging the view would allocate on the card."""
+    from pilosa_tpu_torch.parallel.mesh import format_pool_bytes
+    from pilosa_tpu_torch.parallel.serve import view_stats
+
+    return format_pool_bytes(*view_stats(holder, index, frame, "standard",
+                                         SLICES, 0.05))
+
+
+def residency_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
+                    device) -> dict:
+    """The governor through the normal entry points at 960 slices, the
+    kernels' counters set to 0 at the start and read at the end:
+    res_budget, res_oom, res_infeasible and res_delete, each on a server
+    of its own."""
+    import torch
+
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    copy_s = add_copy_frame(holder, "i", "general", "r")
+    queries = res_queries(words, sp, RES_ROUNDS)
+    log(f"residency phase: index r (a copy of general) in {copy_s:.2f} s")
+    need = {f"{i}/{f}": view_need(holder, i, f) for i, f in RES_FRAMES}
+    total = sum(need.values())
+    check(total >= RES_MIN_BYTES, f"the four views hold >= 3 GB: {need}")
+    budget = int(RES_BUDGET_SHARE * total)
+    log(f"residency phase: views {json.dumps(need)}, {total / 1e9:.3f} GB; "
+        f"budget {budget / 1e9:.3f} GB")
+    gc.collect()
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    fired0 = dict(fault.STATS)
+    out = {"views_bytes": need, "budget_bytes": budget, "copy_s": copy_s,
+           "rounds": RES_ROUNDS}
+    out.update(res_budget(holder, queries, need, budget, card, device))
+    out.update(res_oom(holder, queries, need, device))
+    check(dict(fault.STATS) == fired0, "no injected fault fired")
+    out.update(res_infeasible(holder, queries, device))
+    out.update(res_delete(holder, queries, device))
+    torch.cuda.synchronize()
+    out["launches"] = dict(tk.LAUNCHES)
+    log(f"residency phase launches {out['launches']}")
+    for k in RES_PATH:
+        check(out["launches"][k] > 0,
+              f"kernel {k} launched on the residency path")
+    return out
+
+
+def res_budget(holder, queries, need: dict, budget: int, card: str,
+               device) -> dict:
+    """RES_ROUNDS round-robin rounds of Counts over the four views under
+    `budget`, each equal to numpy: after each, the staged bytes within the
+    budget (or over by one view while a query holds it) and
+    memory_allocated following them within RES_SLACK; then CLIENTS
+    clients at once, each a Count on every frame."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+
+    base = torch.cuda.memory_allocated()
+    biggest = max(need.values())
+    srv = serve(holder, device=device, hbm_budget_bytes=budget)
+    ex = srv.handler.executor
+    mgr = ex.mesh_manager()
+    c = Client(*srv.address)
+    try:
+        restages, worst = [], 0
+        t0 = time.monotonic()
+        for index, frame, q, want in queries:
+            before = dict(mgr.stats)
+            t1 = time.monotonic()
+            got = res_count(c, index, q)
+            dt = time.monotonic() - t1
+            check(got == want, (index, q, got, want))
+            st = dict(mgr.stats)
+            if st.get("stage", 0) > before.get("stage", 0):
+                restages.append((f"{index}/{frame}", round(dt * 1e3, 3),
+                                 (st["stage_us"] - before.get("stage_us", 0))
+                                 / 1e3))
+            staged = st.get("staged_bytes", 0)
+            check(staged <= budget or staged - budget <= biggest,
+                  f"staged {staged} within budget {budget} (+ one view)")
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated() - base
+            worst = max(worst, abs(alloc - staged))
+            check(abs(alloc - staged) <= RES_SLACK,
+                  f"memory_allocated {alloc} follows staged {staged}")
+        rounds_s = time.monotonic() - t0
+        st = dict(mgr.stats)
+        check(st.get("evicted_budget", 0) > 0, "evictions under the budget")
+        no_fallback("residency rounds", st)
+        ms = [r[1] for r in restages]
+        log(f"residency phase on {card}: {len(queries)} Counts in "
+            f"{rounds_s:.2f} s, {len(restages)} restages (Count ms p50 "
+            f"{np.percentile(ms, 50):.1f}, max {max(ms):.1f}); evicted "
+            f"{st.get('evicted_budget', 0)} by the budget; memory_allocated "
+            f"within {worst / 1e6:.3f} MB of staged_bytes")
+        log(f"residency phase restages (view, Count ms, staging host ms): "
+            f"{json.dumps(restages)}")
+        herd = queries[:4 * len(RES_FRAMES)]
+        errors = []
+
+        def client(k):
+            cc = Client(*srv.address)
+            try:
+                for j in range(len(RES_FRAMES)):
+                    index, _f, q, want = herd[(j + k) % len(herd)]
+                    got = res_count(cc, index, q)
+                    if got != want:
+                        errors.append((q, got, want))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                cc.close()
+
+        stage0 = st.get("stage", 0)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        herd_s = time.monotonic() - t0
+        check(not errors, f"herd under the budget: {errors[:5]}")
+        hst = dict(mgr.stats)
+        no_fallback("residency herd", hst)
+        check(all(sv.pins == 0 for sv in mgr._views.values()), "no pin left")
+        check(hst.get("staged_bytes", 0) <= budget + biggest,
+              "herd residency")
+        log(f"residency phase: {CLIENTS} clients x {len(RES_FRAMES)} Counts "
+            f"in {herd_s:.2f} s, {hst['stage'] - stage0} restages, evicted "
+            f"{hst.get('evicted_budget', 0)} by the budget in all")
+        return {"rounds_s": rounds_s, "restages": restages, "herd_s": herd_s,
+                "alloc_vs_staged_max": worst, "stats": hst,
+                "herd_restages": hst["stage"] - stage0}
+    finally:
+        ex.invalidate_device_index()
+        c.close()
+        srv.close()
+
+
+def res_oom(holder, queries, need: dict, device) -> dict:
+    """A real torch.cuda.OutOfMemoryError. With `sparse` and `mixed`
+    resident and a ballast leaving less free memory than `general` needs
+    but enough once they go, the ladder evicts them and stages `general`
+    on its retry. Then, with `mixed` alone resident and too little free
+    even without it, the ladder evicts it, fails again, and the host
+    answers."""
+    import torch
+
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.api.server import serve
+
+    gen = next(q for q in queries if q[:2] == ("i", "general"))
+    mixed = next(q for q in queries if q[1] == "mixed")
+    srv = serve(holder, device=device, hbm_budget_bytes=-1)
+    ex = srv.handler.executor
+    mgr = ex.mesh_manager()
+    c = Client(*srv.address)
+    ballast = []
+
+    def delta(before, keys):
+        st = dict(mgr.stats)
+        return {k: st.get(k, 0) - before.get(k, 0) for k in keys}
+
+    try:
+        torch.cuda.empty_cache()
+        for index, frame, q, want in queries[:len(RES_FRAMES)]:
+            if frame in ("sparse", "mixed"):
+                check(res_count(c, index, q) == want, q)
+        before = dict(mgr.stats)
+        ballast += fault.fill_cache(device)
+        free = torch.cuda.mem_get_info()[0]
+        ballast.append(torch.empty(free - need["i/general"] // 2,
+                                   dtype=torch.uint8, device=device))
+        free1 = torch.cuda.mem_get_info()[0]
+        check(free1 < need["i/general"] <= free1 + before["staged_bytes"],
+              f"free {free1} < view {need['i/general']} <= free + "
+              f"resident {before['staged_bytes']}")
+        t0 = time.monotonic()
+        got = res_count(c, "i", gen[2])
+        oom_ms = (time.monotonic() - t0) * 1e3
+        d = delta(before, ("oom_retries", "evicted_oom", "count",
+                           "fallback_oom", "stage"))
+        check(got == gen[3], ("OOM recovered", got, gen[3]))
+        check(d["oom_retries"] >= 1 and d["evicted_oom"] >= 1
+              and d["count"] == 1 and d["fallback_oom"] == 0
+              and d["stage"] == 1, f"the ladder staged on its retry: {d}")
+        log(f"residency phase: a real OutOfMemoryError (free {free1 / 1e9:.3f}"
+            f" GB < view {need['i/general'] / 1e9:.3f} GB): evicted "
+            f"{d['evicted_oom']}, retried, Count in {oom_ms:.1f} ms on the "
+            "card")
+        ballast.clear()
+        ex.invalidate_device_index()
+        torch.cuda.empty_cache()
+        check(res_count(c, "i", mixed[2]) == mixed[3], mixed)
+        resident = dict(mgr.stats)["staged_bytes"]
+        target = (need["i/general"] - resident) // 2
+        ballast += fault.fill_cache(device)
+        ballast.append(torch.empty(torch.cuda.mem_get_info()[0] - target,
+                                   dtype=torch.uint8, device=device))
+        before = dict(mgr.stats)
+        host0 = ex.stats["count_host"]
+        t0 = time.monotonic()
+        got = res_count(c, "i", gen[2])
+        fold_ms = (time.monotonic() - t0) * 1e3
+        d2 = delta(before, ("oom_retries", "evicted_oom", "count",
+                            "fallback_oom"))
+        check(got == gen[3], ("host fold after OOM", got, gen[3]))
+        check(d2["fallback_oom"] >= 1 and d2["evicted_oom"] >= 1
+              and d2["count"] == 0 and ex.stats["count_host"] == host0 + 1,
+              f"out of memory after eviction: the host answered: {d2}")
+        log(f"residency phase: with {target / 1e9:.3f} GB free and "
+            f"{resident / 1e9:.3f} GB evictable, the ladder evicted "
+            f"{d2['evicted_oom']} and the host answered in {fold_ms:.1f} ms")
+        return {"oom": {"free_bytes": free1, "count_ms": oom_ms, **d},
+                "oom_fold": {"free_bytes": target, "evictable": resident,
+                             "count_ms": fold_ms, **d2}}
+    finally:
+        ballast.clear()
+        ex.invalidate_device_index()
+        c.close()
+        srv.close()
+        torch.cuda.empty_cache()
+
+
+def res_infeasible(holder, queries, device) -> dict:
+    """A budget below one view: the host answers, nothing stages, and
+    ?explain=true names the reason."""
+    from pilosa_tpu_torch.api.server import serve
+
+    gen = [q for q in queries if q[:2] == ("i", "general")][:2]
+    srv = serve(holder, device=device,
+                hbm_budget_bytes=RES_INFEASIBLE_BUDGET)
+    ex = srv.handler.executor
+    c = Client(*srv.address)
+    try:
+        t0 = time.monotonic()
+        for q in gen:
+            check(res_count(c, "i", q[2]) == q[3], ("infeasible", q))
+        inf_s = time.monotonic() - t0
+        status, plan = c.raw("POST", "/index/i/query?explain=true", gen[0][2])
+        st = dict(ex.mesh_manager().stats)
+        call = plan["calls"][0]
+        check(status == 200 and call["route"] == "host-fold"
+              and call["route_reason"] == "hbm_infeasible",
+              ("explain", status, plan))
+        check(st.get("fallback_hbm_infeasible", 0) >= 1
+              and st.get("stage", 0) == 0 and st.get("routed_host", 0) >= 1,
+              f"infeasible: host, nothing staged: {st}")
+        log(f"residency phase: budget {RES_INFEASIBLE_BUDGET} B: 2 Counts on "
+            f"the host in {inf_s:.2f} s, fallback_hbm_infeasible "
+            f"{st['fallback_hbm_infeasible']}, routed_host "
+            f"{st['routed_host']}; explain: {call['route']} "
+            f"({call['route_reason']})")
+        return {"infeasible": {"seconds": inf_s, "stats": st}}
+    finally:
+        c.close()
+        srv.close()
+
+
+def res_delete(holder, queries, device) -> dict:
+    """DELETE /index/r/frame/general answers the JAX handler's 200 {},
+    memory_allocated drops by the view's bytes within RES_DELETE_SLACK,
+    /debug/vars counts one view fewer, and the frame recreated under its
+    name answers from its new data."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+
+    rq = next(q for q in queries if q[0] == "r")
+    srv = serve(holder, device=device)
+    ex = srv.handler.executor
+    c = Client(*srv.address)
+    try:
+        check(res_count(c, "r", rq[2]) == rq[3], rq)
+        mgr = ex.mesh_manager()
+        vb = mgr._view_bytes(mgr._views[("r", "general", "standard")])
+        views0 = c.call("GET", "/debug/vars")["mesh"]["hbm"]["views"]
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        status, body = c.raw("DELETE", "/index/r/frame/general")
+        check((status, body) == (200, {}), ("DELETE", status, body))
+        torch.cuda.synchronize()
+        freed = m0 - torch.cuda.memory_allocated()
+        views1 = c.call("GET", "/debug/vars")["mesh"]["hbm"]["views"]
+        check(abs(freed - vb) <= RES_DELETE_SLACK and views1 == views0 - 1,
+              f"DELETE freed {freed} of the view's {vb} bytes; views "
+              f"{views0} -> {views1}")
+        c.call("POST", "/index/r/frame/general", "{}")
+        for col in (5, 9, 1_050_000):
+            for row in (0, 1):
+                c.call("POST", "/index/r/query", f"SetBit(rowID={row}, "
+                       f"frame=general, columnID={col})")
+        got = res_count(c, "r", fpql("and", 0, "general", 1, "general"))
+        check(got == 3, ("the recreated frame's Count", got))
+        log(f"residency phase: DELETE /index/r/frame/general freed "
+            f"{freed / 1e9:.6f} GB (view {vb / 1e9:.6f} GB), views {views0} "
+            f"-> {views1}; the recreated frame counts {got}")
+        return {"delete": {"freed_bytes": freed, "view_bytes": vb,
+                           "views": [views0, views1]}}
+    finally:
+        ex.invalidate_device_index()
+        c.close()
+        srv.close()
 
 
 # -- phase 7: K5, K1 on a Range tree, and K0 at the integer field's shapes ------
@@ -3029,6 +3418,7 @@ def main(argv=None) -> int:
             kern["sparse_pair_count"] = sparse_kernel_phase(holder, sp,
                                                             device)
             sps = sparse_phase(holder, words, sp, card, device)
+            res = residency_phase(holder, words, sp, card, device)
             truth = BsiTruth(SLICES, args.seed, words)
             gen_s = add_bsi_field(holder, truth)
             log(f"bsi data: {SLICES} slices of field {BSI_FIELD} made, "
@@ -3063,8 +3453,11 @@ def main(argv=None) -> int:
     # Each kernel's launches: the sum over the serving paths, each counted
     # from 0 just before it was driven; K6 and the stream serve only the
     # probe path, whose own loops the other kernels' counts leave out.
-    paths = {"dense": sl, "sparse": sps, "bsi": bsi, "time": tq,
-             "topn": topn, "writes": writes, "probes": probes}
+    paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
+             "time": tq, "topn": topn, "writes": writes, "probes": probes}
+    for name, r in paths.items():
+        if name not in ("residency", "probes"):
+            no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()}
                for k in KERNELS}
     launches = {k: sum(n for p, n in by_path[k].items()
@@ -3091,6 +3484,7 @@ def main(argv=None) -> int:
          "cuda": torch.version.cuda, "slices": SLICES,
          "seed": args.seed, "build_s": build_s, "ptxas": ptxas,
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
+         "residency": res,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "probes": probes,
          "kernels": entries}, indent=1))

@@ -1,15 +1,25 @@
 """HTTP handler: the routes of this slice, with the JAX handler's JSON
 bodies and status codes.
 
-  POST  /index/{index}                 create an index   -> {}
-  PATCH /index/{index}/time-quantum    {"timeQuantum"}   -> {}
-  POST  /index/{index}/frame/{frame}   create a frame    -> {}
-  PATCH /index/{index}/frame/{frame}/time-quantum        -> {}
-  GET   /index/{index}/frame/{frame}/views               -> {"views": [...]}
-  POST  /index/{index}/query           PQL body          -> {"results": [...]}
-        (?slices=0,1 restricts the slices; ?columnAttrs=true adds
-        "columnAttrs", the attrs of the columns in Bitmap results)
-  GET   /schema                                          -> {"indexes": [...]}
+  POST   /index/{index}                 create an index   -> {}
+  DELETE /index/{index}                 delete an index   -> {}
+  PATCH  /index/{index}/time-quantum    {"timeQuantum"}   -> {}
+  POST   /index/{index}/frame/{frame}   create a frame    -> {}
+  DELETE /index/{index}/frame/{frame}   delete a frame    -> {}
+  PATCH  /index/{index}/frame/{frame}/time-quantum        -> {}
+  GET    /index/{index}/frame/{frame}/views               -> {"views": [...]}
+  POST   /index/{index}/query           PQL body          -> {"results": [...]}
+         (?slices=0,1 restricts the slices; ?columnAttrs=true adds
+         "columnAttrs", the attrs of the columns in Bitmap results;
+         ?explain=true answers the plan, Executor.explain, and runs
+         nothing)
+  GET    /schema                                          -> {"indexes": [...]}
+  GET    /debug/vars                    {"mesh": the card manager's
+         counters, "hbm": {budget_bytes, the residency report}, and
+         "quarantined_plans"} once a query has built the manager, else {}
+
+A delete drops the index's staged views from the card at once
+(Executor.invalidate_device_index).
 
 A Bitmap result is {"attrs", "bits"}, a TopN result [{"id", "count"}].
 
@@ -101,17 +111,21 @@ class Handler:
         self._routes: List[Route] = []
         r = self._add_route
         r("POST", r"/index/(?P<index>[^/]+)", self._post_index)
+        r("DELETE", r"/index/(?P<index>[^/]+)", self._delete_index)
         r("PATCH", r"/index/(?P<index>[^/]+)/time-quantum",
           self._patch_index_time_quantum)
         r("POST", r"/index/(?P<index>[^/]+)/query", self._post_query)
         r("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)",
           self._post_frame)
+        r("DELETE", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)",
+          self._delete_frame)
         r("PATCH",
           r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/time-quantum",
           self._patch_frame_time_quantum)
         r("GET", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/views",
           self._get_frame_views)
         r("GET", r"/schema", self._get_schema)
+        r("GET", r"/debug/vars", self._get_expvar)
 
     def _add_route(self, method: str, pattern: str, fn: Callable):
         self._routes.append(Route(method, re.compile("^" + pattern + "$"), fn))
@@ -148,6 +162,31 @@ class Handler:
                                       "timeQuantum": "time_quantum"})
         self.holder.create_index(pv["index"], **opts)
         return _json_resp({})
+
+    def _delete_index(self, pv, params, body) -> Response:
+        self.holder.delete_index(pv["index"])
+        self.executor.invalidate_device_index(pv["index"])
+        return _json_resp({})
+
+    def _delete_frame(self, pv, params, body) -> Response:
+        idx = self.holder.index(pv["index"])
+        if idx is None:
+            raise IndexNotFoundError()
+        idx.delete_frame(pv["frame"])
+        self.executor.invalidate_device_index(pv["index"])
+        return _json_resp({})
+
+    def _get_expvar(self, pv, params, body) -> Response:
+        """The `mesh` part of the JAX handler's /debug/vars
+        (pilosa_tpu/api/handler.py:1497-1525)."""
+        mgr = self.executor._mesh_mgr
+        if mgr is None:
+            return _json_resp({})
+        mesh = dict(mgr.stats)
+        mesh["hbm"] = {"budget_bytes": max(0, mgr._hbm_budget_bytes()),
+                       **mgr.device_memory()}
+        mesh["quarantined_plans"] = mgr.quarantined_plans()
+        return _json_resp({"mesh": mesh})
 
     def _post_frame(self, pv, params, body) -> Response:
         opts = _decode_options(body, {
@@ -187,6 +226,9 @@ class Handler:
                   if s != ""]
         try:
             q = parse_string(body.decode())
+            if params.get("explain") == "true":
+                plan = self.executor.explain(pv["index"], q, slices or None)
+                return _json_resp({**plan, "query": body.decode()[:1024]})
             results = self.executor.execute(pv["index"], q, slices or None)
         except (FieldValueError, FieldNotFoundError) as e:
             return _json_resp({"error": str(e)}, _error_status(e))

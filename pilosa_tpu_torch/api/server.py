@@ -6,6 +6,9 @@ Run a node:  python -m pilosa_tpu_torch.api.server -d DIR -b HOST:PORT
 flag's default comes from $PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD when
 that is set). --fsync-policy {never,group,always} sets when a write is
 acknowledged (core/wal.py); the default, `group`, is the JAX server's.
+--hbm-budget-bytes, --hbm-headroom-fraction, --quarantine-after and
+--quarantine-ttl are the card-memory governor's [mesh] knobs
+(parallel/serve.MESH_DEFAULTS), with the JAX server's defaults.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 
 from ..core.wal import FSYNC_GROUP, FSYNC_POLICIES, WalConfig
 from ..parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
+from ..parallel.serve import BUDGET_ENV, MESH_DEFAULTS
 
 THRESHOLD_ENV = "PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD"
 
@@ -52,7 +56,7 @@ class APIServer:
                 self.end_headers()
                 self.wfile.write(resp.body)
 
-            do_GET = do_POST = do_PATCH = _dispatch
+            do_GET = do_POST = do_PATCH = do_DELETE = _dispatch
 
         # Herds of concurrent clients overflow the default backlog of 5.
         srv_cls = type("_PilosaHTTPServer", (ThreadingHTTPServer,),
@@ -78,16 +82,19 @@ class APIServer:
 
 def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
           sparse_density_threshold: float =
-          DEFAULT_SPARSE_DENSITY_THRESHOLD) -> APIServer:
-    """Start serving `holder`; returns the running APIServer. On a card,
-    the K0 canary (ops.kernels.probe_ok) runs first, and a card that
-    fails it is refused before the socket is bound."""
+          DEFAULT_SPARSE_DENSITY_THRESHOLD, **mesh_config) -> APIServer:
+    """Start serving `holder`; returns the running APIServer. mesh_config:
+    the card-memory governor's knobs (hbm_budget_bytes, hbm_headroom,
+    quarantine_after, quarantine_ttl; parallel.serve.MESH_DEFAULTS). On
+    a card, the K0 canary (ops.kernels.probe_ok) runs first, and a card
+    that fails it is refused before the socket is bound."""
     from ..executor import Executor
     from ..ops.kernels import probe_ok
     from .handler import Handler
 
     ex = Executor(holder, device=device,
-                  sparse_density_threshold=sparse_density_threshold)
+                  sparse_density_threshold=sparse_density_threshold,
+                  mesh_config=mesh_config)
     if ex.device.type == "cuda" and not probe_ok(ex.device):
         raise RuntimeError(f"kernel canary failed on {ex.device}: refusing "
                            "to serve")
@@ -116,6 +123,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "a group-commit fsync covers its op record "
                          "(group, the default), after its own fsync "
                          "(always), or at once, without fsync (never)")
+    ap.add_argument("--hbm-budget-bytes", type=int,
+                    default=MESH_DEFAULTS["hbm_budget_bytes"],
+                    help="device bytes the staged views may hold; 0: "
+                         f"${BUDGET_ENV}, else the card's total memory "
+                         "less the headroom fraction; negative: unlimited")
+    ap.add_argument("--hbm-headroom-fraction", type=float,
+                    default=MESH_DEFAULTS["hbm_headroom"],
+                    help="share of the card's memory the derived budget "
+                         "leaves to the kernels' own tensors")
+    ap.add_argument("--quarantine-after", type=int,
+                    default=MESH_DEFAULTS["quarantine_after"],
+                    help="out-of-memory failures after eviction of one "
+                         "plan signature before it is kept off the card "
+                         "(the host answers it)")
+    ap.add_argument("--quarantine-ttl", type=float,
+                    default=MESH_DEFAULTS["quarantine_ttl"],
+                    help="seconds a quarantined plan signature stays off "
+                         "the card")
     return ap.parse_args(argv)
 
 
@@ -127,7 +152,11 @@ def main(argv=None) -> None:
     holder = Holder(args.data_dir, wal=WalConfig(args.fsync_policy))
     holder.open()
     srv = serve(holder, args.device, host or "127.0.0.1", int(port),
-                args.sparse_density_threshold)
+                args.sparse_density_threshold,
+                hbm_budget_bytes=args.hbm_budget_bytes,
+                hbm_headroom=args.hbm_headroom_fraction,
+                quarantine_after=args.quarantine_after,
+                quarantine_ttl=args.quarantine_ttl)
     print(f"serving {args.data_dir} on {host}:{port} ({args.device})",
           flush=True)
     try:

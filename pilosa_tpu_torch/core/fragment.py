@@ -36,9 +36,9 @@ MAX_OP_N = 2000
 
 
 class _MutationEpoch:
-    """Process-wide count of data mutations and fragment creations:
-    while it stands still, no staged image can be stale, and the stager
-    skips its per-slice generation walk."""
+    """Process-wide count of data mutations, fragment creations and index
+    or frame deletions: while it stands still, no staged image can be
+    stale, and the stager skips its per-slice generation walk."""
 
     def __init__(self):
         self.n = 0

@@ -6,10 +6,12 @@ its --fsync-policy (default `group`)."""
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 from typing import Dict, List, Optional
 
 from ..errors import IndexExistsError
+from .fragment import MUTATION_EPOCH
 from .index import Index
 from .wal import WalConfig
 
@@ -55,6 +57,20 @@ class Holder:
             idx = self.indexes.get(name)
             return idx if idx is not None else self._open_index(
                 name, **options)
+
+    def delete_index(self, name: str) -> None:
+        """Close the index (its fragments and their WAL handles) and
+        remove its directory. Close and removal stay under the create
+        lock, so a racing create_index cannot reuse the path and lose
+        its fresh directory (pilosa_tpu/core/holder.py:97)."""
+        with self._create_mu:
+            rest = dict(self.indexes)
+            idx = rest.pop(name, None)
+            self.indexes = rest
+            MUTATION_EPOCH.bump()
+            if idx is not None:
+                idx.close()
+                shutil.rmtree(idx.path, ignore_errors=True)
 
     def frame(self, index: str, frame: str):
         idx = self.indexes.get(index)

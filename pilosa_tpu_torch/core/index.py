@@ -7,11 +7,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 from typing import Dict, Optional
 
 from ..errors import FrameExistsError
 from .attr import AttrStore
+from .fragment import MUTATION_EPOCH
 from .frame import Frame, validate_name
 from .timequantum import TimeQuantum
 
@@ -103,6 +105,19 @@ class Index:
         # A new frame takes the index's time quantum unless it names one.
         options.setdefault("time_quantum", self.meta["timeQuantum"])
         return self._open_frame(name, **options)
+
+    def delete_frame(self, name: str) -> None:
+        """Close the frame (its fragments and their WAL handles) and
+        remove its directory, under the create lock
+        (pilosa_tpu/core/index.py:153)."""
+        with self._create_mu:
+            rest = dict(self.frames)
+            f = rest.pop(name, None)
+            self.frames = rest
+            MUTATION_EPOCH.bump()
+            if f is not None:
+                f.close()
+                shutil.rmtree(f.path, ignore_errors=True)
 
     def to_dict(self) -> dict:
         return {"name": self.name, "meta": dict(self.meta),

@@ -33,3 +33,19 @@ class FrameExistsError(PilosaError):
 
 class QueryError(PilosaError):
     """Invalid query arguments/shape."""
+
+
+class DeviceResourceError(PilosaError):
+    """The card could not serve a query within its memory budget: one
+    staged view alone exceeds the HBM budget (`reason="hbm_infeasible"`),
+    the card ran out of memory even after every unpinned view was
+    evicted (`reason="oom"`), or the query's plan signature is
+    quarantined after repeated device failures (`reason="quarantined"`).
+    The executor answers that one query on the host instead; the
+    manager counts it as `fallback_<reason>`."""
+
+    transient = True
+
+    def __init__(self, msg: str, reason: str = "oom"):
+        super().__init__(msg)
+        self.reason = reason

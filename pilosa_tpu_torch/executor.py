@@ -22,6 +22,17 @@ fragments' rank caches (`top_n_host`): an approximate pass, then an
 exact recount of the candidate ids. `stats["topn_device"]` and
 `stats["topn_host"]` show the path.
 
+Within the card's memory governor (MeshManager, parallel/serve.py): a
+Count whose plan signature is quarantined, or one of whose views would
+alone pass the HBM budget, goes straight to the host fold
+(`_route_to_host`, counted in the manager's `routed_host` and
+`fallback_<reason>`), and a DeviceResourceError from the manager (the
+same causes found later, or out of memory after its evict-and-retry
+ladder) sends that one Count, aggregate or TopN to the host path. Any
+other device error propagates. `explain()` reports a Count's route and
+why, its plan signature and quarantine, its views' formats and what
+staging them would take, without running it.
+
 Bitmap and Range calls materialize roaring rows per slice on the host; a
 time Range ORs the row over the views that cover [start, end). A root
 Bitmap result carries the row's attrs (or the column's, for a column
@@ -36,6 +47,8 @@ import threading
 from collections import Counter
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from . import resolve_device
 from .bsi import host as bsi_host
 from .bsi import lower as bsi_lower
@@ -46,10 +59,14 @@ from .core.index import DEFAULT_COLUMN_LABEL
 from .core.row import Row
 from .core.timequantum import parse_time, views_by_time_range
 from .core.view import VIEW_INVERSE, VIEW_STANDARD
-from .errors import FrameNotFoundError, IndexNotFoundError, \
-    IndexRequiredError, QueryError
-from .parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
-from .parallel.plan import DEFAULT_FRAME, _lower_tree, canonical_tree
+from .errors import DeviceResourceError, FrameNotFoundError, \
+    IndexNotFoundError, IndexRequiredError, QueryError
+from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD,
+                            format_pool_bytes)
+from .parallel.plan import (DEFAULT_FRAME, _lower_tree, _tree_signature,
+                            canonical_tree, plan_signature)
+from .parallel.serve import mesh_config as mesh_config_check
+from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
 from .pql import Call, Cond, Query
 
@@ -67,14 +84,18 @@ MIN_THRESHOLD = 1
 class Executor:
     """Evaluates PQL against a Holder; device work runs on `device`.
     sparse_density_threshold: mean container fill under which a slice
-    stages as sorted arrays (<= 0 stages everything dense)."""
+    stages as sorted arrays (<= 0 stages everything dense). mesh_config:
+    the manager's [mesh] knobs (parallel.serve.MESH_DEFAULTS)."""
 
     def __init__(self, holder, device="cuda",
                  sparse_density_threshold: float =
-                 DEFAULT_SPARSE_DENSITY_THRESHOLD):
+                 DEFAULT_SPARSE_DENSITY_THRESHOLD,
+                 mesh_config: Optional[dict] = None):
         self.holder = holder
         self.device = resolve_device(device)
         self.sparse_density_threshold = sparse_density_threshold
+        mesh_config_check(mesh_config)  # a bad knob fails here, not later
+        self.mesh_config = dict(mesh_config or {})
         self._mesh_mgr = None
         self._mesh_mu = threading.Lock()
         self._stats_mu = threading.Lock()
@@ -91,8 +112,16 @@ class Executor:
 
                 self._mesh_mgr = MeshManager(
                     self.holder, self.device,
-                    sparse_density_threshold=self.sparse_density_threshold)
+                    sparse_density_threshold=self.sparse_density_threshold,
+                    config=self.mesh_config)
             return self._mesh_mgr
+
+    def invalidate_device_index(self, index: Optional[str] = None) -> None:
+        """Drop the staged views of `index` (or all) and free their card
+        memory now: the handler calls it when an index or frame is
+        deleted. A later query restages from the holder."""
+        if self._mesh_mgr is not None:
+            self._mesh_mgr.invalidate(index)
 
     def execute(self, index: str, q: Query,
                 slices: Optional[Sequence[int]] = None) -> list:
@@ -279,14 +308,161 @@ class Executor:
         leaves: list = []
         shape = _lower_tree(self.holder, index, child, leaves)
         if shape is not None and slices:
-            n = self.mesh_manager().count(index, shape, leaves, slices,
-                                          self._num_slices(index, slices))
-            if n is not None:
-                self._inc("count_device")
-                return n
+            num = self._num_slices(index, slices)
+            sig = plan_signature(shape)
+            if not self._route_to_host(index, leaves, num, sig):
+                n = self._on_card(self.mesh_manager().count, index, shape,
+                                  leaves, slices, num, sig)
+                if n is not None:
+                    self._inc("count_device")
+                    return n
         self._inc("count_host")
         return sum(self._bitmap_slice(index, child, s).count()
                    for s in slices)
+
+    @staticmethod
+    def _on_card(fn, *args):
+        """fn(*args), or None when the card cannot serve it for want of
+        memory or for a quarantined plan (a DeviceResourceError, which
+        the manager counted): the caller then answers on the host, out of
+        this handler, so the error's traceback holds no card memory
+        meanwhile."""
+        try:
+            return fn(*args)
+        except DeviceResourceError:
+            return None
+
+    def explain(self, index: str, q: Query,
+                slices: Optional[Sequence[int]] = None) -> dict:
+        """The planned execution of `q`, run nowhere: for each Count, its
+        route ("mesh", "host-fold" with its `route_reason`, or "roaring"
+        for a tree that does not lower), its `plan` {signature,
+        quarantined}, the resident format of each leaf's view
+        (`device_format`) and what staging the others would take
+        (`staging`). No view stages and no counter moves. Serves POST
+        /index/{index}/query?explain=true (the JAX package's
+        Executor.explain, pilosa_tpu/executor.py:1366-1505, without
+        placement, cluster and calibration)."""
+        if not index:
+            raise IndexRequiredError()
+        idx = self.holder.index(index)
+        if slices:
+            slices = list(slices)
+        else:
+            slices = []
+            if any(c.name not in _WRITE_CALLS for c in q.calls):
+                if idx is None:
+                    raise IndexNotFoundError()
+                slices = list(range(idx.max_slice() + 1))
+        return {"index": index, "slices": len(slices),
+                "calls": [self._explain_call(index, c, slices)
+                          for c in q.calls]}
+
+    def _explain_call(self, index: str, c: Call, slices: List[int]) -> dict:
+        info: dict = {"call": c.name}
+        if c.name in _WRITE_CALLS:
+            info["route"] = "write"
+            return info
+        if c.name != "Count" or len(c.children) != 1 or not slices:
+            return info
+        leaves: list = []
+        shape = _lower_tree(self.holder, index, c.children[0], leaves)
+        if shape is None or not leaves:
+            info["route"] = "roaring"
+            return info
+        sig = plan_signature(shape)
+        num = self._num_slices(index, slices)
+        reason = self._would_route_to_host(index, leaves, num, sig)
+        info["route"] = "host-fold" if reason else "mesh"
+        if reason:
+            info["route_reason"] = reason
+        mgr = self._mesh_mgr
+        info["plan"] = {"signature": sig, "quarantined":
+                        mgr is not None and mgr.plan_quarantined(sig)}
+        keys = list(dict.fromkeys((f, v) for f, v, _r, _q in leaves))
+        resident = (dict(zip(keys, mgr.describe_views(index, keys)))
+                    if mgr is not None else dict.fromkeys(keys))
+        if mgr is not None:
+            info["device_format"] = self._explain_format(leaves, shape,
+                                                         resident)
+        info["staging"] = self._explain_staging(index, keys, num, resident)
+        return info
+
+    @staticmethod
+    def _explain_format(leaves, shape, resident: dict) -> dict:
+        """Each leaf's resident format ("unstaged" when its view is not
+        staged) and, where one is sorted-array, whether the format groups
+        serve the tree (pilosa_tpu/executor.py:1575). `resident`: (frame,
+        view) -> MeshManager.describe_views' format."""
+        fmts = [resident[(f, v)] or "unstaged" for f, v, _r, _q in leaves]
+        out: dict = {"leaves": fmts}
+        if any(f in ("sparse", "mixed") for f in fmts):
+            out["sparse_shape"] = (sparse_shape_kind(_tree_signature(shape))
+                                   or "unsupported")
+        return out
+
+    def _explain_staging(self, index: str, keys, num_slices: int,
+                         resident: dict) -> dict:
+        """The Count's views (`keys`, (frame, view) pairs): resident ones
+        with their format, the others with the format their staging would
+        pick and the bytes it would allocate on the card, which are also
+        the bytes it copies there (pilosa_tpu/executor.py:1612)."""
+        mgr = self._mesh_mgr
+        staged = unstaged = est = 0
+        views: list = []
+        for frame, view in keys:
+            if resident[(frame, view)] is not None:
+                staged += 1
+                views.append({"frame": frame, "view": view,
+                              "resident": True,
+                              "format": resident[(frame, view)]})
+                continue
+            unstaged += 1
+            stats, formats = (
+                mgr.view_stats(index, frame, view, num_slices)
+                if mgr is not None else
+                view_stats(self.holder, index, frame, view, num_slices,
+                           float(self.sparse_density_threshold)))
+            vb = format_pool_bytes(stats, formats)
+            est += vb
+            n_sparse = int(formats.sum())
+            n_live = int(np.count_nonzero(stats[:, 0]))
+            views.append({
+                "frame": frame, "view": view, "resident": False,
+                "format": ("mixed" if 0 < n_sparse < n_live
+                           else "sparse" if n_sparse else "dense"),
+                "sparse_slices": n_sparse, "estimated_h2d_bytes": vb})
+        return {"staged_views": staged, "unstaged_views": unstaged,
+                "estimated_h2d_bytes": est,
+                "sparse_density_threshold": self.sparse_density_threshold,
+                "views": views}
+
+    def _would_route_to_host(self, index: str, leaves, num_slices: int,
+                             sig: str) -> Optional[str]:
+        """The routing reason of a Count, or None: "quarantined" when its
+        plan signature is, "hbm_infeasible" when one of its views would
+        alone pass the HBM budget. The resilience half of the JAX
+        package's (pilosa_tpu/executor.py:1951-1970): the port has no
+        cost routing. It asks an existing manager only (without one
+        nothing is staged or quarantined) and changes nothing."""
+        mgr = self._mesh_mgr
+        if mgr is None:
+            return None
+        if mgr.plan_quarantined(sig):
+            return "quarantined"
+        if mgr.stage_infeasible(index, leaves, num_slices):
+            return "hbm_infeasible"
+        return None
+
+    def _route_to_host(self, index: str, leaves, num_slices: int,
+                       sig: str) -> Optional[str]:
+        """_would_route_to_host, counted in the manager's `routed_host`
+        and `fallback_<reason>`."""
+        reason = self._would_route_to_host(index, leaves, num_slices, sig)
+        if reason:
+            self._mesh_mgr._inc("routed_host")
+            self._mesh_mgr._inc(f"fallback_{reason}")
+        return reason
 
     def _num_slices(self, index: str, slices: List[int]) -> int:
         return max(max(slices), self.holder.index(index).max_slice()) + 1
@@ -337,7 +513,7 @@ class Executor:
                     out = self._bsi_extremum_device(
                         index, frame, schema, filt, slices, num,
                         c.name == "Max")
-            except _Unstaged:
+            except (_Unstaged, DeviceResourceError):
                 on_card = False
         self._inc("bsi_device" if on_card else "bsi_host")
         if not on_card:
@@ -444,7 +620,8 @@ class Executor:
     def _execute_top_n(self, index: str, c: Call, slices: List[int]):
         """TopN from exact per-row counts on the card (MeshManager.top_n)
         or, when the card cannot serve its form, top_n_host."""
-        pairs = self._top_n_device(index, c, slices) if slices else None
+        pairs = (self._on_card(self._top_n_device, index, c, slices)
+                 if slices else None)
         if pairs is not None:
             self._inc("topn_device")
             return pairs

@@ -263,6 +263,57 @@ def sparse_pool_dims(slices: Sequence) -> Tuple[int, int]:
     return cap, -(-max_card // _VALUE_ALIGN) * _VALUE_ALIGN
 
 
+def sparse_pool_bytes(num_slices: int, cap: int, k: int) -> int:
+    """Device bytes of a (C = cap, K = k) sorted-array pool over
+    num_slices slices: u16 values and i32 cards (the keys stay on the
+    host). The JAX package's figure (pilosa_tpu/parallel/mesh.py:526) on
+    a one-device mesh, less its 4-byte key a slot."""
+    return max(1, num_slices) * cap * (k * 2 + 4)
+
+
+def _dense_pool_bytes(num_slices: int, containers: int) -> int:
+    """Device bytes of the packed-word pool over num_slices slices whose
+    fullest slice holds `containers` (capacity padded to ROW_SPAN)."""
+    cap = -(-containers // ROW_SPAN) * ROW_SPAN
+    return max(1, num_slices) * cap * CONTAINER_WORDS * 4
+
+
+def estimate_staged_bytes(slices: Sequence,
+                          formats: Optional[np.ndarray] = None) -> int:
+    """The device bytes staging these packed slices allocates, exactly:
+    the padding of build_sharded_index and build_sparse_sharded_index.
+    slices[s] is ops.pool.pack_sparse of slice s where formats[s] is 1,
+    pack_bitmap elsewhere, or None for an absent fragment. It lets the
+    budget refuse or make room for a staging before a byte moves (the
+    JAX package's MeshManager._estimate_staged_bytes,
+    pilosa_tpu/parallel/serve.py:974-999, whose figure on a one-device
+    mesh is this one plus 4 bytes a key slot)."""
+    if formats is not None and formats.any():
+        dense, sparse = split_bitmaps_by_format(slices, formats)
+        n = max((len(sl[0]) for sl in dense if sl is not None), default=0)
+        return (_dense_pool_bytes(len(slices), n)
+                + sparse_pool_bytes(len(slices), *sparse_pool_dims(sparse)))
+    n = max((len(sl[0]) for sl in slices if sl is not None), default=1)
+    return _dense_pool_bytes(len(slices), max(1, n))
+
+
+def format_pool_bytes(stats: np.ndarray, formats: np.ndarray) -> int:
+    """estimate_staged_bytes from per-slice [containers, total, max
+    cardinality] stats (S, 3) and a format vector, without packing (the
+    JAX package's MeshManager._format_pool_bytes,
+    pilosa_tpu/parallel/serve.py:929-949): the figure an unstaged view
+    would take, for the budget's routing peek and EXPLAIN."""
+    s = len(formats)
+    dense_n = stats[formats == 0, 0]
+    if not formats.any():
+        return _dense_pool_bytes(s, max(1, int(dense_n.max(initial=1))))
+    sp = stats[formats != 0]
+    cap = -(-max(1, int(sp[:, 0].max())) // ROW_SPAN) * ROW_SPAN
+    k = -(-max(1, int(sp[:, 2].max())) // _VALUE_ALIGN) * _VALUE_ALIGN
+    return (_dense_pool_bytes(s, int(dense_n.max(initial=0)))
+            + sparse_pool_bytes(s, cap, k))
+
+
 def build_sparse_sharded_index(slices: Sequence, device,
                                row_ids: Optional[np.ndarray] = None
                                ) -> SparseShardedIndex:

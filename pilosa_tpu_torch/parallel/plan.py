@@ -20,7 +20,10 @@ MAX_DEPTH held values, their program length).
 
 from __future__ import annotations
 
-from typing import List, Optional
+import json
+import threading
+import time
+from typing import Dict, List, Optional
 
 from ..bsi.lower import lower_cond
 from ..core.timequantum import parse_time, views_by_time_range
@@ -58,6 +61,70 @@ def _signature_walk(n, counter: list):
         counter[0] += 1
         return ["leaf", counter[0] - 1]
     return [n[0]] + [_signature_walk(c, counter) for c in n[1:]]
+
+
+def format_signature(sig: str, formats) -> str:
+    """A plan signature tagged with the container format(s) a launch
+    reads ("ss", "sd", "ds", "dd", or any tag): a sorted-array launch
+    takes its strikes under the tagged signature, so a failing format
+    group quarantines only itself."""
+    if isinstance(formats, str):
+        formats = (formats,)
+    return sig + "|fmt=" + ",".join(formats)
+
+
+class PlanQuarantine:
+    """Plan signatures kept off the card for a time after repeated
+    out-of-memory failures: the quarantine of the JAX package's
+    CompiledPlanCache (pilosa_tpu/parallel/plan.py:184-232), without its
+    program cache (the port compiles nothing). `stats["quarantined"]`
+    counts quarantines."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._until: Dict[str, float] = {}  # sig -> monotonic expiry
+        self.stats = {"quarantined": 0}
+
+    def quarantine(self, sig: str, ttl_s: float,
+                   now: Optional[float] = None) -> None:
+        """Keep `sig` off the card for ttl_s seconds."""
+        if now is None:
+            now = time.monotonic()
+        with self._mu:
+            self._until[sig] = now + float(ttl_s)
+            self.stats["quarantined"] += 1
+
+    def is_quarantined(self, sig: str, now: Optional[float] = None) -> bool:
+        """Whether `sig` is quarantined now; an expired entry goes."""
+        if now is None:
+            now = time.monotonic()
+        with self._mu:
+            until = self._until.get(sig)
+            if until is None:
+                return False
+            if now >= until:
+                del self._until[sig]
+                return False
+            return True
+
+    def quarantined_sigs(self, now: Optional[float] = None) -> List[str]:
+        """The live (unexpired) quarantined signatures, sorted."""
+        if now is None:
+            now = time.monotonic()
+        with self._mu:
+            for sig in [s for s, t in self._until.items() if now >= t]:
+                del self._until[sig]
+            return sorted(self._until)
+
+    def clear_quarantine(self, sig: Optional[str] = None) -> int:
+        """Lift one signature's quarantine, or every one; returns how
+        many were lifted."""
+        with self._mu:
+            if sig is None:
+                n = len(self._until)
+                self._until.clear()
+                return n
+            return 1 if self._until.pop(sig, None) is not None else 0
 
 
 def canonical_tree(shape, leaves: List[tuple], out: List[tuple]):
@@ -181,3 +248,9 @@ def _lower_tree(holder, index: str, c, leaves: List[tuple]) -> Optional[list]:
     if shape is None:
         return None
     return canonical_tree(shape, raw, leaves)
+
+
+def plan_signature(shape) -> str:
+    """The plan signature of a lowered tree: its numbered form as JSON,
+    the key of the quarantine."""
+    return json.dumps(_tree_signature(shape))

@@ -763,3 +763,135 @@ def test_refresh_scatters_writes_on_the_card(card, tmp_path):
         assert tk.LAUNCHES["apply_writes"] == before + 1
     finally:
         h.close()
+
+
+# -- the card-memory governor --------------------------------------------------
+
+
+def dense_frame(holder, index: str, frame: str, rows: int, slices: int,
+                seed: int) -> np.ndarray:
+    """Frame `frame` of `index`: `rows` random rows in all 16 containers
+    of every slice, injected as whole storage images. Returns the words
+    (S, rows, 16, 1024) uint64."""
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**64, size=(slices, rows, 16, 1024),
+                         dtype=np.uint64)
+    view = holder.create_index_if_not_exists(index) \
+        .create_frame_if_not_exists(frame).create_view_if_not_exists(
+            "standard")
+    for s in range(slices):
+        bm = Bitmap()
+        for r in range(rows):
+            for b in range(16):
+                bm.keys.append(r * 16 + b)
+                bm.containers.append(Container(bitmap=words[s, r, b]))
+        view.create_fragment_if_not_exists(s).replace(bm)
+    return words
+
+
+def pair_pql(frame: str) -> str:
+    return (f"Count(Intersect(Bitmap(rowID=0, frame={frame}), "
+            f"Bitmap(rowID=1, frame={frame})))")
+
+
+def pair_truth(words: np.ndarray) -> int:
+    return int(np.bitwise_count(words[:, 0] & words[:, 1]).sum())
+
+
+@pytest.mark.cuda
+def test_real_oom_recovered_then_answered_on_the_host(card, tmp_path):
+    """A genuine torch.cuda.OutOfMemoryError while staging: with frames a
+    and b resident and a ballast leaving less free memory than frame g
+    needs but enough once they go, the ladder evicts them and stages g
+    on its retry; with only a resident and too little free even without
+    it, the ladder evicts it, fails again, and the host answers. Both
+    answers equal numpy; no fault is injected."""
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    ballast = []
+    try:
+        words = {f: dense_frame(h, "i", f, rows, 64, seed) for f, rows, seed
+                 in (("a", 4, 1), ("b", 4, 2), ("g", 8, 3))}
+        ex = Executor(h, device=card, mesh_config={"hbm_budget_bytes": -1})
+        mgr = ex.mesh_manager()
+
+        def count(f):
+            return ex.execute("i", parse_string(pair_pql(f)))[0]
+
+        fired0 = dict(fault.STATS)
+        torch.cuda.empty_cache()
+        assert count("a") == pair_truth(words["a"])
+        assert count("b") == pair_truth(words["b"])
+        need = 64 * 8 * 16 * 2048 * 4  # g's pool: 64 slices x 128 slots
+        resident = mgr.stats["staged_bytes"]
+        ballast += fault.fill_cache(card)
+        free = torch.cuda.mem_get_info(card)[0]
+        ballast.append(torch.empty(free - need // 2, dtype=torch.uint8,
+                                   device=card))
+        assert torch.cuda.mem_get_info(card)[0] < need <= (
+            torch.cuda.mem_get_info(card)[0] + resident)
+        assert count("g") == pair_truth(words["g"])
+        assert mgr.stats["oom_retries"] == 1 and mgr.stats["evicted_oom"] == 2
+        assert mgr.stats["fallback_oom"] == 0 and mgr.stats["count"] == 3
+        ballast.clear()
+        ex.invalidate_device_index()
+        torch.cuda.empty_cache()
+        assert count("a") == pair_truth(words["a"])
+        resident = mgr.stats["staged_bytes"]
+        ballast += fault.fill_cache(card)
+        free = torch.cuda.mem_get_info(card)[0]
+        ballast.append(torch.empty(free - (need - resident) // 2,
+                                   dtype=torch.uint8, device=card))
+        assert count("g") == pair_truth(words["g"])
+        assert mgr.stats["oom_retries"] == 2 and mgr.stats["evicted_oom"] == 3
+        assert mgr.stats["fallback_oom"] == 1 and mgr.stats["count"] == 4
+        assert ex.stats["count_host"] == 1
+        assert dict(fault.STATS) == fired0
+    finally:
+        ballast.clear()
+        h.close()
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_delete_frees_view_memory_on_the_card(card, tmp_path):
+    """DELETE /index/d/frame/f answers 200 {}, and memory_allocated drops
+    by the view's bytes within 1 MB while /debug/vars counts one view
+    fewer."""
+    from pilosa_tpu_torch.api.handler import Handler
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        words = dense_frame(h, "d", "f", 4, 64, 5)
+        dense_frame(h, "e", "f", 2, 8, 6)
+        handler = Handler(h, Executor(h, device=card))
+        for index, want in (("e", None), ("d", pair_truth(words))):
+            resp = handler.handle("POST", f"/index/{index}/query", {}, {},
+                                  pair_pql("f").encode())
+            assert resp.status == 200
+            if want is not None:
+                assert resp.json()["results"] == [want]
+        mgr = handler.executor.mesh_manager()
+        vb = mgr._view_bytes(mgr._views[("d", "f", "standard")])
+        views0 = handler.handle("GET", "/debug/vars").json()["mesh"]["hbm"][
+            "views"]
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(card)
+        resp = handler.handle("DELETE", "/index/d/frame/f")
+        assert (resp.status, resp.json()) == (200, {})
+        torch.cuda.synchronize()
+        assert abs(m0 - torch.cuda.memory_allocated(card) - vb) <= 1 << 20
+        assert handler.handle("GET", "/debug/vars").json()["mesh"]["hbm"][
+            "views"] == views0 - 1 == 1
+    finally:
+        h.close()
