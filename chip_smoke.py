@@ -130,7 +130,43 @@ Phases, each fatal on failure:
      a measurement, not a kernel). The bsi phase's SetValues also
      scatter; the time phase's writes into sorted-array day views
      restage, by design;
- 13. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 13. durability and integrity at 960 slices under `group`: index `i`,
+     frame `general` (the headline rows after phase 12's writes, and a
+     mask row 21 of 40,000 columns in each of slices 0-3 where row 0 is
+     clear and row 1 set, so that each SetBit there adds one to Count(
+     Intersect(row 0, row 1)) and the bits a run kept are Intersect(
+     row 0, row 21)) written to a new directory as footered
+     snapshots, and index `d2`. (1) 16 clients SetBit into slices 0-3
+     until each fragment has taken 3 background snapshots at the default
+     max_op_n while one client counts without pause: every Count lies
+     between the truth with the writes acked before it and with those
+     sent before its answer, the last is exact, the side .wal files are
+     gone, and no restage but the cost gate's (the snapshots move no
+     generation); snapshot ms, write-ack ms inside and outside snapshot
+     windows and Count ms are printed, and K7 is held against its plain
+     version at the largest batch. (2) Backpressure: DUR_STALL armed
+     through the spec syntax with max_wal_ops 256: all 16 writers get
+     503 with Retry-After, and the Count keeps every acked write. (3)
+     Power loss: the server as a child process on the card with
+     PILOSA_TORCH_FAULT arming SIGKILL before the 301st commit fsync,
+     the 2nd snapshot fsync and the 2nd snapshot rename in turn
+     (--max-op-n 500), 16 HTTP writers until it dies; each restart on
+     the same directory keeps every acked bit and nothing unsent, and
+     its Count (K1) and partial-row Count (K3) equal the truth with the
+     kept writes (K0 at each start; open and first-Count times printed).
+     (4) A byte flipped in a loaded fragment's file is found by a scrub
+     pass and rewritten from memory, the Count unchanged; one flipped at
+     rest makes the Count over index `i` answer 500 and `d2` still
+     answers. (5) On the main holder with shadow sampling 1 in 1: the
+     lone Count, 16 clients at once over the 6 pairs of rows 0-3, a
+     `sparse` Count (K4),
+     TopN(n=100) and Sum (K5), all checked with no mismatch; a delta=5
+     fault at the result seam is served as the host value, quarantines
+     the plan (?explain) and the next Count of that shape folds on the
+     host; then the lone Count's p50 at 1 in 1, 1 in 100 and 0.
+     K7, K1, K3 and K0 must launch on this path (the children's counts
+     from their /debug/vars);
+ 14. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -138,8 +174,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 14. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-12, each path's counters set to 0 just before it;
+ 15. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-13, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -174,8 +210,10 @@ from __future__ import annotations
 import argparse
 import gc
 import http.client
+import io
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -3054,7 +3092,805 @@ def write_phase(holder, words: np.ndarray, card: str, device,
             "policy": policy}
 
 
-# -- phase 12: the on-chip probe tools -------------------------------------------
+# -- phase 13: durability and integrity --------------------------------------------
+
+DUR_SLICES = (0, 1, 2, 3)   # the slices the durability writers write
+DUR_MASK_ROW = 21           # holds every column a writer may set
+DUR_CANDIDATES = 40_000     # such columns per written slice
+DUR_SNAPSHOTS = 3           # background snapshots each written slice takes
+DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
+DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
+KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
+KILLS = (("commit fsync", "storage.fsync:kind=commit,after=300,"
+          "error=SIGKILL"),
+         ("snapshot fsync", "storage.fsync:kind=snapshot,after=1,"
+          "error=SIGKILL"),
+         ("rename", "storage.rename:after=1,error=SIGKILL"))
+ROT_SCRUBBED, ROT_COLD = 5, 7   # the slices whose files the rot step flips
+ROT_OFFSET = 4096               # inside the snapshot region
+SHADOW_ROUND = 1                # queries each of the 16 clients sends
+SHADOW_TIMED = ((1, 10), (100, 100), (0, 100))  # (1 in N, lone Counts)
+DURABILITY_PATH = ("apply_writes", "coarse_count", "tree_count", "probe_ok")
+
+
+class DurTruth:
+    """The durability phase's numpy truth. Every write sets row 0 at a
+    column where row 0 is clear and row 1 set, so it adds exactly one
+    to Count(Intersect(row 0, row 1)), and the columns it may take are
+    the mask row's: the bits a run kept are then Intersect(row 0,
+    mask), read over HTTP whatever died. `sent` holds each column a
+    client sent, `acked` each one a 200 answered."""
+
+    def __init__(self, words: np.ndarray, seed: int):
+        self.words = words
+        self.c0 = host_count(words, "and", 0, 1)
+        self.p0 = host_count(words, "and", PARTIAL_ROW, 0)
+        rng = np.random.default_rng([seed, 13])
+        self.free = {}
+        self.row8 = set()
+        for s in DUR_SLICES:
+            r0 = np.unpackbits(words[s, 0].view(np.uint8), bitorder="little")
+            r1 = np.unpackbits(words[s, 1].view(np.uint8), bitorder="little")
+            r8 = np.unpackbits(words[s, PARTIAL_ROW].view(np.uint8),
+                               bitorder="little")
+            cols = rng.permutation(np.flatnonzero(
+                (r0 == 0) & (r1 == 1)))[:DUR_CANDIDATES]
+            self.free[s] = list(int(c) for c in cols[::-1])
+            self.row8.update((s << 20) | int(c) for c in cols if r8[c])
+        self.mask = {s: np.sort(np.asarray(self.free[s], dtype=np.uint32))
+                     for s in DUR_SLICES}
+        self.sent, self.acked = set(), set()
+        self.kept = set()  # the writes the image holds
+        self.mu = threading.Lock()
+
+    def next_col(self, s: int) -> int:
+        with self.mu:
+            col = (s << 20) | self.free[s].pop()
+            self.sent.add(col)
+            return col
+
+    def ack(self, col: int) -> None:
+        with self.mu:
+            self.acked.add(col)
+            self.kept.add(col)
+
+    def count(self, kept=None) -> int:
+        return self.c0 + len(self.kept if kept is None else kept)
+
+    def partial(self, kept=None) -> int:
+        return self.p0 + len((self.kept if kept is None else kept)
+                             & self.row8)
+
+
+PAIR = pql("and", 0, 1)
+PARTIAL = pql("and", PARTIAL_ROW, 0)
+KEPT = f"Intersect(Bitmap(rowID=0), Bitmap(rowID={DUR_MASK_ROW}))"
+
+
+def setbit(col: int) -> str:
+    return f"SetBit(rowID=0, frame=general, columnID={col})"
+
+
+def write_dur_dir(path: str, truth: DurTruth) -> float:
+    """The durability index on disk: index `i`, frame `general` at every
+    slice (rows 0-9 of the words, the mask row in the written slices),
+    each fragment file a snapshot with its integrity footer, as the
+    snapshot worker writes one (the container checksums of a batch of
+    slices are taken in one vectorized pass); and index `d2`, one bit.
+    Returns the seconds spent."""
+    import zlib
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+    from pilosa_tpu_torch.roaring.serialize import (fnv32a_blocks,
+                                                    write_bitmap,
+                                                    write_footer)
+
+    t0 = time.monotonic()
+    h = Holder(path)
+    h.open()
+    h.create_index("i").create_frame("general").create_view_if_not_exists(
+        "standard")
+    h.create_index("d2").create_frame("f").set_bit(3, 5)
+    h.close()
+    words = truth.words
+    frag_dir = Path(path) / "i" / "general" / "standard" / "fragments"
+    frag_dir.mkdir(parents=True, exist_ok=True)
+    for lo in range(0, words.shape[0], 96):
+        bms, blocks = [], []
+        for s in range(lo, min(lo + 96, words.shape[0])):
+            bm = Bitmap()
+            for r in range(words.shape[1]):
+                for b in range(16):
+                    if words[s, r, b].any():
+                        bm.keys.append(r * 16 + b)
+                        bm.containers.append(Container(bitmap=words[s, r, b]))
+            if s in truth.mask:
+                m = truth.mask[s]
+                for b in range(16):
+                    vals = m[(m >> 16) == b] & 0xFFFF
+                    if len(vals):
+                        bm.keys.append(DUR_MASK_ROW * 16 + b)
+                        bm.containers.append(Container(
+                            array=vals.astype(np.uint32)).normalize())
+            bms.append((s, bm))
+            blocks += [c.array.astype("<u4").tobytes() if c.is_array()
+                       else c.bitmap.astype("<u8").tobytes()
+                       for c in bm.containers]
+        fnvs = fnv32a_blocks(blocks)
+        at = 0
+        for s, bm in bms:
+            region = io.BytesIO()
+            write_bitmap(bm, region)
+            data = region.getvalue()
+            with open(frag_dir / str(s), "wb") as f:
+                f.write(data)
+                write_footer(f, zlib.crc32(data),
+                             fnvs[at:at + len(bm.keys)])
+            at += len(bm.keys)
+            if s == 0:  # the batch path writes the snapshot's bytes
+                check((frag_dir / "0").read_bytes() == bm.to_bytes(
+                    footer=True), "slice 0 written as a snapshot")
+    return time.monotonic() - t0
+
+
+def dur_client_post(c: "Client", body: str):
+    """(status, doc, Retry-After) of one query."""
+    c.conn.request("POST", "/index/i/query", body=body.encode())
+    resp = c.conn.getresponse()
+    return resp.status, json.loads(resp.read()), resp.getheader(
+        "Retry-After")
+
+
+def pct(xs, q):
+    """The q-th percentile of xs, or None when it is empty."""
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def dur_background(srv, holder, truth: DurTruth, device) -> dict:
+    """Step 1: 16 clients SetBit into DUR_SLICES until each of their
+    fragments has taken DUR_SNAPSHOTS background snapshots, while one
+    client counts without pause. Each Count lies between the truth with
+    the writes acked before it was sent and the truth with those sent
+    before its answer; the last equals the truth; no snapshot restages
+    the view."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.core.wal import SNAPSHOT_US
+    from pilosa_tpu_torch.parallel import serve as tserve
+
+    host, port = srv.address
+    mgr = srv.handler.executor.mesh_manager()
+    frags = {s: holder.fragment("i", "general", "standard", s)
+             for s in DUR_SLICES}
+    windows = {s: [] for s in DUR_SLICES}
+    for s, frag in frags.items():
+        def start(orig=frag._start_snapshot, s=s):
+            windows[s].append([time.monotonic(), None])
+            return orig()
+
+        def finish(err, t0, orig=frag._finish_snapshot, s=s):
+            try:
+                return orig(err, t0)
+            finally:
+                windows[s][-1][1] = time.monotonic()
+
+        frag._start_snapshot, frag._finish_snapshot = start, finish
+    snap0 = {s: f._snap_gen for s, f in frags.items()}
+    hist0 = len(SNAPSHOT_US.values())
+    batches = []
+    real_apply = tserve.apply_writes
+
+    def recording_apply(staged, *batch):
+        batches.append(tuple(np.array(a) for a in batch))
+        return real_apply(staged, *batch)
+
+    acks = []  # (slice, sent, acked)
+    counts = []
+    stop = threading.Event()
+    errors = []
+
+    def writer(k):
+        s = DUR_SLICES[k % len(DUR_SLICES)]
+        c = Client(host, port)
+        try:
+            while frags[s]._snap_gen - snap0[s] < DUR_SNAPSHOTS:
+                col = truth.next_col(s)
+                t0 = time.monotonic()
+                c.call("POST", "/index/i/query", setbit(col))
+                t1 = time.monotonic()
+                truth.ack(col)
+                acks.append((s, t0, t1))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    def counter():
+        c = Client(host, port)
+        try:
+            while not stop.is_set():
+                with truth.mu:
+                    lo = truth.count()
+                t0 = time.monotonic()
+                got = c.count(PAIR)
+                counts.append((time.monotonic() - t0) * 1e3)
+                with truth.mu:
+                    hi = truth.c0 + len(truth.sent)
+                if not lo <= got <= hi:
+                    errors.append(("Count under writes", lo, got, hi))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    before = dict(mgr.stats)
+    tserve.apply_writes = recording_apply
+    try:
+        t0 = time.monotonic()
+        cthread = threading.Thread(target=counter)
+        cthread.start()
+        with ThreadPoolExecutor(CLIENTS) as pool_ex:
+            list(pool_ex.map(writer, range(CLIENTS)))
+        stop.set()
+        cthread.join()
+        wall = time.monotonic() - t0
+    finally:
+        tserve.apply_writes = real_apply
+        for frag in frags.values():
+            del frag._start_snapshot, frag._finish_snapshot
+    check(not errors, f"durability writes and Counts: {errors[:5]}")
+    for frag in frags.values():
+        check(frag.wait_snapshot(timeout=60), "the snapshots landed")
+        check(not os.path.exists(frag.side_wal_path),
+              f"{frag.side_wal_path} is gone after the snapshot")
+    c = Client(host, port)
+    try:
+        check(c.count(PAIR) == truth.count(), "the Count after the writes")
+        check(c.count(PARTIAL) == truth.partial(),
+              "the partial-row Count after the writes")
+    finally:
+        c.close()
+    d = {k: mgr.stats.get(k, 0) - before.get(k, 0)
+         for k in ("incremental", "stage", "refresh_pick_restage")}
+    check(d["incremental"] > 0 and d["stage"] == d["refresh_pick_restage"],
+          f"refreshes scattered; no snapshot restaged the view: {d}")
+    snaps = {s: f._snap_gen - snap0[s] for s, f in frags.items()}
+    snap_ms = [us / 1e3 for us in SNAPSHOT_US.values()[hist0:]]
+    inside, outside = [], []
+    for s, t0, t1 in acks:
+        hit = any(a <= t1 and (b or t1) >= t0 for a, b in windows[s])
+        (inside if hit else outside).append((t1 - t0) * 1e3)
+    out = {"writes": len(acks), "seconds": wall,
+           "write_qps": len(acks) / wall, "snapshots": snaps,
+           "snapshot_ms": {"n": len(snap_ms), "p50": pct(snap_ms, 50),
+                           "max": max(snap_ms) if snap_ms else None},
+           "ack_ms_inside_snapshots": {"n": len(inside), "p50": pct(inside, 50),
+                                       "p99": pct(inside, 99)},
+           "ack_ms_outside": {"n": len(outside), "p50": pct(outside, 50),
+                              "p99": pct(outside, 99)},
+           "count_ms": {"n": len(counts), "p50": pct(counts, 50),
+                        "p90": pct(counts, 90)},
+           "refresh": d}
+    big = max(batches, key=lambda bt: int((bt[0] >= 0).sum()),
+              default=None)
+    if big is not None:
+        import torch
+
+        pool = mgr._views[("i", "general", "standard")].sharded.words
+        dev = tuple(torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int32)).to(device) for a in big)
+        out["kernels"] = k7_case("apply_writes (durability batch)", pool,
+                                 dev)
+    log(f"durability: {len(acks)} acked SetBits from {CLIENTS} clients "
+        f"into slices {list(DUR_SLICES)} in {wall:.2f} s "
+        f"({out['write_qps']:.1f}/s), snapshots {snaps}, snapshot ms p50 "
+        f"{out['snapshot_ms']['p50']} max {out['snapshot_ms']['max']}")
+    log(f"durability: write ack ms inside snapshot windows "
+        f"{json.dumps(out['ack_ms_inside_snapshots'])}, outside "
+        f"{json.dumps(out['ack_ms_outside'])}; the {len(counts)} Counts "
+        f"under writes p50 {out['count_ms']['p50']} p90 "
+        f"{out['count_ms']['p90']} ms; refresh {d}")
+    return out
+
+
+def dur_backpressure(srv, holder, truth: DurTruth) -> dict:
+    """Step 2: snapshots stalled 2 s (DUR_STALL, armed as a spec) under
+    max_wal_ops = DUR_MAX_WAL_OPS: 16 writers into slice 0 meet 503 with
+    Retry-After; then every acked write is in the Count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.core.wal import WAL_STATS
+
+    host, port = srv.address
+    frag = holder.fragment("i", "general", "standard", 0)
+    cfg = frag.wal_cfg  # the holder's, shared by every fragment
+    default = cfg.max_wal_ops
+    w0 = WAL_STATS.copy()
+    sheds, errors = [], []
+
+    def writer(k):
+        c = Client(host, port)
+        try:
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                col = truth.next_col(0)
+                status, doc, retry = dur_client_post(c, setbit(col))
+                if status == 503:
+                    sheds.append((retry, doc.get("error", "")))
+                    return
+                if status != 200:
+                    errors.append((status, doc))
+                    return
+                truth.ack(col)
+            errors.append(f"client {k} never shed")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    cfg.max_wal_ops = DUR_MAX_WAL_OPS
+    fault.load_spec(DUR_STALL)
+    t0 = time.monotonic()
+    try:
+        with ThreadPoolExecutor(CLIENTS) as pool_ex:
+            list(pool_ex.map(writer, range(CLIENTS)))
+    finally:
+        fault.reset()
+        cfg.max_wal_ops = default
+    wall = time.monotonic() - t0
+    check(frag.wait_snapshot(timeout=60), "the stalled snapshot landed")
+    check(not errors, f"backpressure writers: {errors[:5]}")
+    check(len(sheds) == CLIENTS and all(
+        r is not None and int(r) >= 1 and "backpressure" in e
+        for r, e in sheds), f"503 with Retry-After: {sheds[:3]}")
+    c = Client(host, port)
+    try:
+        got = c.count(PAIR)
+        dv = c.call("GET", "/debug/vars")
+    finally:
+        c.close()
+    check(got == truth.count(), ("no acked write lost to the shed", got,
+                                 truth.count()))
+    w = {k: WAL_STATS.get(k, 0) - w0.get(k, 0)
+         for k in ("backpressure", "backpressure_shed")}
+    check(w["backpressure_shed"] >= CLIENTS, f"sheds counted: {w}")
+    log(f"durability: backpressure {w['backpressure']} waits, "
+        f"backpressure_shed {w['backpressure_shed']} in {wall:.2f} s "
+        f"(max_wal_ops {DUR_MAX_WAL_OPS}, {DUR_STALL}); Retry-After "
+        f"{sorted({r for r, _ in sheds})}; /debug/vars wal "
+        f"{json.dumps(dv['storage']['wal'], sort_keys=True)}")
+    return {**w, "seconds": wall, "retry_after": [r for r, _ in sheds],
+            "wal": dv["storage"]["wal"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServerChild:
+    """The port's server as a child process on `path`:
+    python -m pilosa_tpu_torch.api.server, with PILOSA_TORCH_FAULT set
+    to `spec` (or unset)."""
+
+    def __init__(self, root: Path, path: str, device, spec: str = ""):
+        import queue
+
+        self.port = free_port()
+        env = {k: v for k, v in os.environ.items()
+               if k != "PILOSA_TORCH_FAULT"}
+        if spec:
+            env["PILOSA_TORCH_FAULT"] = spec
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.api.server", "-d", path,
+             "-b", f"127.0.0.1:{self.port}", "--device", str(device),
+             "--max-op-n", str(KILL_MAX_OP_N), "--scrub-interval", "0"],
+            cwd=str(root), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+        self.open_s = None
+        seen = []
+        deadline = time.monotonic() + 180
+        while True:
+            left = deadline - time.monotonic()
+            check(left > 0 and self.proc.poll() is None,
+                  f"the server child started: {''.join(seen[-20:])}")
+            try:
+                line = self.lines.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            seen.append(line)
+            if line.startswith("serving "):
+                self.open_s = float(line.split("holder opened in ")[1]
+                                    .split()[0])
+                break
+        self.ready_s = time.monotonic() - self.t0
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+
+    def client(self) -> "Client":
+        return Client("127.0.0.1", self.port)
+
+    def stop(self):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def dur_verify(srv_or_child, truth: DurTruth, what: str) -> dict:
+    """After a restart: the kept writes (Intersect(row 0, mask))
+    hold every acked one and none that was not sent; Count(Intersect)
+    (K1) and the partial-row Count (K3) equal the truth with exactly
+    the kept writes. Times the first Count (it stages the view)."""
+    c = srv_or_child.client()
+    try:
+        t0 = time.monotonic()
+        got = c.count(PAIR)
+        first_ms = (time.monotonic() - t0) * 1e3
+        kept = {int(x) for x in c.call("POST", "/index/i/query",
+                                       KEPT)["results"][0]["bits"]}
+        part = c.count(PARTIAL)
+        launches = c.call("GET", "/debug/vars")["kernel_launches"]
+    finally:
+        c.close()
+    with truth.mu:
+        lost = truth.acked - kept
+        extra = kept - truth.sent
+        check(not lost and not extra,
+              f"{what}: {len(lost)} acked bits lost, {len(extra)} unsent "
+              f"bits kept")
+        truth.kept = kept
+    check(got == truth.count(), (what, "Count", got, truth.count()))
+    check(part == truth.partial(), (what, "partial Count", part,
+                                    truth.partial()))
+    return {"first_count_ms": first_ms, "kept": len(kept),
+            "launches": launches}
+
+
+def dur_kills(root: Path, path: str, truth: DurTruth, device) -> dict:
+    """Step 3: power loss on the card. For each KILLS spec a server child
+    runs with it armed while 16 clients SetBit until it dies by SIGKILL;
+    the next child restarts on the same directory (and verifies it, see
+    dur_verify) before it takes its own writes; a last child verifies
+    the last kill. Each restart's open and first-Count times."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    launches: Counter = Counter()
+    rounds = []
+    child = ServerChild(root, path, device, KILLS[0][1])
+    try:
+        for k, (what, _spec) in enumerate(KILLS):
+            v = dur_verify(child, truth, f"before the {what} kill"
+                           if k == 0 else f"after the {KILLS[k - 1][0]} kill")
+            launches.update(v["launches"])
+            n0 = len(truth.acked)
+            errors = []
+
+            def writer(j, child=child):
+                s = DUR_SLICES[j % len(DUR_SLICES)]
+                c = child.client()
+                deadline = time.monotonic() + 60
+                try:
+                    while time.monotonic() < deadline:
+                        col = truth.next_col(s)
+                        status, doc, _ = dur_client_post(c, setbit(col))
+                        if status != 200:
+                            errors.append((status, doc))
+                            return
+                        truth.ack(col)
+                    errors.append("no kill within 60 s")
+                except (OSError, http.client.HTTPException):
+                    return  # the kill
+                finally:
+                    c.close()
+
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(CLIENTS) as pool_ex:
+                list(pool_ex.map(writer, range(CLIENTS)))
+            check(not errors, f"writes before the {what} kill: {errors[:3]}")
+            rc = child.proc.wait(timeout=60)
+            check(rc == -9, f"the {what} kill ended the server: rc {rc}")
+            rounds.append({"kill": what, "acked": len(truth.acked) - n0,
+                           "writes_s": time.monotonic() - t0,
+                           "open_s": child.open_s,
+                           "ready_s": child.ready_s,
+                           "first_count_ms": v["first_count_ms"]})
+            spec = KILLS[k + 1][1] if k + 1 < len(KILLS) else ""
+            child = ServerChild(root, path, device, spec)
+            rounds[-1].update(restart_open_s=child.open_s,
+                              restart_ready_s=child.ready_s)
+        v = dur_verify(child, truth, f"after the {KILLS[-1][0]} kill")
+        launches.update(v["launches"])
+        for k, r in enumerate(rounds):
+            r["restart_first_count_ms"] = (
+                rounds[k + 1]["first_count_ms"] if k + 1 < len(rounds)
+                else v["first_count_ms"])
+            log(f"durability: {r['kill']} kill after {r['acked']} acked "
+                f"writes; restart: holder open {r['restart_open_s']:.3f} s, "
+                f"server ready {r['restart_ready_s']:.2f} s, first Count "
+                f"{r['restart_first_count_ms']:.1f} ms; every acked bit "
+                f"kept")
+    finally:
+        child.stop()
+    return {"rounds": rounds, "launches": dict(launches),
+            "kept": len(truth.kept), "acked": len(truth.acked)}
+
+
+def dur_rot(root: Path, path: str, truth: DurTruth, device) -> dict:
+    """Step 4: rot under a loaded view is found by a scrub pass and
+    rewritten from memory, the Count unchanged; rot in a file at rest
+    answers 500 for the Count that touches it, and another index still
+    answers."""
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.scrub import SCRUB_STATS, Scrubber
+    from pilosa_tpu_torch.core.wal import FSYNC_GROUP, WalConfig
+    from pilosa_tpu_torch.roaring import Bitmap
+
+    def flip(s):
+        f = Path(path) / "i" / "general" / "standard" / "fragments" / str(s)
+        with open(f, "r+b") as fh:
+            fh.seek(ROT_OFFSET)
+            b = fh.read(1)
+            fh.seek(ROT_OFFSET)
+            fh.write(bytes([b[0] ^ 0x01]))
+        return f
+
+    out = {}
+    holder = Holder(path, wal=WalConfig(FSYNC_GROUP))
+    holder.open()
+    srv = serve(holder, device=device)
+    try:
+        c = Client(*srv.address)
+        try:
+            check(c.count(PAIR) == truth.count(), "Count before the rot")
+            f = flip(ROT_SCRUBBED)
+            s0 = SCRUB_STATS.copy()
+            scrub = Scrubber(holder, rate_limit=0)
+            t0 = time.monotonic()
+            n = scrub.scrub_pass()
+            dt = time.monotonic() - t0
+            d = {k: SCRUB_STATS.get(k, 0) - s0.get(k, 0)
+                 for k in ("corrupt", "repairs", "unrepaired", "fragments")}
+            check(d["corrupt"] == 1 and d["repairs"] == 1
+                  and d["unrepaired"] == 0, f"the scrub found the rot: {d}")
+            check(Bitmap.from_bytes(f.read_bytes(), truncate_torn_tail=True,
+                                    verify=True).verified_footer,
+                  "the rotted file rewritten with a footer")
+            check(c.count(PAIR) == truth.count(), "Count after the scrub")
+            out["scrub"] = {"fragments": n, "seconds": dt,
+                            "bytes": scrub.last_pass_bytes,
+                            "bytes_per_s": scrub.last_pass_bytes / dt,
+                            "deltas": d, "stats": SCRUB_STATS.copy()}
+        finally:
+            c.close()
+    finally:
+        srv.close()
+        holder.close()
+    flip(ROT_COLD)
+    holder = Holder(path, wal=WalConfig(FSYNC_GROUP))
+    holder.open()
+    srv = serve(holder, device=device)
+    try:
+        c = Client(*srv.address)
+        try:
+            status, doc = c.raw("POST", "/index/i/query", PAIR)
+            check(status == 500 and "corrupt" in doc.get("error", ""),
+                  ("a Count over the rotted slice", status, doc))
+            got = c.call("POST", "/index/d2/query",
+                         "Count(Bitmap(rowID=3, frame=f))")["results"][0]
+            check(got == 1, ("a Count over another index", got))
+        finally:
+            c.close()
+    finally:
+        srv.close()
+        holder.close()
+    out["cold_rot"] = {"status": status, "error": doc.get("error", "")[:200]}
+    log(f"durability: scrub pass over {out['scrub']['fragments']} "
+        f"fragments, {out['scrub']['bytes']} B in "
+        f"{out['scrub']['seconds']:.2f} s "
+        f"({out['scrub']['bytes_per_s'] / 1e6:.1f} MB/s), rot found and "
+        f"rewritten from memory; SCRUB_STATS "
+        f"{json.dumps(out['scrub']['stats'], sort_keys=True)}; rot at rest: "
+        f"{status} \"{out['cold_rot']['error'][:80]}\", index d2 answers")
+    return out
+
+
+def dur_shadow(holder, words: np.ndarray, sp: "SparseRows",
+               bsi: "BsiTruth", device) -> dict:
+    """Step 5, on the main holder at 1 in 1: the lone Count, a 16-client
+    round, a Count on `sparse`, TopN(n=100) and Sum, each checked on the
+    host with no mismatch; then a delta=5 result fault: the host value
+    is served, the plan quarantined (?explain), and the next Count of
+    that shape folds on the host, exact. Then the lone Count's p50 at 1
+    in 1, 1 in 100 and 0, back to back."""
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.executor import SHADOW_STATS
+
+    pairs = list(itertools.combinations(range(4), 2))  # 6 pairs, 4 rows
+    want = {(a, b): host_count(words, "and", a, b) for a, b in pairs}
+    srv = serve(holder, device=device, shadow_sample=1)
+    ex = srv.handler.executor
+    host, port = srv.address
+    c = Client(host, port)
+    try:
+        sh0 = SHADOW_STATS.copy()
+        check(c.count(PAIR) == want[(0, 1)], "lone Count")
+        mgr = ex.mesh_manager()
+        from pilosa_tpu_torch.ops import kernels as tk
+
+        k0 = tk.LAUNCHES["coarse_count_shared"]
+        errors = []
+
+        def client(k):
+            cl = Client(host, port)
+            try:
+                for j in range(SHADOW_ROUND):
+                    a, b = pairs[(k * SHADOW_ROUND + j) % len(pairs)]
+                    got = cl.count(pql("and", a, b))
+                    if got != want[(a, b)]:
+                        errors.append((a, b, got))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                cl.close()
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not errors, f"shadow round: {errors[:5]}")
+        shared = tk.LAUNCHES["coarse_count_shared"] - k0
+        sq = fpql("and", 0, "sparse", 1, "sparse")
+        check(c.count(sq) == int(sp.inter((0, 1)).sum()), "sparse Count")
+        top = c.call("POST", "/index/i/query",
+                     f"TopN(frame=general, n={TOPN_N})")["results"][0]
+        counts = np.bitwise_count(words).sum(axis=(0, 2, 3), dtype=np.int64)
+        got = {t["id"]: t["count"] for t in top}
+        check(all(got[r] == counts[r] for r in range(len(counts))),
+              "TopN's counts of the headline rows")
+        s = c.call("POST", "/index/i/query",
+                   agg_pql("Sum", False))["results"][0]
+        check(s == bsi.aggregate("Sum", False), ("Sum", s))
+        d = {k: SHADOW_STATS.get(k, 0) - sh0.get(k, 0)
+             for k in ("checks:mesh", "mismatch:mesh", "checks:bsi",
+                       "mismatch:bsi")}
+        check(d["checks:mesh"] >= 3 + CLIENTS * SHADOW_ROUND
+              and d["checks:bsi"] >= 1 and d["mismatch:mesh"] == 0
+              and d["mismatch:bsi"] == 0, f"clean shadow checks: {d}")
+        # A kernel that miscomputes: the result seam adds 5.
+        fault.arm("device.exec", delta=5, kind="count-result")
+        try:
+            m0 = SHADOW_STATS.get("mismatch:mesh", 0)
+            h0 = ex.stats["count_host"]
+            check(c.count(PAIR) == want[(0, 1)],
+                  "the perturbed Count answers the host value")
+            check(SHADOW_STATS.get("mismatch:mesh", 0) == m0 + 1,
+                  "one mismatch")
+            plan = c.call("POST", "/index/i/query?explain=true",
+                          pql("and", 2, 3))["calls"][0]
+            check(plan["plan"]["quarantined"]
+                  and plan.get("route_reason") == "quarantined",
+                  f"?explain shows the quarantine: {plan}")
+            check(c.count(pql("and", 2, 3)) == want[(2, 3)]
+                  and ex.stats["count_host"] == h0 + 1,
+                  "the next Count of that shape folds on the host")
+        finally:
+            fault.reset()
+        mgr.clear_quarantine()
+        timed = {}
+        for n, calls in SHADOW_TIMED:
+            ex.shadow_sample = n
+            lat = []
+            for _ in range(calls):
+                t0 = time.monotonic()
+                got = c.count(PAIR)
+                lat.append((time.monotonic() - t0) * 1e3)
+                check(got == want[(0, 1)], "timed Count")
+            timed[f"1in{n}"] = {"calls": calls, "p50_ms": pct(lat, 50),
+                                "p90_ms": pct(lat, 90)}
+    finally:
+        c.close()
+        srv.close()
+    log(f"durability: shadow checks {json.dumps(d)}, K2 launches in the "
+        f"{CLIENTS}-client round {shared}; the perturbed Count served the "
+        f"host value and quarantined its plan; lone Count p50 by sampling "
+        f"{json.dumps({k: v['p50_ms'] for k, v in timed.items()})} ms")
+    return {"shadow": d, "k2_in_round": shared, "timed": timed,
+            "mesh_stats": dict(mgr.stats)}
+
+
+def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
+                     bsi: "BsiTruth", tmp: str, root: Path, card: str,
+                     device, seed: int) -> dict:
+    """Phase 13 (module docstring). The kernel counters are set to 0
+    just before the phase's first server starts and read after its last
+    query; the children's launches come from their /debug/vars."""
+    import torch
+
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.wal import FSYNC_GROUP, WalConfig
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    t_phase = time.monotonic()
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.monotonic() - t_phase - sum(steps.values())
+
+    truth = DurTruth(words, seed)
+    path = os.path.join(tmp, "durability")
+    write_s = write_dur_dir(path, truth)
+    log(f"durability: {SLICES} slices written as footered snapshots in "
+        f"{write_s:.2f} s")
+    tk.reset_launches()
+    holder_d = Holder(path, wal=WalConfig(FSYNC_GROUP))
+    t0 = time.monotonic()
+    holder_d.open()
+    open_s = time.monotonic() - t0
+    srv = serve(holder_d, device=device)
+    try:
+        c = Client(*srv.address)
+        try:
+            t0 = time.monotonic()
+            check(c.count(PAIR) == truth.count(), "first durable Count")
+            first_s = time.monotonic() - t0
+        finally:
+            c.close()
+        collect_after_staging("durability")
+        mark("setup")
+        bg = dur_background(srv, holder_d, truth, device)
+        mark("background snapshots")
+        bp = dur_backpressure(srv, holder_d, truth)
+        mstats = dict(srv.handler.executor.mesh_manager().stats)
+    finally:
+        srv.close()
+        holder_d.close()
+    mark("backpressure")
+    kills = dur_kills(root, path, truth, device)
+    mark("power loss")
+    rot = dur_rot(root, path, truth, device)
+    mark("rot")
+    shadow = dur_shadow(holder, words, sp, bsi, device)
+    mark("shadow")
+    torch.cuda.synchronize()
+    launches = Counter(tk.LAUNCHES)
+    launches.update(kills["launches"])
+    launches = {k: launches.get(k, 0) for k in KERNELS}
+    wall = time.monotonic() - t_phase
+    log(f"durability phase launches {launches} (children "
+        f"{kills['launches']}); {wall:.1f} s, by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    for k in DURABILITY_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the durability path")
+    return {"launches": launches, "stats": {}, "mesh_stats": mstats,
+            "write_dir_s": write_s, "open_s": open_s, "first_query_s": first_s,
+            "background": bg, "backpressure": bp, "kills": kills,
+            "rot": rot, "shadow": shadow, "seconds": wall,
+            "step_seconds": steps,
+            "kernels": bg.get("kernels", {})}
+
+
+# -- phase 14: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -3445,6 +4281,10 @@ def main(argv=None) -> int:
             gc.collect()
             writes = write_phase(holder, words, card, device, args.seed)
             kern.update(writes["kernels"])
+            gc.collect()
+            dur = durability_phase(holder, words, sp, truth, tmp, root, card,
+                                   device, args.seed)
+            kern.update(dur["kernels"])
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
@@ -3454,7 +4294,8 @@ def main(argv=None) -> int:
     # from 0 just before it was driven; K6 and the stream serve only the
     # probe path, whose own loops the other kernels' counts leave out.
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
-             "time": tq, "topn": topn, "writes": writes, "probes": probes}
+             "time": tq, "topn": topn, "writes": writes, "durability": dur,
+             "probes": probes}
     for name, r in paths.items():
         if name not in ("residency", "probes"):
             no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
@@ -3486,7 +4327,7 @@ def main(argv=None) -> int:
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
          "residency": res,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
-         "write_slice": writes, "probes": probes,
+         "write_slice": writes, "durability": dur, "probes": probes,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -14,9 +14,14 @@ bodies and status codes.
          ?explain=true answers the plan, Executor.explain, and runs
          nothing)
   GET    /schema                                          -> {"indexes": [...]}
-  GET    /debug/vars                    {"mesh": the card manager's
-         counters, "hbm": {budget_bytes, the residency report}, and
-         "quarantined_plans"} once a query has built the manager, else {}
+  GET    /debug/vars                    {"storage": {"fragments": each
+         loaded fragment's storage_state, "wal": WAL_STATS, "group_size",
+         "snapshot_us"}, "integrity": {"scrub": the scrubber's record,
+         "shadow": SHADOW_STATS, "fragments": INTEGRITY_STATS,
+         "torn_tails"}, "kernel_launches": each kernel's launches in this
+         process (ops.kernels.LAUNCHES), and, once a query has built the
+         card manager, "mesh": its counters, "hbm": {budget_bytes, the
+         residency report}, and "quarantined_plans"}
 
 A delete drops the index's staged views from the card at once
 (Executor.invalidate_device_index).
@@ -25,7 +30,9 @@ A Bitmap result is {"attrs", "bits"}, a TopN result [{"id", "count"}].
 
 Errors answer {"error": message}: 404 for a missing index, frame or
 integer field, 409 for one that exists, 422 for a value outside a field's
-range, 400 for a bad request or a failed query.
+range, 503 with Retry-After for a write shed by backpressure, 500 for a
+slice whose data cannot be read (a corrupt fragment), 400 for a bad
+request or a failed query.
 """
 
 from __future__ import annotations
@@ -35,10 +42,15 @@ import re
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 from ..bsi.field import FieldNotFoundError, FieldValueError
+from ..core.fragment import INTEGRITY_STATS
 from ..core.row import Row
 from ..core.timequantum import parse_time_quantum
+from ..core.wal import GROUP_SIZE, SNAPSHOT_US, WAL_STATS
 from ..errors import (FrameExistsError, FrameNotFoundError, IndexExistsError,
-                      IndexNotFoundError, PilosaError)
+                      IndexNotFoundError, PilosaError, SliceUnavailableError,
+                      WriteBackpressureError)
+from ..executor import SHADOW_STATS
+from ..ops import kernels
 from ..pql import ParseError, parse_string
 
 
@@ -57,6 +69,10 @@ def _json_resp(obj, status: int = 200) -> Response:
 
 
 def _error_status(err: Exception) -> int:
+    if isinstance(err, WriteBackpressureError):
+        return 503
+    if isinstance(err, SliceUnavailableError):
+        return 500
     if isinstance(err, (IndexNotFoundError, FrameNotFoundError,
                         FieldNotFoundError)):
         return 404
@@ -70,6 +86,20 @@ def _error_status(err: Exception) -> int:
                         TypeError)):
         return 400
     return 500
+
+
+def _error_resp(e: Exception) -> Response:
+    """{"error": message} at _error_status's code; a shed write carries
+    Retry-After (whole seconds, >= 1), as the JAX handler's does."""
+    status = _error_status(e)
+    msg = str(e) or type(e).__name__
+    if status == 500 and not isinstance(e, SliceUnavailableError):
+        msg = f"internal error: {type(e).__name__}: {e}"
+    resp = _json_resp({"error": msg}, status)
+    if isinstance(e, WriteBackpressureError):
+        retry = max(1, int(round(e.retry_after_s)))
+        resp.headers["Retry-After"] = str(retry)
+    return resp
 
 
 def _result_to_json(result):
@@ -145,11 +175,7 @@ class Handler:
             try:
                 return route.fn(m.groupdict(), params or {}, body)
             except Exception as e:  # noqa: BLE001 — never drop the connection
-                status = _error_status(e)
-                msg = str(e) or type(e).__name__
-                if status == 500:
-                    msg = f"internal error: {type(e).__name__}: {e}"
-                return _json_resp({"error": msg}, status)
+                return _error_resp(e)
         if path_matched:
             return _json_resp({"error": "method not allowed"}, 405)
         return _json_resp({"error": "not found"}, 404)
@@ -177,16 +203,26 @@ class Handler:
         return _json_resp({})
 
     def _get_expvar(self, pv, params, body) -> Response:
-        """The `mesh` part of the JAX handler's /debug/vars
-        (pilosa_tpu/api/handler.py:1497-1525)."""
+        """The `storage`, `integrity` and `mesh` parts of the JAX
+        handler's /debug/vars (pilosa_tpu/api/handler.py:1497-1525)."""
+        wal = WAL_STATS.copy()
+        out = {"storage": {"fragments": self.holder.storage_state(),
+                           "wal": wal,
+                           "group_size": GROUP_SIZE.snapshot(),
+                           "snapshot_us": SNAPSHOT_US.snapshot()},
+               "integrity": {"scrub": self.holder.scrubber.snapshot(),
+                             "shadow": SHADOW_STATS.copy(),
+                             "fragments": INTEGRITY_STATS.copy(),
+                             "torn_tails": wal.get("torn_tails", 0)},
+               "kernel_launches": dict(kernels.LAUNCHES)}
         mgr = self.executor._mesh_mgr
-        if mgr is None:
-            return _json_resp({})
-        mesh = dict(mgr.stats)
-        mesh["hbm"] = {"budget_bytes": max(0, mgr._hbm_budget_bytes()),
-                       **mgr.device_memory()}
-        mesh["quarantined_plans"] = mgr.quarantined_plans()
-        return _json_resp({"mesh": mesh})
+        if mgr is not None:
+            mesh = dict(mgr.stats)
+            mesh["hbm"] = {"budget_bytes": max(0, mgr._hbm_budget_bytes()),
+                           **mgr.device_memory()}
+            mesh["quarantined_plans"] = mgr.quarantined_plans()
+            out["mesh"] = mesh
+        return _json_resp(out)
 
     def _post_frame(self, pv, params, body) -> Response:
         opts = _decode_options(body, {
@@ -230,8 +266,9 @@ class Handler:
                 plan = self.executor.explain(pv["index"], q, slices or None)
                 return _json_resp({**plan, "query": body.decode()[:1024]})
             results = self.executor.execute(pv["index"], q, slices or None)
-        except (FieldValueError, FieldNotFoundError) as e:
-            return _json_resp({"error": str(e)}, _error_status(e))
+        except (FieldValueError, FieldNotFoundError, WriteBackpressureError,
+                SliceUnavailableError) as e:
+            return _error_resp(e)
         except (PilosaError, ParseError) as e:
             return _json_resp({"error": str(e)}, 400)
         out = {"results": [_result_to_json(r) for r in results]}

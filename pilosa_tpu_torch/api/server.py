@@ -9,6 +9,11 @@ acknowledged (core/wal.py); the default, `group`, is the JAX server's.
 --hbm-budget-bytes, --hbm-headroom-fraction, --quarantine-after and
 --quarantine-ttl are the card-memory governor's [mesh] knobs
 (parallel/serve.MESH_DEFAULTS), with the JAX server's defaults.
+--max-wal-ops, --backpressure-deadline and --max-op-n are its [storage]
+knobs (core/wal.WalConfig), --scrub-interval, --scrub-rate-limit-bytes
+and --shadow-sample-1-in its [integrity] ones (core/scrub.py,
+Executor.shadow_sample), with the JAX config's names and defaults.
+$PILOSA_TORCH_FAULT arms fault rules at start (fault.py).
 """
 
 from __future__ import annotations
@@ -16,11 +21,16 @@ from __future__ import annotations
 import argparse
 import os
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
-from ..core.wal import FSYNC_GROUP, FSYNC_POLICIES, WalConfig
+from .. import fault
+from ..core.scrub import DEFAULT_SCRUB_RATE_LIMIT
+from ..core.wal import (DEFAULT_BACKPRESSURE_DEADLINE, DEFAULT_MAX_WAL_OPS,
+                        FSYNC_GROUP, FSYNC_POLICIES, WalConfig)
+from ..fault import parse_duration
 from ..parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
 from ..parallel.serve import BUDGET_ENV, MESH_DEFAULTS
 
@@ -36,6 +46,10 @@ class APIServer:
 
         class _Request(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # A response goes out as two writes (headers, then body):
+            # with Nagle on, the body can wait for the client's delayed
+            # ACK of the headers, tens of ms a request on some hosts.
+            disable_nagle_algorithm = True
 
             def log_message(self, fmt, *args):
                 pass
@@ -82,10 +96,12 @@ class APIServer:
 
 def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
           sparse_density_threshold: float =
-          DEFAULT_SPARSE_DENSITY_THRESHOLD, **mesh_config) -> APIServer:
+          DEFAULT_SPARSE_DENSITY_THRESHOLD, shadow_sample: int = 0,
+          **mesh_config) -> APIServer:
     """Start serving `holder`; returns the running APIServer. mesh_config:
     the card-memory governor's knobs (hbm_budget_bytes, hbm_headroom,
-    quarantine_after, quarantine_ttl; parallel.serve.MESH_DEFAULTS). On
+    quarantine_after, quarantine_ttl; parallel.serve.MESH_DEFAULTS).
+    shadow_sample: check 1 in N card answers on the host (0: off). On
     a card, the K0 canary (ops.kernels.probe_ok) runs first, and a card
     that fails it is refused before the socket is bound."""
     from ..executor import Executor
@@ -94,7 +110,7 @@ def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
 
     ex = Executor(holder, device=device,
                   sparse_density_threshold=sparse_density_threshold,
-                  mesh_config=mesh_config)
+                  mesh_config=mesh_config, shadow_sample=shadow_sample)
     if ex.device.type == "cuda" and not probe_ok(ex.device):
         raise RuntimeError(f"kernel canary failed on {ex.device}: refusing "
                            "to serve")
@@ -141,6 +157,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default=MESH_DEFAULTS["quarantine_ttl"],
                     help="seconds a quarantined plan signature stays off "
                          "the card")
+    ap.add_argument("--max-wal-ops", type=int, default=DEFAULT_MAX_WAL_OPS,
+                    help="ops of a fragment not yet covered by a snapshot "
+                         "past which writers wait for one (0: unbounded)")
+    ap.add_argument("--backpressure-deadline", type=parse_duration,
+                    default=DEFAULT_BACKPRESSURE_DEADLINE,
+                    help="how long a waiting writer waits for a snapshot "
+                         "before it is shed with 503 and Retry-After "
+                         "(seconds, or 250ms, 1s)")
+    ap.add_argument("--max-op-n", type=int, default=0,
+                    help="ops after which a fragment snapshots in the "
+                         "background (0: the default, 2000)")
+    ap.add_argument("--scrub-interval", type=parse_duration, default=600.0,
+                    help="how often the scrubber re-verifies every "
+                         "fragment file (seconds, or 10m; 0: off)")
+    ap.add_argument("--scrub-rate-limit-bytes", type=int,
+                    default=DEFAULT_SCRUB_RATE_LIMIT,
+                    help="the scrubber's read budget, bytes/s (0: unpaced)")
+    ap.add_argument("--shadow-sample-1-in", type=int, default=0,
+                    help="recompute 1 in N card Count / TopN / Sum / Min / "
+                         "Max answers on the host and compare (0: off)")
     return ap.parse_args(argv)
 
 
@@ -148,17 +184,26 @@ def main(argv=None) -> None:
     from ..core import Holder
 
     args = parse_args(argv)
+    fault.load_env()
     host, _, port = args.bind.rpartition(":")
-    holder = Holder(args.data_dir, wal=WalConfig(args.fsync_policy))
+    holder = Holder(args.data_dir, wal=WalConfig(
+        args.fsync_policy, max_wal_ops=args.max_wal_ops,
+        backpressure_deadline=args.backpressure_deadline,
+        max_op_n=args.max_op_n or None),
+        scrub_interval=args.scrub_interval,
+        scrub_rate_limit=args.scrub_rate_limit_bytes)
+    t0 = time.monotonic()
     holder.open()
+    open_s = time.monotonic() - t0
     srv = serve(holder, args.device, host or "127.0.0.1", int(port),
                 args.sparse_density_threshold,
+                shadow_sample=args.shadow_sample_1_in,
                 hbm_budget_bytes=args.hbm_budget_bytes,
                 hbm_headroom=args.hbm_headroom_fraction,
                 quarantine_after=args.quarantine_after,
                 quarantine_ttl=args.quarantine_ttl)
-    print(f"serving {args.data_dir} on {host}:{port} ({args.device})",
-          flush=True)
+    print(f"serving {args.data_dir} on {host}:{port} ({args.device}); "
+          f"holder opened in {open_s:.3f} s", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

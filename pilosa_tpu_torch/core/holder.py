@@ -1,7 +1,10 @@
 """Holder: the root of a node's data directory, one subdirectory per
-index. Its WAL policy (core/wal.WalConfig) reaches every fragment; a
-bare Holder writes through without fsync (`never`), the server passes
-its --fsync-policy (default `group`)."""
+index. Its storage config (core/wal.WalConfig: the WAL policy, the
+snapshot threshold and the write backpressure) reaches every fragment;
+a bare Holder writes through without fsync (`never`), the server passes
+its flags (default `group`). Fragments open lazily: a start parses no
+data. With scrub_interval > 0 the integrity scrubber (core/scrub.py)
+walks the fragments in a thread from open() to close()."""
 
 from __future__ import annotations
 
@@ -13,15 +16,21 @@ from typing import Dict, List, Optional
 from ..errors import IndexExistsError
 from .fragment import MUTATION_EPOCH
 from .index import Index
+from .scrub import DEFAULT_SCRUB_RATE_LIMIT, Scrubber
 from .wal import WalConfig
 
 
 class Holder:
-    def __init__(self, path: str, wal: Optional[WalConfig] = None):
+    def __init__(self, path: str, wal: Optional[WalConfig] = None,
+                 scrub_interval: float = 0.0,
+                 scrub_rate_limit: int = DEFAULT_SCRUB_RATE_LIMIT):
         self.path = path
         self.wal = wal
         self.indexes: Dict[str, Index] = {}
         self._create_mu = threading.Lock()
+        self.scrubber = Scrubber(self, interval=scrub_interval,
+                                 rate_limit=scrub_rate_limit,
+                                 enabled=scrub_interval > 0)
 
     def open(self):
         os.makedirs(self.path, exist_ok=True)
@@ -30,11 +39,26 @@ class Holder:
             if (not name.startswith(".")
                     and os.path.isdir(os.path.join(self.path, name))):
                 self._open_index(name)
+        self.scrubber.start()
 
     def close(self):
+        self.scrubber.close()
         for idx in self.indexes.values():
             idx.close()
         self.indexes = {}
+
+    def fragments(self) -> list:
+        """Every open fragment, by index, frame, view and slice."""
+        return [frag for _, idx in sorted(self.indexes.items())
+                for _, f in sorted(idx.frames.items())
+                for _, v in sorted(f.views.items())
+                for _, frag in sorted(v.fragments.items())]
+
+    def storage_state(self) -> List[dict]:
+        """Each loaded fragment's durability state (Fragment.
+        storage_state), for /debug/vars."""
+        return [frag.storage_state() for frag in self.fragments()
+                if not frag._pending_load]
 
     def _open_index(self, name: str, **options) -> Index:
         idx = Index(os.path.join(self.path, name), name, wal=self.wal,

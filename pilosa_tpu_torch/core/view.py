@@ -43,19 +43,21 @@ class View:
         os.makedirs(self.fragments_path, exist_ok=True)
         for fname in sorted(os.listdir(self.fragments_path)):
             if _FRAGMENT_FILE_RE.match(fname):
-                self._open_fragment(int(fname))
+                # Parsed on first touch: a start reads no data, and one
+                # rotted file fails only the queries that touch it.
+                self._open_fragment(int(fname), lazy=True)
 
     def close(self):
         for f in self.fragments.values():
             f.close()
         self.fragments = {}
 
-    def _open_fragment(self, slice_: int) -> Fragment:
+    def _open_fragment(self, slice_: int, lazy: bool = False) -> Fragment:
         frag = Fragment(os.path.join(self.fragments_path, str(slice_)),
                         self.index, self.frame, self.name, slice_,
                         self.cache_type, self.cache_size,
                         self.row_attr_store, wal=self.wal)
-        frag.open()
+        frag.open(lazy=lazy)
         # Copy-on-write: readers iterate fragments without the lock.
         self.fragments = {**self.fragments, slice_: frag}
         MUTATION_EPOCH.bump()

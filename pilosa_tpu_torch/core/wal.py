@@ -20,6 +20,23 @@ accepted record is durable:
 No thread exists while nothing is written: the leader is always a
 writer that had to wait anyway.
 
+The committer is also what a background snapshot re-aims: the fragment
+retargets it at the side `.wal` file while the frozen image is written,
+and back at the main file when the side log is spliced in
+(core/fragment.py).
+
+Power-loss simulation: under group / always, records sit in the buffer
+until their commit, so a SIGKILL at the `storage.fsync` seam (fault.py)
+loses every unsynced op, as a power cut would. With
+PILOSA_TORCH_WAL_SIM_POWER_LOSS=1 (or WalConfig(simulate_power_loss=
+True)), `never` buffers its records too (written out only at a snapshot
+flip or close), so a kill -9 is a power cut for that policy as well.
+
+Stats (process-wide, read by /debug/vars): WAL_STATS counts fsyncs,
+ops committed, torn tails cut, snapshots taken and failed, and
+backpressure waits and sheds; GROUP_SIZE is the ops per commit and
+SNAPSHOT_US the background snapshots' wall time.
+
 Lock order: Fragment._mu -> WalCommitter._cv. `write` and `retarget`
 are called with the fragment's lock held; `wait_durable` never is, so a
 leader sleeping its window blocks neither readers nor other writers.
@@ -30,6 +47,10 @@ from __future__ import annotations
 import os
 import threading
 import time
+from typing import Optional
+
+from .. import fault
+from ..stats import Histogram, StatMap
 
 FSYNC_NEVER = "never"
 FSYNC_GROUP = "group"
@@ -37,16 +58,34 @@ FSYNC_ALWAYS = "always"
 FSYNC_POLICIES = (FSYNC_NEVER, FSYNC_GROUP, FSYNC_ALWAYS)
 
 DEFAULT_GROUP_WINDOW_US = 250.0
+DEFAULT_MAX_WAL_OPS = 65536
+DEFAULT_BACKPRESSURE_DEADLINE = 1.0
+SIM_POWER_LOSS_ENV = "PILOSA_TORCH_WAL_SIM_POWER_LOSS"
+
+WAL_STATS = StatMap()
+GROUP_SIZE = Histogram()   # ops per commit
+SNAPSHOT_US = Histogram()  # background snapshot wall time, us
 
 
 class WalConfig:
-    """The durability policy, threaded Holder -> Index -> Frame -> View
-    -> Fragment."""
+    """The storage config (the JAX server's [storage] knobs), threaded
+    Holder -> Index -> Frame -> View -> Fragment: the fsync policy and
+    its group window; max_op_n, the ops after which a fragment
+    snapshots (None: fragment.MAX_OP_N); max_wal_ops, the ops not yet
+    covered by a snapshot past which writers wait for one
+    (backpressure; <= 0 never waits); backpressure_deadline, the seconds
+    a writer waits before it is shed; simulate_power_loss (module
+    docstring)."""
 
-    __slots__ = ("fsync_policy", "group_window_us")
+    __slots__ = ("fsync_policy", "group_window_us", "max_wal_ops",
+                 "backpressure_deadline", "max_op_n", "simulate_power_loss")
 
     def __init__(self, fsync_policy: str = FSYNC_GROUP,
-                 group_window_us: float = DEFAULT_GROUP_WINDOW_US):
+                 group_window_us: float = DEFAULT_GROUP_WINDOW_US,
+                 max_wal_ops: int = DEFAULT_MAX_WAL_OPS,
+                 backpressure_deadline: float = DEFAULT_BACKPRESSURE_DEADLINE,
+                 max_op_n: Optional[int] = None,
+                 simulate_power_loss: bool = False):
         if fsync_policy not in FSYNC_POLICIES:
             # A typo must not silently weaken durability to "never".
             raise ValueError(
@@ -54,14 +93,20 @@ class WalConfig:
                 f"got {fsync_policy!r}")
         self.fsync_policy = fsync_policy
         self.group_window_us = float(group_window_us)
+        self.max_wal_ops = int(max_wal_ops)
+        self.backpressure_deadline = float(backpressure_deadline)
+        self.max_op_n = max_op_n
+        self.simulate_power_loss = bool(
+            simulate_power_loss or os.environ.get(SIM_POWER_LOSS_ENV))
 
 
 class WalCommitter:
     """One fragment's commit barrier and op-record router. All state
     lives under one condition variable."""
 
-    def __init__(self, cfg: WalConfig):
+    def __init__(self, cfg: WalConfig, path: str = ""):
         self.cfg = cfg
+        self.path = path             # the fragment's, for the fault seam
         self._cv = threading.Condition()
         self._target = None          # the unbuffered append file
         self._buf = bytearray()      # accepted, not yet written
@@ -74,6 +119,9 @@ class WalCommitter:
     def _syncs(self) -> bool:
         return self.cfg.fsync_policy != FSYNC_NEVER
 
+    def _buffers(self) -> bool:
+        return self._syncs() or self.cfg.simulate_power_loss
+
     # -- the op_writer protocol (under Fragment._mu) -------------------------
 
     def write(self, data: bytes) -> int:
@@ -81,7 +129,7 @@ class WalCommitter:
         with self._cv:
             if self._target is None:
                 raise ValueError("WAL committer detached")
-            if self._syncs():
+            if self._buffers():
                 self._buf += data
             else:
                 self._target.write(data)
@@ -166,10 +214,18 @@ class WalCommitter:
         with self._cv:
             if self._target is None or self._synced >= self._appended:
                 return
+            batch = self._appended - self._synced
+            # Before the write: a kill armed here loses every unsynced
+            # op, the window a power cut opens.
+            fault.point("storage.fsync", path=self.path, kind="commit",
+                        pending=batch)
             if self._buf:
                 self._target.write(bytes(self._buf))
                 self._buf.clear()
             os.fsync(self._target.fileno())
-            self.committed_ops += self._appended - self._synced
+            self.committed_ops += batch
             self._synced = self._appended
             self.fsyncs += 1
+            WAL_STATS.inc("fsync")
+            WAL_STATS.inc("group_ops", batch)
+            GROUP_SIZE.observe(batch)

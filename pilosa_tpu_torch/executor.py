@@ -33,6 +33,18 @@ other device error propagates. `explain()` reports a Count's route and
 why, its plan signature and quarantine, its views' formats and what
 staging them would take, without running it.
 
+Shadow verification (`shadow_sample` = N > 0; 0, the default, is off):
+every Nth card answer of a Count, a TopN or a Sum / Min / Max is
+recomputed by the host fold and compared (`_shadow_check_*`,
+SHADOW_STATS `checks:<backend>` / `mismatch:<backend>`, backend `mesh`
+or `bsi`). On a mismatch the host value is served and logged, and a
+Count's plan signature is quarantined (MeshManager.quarantine_plan), so
+the same shape folds on the host until the quarantine's TTL: the second
+cause of a quarantine, after memory. A TopN is checked by recounting
+the ids the card returned; TopN and the aggregates count per-row planes
+keyed by view, not by one plan signature, so their mismatch quarantines
+nothing (as in the JAX package).
+
 Bitmap and Range calls materialize roaring rows per slice on the host; a
 time Range ORs the row over the views that cover [start, end). A root
 Bitmap result carries the row's attrs (or the column's, for a column
@@ -43,6 +55,8 @@ stores.
 
 from __future__ import annotations
 
+import itertools
+import logging
 import threading
 from collections import Counter
 from typing import List, Optional, Sequence
@@ -69,6 +83,7 @@ from .parallel.serve import mesh_config as mesh_config_check
 from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
 from .pql import Call, Cond, Query
+from .stats import StatMap
 
 _BINOPS = {"Intersect": "intersect", "Union": "union",
            "Difference": "difference"}
@@ -80,18 +95,27 @@ _WRITE_CALLS = ("ClearBit", "SetBit", "SetValue", "SetRowAttrs",
 # rank_pairs keeps no row under one bit either).
 MIN_THRESHOLD = 1
 
+# Shadow verification: "checks:<backend>" / "mismatch:<backend>".
+SHADOW_STATS = StatMap()
+
+_log = logging.getLogger("pilosa_tpu_torch.executor")
+
 
 class Executor:
     """Evaluates PQL against a Holder; device work runs on `device`.
     sparse_density_threshold: mean container fill under which a slice
     stages as sorted arrays (<= 0 stages everything dense). mesh_config:
-    the manager's [mesh] knobs (parallel.serve.MESH_DEFAULTS)."""
+    the manager's [mesh] knobs (parallel.serve.MESH_DEFAULTS).
+    shadow_sample: check 1 in N card answers on the host (0: off)."""
 
     def __init__(self, holder, device="cuda",
                  sparse_density_threshold: float =
                  DEFAULT_SPARSE_DENSITY_THRESHOLD,
-                 mesh_config: Optional[dict] = None):
+                 mesh_config: Optional[dict] = None,
+                 shadow_sample: int = 0):
         self.holder = holder
+        self.shadow_sample = int(shadow_sample)
+        self._shadow_counter = itertools.count()
         self.device = resolve_device(device)
         self.sparse_density_threshold = sparse_density_threshold
         mesh_config_check(mesh_config)  # a bad knob fails here, not later
@@ -315,10 +339,80 @@ class Executor:
                                   leaves, slices, num, sig)
                 if n is not None:
                     self._inc("count_device")
+                    if self._shadow_sampled():
+                        n = self._shadow_check_count(index, child, slices,
+                                                     n, sig)
                     return n
         self._inc("count_host")
+        return self._count_host(index, child, slices)
+
+    def _count_host(self, index: str, child: Call, slices: List[int]) -> int:
         return sum(self._bitmap_slice(index, child, s).count()
                    for s in slices)
+
+    # -- shadow verification ---------------------------------------------------
+
+    def _shadow_sampled(self) -> bool:
+        """True on every Nth call when shadow_sample = N > 0."""
+        n = self.shadow_sample
+        return n > 0 and next(self._shadow_counter) % n == 0
+
+    def _shadow_mismatch(self, backend: str, what: str, device, host,
+                         index: str, slices) -> None:
+        SHADOW_STATS.inc(f"mismatch:{backend}")
+        _log.error("shadow verification MISMATCH (%s %s): device=%s "
+                   "host=%s index=%s slices=%d; serving the host value",
+                   backend, what, device, host, index, len(slices))
+
+    def _shadow_check_count(self, index: str, child: Call, slices,
+                            device_n: int, sig: str) -> int:
+        """A card Count against the host fold of the same tree. On a
+        mismatch: the host value, and the plan signature quarantined,
+        so a plan that miscomputes stops serving."""
+        SHADOW_STATS.inc("checks:mesh")
+        host_n = self._count_host(index, child, slices)
+        if host_n == int(device_n):
+            return device_n
+        self._shadow_mismatch("mesh", "Count", device_n, host_n, index,
+                              slices)
+        self.mesh_manager().quarantine_plan(sig)
+        return host_n
+
+    def _shadow_check_top_n(self, index: str, c: Call, slices, pairs):
+        """A card TopN against the host's exact recount of the ids it
+        returned (Fragment.top with ids, with the same src child; no
+        threshold, which the host applies per slice). Returns the pairs,
+        or None on a mismatch (the caller then serves the host TopN)."""
+        SHADOW_STATS.inc("checks:mesh")
+        if not pairs:
+            return pairs
+        other = c.clone()
+        other.args["ids"] = sorted(int(p[0]) for p in pairs)
+        for key in ("n", "threshold"):
+            other.args.pop(key, None)
+        host = self._top_n_host_slices(index, other, slices)
+        if dict(host) == {int(k): int(v) for k, v in pairs}:
+            return pairs
+        self._shadow_mismatch("mesh", "TopN", dict(pairs), dict(host),
+                              index, slices)
+        return None
+
+    def _shadow_check_bsi(self, index: str, c: Call, frame, schema, child,
+                          slices, device_out):
+        """A card Sum / Min / Max against the host folds of bsi.host."""
+        SHADOW_STATS.inc("checks:bsi")
+        host_out = self._bsi_host(index, frame, schema, c, child, slices)
+        if c.name == "Sum" and host_out is None:
+            host_out = (0, 0)
+
+        def norm(v):
+            return None if v is None else (int(v[0]), int(v[1]))
+
+        if norm(host_out) == norm(device_out):
+            return device_out
+        self._shadow_mismatch("bsi", c.name, device_out, host_out, index,
+                              slices)
+        return host_out
 
     @staticmethod
     def _on_card(fn, *args):
@@ -518,6 +612,9 @@ class Executor:
         self._inc("bsi_device" if on_card else "bsi_host")
         if not on_card:
             out = self._bsi_host(index, frame, schema, c, child, slices)
+        elif self._shadow_sampled():
+            out = self._shadow_check_bsi(index, c, frame, schema, child,
+                                         slices, out)
         if c.name == "Sum":
             s, n = out if out is not None else (0, 0)
             return {"value": int(s), "count": int(n)}
@@ -622,6 +719,10 @@ class Executor:
         or, when the card cannot serve its form, top_n_host."""
         pairs = (self._on_card(self._top_n_device, index, c, slices)
                  if slices else None)
+        if pairs is not None and not c.args.get("filters") \
+                and not c.uint_arg("tanimotoThreshold")[0] \
+                and self._shadow_sampled():
+            pairs = self._shadow_check_top_n(index, c, slices, pairs)
         if pairs is not None:
             self._inc("topn_device")
             return pairs

@@ -68,6 +68,15 @@ An evicted view's device tensors are dropped as soon as no query holds
 it (StagedView.release), so nothing that still refers to the view object
 keeps its memory, and a restage frees the old image before it allocates
 the new one.
+
+A fragment whose file fails integrity verification raises
+CorruptFragmentError when a staging touches it: that query fails as it
+is (HTTP 500). It is not a kernel error, so it takes no strike, and not
+a governor cause, so it gets no host fold, which would read the same
+file. Every served Count and every per-row count passes the result seam
+fault.perturb("device.exec", ..., kind="count-result"), where a delta=
+rule models a kernel that silently miscomputes; the executor's shadow
+verification is what catches it.
 """
 
 from __future__ import annotations
@@ -1172,11 +1181,13 @@ class MeshManager:
             if isinstance(req, _SparseCount):
                 total = self._run_sparse(req)
                 self._inc("sparse_count")
-                self._inc("count")
-                return total
-            total = self._run_dense(req)
+            else:
+                total = self._run_dense(req)
             self._inc("count")
-            return total
+            # The result seam: a delta= rule is a kernel that silently
+            # miscomputes, which shadow verification must catch.
+            return fault.perturb("device.exec", total, sig=req.sig,
+                                 kind="count-result")
         finally:
             if isinstance(req, _CountRequest):
                 req.clear()
@@ -1311,8 +1322,10 @@ class MeshManager:
                 pool, a_idx[lo:lo + MAX_ROWS_PER_LAUNCH].contiguous(),
                 "and", **b))
             self._inc("kernel:pair_count_rows")
-        return (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu(
+        counts = (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu(
         ).numpy()
+        return fault.perturb("device.exec", counts, sig="__row_counts__",
+                             kind="count-result")
 
     def bsi_plane_counts(self, index: str, frame: str, view: str,
                          slices: Sequence[int], num_slices: int, src=None,

@@ -48,14 +48,22 @@ def popcount_words(words: np.ndarray) -> int:
 
 class Container:
     """One 2^16-value block: sorted uint32 array or 1024-word uint64
-    bitmap. Normalized: n <= 4096 <=> array form."""
+    bitmap. Normalized: n <= 4096 <=> array form. `shared` marks a
+    container that a frozen view (Bitmap.freeze_view) also holds: the
+    live bitmap clones it before any mutation (copy-on-write). `fnv` is
+    the FNV-1a of its serialized bytes, when known (from a verified
+    footer, or the last snapshot that wrote it); every mutation drops it,
+    so a snapshot hashes only the containers that changed."""
 
-    __slots__ = ("array", "bitmap")
+    __slots__ = ("array", "bitmap", "shared", "fnv")
 
     def __init__(self, array: Optional[np.ndarray] = None,
-                 bitmap: Optional[np.ndarray] = None):
+                 bitmap: Optional[np.ndarray] = None,
+                 fnv: Optional[int] = None):
         self.array = array
         self.bitmap = bitmap
+        self.shared = False
+        self.fnv = fnv
         if array is None and bitmap is None:
             self.array = np.empty(0, dtype=_U32)
 
@@ -72,16 +80,16 @@ class Container:
         """Convert between forms at the 4096 threshold."""
         if self.array is not None and len(self.array) > ARRAY_MAX_SIZE:
             self.bitmap = values_to_bitmap_words(self.array)
-            self.array = None
+            self.array = self.fnv = None
         elif self.bitmap is not None and self.n <= ARRAY_MAX_SIZE:
             self.array = bitmap_to_values(self.bitmap)
-            self.bitmap = None
+            self.bitmap = self.fnv = None
         return self
 
     def clone(self) -> "Container":
         if self.array is not None:
-            return Container(array=self.array.copy())
-        return Container(bitmap=self.bitmap.copy())
+            return Container(array=self.array.copy(), fnv=self.fnv)
+        return Container(bitmap=self.bitmap.copy(), fnv=self.fnv)
 
     def values(self) -> np.ndarray:
         """Sorted uint32 values present in this container."""
@@ -107,6 +115,7 @@ class Container:
             i = int(np.searchsorted(self.array, v))
             if i < len(self.array) and int(self.array[i]) == v:
                 return False
+            self.fnv = None
             self.array = np.insert(self.array, i, _U32(v))
             self.normalize()
             return True
@@ -114,6 +123,7 @@ class Container:
         word = int(self.bitmap[w])
         if (word >> b) & 1:
             return False
+        self.fnv = None
         self.bitmap[w] = _U64(word | (1 << b))
         return True
 
@@ -123,12 +133,14 @@ class Container:
             i = int(np.searchsorted(self.array, v))
             if i >= len(self.array) or int(self.array[i]) != v:
                 return False
+            self.fnv = None
             self.array = np.delete(self.array, i)
             return True
         w, b = v >> 6, v & 63
         word = int(self.bitmap[w])
         if not (word >> b) & 1:
             return False
+        self.fnv = None
         self.bitmap[w] = _U64(word & ~(1 << b))
         self.normalize()
         return True
@@ -136,6 +148,7 @@ class Container:
     def add_many(self, vals: np.ndarray) -> int:
         """Bulk add low-bits values; returns the number newly set."""
         before = self.n
+        self.fnv = None
         words = self.words().copy()
         words |= values_to_bitmap_words(vals)
         self.array, self.bitmap = None, words
@@ -167,15 +180,21 @@ class Container:
 class Bitmap:
     """Roaring bitmap: sorted (key -> Container) map over the uint64
     space, key = value >> 16. `op_writer`, when set, receives one WAL
-    op per single-value add/remove (serialize.write_op)."""
+    op per single-value add/remove (serialize.write_op). A parsed file
+    sets `verified_footer` (its integrity footer was checked) and
+    `torn_tail_bytes` (the torn op record a crash left, when the parse
+    was asked to drop it)."""
 
-    __slots__ = ("keys", "containers", "op_writer", "op_n")
+    __slots__ = ("keys", "containers", "op_writer", "op_n",
+                 "verified_footer", "torn_tail_bytes")
 
     def __init__(self, values: Optional[Iterable[int]] = None):
         self.keys: list[int] = []
         self.containers: list[Container] = []
         self.op_writer = None
         self.op_n = 0
+        self.verified_footer = False
+        self.torn_tail_bytes = 0
         if values is not None:
             arr = np.asarray(values if isinstance(values, np.ndarray)
                              else list(values), dtype=_U64)
@@ -200,6 +219,29 @@ class Bitmap:
         self.containers.insert(i, c)
         return c
 
+    def _writable_container_for(self, key: int, create: bool = False
+                                ) -> Optional[Container]:
+        """_container_for, cloning a shared container first, so a
+        frozen view never sees a mutation."""
+        i = bisect_left(self.keys, key)
+        if i < len(self.keys) and self.keys[i] == key:
+            c = self.containers[i]
+            if c.shared:
+                c = self.containers[i] = c.clone()
+            return c
+        return self._container_for(key, create)
+
+    def freeze_view(self) -> "Bitmap":
+        """An immutable view of the current state for the background
+        snapshot writer: one list copy, the containers shared and marked
+        copy-on-write on both sides."""
+        out = Bitmap()
+        out.keys = list(self.keys)
+        for c in self.containers:
+            c.shared = True
+        out.containers = list(self.containers)
+        return out
+
     # -- mutation ----------------------------------------------------------
 
     def _log(self, typ: int, v: int) -> None:
@@ -219,7 +261,8 @@ class Bitmap:
         return changed
 
     def _add_one(self, v: int) -> bool:
-        return self._container_for(v >> 16, create=True).add(v & 0xFFFF)
+        return self._writable_container_for(v >> 16, create=True).add(
+            v & 0xFFFF)
 
     def remove(self, *values: int) -> bool:
         changed = False
@@ -230,7 +273,7 @@ class Bitmap:
         return changed
 
     def _remove_one(self, v: int) -> bool:
-        c = self._container_for(v >> 16)
+        c = self._writable_container_for(v >> 16)
         if c is None or not c.remove(v & 0xFFFF):
             return False
         if c.n == 0:
@@ -250,7 +293,7 @@ class Bitmap:
         total = 0
         for s, e in zip(np.concatenate(([0], bounds)),
                         np.concatenate((bounds, [len(keys)]))):
-            c = self._container_for(int(keys[s]), create=True)
+            c = self._writable_container_for(int(keys[s]), create=True)
             total += c.add_many(low[s:e])
         return total
 
@@ -270,6 +313,25 @@ class Bitmap:
         return np.concatenate([
             (_U64(key) << _U64(16)) | c.values().astype(_U64)
             for key, c in zip(self.keys, self.containers)])
+
+    def slice_range(self, start: int, end: int) -> np.ndarray:
+        """The values in [start, end), sorted, as uint64."""
+        if start >= end or not self.keys:
+            return np.empty(0, dtype=_U64)
+        skey, ekey = start >> 16, (end - 1) >> 16
+        parts = []
+        for i in range(bisect_left(self.keys, skey),
+                       bisect_left(self.keys, ekey + 1)):
+            key = self.keys[i]
+            v = (_U64(key) << _U64(16)) | \
+                self.containers[i].values().astype(_U64)
+            if key == skey:
+                v = v[np.searchsorted(v, _U64(start)):]
+            if key == ekey:
+                v = v[:np.searchsorted(v, _U64(end))]
+            parts.append(v)
+        return (np.concatenate(parts) if parts
+                else np.empty(0, dtype=_U64))
 
     def __iter__(self) -> Iterator[int]:
         for v in self.slice():
@@ -333,18 +395,20 @@ class Bitmap:
 
     # -- serialization (serialize.py) --------------------------------------
 
-    def write_to(self, w) -> int:
+    def write_to(self, w, footer: bool = False) -> int:
         from .serialize import write_bitmap
 
-        return write_bitmap(self, w)
+        return write_bitmap(self, w, footer=footer)
 
-    def to_bytes(self) -> bytes:
+    def to_bytes(self, footer: bool = False) -> bytes:
         buf = io.BytesIO()
-        self.write_to(buf)
+        self.write_to(buf, footer=footer)
         return buf.getvalue()
 
     @classmethod
-    def from_bytes(cls, data: bytes) -> "Bitmap":
+    def from_bytes(cls, data: bytes, truncate_torn_tail: bool = False,
+                   verify: bool = False) -> "Bitmap":
         from .serialize import read_bitmap
 
-        return read_bitmap(data)
+        return read_bitmap(data, truncate_torn_tail=truncate_torn_tail,
+                           verify=verify)

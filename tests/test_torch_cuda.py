@@ -895,3 +895,80 @@ def test_delete_frees_view_memory_on_the_card(card, tmp_path):
             "views"] == views0 - 1 == 1
     finally:
         h.close()
+
+
+# -- durability and integrity on the card ----------------------------------------
+
+
+@pytest.mark.cuda
+def test_shadow_verification_on_the_card(card, tmp_path):
+    """At 1 in 1, the card's Count (K1), TopN (K5) and Sum answers are
+    each held against the host fold with no mismatch; a delta= fault at
+    the result seam is served as the host value and quarantines the
+    Count's plan."""
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import SHADOW_STATS, Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    fault.reset()
+    try:
+        words = dense_frame(h, "i", "f", 4, 3, seed=11)
+        ex = Executor(h, device=card, sparse_density_threshold=0,
+                      shadow_sample=1)
+        q = lambda s: ex.execute("i", parse_string(s))[0]  # noqa: E731
+        c0 = SHADOW_STATS.get("checks:mesh", 0)
+        m0 = SHADOW_STATS.get("mismatch:mesh", 0)
+        assert q(pair_pql("f")) == pair_truth(words)
+        top = q("TopN(frame=f, n=2)")
+        full = np.bitwise_count(words).sum(axis=(0, 2, 3))
+        assert [n for _, n in top] == sorted(full.tolist())[::-1][:2]
+        assert SHADOW_STATS.get("checks:mesh", 0) - c0 == 2
+        assert SHADOW_STATS.get("mismatch:mesh", 0) == m0
+        fault.arm("device.exec", delta=5, kind="count-result")
+        assert q(pair_pql("f")) == pair_truth(words)
+        assert SHADOW_STATS.get("mismatch:mesh", 0) == m0 + 1
+        assert len(ex.mesh_manager().quarantined_plans()) == 1
+        assert q(pair_pql("f")) == pair_truth(words)  # on the host now
+        assert ex.stats["count_host"] == 1
+    finally:
+        fault.reset()
+        h.close()
+
+
+@pytest.mark.cuda
+def test_background_snapshots_keep_the_staged_image(card, tmp_path):
+    """Writes past max_op_n snapshot in the background; no snapshot
+    makes the staged view restage (each round is a K7 scatter unless the
+    cost gate picks a restage), and the Count equals numpy with the
+    writes applied."""
+    from pilosa_tpu_torch.core import Holder, WalConfig
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path), wal=WalConfig("group", max_op_n=50))
+    h.open()
+    try:
+        words = dense_frame(h, "i", "f", 2, 2, seed=12)
+        ex = Executor(h, device=card, sparse_density_threshold=0)
+        pql = parse_string(pair_pql("f"))
+        assert ex.execute("i", pql)[0] == pair_truth(words)
+        mgr = ex.mesh_manager()
+        frag = h.fragment("i", "f", "standard", 0)
+        rng = np.random.default_rng(4)
+        for _ in range(6):
+            for col in rng.choice(1 << 16, 40, replace=False):
+                frag.clear_bit(1, int(col))
+                words[0, 1, 0, col >> 6] &= ~np.uint64(1 << (col & 63))
+            assert ex.execute("i", pql)[0] == pair_truth(words)
+        assert frag.wait_snapshot(timeout=30)
+        assert frag._snap_gen >= 2
+        # Every restage after the first is one the cost gate picked.
+        assert mgr.stats["stage"] - 1 == mgr.stats.get(
+            "refresh_pick_restage", 0)
+        assert mgr.stats["incremental"] + mgr.stats.get(
+            "refresh_pick_restage", 0) == 6
+    finally:
+        h.close()
