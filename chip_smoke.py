@@ -49,7 +49,7 @@ Phases, each fatal on failure:
   7. the card-memory governor over HTTP at 960 slices: index `r` gets a
      copy of `general`, and four views (`general` dense, `sparse`
      sorted-array, `mixed`, `r`'s `general`; 3.21 GB) are served under a
-     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 20
+     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 10
      round-robin rounds of a Count(Intersect) on each, every answer
      equal to numpy, evictions required, and after each Count the staged
      bytes within the budget (over it by one view at most while a query
@@ -166,7 +166,32 @@ Phases, each fatal on failure:
      host; then the lone Count's p50 at 1 in 1, 1 in 100 and 0.
      K7, K1, K3 and K0 must launch on this path (the children's counts
      from their /debug/vars);
- 14. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 14. bulk data in and out, on a new holder and a server on the card
+     (frames and files through the port's HTTP routes, InternalClient
+     and ctl): (1) frame `sparse`'s rows 0-7 at 960 slices (~189M bits)
+     into index `imp` as one protobuf POST /import a slice, from 4
+     InternalClient threads in a spawned process of their own (MB/s,
+     bits/s, request p50), then the first Count's staging, the 28 pairs
+     lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
+     imported into slice 17 of that staged view: the next Count
+     restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
+     import --create` of a 1,000,000-line CSV (rows 0-3, 96 slices,
+     minutes of April 2017 as local time) into index `tqi` (quantum YMD)
+     on a server of its own: one day, 7 days and the month on rows 0
+     and 3 equal numpy through the same conversion, with the kernels
+     each launched, and `ctl export` gives the imported set; (4) `ctl
+     backup` of index `i`'s `general` (960 slices) from a server on the
+     main holder and `ctl restore` into index `rst`: every restored file
+     equals its backed-up data member, and the pair (K1), the partial
+     row (K3) and the 28 pairs from 16 clients (K2) equal numpy (backup
+     and restore MB/s); (5) POST /index/fr/frame/general/restore?host=
+     from a third server holding 96 slices of the headline rows (a cut
+     for time); (6) GET /export of slices 0-3 byte for byte, the block
+     digests and block data (JSON, protobuf) of slice 0 against numpy.
+     Then K5 at the imported frame's shape against its plain version.
+     The main holder's index `tq` is dropped first: a fragment holds two
+     file descriptors. K4, K5, K1, K2, K3 and K0 must launch;
+ 15. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -174,8 +199,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 15. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-13, each path's counters set to 0 just before it;
+ 16. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-14, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -310,8 +335,8 @@ def make_words(num_slices: int, seed: int) -> np.ndarray:
     return w
 
 
-def build_holder(path: str, words: np.ndarray, wal=None):
-    """A port Holder whose index `i`, frame `general` holds `words`,
+def build_holder(path: str, words: np.ndarray, wal=None, index: str = "i"):
+    """A port Holder whose index `index`, frame `general` holds `words`,
     injected as whole storage images (per-bit writes would take hours;
     `replace` writes no op records). `wal` is its WAL policy
     (core/wal.WalConfig; None: the bare Holder's `never`)."""
@@ -320,7 +345,7 @@ def build_holder(path: str, words: np.ndarray, wal=None):
 
     h = Holder(path) if wal is None else Holder(path, wal=wal)
     h.open()
-    view = h.create_index_if_not_exists("i").create_frame_if_not_exists(
+    view = h.create_index_if_not_exists(index).create_frame_if_not_exists(
         "general").create_view_if_not_exists("standard")
     for s in range(words.shape[0]):
         bm = Bitmap()
@@ -985,8 +1010,9 @@ def kernel_phase(holder, words: np.ndarray, device, seed: int) -> dict:
 
 
 class Client:
-    def __init__(self, host: str, port: int):
+    def __init__(self, host: str, port: int, index: str = "i"):
         self.conn = http.client.HTTPConnection(host, port, timeout=120)
+        self.index = index
 
     def raw(self, method: str, path: str, body: str = ""):
         self.conn.request(method, path, body=body.encode())
@@ -999,7 +1025,8 @@ class Client:
         return doc
 
     def count(self, pql: str) -> int:
-        return self.call("POST", "/index/i/query", pql)["results"][0]
+        return self.call("POST", f"/index/{self.index}/query",
+                         pql)["results"][0]
 
     def close(self):
         self.conn.close()
@@ -1031,13 +1058,15 @@ def quickstart(c: Client) -> None:
     check(names == ["i", "q"], names)
 
 
-def concurrent(host, port, queries, want, rounds: int = 1) -> float:
+def concurrent(host, port, queries, want, rounds: int = 1,
+               index: str = "i") -> float:
     """CLIENTS threads, each sending every query once per round (from a
-    different offset); returns queries per second. Answers are checked."""
+    different offset) to `index`; returns queries per second. Answers are
+    checked."""
     errors = []
 
     def client(k):
-        c = Client(host, port)
+        c = Client(host, port, index)
         try:
             for _ in range(rounds):
                 for j in range(len(queries)):
@@ -1412,7 +1441,7 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
 
 RES_FRAMES = (("i", "general"), ("i", "sparse"), ("i", "mixed"),
               ("r", "general"))
-RES_ROUNDS = 20          # round-robin rounds, each a Count on every frame
+RES_ROUNDS = 10          # round-robin rounds, each a Count on every frame
 RES_BUDGET_SHARE = 0.6   # the budget's share of the four views' bytes
 RES_SLACK = 64 << 20     # memory_allocated's room over staged_bytes
 RES_DELETE_SLACK = 1 << 20
@@ -3890,7 +3919,477 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
             "kernels": bg.get("kernels", {})}
 
 
-# -- phase 14: the on-chip probe tools -------------------------------------------
+# -- phase 14: bulk data in and out ---------------------------------------------
+
+BULK_THREADS = 4          # import clients, as a parallel `ctl import`
+BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
+BULK_NEW_BITS = 1_000
+TQI_BITS = 1_000_000      # the timestamped CSV's lines
+TQI_SLICES = 96
+TQI_ROWS = 4
+FR_SLICES = 96            # the frame restored from another node (a cut)
+CSV_TIME = "%Y-%m-%dT%H:%M"  # the ctl's time column
+TQI_RANGES = (("1 day", 10, 11), ("7 days", 3, 10), ("month", 1, 31))
+BULK_PATH = ("sparse_pair_count", "pair_count", "coarse_count",
+             "coarse_count_shared", "tree_count", "probe_ok")
+
+
+def sparse_slice_bits(sp: SparseRows, s: int):
+    """(rows, columns) as uint64 of frame `sparse`'s rows 0-7 in slice s,
+    in position order (row, then column)."""
+    vals = (np.arange(2048, dtype=np.uint64) * np.uint64(BUCKET)
+            + sp.off[s, :SPARSE_ROWS].astype(np.uint64))
+    held = np.arange(2048) < sp.lens[s, :SPARSE_ROWS][..., None]
+    r, b, _ = np.nonzero(held)
+    cols = (np.uint64(s << 20) + (b.astype(np.uint64) << np.uint64(16))
+            + vals[held])
+    return r.astype(np.uint64), cols
+
+
+def slice_sets(sp: SparseRows, s: int) -> dict:
+    """{row: its sorted absolute columns in slice s}, rows 0-7."""
+    rows, cols = sparse_slice_bits(sp, s)
+    return {r: cols[rows == r] for r in range(SPARSE_ROWS)}
+
+
+def import_client(host: str, seed: int, slices: int, threads: int,
+                  conn) -> None:
+    """The import's clients, in a process of their own as `ctl import`
+    is: every slice's arrays made from the seed first, then, on the
+    parent's word, one POST /import a slice from `threads`
+    InternalClients. Sends the wall, the bodies' bytes and each
+    request's ms (or the errors) to `conn`."""
+    from pilosa_tpu_torch.api.client import InternalClient
+
+    sp = SparseRows(slices, seed)
+    bits = [sparse_slice_bits(sp, s) for s in range(slices)]
+    del sp
+    conn.send("ready")
+    conn.recv()
+    todo = iter(range(slices))
+    mu = threading.Lock()
+    lat, sent, errors = [], [], []
+
+    def worker():
+        cl = InternalClient(host, timeout=600)
+        while True:
+            with mu:
+                s = next(todo, None)
+            if s is None:
+                return
+            rows, cols = bits[s]
+            t0 = time.monotonic()
+            try:
+                n = cl.import_bits("imp", "sparse", s, rows, cols)
+            except Exception as e:  # noqa: BLE001 — sent to the parent
+                errors.append(repr(e))
+                return
+            with mu:
+                lat.append((time.monotonic() - t0) * 1e3)
+                sent.append(n)
+
+    pool = [threading.Thread(target=worker) for _ in range(threads)]
+    t0 = time.monotonic()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    conn.send({"wall_s": time.monotonic() - t0, "bytes": int(sum(sent)),
+               "ms": lat, "errors": errors})
+
+
+def bulk_import(host: str, seed: int) -> dict:
+    """Runs import_client in a spawned process (the parent holds the
+    card) and returns its record; the window opens once the child's
+    arrays are made."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    mine, theirs = ctx.Pipe()
+    proc = ctx.Process(target=import_client, args=(
+        host, seed, SLICES, BULK_THREADS, theirs), daemon=True)
+    proc.start()
+    try:
+        check(mine.poll(600) and mine.recv() == "ready",
+              "the import client made its arrays")
+        mine.send("go")
+        check(mine.poll(1200), "the import client finished")
+        res = mine.recv()
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.kill()
+    check(not res["errors"] and len(res["ms"]) == SLICES,
+          f"imports: {res['errors'][:3]}")
+    return res
+
+
+def tqi_csv(path: str, seed: int):
+    """Write TQI_BITS lines `row,col,time` (rows 0-3, columns uniform over
+    TQI_SLICES slices, times uniform over the minutes of April 2017) and
+    return (rows, cols, UTC day of each bit as datetime64[D]): the time
+    read as the ctl reads it (local time) and stored as the server
+    stores it (UTC)."""
+    rng = np.random.default_rng([seed, 12])
+    rows = rng.integers(0, TQI_ROWS, TQI_BITS)
+    cols = rng.integers(0, TQI_SLICES << 20, TQI_BITS)
+    minutes = rng.integers(0, 30 * 24 * 60, TQI_BITS)
+    start = datetime(2017, 4, 1)
+    names = [(start + timedelta(minutes=m)).strftime(CSV_TIME)
+             for m in range(30 * 24 * 60)]
+    unix = np.array([int(datetime.strptime(n, CSV_TIME).timestamp())
+                     for n in names], dtype=np.int64)
+    with open(path, "w") as f:
+        f.write("".join(f"{r},{c},{names[m]}\n" for r, c, m in zip(
+            rows.tolist(), cols.tolist(), minutes.tolist())))
+    day = unix[minutes].astype("datetime64[s]").astype("datetime64[D]")
+    return rows, cols, day
+
+
+def tqi_pql(r: int, d0: int, d1: int) -> str:
+    end = "2017-05-01T00:00" if d1 > 30 else f"2017-04-{d1:02d}T00:00"
+    return (f'Count(Range(rowID={r}, frame=events, '
+            f'start="2017-04-{d0:02d}T00:00", end="{end}"))')
+
+
+def tqi_truth(rows, cols, day, r: int, d0: int, d1: int) -> int:
+    lo = np.datetime64(f"2017-04-{d0:02d}")
+    hi = (np.datetime64("2017-05-01") if d1 > 30
+          else np.datetime64(f"2017-04-{d1:02d}"))
+    sel = (rows == r) & (day >= lo) & (day < hi)
+    return len(np.unique(cols[sel]))
+
+
+def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
+               card: str, device, seed: int) -> dict:
+    """Phase 14 (module docstring). The kernel counters are set to 0 just
+    before the phase's first server starts and read after its last
+    query; K5 is then held against its plain version at the imported
+    frame's shape."""
+    import hashlib
+    import tarfile
+
+    import torch
+
+    from pilosa_tpu_torch.api.client import InternalClient
+    from pilosa_tpu_torch.api.server import serve
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.wal import FSYNC_GROUP, WalConfig
+    from pilosa_tpu_torch.ctl.main import main as ctl
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    t_phase = time.monotonic()
+    steps, out = {}, {}
+
+    def mark(name):
+        steps[name] = time.monotonic() - t_phase - sum(steps.values())
+
+    # Truths and request arrays, outside every timed window.
+    pairs = list(itertools.combinations(range(SPARSE_ROWS), 2))
+    want = {(a, b): int(sp.inter((a, b)).sum()) for a, b in pairs}
+    nbits = int(sp.lens[:, :SPARSE_ROWS].sum(dtype=np.int64))
+    rng = np.random.default_rng([seed, 14])
+    new_rows = rng.integers(0, 2, BULK_NEW_BITS).astype(np.uint64)
+    new_cols = (np.uint64(BULK_NEW_SLICE << 20)
+                + rng.integers(0, 1 << 20, BULK_NEW_BITS).astype(np.uint64))
+    sets = slice_sets(sp, BULK_NEW_SLICE)
+    after = {r: np.union1d(c, new_cols[new_rows == r]) if r < 2 else c
+             for r, c in sets.items()}
+    want_after = {(a, b): want[(a, b)]
+                  - len(np.intersect1d(sets[a], sets[b]))
+                  + len(np.intersect1d(after[a], after[b]))
+                  for a, b in pairs}
+    totals = np.array([int(sp.card(r).sum()) + len(after[r]) - len(sets[r])
+                       for r in range(SPARSE_ROWS)], dtype=np.int64)
+    want_topn = TopnTruth.rank(totals, SPARSE_ROWS)
+    mark("truths")
+
+    # A fragment holds two file descriptors (its flock and its append
+    # fd). The time phase's index `tq` (96 slices x 33 views) is done
+    # with: dropping it keeps the holders below the descriptor limit.
+    import resource
+
+    holder.delete_index("tq")
+    out["fds"] = {"open_after_dropping_tq": len(os.listdir("/proc/self/fd")),
+                  "limit": list(resource.getrlimit(resource.RLIMIT_NOFILE))}
+    log(f"bulk: {out['fds']['open_after_dropping_tq']} file descriptors "
+        f"open, limit {out['fds']['limit']}")
+    bh = Holder(os.path.join(tmp, "bulk"), wal=WalConfig(FSYNC_GROUP))
+    bh.open()
+    th = Holder(os.path.join(tmp, "bulk_tq"), wal=WalConfig(FSYNC_GROUP))
+    th.open()
+    fh = build_holder(os.path.join(tmp, "bulk_fr"), words[:FR_SLICES],
+                      wal=WalConfig(FSYNC_GROUP), index="fr")
+    tar_path = REPO / "chiprun_out" / "bulk_backup.tar"
+    tar_path.parent.mkdir(exist_ok=True)
+    tk.reset_launches()
+    srv = serve(bh, device=device)
+    main_srv = serve(holder, device=device)
+    fr_srv = serve(fh, device=device)
+    tq_srv = serve(th, device=device)
+    servers = [srv, main_srv, fr_srv, tq_srv]
+    host = "%s:%d" % srv.address
+    ex = srv.handler.executor
+    c = Client(*srv.address, index="imp")
+    try:
+        # 1. Protobuf import of frame `sparse`'s rows at SLICES slices.
+        c.call("POST", "/index/imp", "{}")
+        c.call("POST", "/index/imp/frame/sparse", "{}")
+        imp = bulk_import(host, seed)
+        imp.pop("errors")
+        imp_lat = np.asarray(imp.pop("ms"))
+        out["import"] = dict(imp, bits=nbits, slices=SLICES,
+                             threads=BULK_THREADS,
+                             mb_per_s=imp["bytes"] / imp["wall_s"] / 1e6,
+                             bits_per_s=nbits / imp["wall_s"],
+                             request_p50_ms=float(np.percentile(imp_lat, 50)),
+                             request_p90_ms=float(np.percentile(imp_lat, 90)))
+        log(f"bulk: imported {nbits} bits in {SLICES} requests "
+            f"({imp['bytes']} B) in {imp['wall_s']:.2f} s from "
+            f"{BULK_THREADS} clients: {out['import']['mb_per_s']:.1f} MB/s, "
+            f"{out['import']['bits_per_s']:.0f} bits/s, request p50 "
+            f"{out['import']['request_p50_ms']:.1f} ms")
+        mark("import")
+        qs = [fpql("and", a, "sparse", b, "sparse") for a, b in pairs]
+        t0 = time.monotonic()
+        got = c.count(qs[0])
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        check(got == want[pairs[0]], ("first imported Count", got))
+        mgr = ex.mesh_manager()
+        sv = mgr._views[("imp", "sparse", "standard")]
+        check(sv.sparse is not None and bool(sv.slice_formats.all()),
+              "imported frame sparse staged sorted")
+        out["first_count_s"] = first_s
+        log(f"bulk: first Count over the imported frame (staging) "
+            f"{first_s:.2f} s")
+        collect_after_staging("bulk")
+        k4 = tk.LAUNCHES["sparse_pair_count"]
+        for q, p in zip(qs, pairs):
+            got = c.count(q)
+            check(got == want[p], (q, got, want[p]))
+        out["concurrent_qps"] = concurrent(
+            *srv.address, qs, [want[p] for p in pairs], index="imp")
+        check(tk.LAUNCHES["sparse_pair_count"] > k4,
+              "the imported pairs ran K4")
+        mark("imported Counts")
+
+        # 2. An import into the staged view restages it, exact.
+        before = dict(mgr.stats)
+        t0 = time.monotonic()
+        InternalClient(host).import_bits("imp", "sparse", BULK_NEW_SLICE,
+                                         new_rows, new_cols)
+        import_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        got = c.count(qs[0])
+        torch.cuda.synchronize()
+        restage_ms = (time.monotonic() - t0) * 1e3
+        check(got == want_after[pairs[0]], ("Count after the import", got))
+        delta = {k: mgr.stats.get(k, 0) - before.get(k, 0)
+                 for k in ("stage", "stage_us", "incremental",
+                           "refresh_pick_restage")}
+        check(delta["stage"] == 1 and delta["incremental"] == 0,
+              f"the import restaged the view: {delta}")
+        for q, p in zip(qs, pairs):
+            got = c.count(q)
+            check(got == want_after[p], (q, got, want_after[p]))
+        got = c.call("POST", "/index/imp/query",
+                     f"TopN(frame=sparse, n={SPARSE_ROWS})")["results"][0]
+        check(got == want_topn, ("TopN over the imported frame", got))
+        out["restage"] = {"import_ms": import_s * 1e3,
+                          "count_ms": restage_ms, "stats": delta}
+        log(f"bulk: {BULK_NEW_BITS} bits into slice {BULK_NEW_SLICE} in "
+            f"{import_s * 1e3:.1f} ms; the next Count restaged in "
+            f"{restage_ms:.1f} ms (stats {delta}); TopN exact")
+        mark("import into a staged view")
+
+        # 3. ctl import of a timestamped CSV into a YMD index, on a
+        # server of its own (its 33 views x 96 slices are closed after).
+        tq_host = "%s:%d" % tq_srv.address
+        csv_path = os.path.join(tmp, "tqi.csv")
+        t0 = time.monotonic()
+        trows, tcols, tday = tqi_csv(csv_path, seed)
+        csv_s = time.monotonic() - t0
+        tq = Client(*tq_srv.address, index="tqi")
+        try:
+            tq.call("POST", "/index/tqi", json.dumps(
+                {"options": {"timeQuantum": "YMD"}}))
+            t0 = time.monotonic()
+            check(ctl(["import", "--host", tq_host, "-i", "tqi", "-f",
+                       "events", "--create", csv_path]) == 0, "ctl import")
+            ctl_s = time.monotonic() - t0
+            views = tq.call("GET", "/index/tqi/frame/events/views")["views"]
+            ranges = {}
+            for name, d0, d1 in TQI_RANGES:
+                for r in (0, TQI_ROWS - 1):
+                    k_before = dict(tk.LAUNCHES)
+                    got = tq.count(tqi_pql(r, d0, d1))
+                    w = tqi_truth(trows, tcols, tday, r, d0, d1)
+                    check(got == w, (name, r, got, w))
+                    torch.cuda.synchronize()
+                    ranges[f"{name}, row {r}"] = {
+                        "count": got, "launched": sorted(
+                            k for k, n in tk.LAUNCHES.items()
+                            if n > k_before.get(k, 0))}
+            exp_path = os.path.join(tmp, "tqi_export.csv")
+            t0 = time.monotonic()
+            check(ctl(["export", "--host", tq_host, "-i", "tqi", "-f",
+                       "events", "-o", exp_path]) == 0, "ctl export")
+            export_s = time.monotonic() - t0
+            with open(exp_path) as f:
+                exported = set(f.read().split())
+            check(exported == {f"{r},{col}" for r, col in
+                               zip(trows.tolist(), tcols.tolist())},
+                  "ctl export = the imported CSV's (row, col) set")
+            tq_mstats = dict(tq_srv.handler.executor.mesh_manager().stats)
+        finally:
+            tq.close()
+            tq_srv.close()
+            th.close()
+        out["ctl_import"] = {"bits": TQI_BITS, "csv_s": csv_s,
+                             "wall_s": ctl_s, "bits_per_s": TQI_BITS / ctl_s,
+                             "views": len(views), "ranges": ranges,
+                             "export_s": export_s, "mesh_stats": tq_mstats}
+        log(f"bulk: ctl import of {TQI_BITS} timestamped lines into "
+            f"{len(views)} views in {ctl_s:.2f} s "
+            f"({TQI_BITS / ctl_s:.0f} bits/s); Ranges exact, launched "
+            f"{json.dumps(ranges)}; ctl export in {export_s:.2f} s, the "
+            "imported set")
+        mark("ctl import")
+
+        # 4. ctl backup of index i's `general`, ctl restore into `rst`.
+        mhost = "%s:%d" % main_srv.address
+        t0 = time.monotonic()
+        check(ctl(["backup", "--host", mhost, "-i", "i", "-f", "general",
+                   "-o", str(tar_path)]) == 0, "ctl backup")
+        backup_s = time.monotonic() - t0
+        tar_bytes = tar_path.stat().st_size
+        c.call("POST", "/index/rst", "{}")
+        c.call("POST", "/index/rst/frame/general", "{}")
+        t0 = time.monotonic()
+        check(ctl(["restore", "--host", host, "-i", "rst", "-f", "general",
+                   str(tar_path)]) == 0, "ctl restore")
+        restore_s = time.monotonic() - t0
+        n_same = 0
+        with tarfile.open(tar_path) as tf:
+            for m in tf.getmembers():
+                s = int(m.name.split(".")[1])
+                with tarfile.open(fileobj=tf.extractfile(m)) as inner:
+                    data = inner.extractfile("data").read()
+                frag = bh.fragment("rst", "general", "standard", s)
+                with open(frag.path, "rb") as f:
+                    n_same += f.read() == data
+        check(n_same == SLICES, f"{n_same} restored files = their data "
+                                "members")
+        rst = Client(*srv.address, index="rst")
+        try:
+            launched = {}
+            for key in (("and", 0, 1), ("and", PARTIAL_ROW, 0)):
+                k_before = dict(tk.LAUNCHES)
+                got = rst.count(pql(*key))
+                check(got == host_count(words, *key), ("rst", key, got))
+                torch.cuda.synchronize()
+                launched[pql(*key)] = sorted(
+                    k for k, n in tk.LAUNCHES.items()
+                    if n > k_before.get(k, 0))
+        finally:
+            rst.close()
+        k2 = tk.LAUNCHES["coarse_count_shared"]
+        dense_q = [pql("and", a, b) for a, b in
+                   itertools.combinations(range(DENSE_ROWS), 2)]
+        rst_qps = concurrent(*srv.address, dense_q,
+                             [host_count(words, "and", a, b) for a, b in
+                              itertools.combinations(range(DENSE_ROWS), 2)],
+                             index="rst")
+        check(tk.LAUNCHES["coarse_count_shared"] > k2,
+              "16 clients on the restored frame ran K2")
+        check("coarse_count" in launched[pql("and", 0, 1)]
+              and "tree_count" in launched[pql("and", PARTIAL_ROW, 0)],
+              f"restored Counts ran K1 and K3: {launched}")
+        out["backup"] = {"bytes": tar_bytes, "backup_s": backup_s,
+                         "restore_s": restore_s,
+                         "backup_mb_per_s": tar_bytes / backup_s / 1e6,
+                         "restore_mb_per_s": tar_bytes / restore_s / 1e6,
+                         "launched": launched, "concurrent_qps": rst_qps}
+        log(f"bulk: backup of {SLICES} fragments ({tar_bytes} B) in "
+            f"{backup_s:.2f} s ({tar_bytes / backup_s / 1e6:.1f} MB/s), "
+            f"restore in {restore_s:.2f} s "
+            f"({tar_bytes / restore_s / 1e6:.1f} MB/s); every data member "
+            f"equal; Counts exact, launched {launched}")
+        mark("backup and restore")
+
+        # 5. Frame restore from another node.
+        c.call("POST", "/index/fr", "{}")
+        c.call("POST", "/index/fr/frame/general", "{}")
+        t0 = time.monotonic()
+        c.call("POST", "/index/fr/frame/general/restore?host=%s:%d"
+               % fr_srv.address)
+        fr_s = time.monotonic() - t0
+        frc = Client(*srv.address, index="fr")
+        try:
+            for key in (("and", 0, 1), ("and", PARTIAL_ROW, 0)):
+                got = frc.count(pql(*key))
+                w = host_count(words[:FR_SLICES], *key)
+                check(got == w, ("frame restore", key, got, w))
+        finally:
+            frc.close()
+        out["frame_restore"] = {"slices": FR_SLICES, "s": fr_s}
+        log(f"bulk: frame restore of {FR_SLICES} slices from another node "
+            f"in {fr_s:.2f} s; Counts exact")
+        mark("frame restore")
+
+        # 6. Export and the block digests.
+        cl = InternalClient(host)
+        for s in range(4):
+            rows, cols = sparse_slice_bits(sp, s)
+            wcsv = "".join(f"{r},{col}\n" for r, col in zip(rows.tolist(),
+                                                             cols.tolist()))
+            check(cl.export_csv("imp", "sparse", "standard", s) == wcsv,
+                  f"GET /export of slice {s}")
+        rows, cols = sparse_slice_bits(sp, 0)
+        pos = (rows << np.uint64(20)) | (cols & np.uint64((1 << 20) - 1))
+        digest = hashlib.sha1(pos.astype("<u8").tobytes()).digest()
+        check(cl.fragment_blocks("imp", "sparse", "standard", 0)
+              == [(0, digest)], "GET /fragment/blocks")
+        want_rc = ((pos >> np.uint64(20)).tolist(),
+                   (pos & np.uint64((1 << 20) - 1)).tolist())
+        check(cl.block_data("imp", "sparse", "standard", 0, 0) == want_rc,
+              "GET /fragment/block/data, protobuf")
+        doc = c.call("GET", "/fragment/block/data?index=imp&frame=sparse&"
+                            "view=standard&slice=0&block=0")
+        check((doc["rowIDs"], doc["columnIDs"]) == want_rc,
+              "GET /fragment/block/data, JSON")
+        log("bulk: export of slices 0-3 byte for byte, blocks and block "
+            "data (JSON, protobuf) of slice 0 equal numpy")
+        mark("export and blocks")
+        torch.cuda.synchronize()
+        launches = {k: tk.LAUNCHES.get(k, 0) for k in KERNELS}
+        stats = dict(ex.stats)
+        mstats = dict(mgr.stats)
+        kern = {"pair_count_rows (TopN, imported frame sparse)": rows_case(
+            mgr, ("imp", "sparse", "standard"), totals,
+            f"pair_count_rows (TopN, imported {SPARSE_ROWS} rows x "
+            f"{SLICES} slices)")}
+    finally:
+        c.close()
+        for server in servers:
+            server.close()
+        for h in (bh, th, fh):
+            h.close()
+        tar_path.unlink(missing_ok=True)
+    wall = time.monotonic() - t_phase
+    log(f"bulk phase on {card}: launches {launches}; {wall:.1f} s, by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"bulk phase stats {json.dumps(mstats, sort_keys=True)}")
+    for k in BULK_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the bulk path")
+    check(stats.get("count_host", 0) == 0 and stats.get("topn_host", 0) == 0,
+          f"no bulk query on the host: {stats}")
+    return dict(out, launches=launches, stats=stats, mesh_stats=mstats,
+                seconds=wall, step_seconds=steps, kernels=kern)
+
+
+# -- phase 15: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -4208,6 +4707,14 @@ def main(argv=None) -> int:
         timeout=30, check=True).stdout.strip().splitlines()[0]
     card = torch.cuda.get_device_name(0)
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # Every fragment holds two file descriptors, and the holders of the
+    # phases hold ~10,000 fragments at once.
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    log(f"open files: limit {soft}, raised to {hard}")
 
     t0 = time.monotonic()
     cuda_build.build_all()
@@ -4242,6 +4749,15 @@ def main(argv=None) -> int:
     sp = SparseRows(SLICES, args.seed)
     from pilosa_tpu_torch.core.wal import FSYNC_GROUP, WalConfig
 
+    phase_s = {}
+    t_lap = [time.monotonic()]
+
+    def done(phase: str) -> None:
+        """Log and keep the seconds since the previous phase ended."""
+        now = time.monotonic()
+        phase_s[phase], t_lap[0] = now - t_lap[0], now
+        log(f"phase {phase}: {phase_s[phase]:.1f} s")
+
     with tempfile.TemporaryDirectory() as tmp:
         # The server's default policy: an acknowledged write is durable.
         holder = build_holder(tmp, words, wal=WalConfig(FSYNC_GROUP))
@@ -4249,12 +4765,17 @@ def main(argv=None) -> int:
             add_sparse_frames(holder, words, sp)
             log(f"data: {SLICES} slices ({SLICES << 20} columns) in "
                 f"{time.monotonic() - t0:.2f} s")
+            done("data")
             kern = kernel_phase(holder, words, device, args.seed)
+            done("kernels")
             sl = slice_phase(holder, words, card, device)
+            done("dense")
             kern["sparse_pair_count"] = sparse_kernel_phase(holder, sp,
                                                             device)
             sps = sparse_phase(holder, words, sp, card, device)
+            done("sparse")
             res = residency_phase(holder, words, sp, card, device)
+            done("residency")
             truth = BsiTruth(SLICES, args.seed, words)
             gen_s = add_bsi_field(holder, truth)
             log(f"bsi data: {SLICES} slices of field {BSI_FIELD} made, "
@@ -4262,6 +4783,7 @@ def main(argv=None) -> int:
             kern.update(bsi_kernel_phase(holder, truth, device, args.seed))
             bsi = bsi_phase(holder, truth, card, device)
             bsi["data_s"] = gen_s
+            done("bsi")
             ttruth = TimeTruth(TIME_SLICES, args.seed)
             gen_s = add_time_index(holder, ttruth)
             gc.collect()
@@ -4270,6 +4792,7 @@ def main(argv=None) -> int:
             tq = time_phase(holder, ttruth, card, device)
             tq["data_s"] = gen_s
             kern.update(tq["kernels"])
+            done("time")
             ntruth = TopnTruth(TOPN_SLICES, args.seed)
             gen_s = add_topn_index(holder, ntruth)
             gc.collect()
@@ -4278,24 +4801,35 @@ def main(argv=None) -> int:
             topn = topn_phase(holder, words, ntruth, card, device)
             topn["data_s"] = gen_s
             kern.update(topn["kernels"])
+            done("topn")
             gc.collect()
             writes = write_phase(holder, words, card, device, args.seed)
             kern.update(writes["kernels"])
+            done("writes")
             gc.collect()
             dur = durability_phase(holder, words, sp, truth, tmp, root, card,
                                    device, args.seed)
             kern.update(dur["kernels"])
+            done("durability")
+            gc.collect()
+            bulk = bulk_phase(holder, words, sp, tmp, card, device,
+                              args.seed)
+            kern.update(bulk["kernels"])
+            done("bulk")
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
     kern.update(probes["kernels"])
+    done("probes")
+    log("phase seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     # Each kernel's launches: the sum over the serving paths, each counted
     # from 0 just before it was driven; K6 and the stream serve only the
     # probe path, whose own loops the other kernels' counts leave out.
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
-             "probes": probes}
+             "bulk": bulk, "probes": probes}
     for name, r in paths.items():
         if name not in ("residency", "probes"):
             no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
@@ -4327,7 +4861,8 @@ def main(argv=None) -> int:
          "wrappers": kern, "slice": sl, "sparse_slice": sps,
          "residency": res,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
-         "write_slice": writes, "durability": dur, "probes": probes,
+         "write_slice": writes, "durability": dur, "bulk": bulk,
+         "probes": probes, "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -101,11 +101,13 @@ def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
     """Start serving `holder`; returns the running APIServer. mesh_config:
     the card-memory governor's knobs (hbm_budget_bytes, hbm_headroom,
     quarantine_after, quarantine_ttl; parallel.serve.MESH_DEFAULTS).
-    shadow_sample: check 1 in N card answers on the host (0: off). On
+    shadow_sample: check 1 in N card answers on the host (0: off). Frame
+    restore reaches other nodes through api.client.InternalClient. On
     a card, the K0 canary (ops.kernels.probe_ok) runs first, and a card
     that fails it is refused before the socket is bound."""
     from ..executor import Executor
     from ..ops.kernels import probe_ok
+    from .client import InternalClient
     from .handler import Handler
 
     ex = Executor(holder, device=device,
@@ -114,7 +116,8 @@ def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
     if ex.device.type == "cuda" and not probe_ok(ex.device):
         raise RuntimeError(f"kernel canary failed on {ex.device}: refusing "
                            "to serve")
-    srv = APIServer(Handler(holder, ex), host, port)
+    srv = APIServer(Handler(holder, ex, client_factory=InternalClient),
+                    host, port)
     srv.start()
     return srv
 

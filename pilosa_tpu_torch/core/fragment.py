@@ -7,8 +7,10 @@ policy (core/wal.py), bulk import, row materialization, the mutation
 `generation` and log the device stager reads to bring its image up to
 date (parallel/serve.py scatters the logged bits into it, or restages
 the view), the rank cache of row counts behind the host TopN (`top`),
-kept in `<fragment>.cache` as the JAX package keeps it, and the
-100-row block checksums (`blocks`).
+kept in `<fragment>.cache` as the JAX package keeps it, the 100-row
+block checksums (`blocks`, `block_data`), the bits in position order
+(`bits`, `for_each_bit`: export) and the tar of a backup
+(`write_to_tar`, `read_from_tar`).
 
 Durability and integrity (pilosa_tpu/core/fragment.py:375-1090):
 - Lazy load: `open(lazy=True)` (the holder's directory scan) takes the
@@ -40,8 +42,10 @@ from __future__ import annotations
 import bisect
 import fcntl
 import hashlib
+import io
 import json
 import os
+import tarfile
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -51,7 +55,7 @@ import numpy as np
 from .. import SLICE_WIDTH, fault
 from ..errors import CorruptFragmentError, WriteBackpressureError
 from ..roaring import Bitmap
-from ..roaring.serialize import scan_ops
+from ..roaring.serialize import CorruptSnapshotError, scan_ops
 from ..stats import StatMap
 from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE, new_cache, \
     sort_pairs
@@ -97,6 +101,19 @@ def bitmap_block_checksums(bm: Bitmap) -> Dict[int, bytes]:
         if len(vals):
             out[blk] = hashlib.sha1(vals.astype("<u8").tobytes()).digest()
     return out
+
+
+def _parse_tar_data(data: bytes) -> Bitmap:
+    """A tar's `data` member, accepted whether or not its footer matches
+    (the JAX package parses it without verifying). When the footer's
+    region CRC matches, its container hashes are kept, as a verified
+    load keeps them, so the restore's snapshot rehashes nothing; when it
+    does not, the bytes load as they are and the snapshot hashes them
+    anew."""
+    try:
+        return Bitmap.from_bytes(data, verify=True)
+    except CorruptSnapshotError:
+        return Bitmap.from_bytes(data)
 
 
 class TopOptions:
@@ -386,6 +403,30 @@ class Fragment:
             h.update(c)
         return h.digest()
 
+    def bits(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(row ids, absolute column ids) of every bit, as uint64 arrays
+        in position order (row, then column): for_each_bit's pairs."""
+        with self._mu:
+            positions = self.storage.slice()
+        width = np.uint64(SLICE_WIDTH)
+        return (positions // width,
+                np.uint64(self.slice * SLICE_WIDTH) + positions % width)
+
+    def for_each_bit(self):
+        """Yield (rowID, absolute columnID) of every bit, as the JAX
+        package's does; the positions are read under the lock first."""
+        rows, cols = self.bits()
+        yield from zip(rows.tolist(), cols.tolist())
+
+    def block_data(self, block_id: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(row ids, slice-local column ids) of one 100-row block."""
+        lo = block_id * HASH_BLOCK_SIZE * SLICE_WIDTH
+        with self._mu:
+            vals = self.storage.slice_range(
+                lo, lo + HASH_BLOCK_SIZE * SLICE_WIDTH)
+        width = np.uint64(SLICE_WIDTH)
+        return vals // width, vals % width
+
     # -- writes ------------------------------------------------------------
 
     def _pos(self, row_id: int, column_id: int) -> int:
@@ -496,6 +537,14 @@ class Fragment:
         covers them (it is the import's commit barrier), waited for. The
         adds apply only when that snapshot can start at once: one frozen
         before them would not cover them."""
+        self._await_snapshot(self.import_begin(row_ids, column_ids))
+
+    def import_begin(self, row_ids: Sequence[int],
+                     column_ids: Sequence[int]) -> int:
+        """import_bits up to its barrier: apply the adds and start the
+        snapshot that covers them; returns the snapshot generation to
+        pass to import_wait. Frame.import_bits begins every fragment of
+        a request before it waits for any, so their snapshots overlap."""
         rows = np.asarray(row_ids, dtype=np.uint64)
         cols = np.asarray(column_ids, dtype=np.uint64)
         if rows.shape != cols.shape:
@@ -508,9 +557,12 @@ class Fragment:
                     self._import_apply_locked(rows, pos)
                     target = self._snap_gen + 1
                     self._start_snapshot()
-                    break
+                    return target
                 done = self._snap_done
             done.wait()
+
+    def import_wait(self, target: int) -> None:
+        """Wait for import_begin's snapshot; raise its error."""
         self._await_snapshot(target)
 
     def _import_apply_locked(self, rows: np.ndarray, pos: np.ndarray):
@@ -555,6 +607,60 @@ class Fragment:
             self.cache = new_cache(self.cache_type, self.cache_size)
             self.rebuild_cache()
             self._log_reset()
+
+    # -- backup / restore ------------------------------------------------------
+
+    def write_to_tar(self, fileobj):
+        """Stream the fragment as a tar: `data`, the snapshot bytes with
+        their integrity footer, and `cache`, the rank cache's pairs as
+        JSON (the JAX package's members)."""
+        with self._mu:
+            data = self.storage.to_bytes(footer=True)
+            cache = json.dumps([[int(i), int(n)] for i, n
+                                in (self.cache.top() or [])]).encode()
+        with tarfile.open(fileobj=fileobj, mode="w|") as tar:
+            for name, raw in (("data", data), ("cache", cache)):
+                info = tarfile.TarInfo(name)
+                info.size = len(raw)
+                info.mtime = int(time.time())
+                tar.addfile(info, io.BytesIO(raw))
+
+    def read_from_tar(self, fileobj):
+        """Restore from write_to_tar's archive. The `data` member replaces
+        the storage whole, only while no snapshot is in flight (one frozen
+        before the swap would write the old image), and a snapshot that
+        covers it is waited for outside _mu: the restore's commit barrier,
+        as for import_bits. The mutation log resets, so a staged view
+        restages. The member is accepted whether or not its footer
+        matches, as the JAX package accepts it (_parse_tar_data). The
+        `cache` member re-adds its rows, recounted, and recalculates."""
+        with tarfile.open(fileobj=fileobj, mode="r|") as tar:
+            for member in tar:
+                buf = tar.extractfile(member).read()
+                if member.name == "data":
+                    bm = _parse_tar_data(buf)
+                    while True:
+                        with self._mu:
+                            self.ensure_loaded()
+                            if not self._snapshotting:
+                                self._storage.op_writer = None
+                                bm.op_writer = self._wal
+                                self._storage = bm
+                                self.op_n = bm.op_n
+                                self._log_reset()
+                                target = self._snap_gen + 1
+                                self._start_snapshot()
+                                break
+                            done = self._snap_done
+                        done.wait()
+                    self._await_snapshot(target)
+                elif member.name == "cache":
+                    with self._mu:
+                        self.ensure_loaded()
+                        for id_, _n in json.loads(buf or b"[]"):
+                            self.cache.bulk_add(int(id_),
+                                                self.row_count(int(id_)))
+                        self.cache.recalculate()
 
     # -- background snapshots --------------------------------------------------
 

@@ -3,7 +3,8 @@
 inverseEnabled, cacheType, cacheSize, timeQuantum, fields). Integer
 fields live in `bsi.<field>` views. A bit written with a timestamp also
 lands in the time views of the frame's quantum ("standard_2017", ...)
-and, with inverse storage, in their inverse twins."""
+and, with inverse storage, in their inverse twins. `import_bits` splits a
+bulk load into those views and their slices."""
 
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ import threading
 from datetime import datetime
 from typing import Dict, Optional, Sequence
 
+import numpy as np
+
+from .. import SLICE_WIDTH
 from ..bsi.field import FieldNotFoundError, FieldSchema, FieldValueError
 from .attr import AttrStore
 from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
@@ -193,9 +197,105 @@ class Frame:
             changed |= iv.clear_bit(column_id, row_id)
         return changed
 
+    def import_bits(self, row_ids, column_ids, timestamps=None):
+        """Bulk import (Fragment.import_bits per view and slice): every
+        bit goes to `standard`; one with a timestamp also to each time
+        view of the frame's quantum; with inverse storage, each of those
+        views has its inverse twin, row and column swapped. `timestamps`
+        holds a datetime or None a bit (the JAX package's form), or is a
+        datetime64 array with NaT for none. Bucketed with numpy sorts:
+        no Python object a bit. Every fragment's adds apply and its
+        snapshot starts before the first is waited for (the snapshots
+        overlap); the call returns once all have landed."""
+        rows = np.asarray(row_ids, dtype=np.uint64).reshape(-1)
+        cols = np.asarray(column_ids, dtype=np.uint64).reshape(-1)
+        if rows.shape != cols.shape:
+            raise ValueError("row/column mismatch")
+        buckets = {VIEW_STANDARD: (rows, cols)}
+        if timestamps is not None:
+            buckets.update(_time_buckets(rows, cols, timestamps,
+                                         self.time_quantum))
+        if self.inverse_enabled:
+            for name, (rs, cs) in list(buckets.items()):
+                buckets[name.replace(VIEW_STANDARD, VIEW_INVERSE, 1)] = (cs,
+                                                                        rs)
+        begun = []
+        try:
+            for name, (rs, cs) in buckets.items():
+                view = self.create_view_if_not_exists(name)
+                for s, sel in _by_slice(cs):
+                    frag = view.create_fragment_if_not_exists(s)
+                    begun.append((frag, frag.import_begin(rs[sel], cs[sel])))
+        finally:
+            # Every begun snapshot is waited for, even after a failure;
+            # the first error is raised.
+            err = None
+            for frag, target in begun:
+                try:
+                    frag.import_wait(target)
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    err = err or e
+            if err is not None:
+                raise err
+
     def to_dict(self) -> dict:
         return {"name": self.name, "meta": self._meta_doc(),
                 "views": sorted(self.views)}
+
+
+def _groups(codes: np.ndarray):
+    """(code, index array) of each distinct code, in code order; the
+    indices of one code keep their order."""
+    if not len(codes):
+        return
+    if codes[0] == codes[-1] and (codes == codes[0]).all():
+        yield codes[0].item(), slice(None)
+        return
+    order = np.argsort(codes, kind="stable")
+    uniq, starts = np.unique(codes[order], return_index=True)
+    for k, (code, a) in enumerate(zip(uniq.tolist(), starts.tolist())):
+        b = starts[k + 1] if k + 1 < len(starts) else len(order)
+        yield code, order[a:b]
+
+
+def _by_slice(cols: np.ndarray):
+    """(slice, selector) of each slice the columns reach."""
+    return _groups(cols // np.uint64(SLICE_WIDTH))
+
+
+_FINEST = (("H", "h"), ("D", "D"), ("M", "M"), ("Y", "Y"))
+
+
+def _time_buckets(rows: np.ndarray, cols: np.ndarray, timestamps,
+                  q: TimeQuantum) -> Dict[str, tuple]:
+    """{time view: (rows, cols)} of the bits that have a timestamp. Names
+    come from views_by_time, once a distinct time at the quantum's
+    finest unit."""
+    unit = next((u for k, u in _FINEST if k in q), None)
+    if unit is None:
+        return {}
+    ts = np.asarray(timestamps if isinstance(timestamps, np.ndarray)
+                    else [np.datetime64("NaT") if t is None else t
+                          for t in timestamps], dtype="datetime64[s]")
+    n = min(len(ts), len(rows))  # zip's length, as the JAX package's
+    rows, cols, ts = rows[:n], cols[:n], ts[:n]
+    keep = ~np.isnat(ts)
+    if not keep.any():
+        return {}
+    rows, cols = rows[keep], cols[keep]
+    uniq, inv = np.unique(ts[keep].astype(f"datetime64[{unit}]"),
+                          return_inverse=True)
+    names = [views_by_time(VIEW_STANDARD,
+                           t.astype("datetime64[s]").astype(datetime), q)
+             for t in uniq]
+    out: Dict[str, tuple] = {}
+    for j in range(len(names[0])):
+        ids: Dict[str, int] = {}
+        code_of = np.array([ids.setdefault(n[j], len(ids)) for n in names])
+        by_code = {c: n for n, c in ids.items()}
+        for code, sel in _groups(code_of[inv]):
+            out[by_code[code]] = (rows[sel], cols[sel])
+    return out
 
 
 def _coerce_fields(fields) -> Dict[str, FieldSchema]:

@@ -108,5 +108,14 @@ class Holder:
         v = self.view(index, frame, view)
         return v.fragment(slice_) if v else None
 
+    def max_slices(self) -> Dict[str, int]:
+        """{index: its highest slice}, over every view of every frame."""
+        return {name: idx.max_slice() for name, idx in self.indexes.items()}
+
+    def max_inverse_slices(self) -> Dict[str, int]:
+        """{index: its highest slice of an `inverse` view}."""
+        return {name: idx.max_inverse_slice()
+                for name, idx in self.indexes.items()}
+
     def schema(self) -> List[dict]:
         return [idx.to_dict() for _, idx in sorted(self.indexes.items())]

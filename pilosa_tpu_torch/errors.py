@@ -31,6 +31,11 @@ class FrameExistsError(PilosaError):
         super().__init__("frame already exists")
 
 
+class FragmentNotFoundError(PilosaError):
+    def __init__(self):
+        super().__init__("fragment not found")
+
+
 class QueryError(PilosaError):
     """Invalid query arguments/shape."""
 

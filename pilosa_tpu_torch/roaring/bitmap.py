@@ -146,9 +146,22 @@ class Container:
         return True
 
     def add_many(self, vals: np.ndarray) -> int:
-        """Bulk add low-bits values; returns the number newly set."""
+        """Bulk add sorted, unique low-bits values; returns the number
+        newly set. An array container merges sorted arrays (a bulk
+        import's common case) and packs words only when it outgrows the
+        array form."""
         before = self.n
         self.fnv = None
+        if self.array is not None:
+            # `vals` come sorted and unique (Bitmap.add_many).
+            merged = (vals.astype(_U32) if not len(self.array) else
+                      np.union1d(self.array, vals.astype(_U32, copy=False)))
+            if len(merged) <= ARRAY_MAX_SIZE:
+                self.array = merged
+            else:
+                self.array = None
+                self.bitmap = values_to_bitmap_words(merged)
+            return len(merged) - before
         words = self.words().copy()
         words |= values_to_bitmap_words(vals)
         self.array, self.bitmap = None, words

@@ -69,24 +69,29 @@ def fnv32a(data: bytes) -> int:
 def fnv32a_blocks(blocks) -> list:
     """fnv32a of each byte string in `blocks`. The hash is serial within
     a block, so many blocks run side by side, one numpy step a byte
-    column, longest first; a few cost less one by one."""
+    column, longest first, in runs of columns over which the count of
+    blocks still going stays the same; a few cost less one by one."""
     if len(blocks) <= 16:
         return [fnv32a(b) for b in blocks]
     lens = np.array([len(b) for b in blocks], dtype=np.int64)
     order = np.argsort(-lens, kind="stable")
-    cols = np.zeros((int(lens.max()), len(blocks)), dtype=np.uint8)
+    # uint32 columns and a prime of the hash's own shape: every step is
+    # then a same-type ufunc call, twice as fast as a mixed-type one.
+    cols = np.zeros((int(lens.max()), len(blocks)), dtype=np.uint32)
     for k, i in enumerate(order):
         cols[:lens[i], k] = np.frombuffer(blocks[i], dtype=np.uint8)
     sorted_lens = lens[order]
     h = np.full(len(blocks), 2166136261, dtype=np.uint32)
-    prime = np.uint32(16777619)
-    live = len(blocks)
-    for j in range(cols.shape[0]):
-        while live and sorted_lens[live - 1] <= j:
-            live -= 1
-        hv = h[:live]
-        np.bitwise_xor(hv, cols[j, :live], out=hv)
-        np.multiply(hv, prime, out=hv)
+    primes = np.full(len(blocks), 16777619, dtype=np.uint32)
+    xor, mul = np.bitwise_xor, np.multiply
+    start = 0
+    for end in np.unique(sorted_lens).tolist():
+        live = int(np.count_nonzero(sorted_lens >= end))
+        hv, pv = h[:live], primes[:live]
+        for col in cols[start:end, :live]:
+            xor(hv, col, hv)
+            mul(hv, pv, hv)
+        start = end
     out = np.empty_like(h)
     out[order] = h
     return out.tolist()

@@ -972,3 +972,56 @@ def test_background_snapshots_keep_the_staged_image(card, tmp_path):
             "refresh_pick_restage", 0) == 6
     finally:
         h.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+def test_import_then_count_on_the_card(card, tmp_path, threshold):
+    """Frame.import_bits of seeded rows (two of sorted-array density, two
+    dense), then Counts and a TopN on the card equal the same executor
+    on the CPU; a second import into the staged view restages it (its
+    mutation log reset) and the answers stay equal."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        rng = np.random.default_rng(21)
+        f = h.create_index("i").create_frame("f")
+
+        def bits(seed):
+            r = np.random.default_rng(seed)
+            rows, cols = [], []
+            for row, n, span in ((0, 2000, SLICE_WIDTH),
+                                 (1, 2000, SLICE_WIDTH),
+                                 (2, 60000, 1 << 17), (3, 60000, 1 << 17)):
+                for s in range(3):
+                    c = r.choice(span, n, replace=False) + s * SLICE_WIDTH
+                    rows.append(np.full(n, row))
+                    cols.append(c)
+            return np.concatenate(rows), np.concatenate(cols)
+
+        f.import_bits(*bits(rng.integers(1 << 30)))
+        queries = [f"Count(Intersect(Bitmap(rowID={a}, frame=f), "
+                   f"Bitmap(rowID={b}, frame=f)))"
+                   for a, b in ((0, 1), (2, 3), (0, 2), (3, 1))]
+        queries.append("TopN(frame=f, n=4)")
+        dev = Executor(h, device=card, sparse_density_threshold=threshold)
+        cpu = Executor(h, device="cpu", sparse_density_threshold=threshold)
+
+        def answers(ex):
+            return [ex.execute("i", parse_string(q))[0] for q in queries]
+
+        before = sum(tk.LAUNCHES.values())
+        assert answers(dev) == answers(cpu)
+        assert sum(tk.LAUNCHES.values()) > before
+        stage = dev.mesh_manager().stats["stage"]
+        f.import_bits(*bits(rng.integers(1 << 30)))
+        assert answers(dev) == answers(cpu)
+        assert dev.mesh_manager().stats["stage"] > stage
+        assert dev.mesh_manager().stats.get("incremental", 0) == 0
+    finally:
+        h.close()
