@@ -49,7 +49,7 @@ Phases, each fatal on failure:
   7. the card-memory governor over HTTP at 960 slices: index `r` gets a
      copy of `general`, and four views (`general` dense, `sparse`
      sorted-array, `mixed`, `r`'s `general`; 3.21 GB) are served under a
-     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 10
+     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 3
      round-robin rounds of a Count(Intersect) on each, every answer
      equal to numpy, evictions required, and after each Count the staged
      bytes within the budget (over it by one view at most while a query
@@ -115,7 +115,7 @@ Phases, each fatal on failure:
      busy share of a round of TopNs;
  12. writes over HTTP on frame `general` at 960 slices, under the
      holder's `group` WAL policy (the server's default; the bulk loads
-     go through Fragment.replace and write no op records): 200 rounds,
+     go through Fragment.replace and write no op records): 120 rounds,
      each a batch of 1, 16 or 256 SetBit / ClearBit calls into existing
      containers of rows 0-7 from up to 16 clients, then a Count(
      Intersect) held against numpy with the writes applied and timed
@@ -137,7 +137,7 @@ Phases, each fatal on failure:
      Intersect(row 0, row 1)) and the bits a run kept are Intersect(
      row 0, row 21)) written to a new directory as footered
      snapshots, and index `d2`. (1) 16 clients SetBit into slices 0-3
-     until each fragment has taken 3 background snapshots at the default
+     until each fragment has taken 2 background snapshots at the default
      max_op_n while one client counts without pause: every Count lies
      between the truth with the writes acked before it and with those
      sent before its answer, the last is exact, the side .wal files are
@@ -158,7 +158,7 @@ Phases, each fatal on failure:
      pass and rewritten from memory, the Count unchanged; one flipped at
      rest makes the Count over index `i` answer 500 and `d2` still
      answers. (5) On the main holder with shadow sampling 1 in 1: the
-     lone Count, 16 clients at once over the 6 pairs of rows 0-3, a
+     lone Count, 4 clients at once over the 6 pairs of rows 0-3, a
      `sparse` Count (K4),
      TopN(n=100) and Sum (K5), all checked with no mismatch; a delta=5
      fault at the result seam is served as the host value, quarantines
@@ -175,7 +175,7 @@ Phases, each fatal on failure:
      lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
      imported into slice 17 of that staged view: the next Count
      restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
-     import --create` of a 1,000,000-line CSV (rows 0-3, 96 slices,
+     import --create` of a 500,000-line CSV (rows 0-3, 96 slices,
      minutes of April 2017 as local time) into index `tqi` (quantum YMD)
      on a server of its own: one day, 7 days and the month on rows 0
      and 3 equal numpy through the same conversion, with the kernels
@@ -191,7 +191,38 @@ Phases, each fatal on failure:
      Then K5 at the imported frame's shape against its plain version.
      The main holder's index `tq` is dropped first: a fragment holds two
      file descriptors. K4, K5, K1, K2, K3 and K0 must launch;
- 15. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 15. the node from its config: `ctl config` parsed by the port's
+     Config and by tomllib (to_toml of the parse equals it) and `ctl
+     server --dry-run -c node.toml -b ADDR` (the flag over the TOML);
+     then `python -m pilosa_tpu_torch.ctl server -c node.toml` as a
+     child process on the card, over a new directory of the headline
+     rows at 960 slices written as footered snapshots (as phase 13's),
+     with [mesh] hbm-budget-bytes at 1.5x `general`'s staged bytes,
+     [storage] group fsyncs and max-op-n 500, [integrity] shadow 1 in
+     10, [log] JSON into chiprun_out/node.log and a declared
+     [[schema.indexes]] cfg/f/val in [-1000, 1000] (the spawn-to-
+     /version seconds; /schema shows the field; every log line is
+     JSON): the pair (K1, lone p50 and QPS over the 28 pairs), the
+     partial row (K3), the 28 pairs spread over 16 clients, twice
+     (K2; 1 in 10 Counts pays a shadow fold); on cfg/f,
+     SetValue on 2,000 columns over 96 slices, Sum (K5),
+     Count(Range(val > 100)) (K3), 100 more SetValues and Sum again
+     (K7 scatters them into the staged field), all against numpy; `ctl
+     bench` set-bit 2,000, intersect-count 200 (K4: rows of 1,000 bits
+     in one container stage as sorted arrays) and topn 200, then the
+     Count and TopN(n=10) on index `bench` against numpy over its
+     export; 20 scrapes of /metrics (p50 ms), each parsed as text
+     format 0.0.4 (TYPE before samples, cumulative buckets ending in
+     +Inf, _count equal to it), whose budget, resident bytes,
+     evictions, fallbacks, fsyncs, snapshots, shadow checks and routes
+     equal /debug/vars read in the same pause; SIGTERM (exit 0 within
+     30 s); `ctl check` over every data file of i/general/standard and
+     of cfg (exit 0, the bits summing to numpy's) and `ctl inspect` of
+     slice 0 (numpy's container keys and counts); a restart from the
+     same node.toml: the schema again unchanged, the pair and the Sum
+     exact, the first Count's seconds. K0, K1, K2, K3, K4, K5 and K7
+     must launch (the children's counts from their /debug/vars);
+ 16. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -199,8 +230,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 16. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-14, each path's counters set to 0 just before it;
+ 17. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-15, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -1441,7 +1472,7 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
 
 RES_FRAMES = (("i", "general"), ("i", "sparse"), ("i", "mixed"),
               ("r", "general"))
-RES_ROUNDS = 10          # round-robin rounds, each a Count on every frame
+RES_ROUNDS = 3           # round-robin rounds, each a Count on every frame
 RES_BUDGET_SHARE = 0.6   # the budget's share of the four views' bytes
 RES_SLACK = 64 << 20     # memory_allocated's room over staged_bytes
 RES_DELETE_SLACK = 1 << 20
@@ -2742,7 +2773,7 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
 
 # -- phase 11: writes into the staged image ------------------------------------
 
-WRITE_ROUNDS = 200
+WRITE_ROUNDS = 120
 WRITE_BATCHES = (1, 16, 256)  # SetBit / ClearBit calls a round, in turn
 WRITERS = 16                  # concurrent clients (rounds and the herd)
 WRITER_OPS = 100              # SetBits each herd client sends
@@ -3126,7 +3157,7 @@ def write_phase(holder, words: np.ndarray, card: str, device,
 DUR_SLICES = (0, 1, 2, 3)   # the slices the durability writers write
 DUR_MASK_ROW = 21           # holds every column a writer may set
 DUR_CANDIDATES = 40_000     # such columns per written slice
-DUR_SNAPSHOTS = 3           # background snapshots each written slice takes
+DUR_SNAPSHOTS = 2           # background snapshots each written slice takes
 DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
 DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
 KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
@@ -3137,7 +3168,10 @@ KILLS = (("commit fsync", "storage.fsync:kind=commit,after=300,"
          ("rename", "storage.rename:after=1,error=SIGKILL"))
 ROT_SCRUBBED, ROT_COLD = 5, 7   # the slices whose files the rot step flips
 ROT_OFFSET = 4096               # inside the snapshot region
-SHADOW_ROUND = 1                # queries each of the 16 clients sends
+SHADOW_ROUND = 1                # queries each of the clients sends
+# Clients of the 1-in-1 round: each Count pays a host fold (~0.4 s
+# alone, longer under concurrency), so the round is cut from 16.
+SHADOW_CLIENTS = 4
 SHADOW_TIMED = ((1, 10), (100, 100), (0, 100))  # (1 in N, lone Counts)
 DURABILITY_PATH = ("apply_writes", "coarse_count", "tree_count", "probe_ok")
 
@@ -3285,7 +3319,6 @@ def dur_background(srv, holder, truth: DurTruth, device) -> dict:
     the view."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pilosa_tpu_torch.core.wal import SNAPSHOT_US
     from pilosa_tpu_torch.parallel import serve as tserve
 
     host, port = srv.address
@@ -3306,7 +3339,6 @@ def dur_background(srv, holder, truth: DurTruth, device) -> dict:
 
         frag._start_snapshot, frag._finish_snapshot = start, finish
     snap0 = {s: f._snap_gen for s, f in frags.items()}
-    hist0 = len(SNAPSHOT_US.values())
     batches = []
     real_apply = tserve.apply_writes
 
@@ -3385,7 +3417,10 @@ def dur_background(srv, holder, truth: DurTruth, device) -> dict:
     check(d["incremental"] > 0 and d["stage"] == d["refresh_pick_restage"],
           f"refreshes scattered; no snapshot restaged the view: {d}")
     snaps = {s: f._snap_gen - snap0[s] for s, f in frags.items()}
-    snap_ms = [us / 1e3 for us in SNAPSHOT_US.values()[hist0:]]
+    # Each snapshot's wall time, start to finish, as the fragment times
+    # it (the log2 SNAPSHOT_US histogram keeps no single values).
+    snap_ms = [(b - a) * 1e3 for ws in windows.values() for a, b in ws
+               if b is not None]
     inside, outside = [], []
     for s, t0, t1 in acks:
         hit = any(a <= t1 and (b or t1) >= t0 for a, b in windows[s])
@@ -3742,7 +3777,7 @@ def dur_rot(root: Path, path: str, truth: DurTruth, device) -> dict:
 
 def dur_shadow(holder, words: np.ndarray, sp: "SparseRows",
                bsi: "BsiTruth", device) -> dict:
-    """Step 5, on the main holder at 1 in 1: the lone Count, a 16-client
+    """Step 5, on the main holder at 1 in 1: the lone Count, a 4-client
     round, a Count on `sparse`, TopN(n=100) and Sum, each checked on the
     host with no mismatch; then a delta=5 result fault: the host value
     is served, the plan quarantined (?explain), and the next Count of
@@ -3781,7 +3816,7 @@ def dur_shadow(holder, words: np.ndarray, sp: "SparseRows",
                 cl.close()
 
         threads = [threading.Thread(target=client, args=(k,))
-                   for k in range(CLIENTS)]
+                   for k in range(SHADOW_CLIENTS)]
         for t in threads:
             t.start()
         for t in threads:
@@ -3802,7 +3837,7 @@ def dur_shadow(holder, words: np.ndarray, sp: "SparseRows",
         d = {k: SHADOW_STATS.get(k, 0) - sh0.get(k, 0)
              for k in ("checks:mesh", "mismatch:mesh", "checks:bsi",
                        "mismatch:bsi")}
-        check(d["checks:mesh"] >= 3 + CLIENTS * SHADOW_ROUND
+        check(d["checks:mesh"] >= 3 + SHADOW_CLIENTS * SHADOW_ROUND
               and d["checks:bsi"] >= 1 and d["mismatch:mesh"] == 0
               and d["mismatch:bsi"] == 0, f"clean shadow checks: {d}")
         # A kernel that miscomputes: the result seam adds 5.
@@ -3924,7 +3959,7 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
 BULK_THREADS = 4          # import clients, as a parallel `ctl import`
 BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
 BULK_NEW_BITS = 1_000
-TQI_BITS = 1_000_000      # the timestamped CSV's lines
+TQI_BITS = 500_000        # the timestamped CSV's lines
 TQI_SLICES = 96
 TQI_ROWS = 4
 FR_SLICES = 96            # the frame restored from another node (a cut)
@@ -4389,7 +4424,458 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
                 seconds=wall, step_seconds=steps, kernels=kern)
 
 
-# -- phase 15: the on-chip probe tools -------------------------------------------
+
+# -- phase 15: the node from its config ------------------------------------------
+
+CONFIG_PATH = ("probe_ok", "coarse_count", "coarse_count_shared", "tree_count",
+               "sparse_pair_count", "pair_count", "apply_writes")
+CFG_COLUMNS = 2_000       # SetValues into cfg/f/val ...
+CFG_SLICES = 96           # ... over these slices, in block 0 of each
+CFG_MORE = 100            # SetValues into the staged field (K7)
+CFG_RANGE = 100           # Count(Range(val > CFG_RANGE))
+CFG_BUDGET_X = 1.5        # [mesh] hbm-budget-bytes over general's bytes
+CFG_SCRAPES = 20
+CFG_ROUNDS = 2            # rounds of the 28 pairs spread over 16 clients
+BENCH_OPS = (("set-bit", 2000), ("intersect-count", 200), ("topn", 200))
+
+
+def ctl_run(root: Path, *argv, timeout: float = 600) -> str:
+    """`python -m pilosa_tpu_torch.ctl ARGV` from root; its stdout. A
+    non-zero exit fails the run."""
+    p = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.ctl",
+                        *map(str, argv)], cwd=str(root), capture_output=True,
+                       text=True, timeout=timeout)
+    check(p.returncode == 0, ("ctl", argv, p.returncode, p.stderr[-3000:]))
+    return p.stdout
+
+
+def http_text(host: str, port: int, path: str) -> str:
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        check(resp.status == 200, (path, resp.status, body[:300]))
+        return body
+    finally:
+        conn.close()
+
+
+def parse_prom(text: str) -> dict:
+    """{(name, ((label, value), ...)): value} of a text-format 0.0.4
+    body, checked as it goes: every line parses, a family's TYPE comes
+    before its samples, a histogram's buckets are cumulative and end in
+    +Inf, and its _count equals that bucket."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? '
+                        r'(NaN|[+-]Inf|-?[0-9][0-9.e+-]*)$')
+    types, out, buckets = {}, {}, {}
+    check(text.endswith("\n"), "the exposition ends with a newline")
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, mtype = line.split(" ", 3)
+            check(name not in types, f"family {name} typed twice")
+            types[name] = mtype
+            continue
+        if not line or line.startswith("# HELP "):
+            continue
+        m = sample.match(line)
+        check(m is not None, f"unparseable sample line {line!r}")
+        name, labels = m.group(1), tuple(re.findall(
+            r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(3) or ""))
+        fam = name if name in types else re.sub(r"_(bucket|sum|count)$",
+                                                "", name)
+        check(fam in types, f"sample {name} before its TYPE")
+        value = float(m.group(4))
+        out[(name, labels)] = value
+        if types[fam] == "histogram" and name.endswith("_bucket"):
+            key = (fam, tuple(kv for kv in labels if kv[0] != "le"))
+            buckets.setdefault(key, []).append((dict(labels)["le"], value))
+    for (fam, labels), bs in buckets.items():
+        counts = [v for _, v in bs]
+        check(counts == sorted(counts) and bs[-1][0] == "+Inf",
+              f"{fam} buckets cumulative, ending in +Inf")
+        check(out[(fam + "_count", labels)] == bs[-1][1],
+              f"{fam}_count equals its +Inf bucket")
+    return out
+
+
+def fam_sum(samples: dict, name: str, **labels) -> float:
+    """The sum of `name`'s samples whose labels include `labels`."""
+    return sum(v for (n, ls), v in samples.items() if n == name
+               and all(dict(ls).get(k) == w for k, w in labels.items()))
+
+
+class NodeChild:
+    """`python -m pilosa_tpu_torch.ctl server -c TOML` as a child process
+    (output appended to `out`); ready when /version answers."""
+
+    def __init__(self, root: Path, toml: Path, port: int, out: Path):
+        self.port = port
+        self.out = open(out, "a")
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.ctl", "server", "-c",
+             str(toml)], cwd=str(root), stdout=self.out,
+            stderr=subprocess.STDOUT)
+        deadline = t0 + 300
+        while True:
+            check(self.proc.poll() is None and time.monotonic() < deadline,
+                  f"the config node started: {out.read_text()[-3000:]}")
+            try:
+                doc = Client("127.0.0.1", port).call("GET", "/version")
+                break
+            except OSError:
+                time.sleep(0.1)
+        self.ready_s = time.monotonic() - t0
+        check(doc.get("version"), ("version", doc))
+
+    def client(self, index: str = "i") -> "Client":
+        return Client("127.0.0.1", self.port, index)
+
+    def launches(self) -> dict:
+        c = self.client()
+        try:
+            return c.call("GET", "/debug/vars")["kernel_launches"]
+        finally:
+            c.close()
+
+    def stop(self) -> float:
+        """SIGTERM; the seconds until it exited, which must be with 0
+        within 30 s."""
+        import signal
+
+        t0 = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+            rc = None
+        self.out.close()
+        check(rc == 0, f"the config node exited 0 on SIGTERM: rc {rc}")
+        return time.monotonic() - t0
+
+
+def spread(host, port, queries, want, rounds: int) -> float:
+    """`rounds` times, the queries spread over CLIENTS concurrent
+    clients (client k sends queries k, k + CLIENTS, ...): each query
+    once a round, so that the shadow folds of 1 in 10 stay few. Answers
+    are checked; returns queries per second."""
+    errors = []
+
+    def client(k):
+        c = Client(host, port)
+        try:
+            for i in range(k, len(queries), CLIENTS):
+                got = c.count(queries[i])
+                if got != want[i]:
+                    errors.append((queries[i], got, want[i]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    t0 = time.monotonic()
+    for _ in range(rounds):
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    dt = time.monotonic() - t0
+    check(not errors, f"spread answers: {errors[:5]}")
+    return rounds * len(queries) / dt
+
+
+def cfg_bits(values: dict) -> int:
+    """Bits a field's view holds for {column: value}: existence, sign
+    and the magnitude's planes."""
+    v = np.asarray(list(values.values()), dtype=np.int64)
+    return int(len(v) + (v < 0).sum()
+               + np.bitwise_count(np.abs(v).astype(np.uint64)).sum())
+
+
+def config_phase(words: np.ndarray, tmp: str, root: Path, card: str,
+                 seed: int, dense: dict) -> dict:
+    """Phase 15 (module docstring). `dense` is phase 4's record: its
+    staged bytes (`general`'s view) set the budget, its lone QPS is the
+    latency compared. The children's kernel launches come from their
+    /debug/vars just before each SIGTERM."""
+    import tomllib
+
+    from pilosa_tpu_torch.config import Config
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    # (1) The config round trip.
+    text = ctl_run(root, "config")
+    check(Config.from_toml(text, is_text=True).to_toml() == text
+          and tomllib.loads(text)["host"] == Config().host,
+          "ctl config parses back to its own text")
+    truth = DurTruth(words, seed)
+    path = os.path.join(tmp, "config_node")
+    write_s = write_dur_dir(path, truth)
+    budget = int(CFG_BUDGET_X * dense["stats"]["staged_bytes"])
+    dense_lone_qps = dense["lone_qps"]
+    port = free_port()
+    log_path = REPO / "chiprun_out" / "node.log"
+    log_path.parent.mkdir(exist_ok=True)
+    log_path.unlink(missing_ok=True)
+    toml = Path(tmp) / "node.toml"
+    toml.write_text(
+        f'data-dir = "{path}"\nhost = "127.0.0.1:{port}"\n'
+        f"[mesh]\nhbm-budget-bytes = {budget}\n"
+        '[storage]\nfsync-policy = "group"\nmax-op-n = 500\n'
+        "[integrity]\nshadow-sample-1-in = 10\n"
+        f'[log]\nformat = "json"\nlevel = "info"\npath = "{log_path}"\n'
+        '[[schema.indexes]]\nname = "cfg"\n[[schema.indexes.frames]]\n'
+        'name = "f"\n[[schema.indexes.frames.fields]]\nname = "val"\n'
+        "min = -1000\nmax = 1000\n")
+    dry = tomllib.loads(ctl_run(root, "server", "--dry-run", "-c", toml,
+                                "-b", "127.0.0.1:1"))
+    check(dry["host"] == "127.0.0.1:1" and dry["data-dir"] == path
+          and dry["mesh"]["hbm-budget-bytes"] == budget
+          and dry["storage"]["max-op-n"] == 500
+          and dry["integrity"]["shadow-sample-1-in"] == 10
+          and dry["schema"]["indexes"][0]["frames"][0]["fields"][0][
+              "name"] == "val", f"--dry-run: the flag over the TOML {dry}")
+    # (2) The node on the card.
+    node_out = REPO / "chiprun_out" / "node.out"
+    node_out.unlink(missing_ok=True)
+    node = NodeChild(root, toml, port, node_out)
+    out["ready_s"] = node.ready_s
+    launches: Counter = Counter()
+    pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+    lone_q = [pql("and", a, b) for a, b in pairs]
+    lone_w = [host_count(words, "and", a, b) for a, b in pairs]
+    rng = np.random.default_rng([seed, 15])
+    cols = ((np.arange(CFG_COLUMNS) % CFG_SLICES) << 20) | rng.choice(
+        1 << 16, CFG_COLUMNS, replace=False)
+    values = dict(zip(cols.tolist(),
+                      rng.integers(-1000, 1001, CFG_COLUMNS).tolist()))
+    counts_sent = 0
+    try:
+        c = node.client()
+        cf = node.client("cfg")
+        try:
+            schema = c.call("GET", "/schema")["indexes"]
+            fields = [fd["name"] for ix in schema if ix["name"] == "cfg"
+                      for fr in ix["frames"] if fr["name"] == "f"
+                      for fd in fr["meta"]["fields"]]
+            check(fields == ["val"], f"/schema shows cfg/f/val: {schema}")
+            t0 = time.monotonic()
+            check(c.count(PAIR) == truth.count(), "the pair Count")
+            out["first_count_s"] = time.monotonic() - t0
+            lat = []
+            for q, w in zip(lone_q, lone_w):
+                t0 = time.monotonic()
+                got = c.count(q)
+                lat.append((time.monotonic() - t0) * 1e3)
+                check(got == w, ("lone", q, got, w))
+            # 1 in 10 of them pays a ~0.4 s shadow fold: the p50 is the
+            # lone latency, phase 4's 1 / QPS its mean without shadows.
+            out["lone"] = {"n": len(lat), "p50_ms": pct(lat, 50),
+                           "p90_ms": pct(lat, 90),
+                           "phase4_mean_ms": 1e3 / dense_lone_qps}
+            check(c.count(PARTIAL) == truth.partial(), "the partial row")
+            out["concurrent_qps"] = spread("127.0.0.1", port, lone_q,
+                                           lone_w, CFG_ROUNDS)
+            counts_sent += 2 + len(lat) + CFG_ROUNDS * len(lone_q)
+            # cfg/f: SetValue, Sum, Range, more SetValues, Sum.
+            items = list(values.items())
+            for lo in range(0, len(items), 100):
+                cf.call("POST", "/index/cfg/query", "".join(
+                    f"SetValue(frame=f, columnID={col}, val={v})"
+                    for col, v in items[lo:lo + 100]))
+
+            def check_sum(what):
+                got = cf.call("POST", "/index/cfg/query",
+                              'Sum(frame=f, field="val")')["results"][0]
+                want = {"value": sum(values.values()), "count": len(values)}
+                check(got == want, (what, got, want))
+
+            check_sum("Sum")
+            got = cf.count(f"Count(Range(frame=f, val > {CFG_RANGE}))")
+            want = sum(v > CFG_RANGE for v in values.values())
+            check(got == want, ("Count(Range)", got, want))
+            counts_sent += 1
+            more = rng.integers(-1000, 1001, CFG_MORE).tolist()
+            cf.call("POST", "/index/cfg/query", "".join(
+                f"SetValue(frame=f, columnID={col}, val={v})"
+                for col, v in zip(cols[:CFG_MORE].tolist(), more)))
+            values.update(zip(cols[:CFG_MORE].tolist(), more))
+            check_sum("Sum after the SetValues into the staged field")
+            # (4) ctl bench against the node.
+            bench = {}
+            for op, n in BENCH_OPS:
+                res = json.loads(ctl_run(root, "bench", "--host",
+                                         f"127.0.0.1:{port}", "--op", op,
+                                         "-n", n).strip().splitlines()[-1])
+                check(res["op"] == op and res["n"] == n, res)
+                bench[op] = res["ops_per_sec"]
+            counts_sent += dict(BENCH_OPS)["intersect-count"]
+            export = http_text("127.0.0.1", port, "/export?index=bench&"
+                               "frame=general&view=standard&slice=0")
+            rc = np.array([ln.split(",") for ln in export.split()],
+                          dtype=np.int64)
+            rows = {int(r): set(rc[rc[:, 0] == r, 1].tolist())
+                    for r in np.unique(rc[:, 0])}
+            cb = node.client("bench")
+            try:
+                got = cb.call("POST", "/index/bench/query",
+                              "Count(Intersect(Bitmap(rowID=1, frame="
+                              "general), Bitmap(rowID=2, frame=general)))"
+                              "TopN(frame=general, n=10)")["results"]
+            finally:
+                cb.close()
+            counts_sent += 1
+            check(got[0] == len(rows[1] & rows[2]),
+                  ("bench Count", got[0], len(rows[1] & rows[2])))
+            ranked = sorted(((len(v), r) for r, v in rows.items()),
+                            key=lambda x: (-x[0], x[1]))
+            want = [n for n, _ in ranked[:10]]
+            check([t["count"] for t in got[1]] == want
+                  and all(len(rows[t["id"]]) == t["count"] for t in got[1]),
+                  ("bench TopN", got[1], ranked[:12]))
+            out["bench_ops_per_sec"] = bench
+            # (5) /metrics against /debug/vars, in one pause.
+            scrape_ms = []
+            for _ in range(CFG_SCRAPES):
+                t0 = time.monotonic()
+                text = http_text("127.0.0.1", port, "/metrics")
+                scrape_ms.append((time.monotonic() - t0) * 1e3)
+                m = parse_prom(text)
+            dv = c.call("GET", "/debug/vars")
+            mesh, wal = dv["mesh"], dv["storage"]["wal"]
+            shadow = dv["integrity"]["shadow"]
+            check(fam_sum(m, "pilosa_hbm_budget_bytes") == budget,
+                  ("budget", fam_sum(m, "pilosa_hbm_budget_bytes"), budget))
+            check(fam_sum(m, "pilosa_hbm_resident_bytes")
+                  == mesh["staged_bytes"] == mesh["hbm"]["padded_bytes"],
+                  ("resident bytes", fam_sum(m, "pilosa_hbm_resident_bytes"),
+                   mesh["staged_bytes"], mesh["hbm"]["padded_bytes"]))
+            zero = {f: fam_sum(m, f) for f in (
+                "pilosa_hbm_evictions_total", "pilosa_device_fallback_total")}
+            check(zero == {f: 0 for f in zero}
+                  and mesh.get("evicted", 0) == 0, ("no eviction", zero))
+            checks = {
+                "fsync": (fam_sum(m, "pilosa_wal_fsync_total"),
+                          wal.get("fsync", 0)),
+                "snapshots": (fam_sum(m, "pilosa_storage_snapshots_total",
+                                      outcome="ok"), wal.get("snapshots", 0)),
+                "shadow": (fam_sum(m, "pilosa_shadow_checks_total"),
+                           sum(v for k, v in shadow.items()
+                               if k.startswith("checks:"))),
+                "mismatch": (fam_sum(m, "pilosa_shadow_mismatch_total"),
+                             sum(v for k, v in shadow.items()
+                                 if k.startswith("mismatch:")))}
+            check(all(a == b for a, b in checks.values())
+                  and checks["fsync"][0] > 0 and checks["snapshots"][0] > 0
+                  and checks["shadow"][0] > 0 and checks["mismatch"][0] == 0,
+                  ("/metrics against /debug/vars", checks))
+            routes = {b: fam_sum(m, "pilosa_query_route_total", backend=b)
+                      for b in ("mesh", "host-fold", "roaring", "bsi-mesh",
+                                "bsi-host")}
+            check(routes["mesh"] == counts_sent and routes["bsi-mesh"] == 2
+                  and routes["host-fold"] == routes["bsi-host"] == 0,
+                  ("routes", routes, counts_sent))
+            out["metrics"] = {"scrape_p50_ms": pct(scrape_ms, 50),
+                              "scrape_max_ms": max(scrape_ms),
+                              "bytes": len(text), "families": len({
+                                  n for n, _ in m}), "checks": checks,
+                              "routes": routes, "budget": budget,
+                              "staged_bytes": mesh["staged_bytes"]}
+            out["schema"] = c.call("GET", "/schema")["indexes"]
+        finally:
+            c.close()
+            cf.close()
+        launches.update(node.launches())
+    finally:
+        out["stop_s"] = node.stop()
+    lines = log_path.read_text().splitlines()
+    check(lines and all(isinstance(json.loads(ln), dict) for ln in lines),
+          "every log line is JSON")
+    # (6) The files the node left.
+    base = Path(path)
+    gen = sorted(p for p in (base / "i/general/standard/fragments").iterdir()
+                 if p.name.isdigit())
+    cfg_files = sorted(p for p in base.glob("cfg/*/*/fragments/*")
+                       if p.name.isdigit())
+    t0 = time.monotonic()
+    report = ctl_run(root, "check", *gen, *cfg_files)
+    check_s = time.monotonic() - t0
+    bits = {}
+    for line in report.splitlines():
+        f, _, rest = line.rpartition(": ok (")
+        check(rest.endswith(" bits)"), f"ctl check: {line}")
+        bits[Path(f)] = int(rest.split()[0])
+    mask_bits = sum(len(m) for m in truth.mask.values())
+    want_gen = int(np.bitwise_count(words).sum(dtype=np.int64)) + mask_bits
+    got_gen = sum(bits[p] for p in gen)
+    check(got_gen == want_gen, ("general's bits", got_gen, want_gen))
+    got_cfg = sum(bits[p] for p in cfg_files)
+    check(got_cfg == cfg_bits(values), ("cfg's bits", got_cfg,
+                                        cfg_bits(values)))
+    info = json.loads(ctl_run(root, "inspect", gen[0]))
+    want_keys = [(r * 16 + b, int(np.bitwise_count(words[0, r, b]).sum()))
+                 for r in range(words.shape[1]) for b in range(16)
+                 if words[0, r, b].any()]
+    if 0 in truth.mask:
+        m0 = truth.mask[0]
+        want_keys += [(DUR_MASK_ROW * 16 + b, int(((m0 >> 16) == b).sum()))
+                      for b in range(16) if ((m0 >> 16) == b).any()]
+    check([(x["key"], x["n"]) for x in info["containers"]] == want_keys,
+          "ctl inspect of slice 0 gives numpy's containers")
+    # (7) The restart.
+    node = NodeChild(root, toml, port, node_out)
+    try:
+        c = node.client()
+        cf = node.client("cfg")
+        try:
+            check(c.call("GET", "/schema")["indexes"] == out["schema"],
+                  "the schema applied again, unchanged")
+            t0 = time.monotonic()
+            check(c.count(PAIR) == truth.count(), "the pair after restart")
+            restart_first_s = time.monotonic() - t0
+            got = cf.call("POST", "/index/cfg/query",
+                          'Sum(frame=f, field="val")')["results"][0]
+            check(got == {"value": sum(values.values()),
+                          "count": len(values)}, ("Sum after restart", got))
+        finally:
+            c.close()
+            cf.close()
+        launches.update(node.launches())
+    finally:
+        node.stop()
+    launches = {k: launches.get(k, 0) for k in KERNELS}
+    wall = time.monotonic() - t_phase
+    out.update(launches=launches, stats={}, write_dir_s=write_s,
+               check_s=check_s, files_checked=len(bits),
+               restart_ready_s=node.ready_s,
+               restart_first_count_s=restart_first_s, seconds=wall,
+               kernels={})
+    log(f"config node on {card}: ready {out['ready_s']:.2f} s after spawn "
+        f"(restart {node.ready_s:.2f} s); first Count "
+        f"{out['first_count_s']:.2f} s (restart {restart_first_s:.2f} s); "
+        f"lone p50 {out['lone']['p50_ms']:.3f} ms (phase 4's mean "
+        f"{out['lone']['phase4_mean_ms']:.3f} ms); the 28 pairs over "
+        f"{CLIENTS} clients {out['concurrent_qps']:.1f} QPS; bench "
+        f"{json.dumps(out['bench_ops_per_sec'])} ops/s; /metrics p50 "
+        f"{out['metrics']['scrape_p50_ms']:.2f} ms over {CFG_SCRAPES} "
+        f"scrapes ({out['metrics']['bytes']} B, "
+        f"{out['metrics']['families']} series); SIGTERM exit in "
+        f"{out['stop_s']:.2f} s; ctl check of {len(bits)} files "
+        f"{check_s:.2f} s")
+    log(f"config phase launches {launches}; {wall:.1f} s")
+    for k in CONFIG_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the config path")
+    return out
+
+# -- phase 16: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -4816,6 +5302,9 @@ def main(argv=None) -> int:
                               args.seed)
             kern.update(bulk["kernels"])
             done("bulk")
+            gc.collect()
+            node = config_phase(words, tmp, root, card, args.seed, sl)
+            done("config")
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
@@ -4829,7 +5318,7 @@ def main(argv=None) -> int:
     # probe path, whose own loops the other kernels' counts leave out.
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
-             "bulk": bulk, "probes": probes}
+             "bulk": bulk, "config": node, "probes": probes}
     for name, r in paths.items():
         if name not in ("residency", "probes"):
             no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
@@ -4862,7 +5351,7 @@ def main(argv=None) -> int:
          "residency": res,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
-         "probes": probes, "phase_seconds": phase_s,
+         "config_node": node, "probes": probes, "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -14,18 +14,18 @@ quietly. The CPU is used only when the caller passes device="cpu".
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 # Columns per slice (2^20), as in the reference format.
 SLICE_WIDTH = 1 << 20
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda"):
     """The torch device an entry point runs on. Raises RuntimeError for
     a CUDA device when no card is present, rather than running on the
     CPU behind the caller's back."""
+    import torch  # here, not at import: ctl server --dry-run needs none
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -72,6 +72,20 @@ class InternalClient:
             raise ClientError(f"{what}: status={status} {msg}",
                               host=self.host, status=status)
 
+    # -- queries -------------------------------------------------------------
+
+    def execute_query(self, index: str, query: str,
+                      slices: Optional[Sequence[int]] = None) -> list:
+        """POST /index/{index}/query with a PQL body (`?slices=` when
+        given); the results list, as JSON."""
+        params = {"slices": ",".join(str(int(s)) for s in slices)} \
+            if slices else None
+        status, data = self._do("POST", f"/index/{index}/query",
+                                params=params, body=query.encode(),
+                                content_type="text/plain")
+        self._check(status, data, "query")
+        return json.loads(data.decode())["results"]
+
     # -- import / export -----------------------------------------------------
 
     def import_bits(self, index: str, frame: str, slice_: int,

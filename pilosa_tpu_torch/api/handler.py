@@ -33,14 +33,37 @@ bodies and status codes.
   GET    /slices/max[?inverse=true]     -> {"maxSlices": {index: n}}, or a
          MaxSlicesResponse
   GET    /schema                                          -> {"indexes": [...]}
-  GET    /debug/vars                    {"storage": {"fragments": each
-         loaded fragment's storage_state, "wal": WAL_STATS, "group_size",
-         "snapshot_us"}, "integrity": {"scrub": the scrubber's record,
+  GET    /metrics                       Prometheus text format 0.0.4 (below)
+  GET    /debug/vars                    the stats client's snapshot (setN,
+         query.us.p50, ..., flat keys "index:i,frame:f,...,setN"),
+         "uptime_seconds", "version", {"storage": {"fragments": each
+         loaded fragment's storage_state, "wal": WAL_STATS,
+         "group_size.count" / ".sum" / ".min" / ".max" / ".p50" / ".p95" /
+         ".p99" and the same of "snapshot_us"}, "integrity": {"scrub": the
+         scrubber's record,
          "shadow": SHADOW_STATS, "fragments": INTEGRITY_STATS,
          "torn_tails"}, "kernel_launches": each kernel's launches in this
          process (ops.kernels.LAUNCHES), and, once a query has built the
          card manager, "mesh": its counters, "hbm": {budget_bytes, the
          residency report}, and "quarantined_plans"}
+
+GET /metrics renders one obs.prom.Registry, whose collectors bridge the
+stores at scrape time (the JAX handler's families and names): the stats
+client (pilosa_<name>_total{index,frame,view,slice}, the query latency
+histograms), pilosa_build_info and pilosa_uptime_seconds, the card
+manager's counters (pilosa_mesh_*, pilosa_dispatch_total{mode},
+pilosa_hbm_evictions_total{reason}, pilosa_device_fallback_total
+{reason}, pilosa_plan_quarantined_total, pilosa_hbm_resident_bytes
+{device} and the rest of the residency report, pilosa_hbm_budget_bytes;
+none before a query built the manager), the executor's routes
+(pilosa_query_route_total{backend,tier},
+pilosa_query_route_duration_microseconds{backend}), the fragments
+(pilosa_fragment_cardinality and pilosa_fragments{state}, sampled at
+most every metrics_sample_interval seconds), storage (pilosa_wal_*,
+pilosa_storage_*) and integrity (pilosa_integrity_*, pilosa_scrub_*,
+pilosa_shadow_*). A family whose store the port lacks (the compile
+counters, the plan and host query caches, the row caches, the cluster,
+the scheduler) is left out. A collector that raises is skipped.
 
 A delete drops the index's staged views from the card at once
 (Executor.invalidate_device_index). An import or a restore resets the
@@ -62,7 +85,9 @@ from __future__ import annotations
 import io
 import json
 import re
-from typing import Callable, Dict, List, NamedTuple, Optional
+import threading
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -71,14 +96,17 @@ from ..core.fragment import INTEGRITY_STATS
 from ..core.row import Row
 from ..core.timequantum import parse_time_quantum
 from ..core.view import VIEW_INVERSE
+from ..core.scrub import SCRUB_STATS
 from ..core.wal import GROUP_SIZE, SNAPSHOT_US, WAL_STATS
 from ..errors import (FragmentNotFoundError, FrameExistsError,
                       FrameNotFoundError, IndexExistsError,
                       IndexNotFoundError, PilosaError, SliceUnavailableError,
                       WriteBackpressureError)
 from ..executor import SHADOW_STATS
+from ..obs import prom
 from ..ops import kernels
 from ..pql import ParseError, parse_string
+from ..utils.stats import ExpvarStats
 from ..wire import (PROTOBUF_CT, BlockDataRequest, BlockDataResponse,
                     ImportRequest, ImportResponse, MaxSlicesResponse)
 
@@ -190,12 +218,25 @@ class Route(NamedTuple):
 class Handler:
     """Transport-agnostic request handler bound to a Holder + Executor."""
 
-    def __init__(self, holder, executor, client_factory=None):
+    def __init__(self, holder, executor, client_factory=None, stats=None):
         self.holder = holder
         self.executor = executor
         # client_factory(host) -> api.client.InternalClient: frame restore
         # pulls a frame's fragments through it (None: 501).
         self.client_factory = client_factory
+        # The stats client the holder records into (a server passes its
+        # ExpvarStats); the handler adds query.<Call> counts and the
+        # query.us timing.
+        self.stats = stats if stats is not None else ExpvarStats()
+        self.version = VERSION
+        self._start_time = time.monotonic()
+        # The fragment gauges are walked at most once in this many
+        # seconds ([obs] metrics-sample-interval).
+        self.metrics_sample_interval = 10.0
+        self._frag_sample: Tuple[float, list] = (0.0, [])
+        self._frag_sample_mu = threading.Lock()
+        self._prom = prom.Registry()
+        self._register_collectors()
         self._routes: List[Route] = []
         r = self._add_route
         r("GET", r"/", self._get_webui)
@@ -227,6 +268,7 @@ class Handler:
         r("GET", r"/slices/max", self._get_slice_max)
         r("GET", r"/version", self._get_version)
         r("GET", r"/debug/vars", self._get_expvar)
+        r("GET", r"/metrics", self._get_metrics)
 
     def _add_route(self, method: str, pattern: str, fn: Callable):
         self._routes.append(Route(method, re.compile("^" + pattern + "$"), fn))
@@ -418,13 +460,18 @@ class Handler:
         return _json_resp({})
 
     def _get_expvar(self, pv, params, headers, body) -> Response:
-        """The `storage`, `integrity` and `mesh` parts of the JAX
-        handler's /debug/vars (pilosa_tpu/api/handler.py:1497-1525)."""
+        """The stats client's snapshot, uptime and version, and the
+        `storage`, `integrity` and `mesh` parts of the JAX handler's
+        /debug/vars (pilosa_tpu/api/handler.py:1497-1525)."""
         wal = WAL_STATS.copy()
-        out = {"storage": {"fragments": self.holder.storage_state(),
-                           "wal": wal,
-                           "group_size": GROUP_SIZE.snapshot(),
-                           "snapshot_us": SNAPSHOT_US.snapshot()},
+        snapshot = getattr(self.stats, "snapshot", None)  # NopStats: none
+        out = snapshot() if snapshot is not None else {}
+        out["uptime_seconds"] = round(time.monotonic() - self._start_time, 3)
+        out["version"] = self.version
+        out |= {"storage": {"fragments": self.holder.storage_state(),
+                            "wal": wal,
+                            **GROUP_SIZE.snapshot("group_size"),
+                            **SNAPSHOT_US.snapshot("snapshot_us")},
                "integrity": {"scrub": self.holder.scrubber.snapshot(),
                              "shadow": SHADOW_STATS.copy(),
                              "fragments": INTEGRITY_STATS.copy(),
@@ -438,6 +485,262 @@ class Handler:
             mesh["quarantined_plans"] = mgr.quarantined_plans()
             out["mesh"] = mesh
         return _json_resp(out)
+
+    # -- /metrics --------------------------------------------------------------
+
+    def _get_metrics(self, pv, params, headers, body) -> Response:
+        """Prometheus text exposition (format 0.0.4) of every store the
+        port has, bridged at scrape time."""
+        return Response(
+            200,
+            {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
+            self._prom.render().encode())
+
+    def _register_collectors(self):
+        reg = self._prom
+        reg.register_collector(lambda: prom.expvar_families(self.stats))
+        for fn in (self._collect_runtime, self._collect_device,
+                   self._collect_routes, self._collect_fragments,
+                   self._collect_storage, self._collect_integrity):
+            reg.register_collector(fn)
+
+    def _collect_runtime(self) -> list:
+        info = prom.MetricFamily("pilosa_build_info", "gauge",
+                                 "Build metadata; the value is always 1.")
+        info.add(1, {"version": self.version})
+        up = prom.MetricFamily("pilosa_uptime_seconds", "gauge",
+                               "Seconds since this handler started.")
+        up.add(time.monotonic() - self._start_time)
+        return [info, up]
+
+    def _collect_device(self) -> list:
+        """The card manager's counters, dispatch modes, evictions,
+        fallbacks and residency report; nothing before a query built
+        the manager."""
+        mgr = self.executor._mesh_mgr
+        if mgr is None:
+            return []
+        with mgr._stats_mu:  # the serving threads bump it meanwhile
+            stats = dict(mgr.stats)
+        fams = prom.statmap_families(stats, "pilosa_mesh_")
+        disp = prom.MetricFamily(
+            "pilosa_dispatch_total", "counter",
+            "Device dispatches by serving mode.")
+        for mode, key in (("fused", "lone"), ("batched", "batched"),
+                          ("shared_batch", "shared_batch"),
+                          ("fallback", "fallback"),
+                          ("routed_host", "routed_host")):
+            disp.add(stats.get(key, 0), {"mode": mode})
+        ev = prom.MetricFamily(
+            "pilosa_hbm_evictions_total", "counter",
+            "Staged views evicted, by trigger: budget = LRU pressure "
+            "against [mesh] hbm-budget-bytes, oom = emergency eviction "
+            "after the card ran out of memory.")
+        ev.add(stats.get("evicted_budget", 0), {"reason": "budget"})
+        ev.add(stats.get("evicted_oom", 0), {"reason": "oom"})
+        fb = prom.MetricFamily(
+            "pilosa_device_fallback_total", "counter",
+            "Queries degraded to the host fold, by reason (unstaged = "
+            "view missing/unstageable, oom = device memory exhausted "
+            "after eviction, hbm_infeasible = one view overflows the "
+            "budget, quarantined = plan signature serving a failure "
+            "quarantine).")
+        fb.add(stats.get("fallback", 0), {"reason": "unstaged"})
+        for reason in ("oom", "hbm_infeasible", "quarantined"):
+            fb.add(stats.get(f"fallback_{reason}", 0), {"reason": reason})
+        fams += [disp, ev, fb, prom.MetricFamily(
+            "pilosa_plan_quarantined_total", "counter",
+            "Plan signatures quarantined off the device path after "
+            "repeated failures.").add(stats.get("plan_quarantined", 0))]
+        dm = mgr.device_memory()
+        res = prom.MetricFamily(
+            "pilosa_hbm_resident_bytes", "gauge",
+            "Staged fragment-pool bytes resident per device.")
+        for dev, n in sorted(dm["per_device"].items()):
+            res.add(n, {"device": dev})
+        rr = prom.MetricFamily(
+            "pilosa_hbm_residency_ratio", "gauge",
+            "Live container bytes over padded pool bytes — how much of "
+            "the staged HBM footprint backs real data. Unlabeled series "
+            "is the aggregate; one labeled series per device. 1.0 when "
+            "nothing is staged.")
+        rr.add(dm["residency_ratio"])
+        for dev, r in sorted(dm["residency_per_device"].items()):
+            rr.add(r, {"device": dev})
+        fams += [
+            res,
+            prom.MetricFamily(
+                "pilosa_hbm_padded_bytes", "gauge",
+                "Total staged pool bytes including padding slots.")
+            .add(dm["padded_bytes"]),
+            prom.MetricFamily(
+                "pilosa_hbm_live_bytes", "gauge",
+                "Staged bytes backing live containers only.")
+            .add(dm["live_bytes"]),
+            prom.MetricFamily(
+                "pilosa_hbm_staged_views", "gauge",
+                "Fragment views currently staged on-device.")
+            .add(dm["views"]),
+            prom.MetricFamily(
+                "pilosa_hbm_sparse_bytes", "gauge",
+                "Staged pool bytes held as sorted-array (sparse) "
+                "containers.").add(dm["sparse_bytes"]),
+            rr,
+            prom.MetricFamily(
+                "pilosa_hbm_budget_bytes", "gauge",
+                "Resolved staged-pool byte budget ([mesh] hbm-budget-"
+                "bytes / env / the card's memory minus headroom); 0 = "
+                "unlimited.").add(max(0, mgr._hbm_budget_bytes()))]
+        return fams
+
+    def _collect_routes(self) -> list:
+        """Count and Sum / Min / Max queries by serving backend and tier,
+        and their latency histograms."""
+        ex = self.executor
+        routes = prom.MetricFamily(
+            "pilosa_query_route_total", "counter",
+            "Count queries by serving backend and locality tier (local = "
+            "this chip, ici = pod interconnect collective, http = "
+            "cross-node ring).")
+        by_route: dict = {}
+        for k, v in ex.tier_stats.copy().items():
+            route, _, tier = k.partition("|")
+            by_route.setdefault(route, {})[tier] = v
+        for k in sorted(ex.route_stats.copy()):
+            backend = k[len("count_"):]
+            for tier, v in sorted(by_route.get(backend, {}).items()):
+                routes.add(v, {"backend": backend, "tier": tier})
+        fams = [routes]
+        hists = ex.route_latency_hists
+        if hists:
+            lat = prom.MetricFamily(
+                "pilosa_query_route_duration_microseconds", "histogram",
+                "Count latency by serving backend (log2 buckets, µs).")
+            for route, h in sorted(hists.items()):
+                lat.add_histogram(h, {"backend": route})
+            fams.append(lat)
+        return fams
+
+    def _collect_fragments(self) -> list:
+        """The fragment gauges, cached for metrics_sample_interval
+        seconds: scrapers poll, and the walk is O(fragments)."""
+        now = time.monotonic()
+        with self._frag_sample_mu:
+            stamp, fams = self._frag_sample
+            if fams and now - stamp < self.metrics_sample_interval:
+                return fams
+        fams = self._sample_fragments()
+        with self._frag_sample_mu:
+            self._frag_sample = (now, fams)
+        return fams
+
+    def _sample_fragments(self) -> list:
+        """Bits and fragments per frame. A fragment not loaded yet is
+        counted and never parsed (a scrape must not force a load), so
+        the cardinality covers loaded fragments only."""
+        card = prom.MetricFamily(
+            "pilosa_fragment_cardinality", "gauge",
+            "Bits set per frame, loaded fragments only (sampled).")
+        nf = prom.MetricFamily(
+            "pilosa_fragments", "gauge",
+            "Fragments per frame by load state (sampled).")
+        for iname, idx in sorted(self.holder.indexes.items()):
+            for fname, frame in sorted(idx.frames.items()):
+                labels = {"index": iname, "frame": fname}
+                bits = loaded = pending = 0
+                for view in frame.views.values():
+                    for frag in view.fragments.values():
+                        with frag._mu:
+                            if frag._pending_load:
+                                pending += 1
+                                continue
+                            loaded += 1
+                            bits += frag.storage.count()
+                card.add(bits, labels)
+                nf.add(loaded, dict(labels, state="loaded"))
+                nf.add(pending, dict(labels, state="pending"))
+        return [card, nf]
+
+    def _collect_storage(self) -> list:
+        """WAL durability: fsyncs, backpressure, snapshots, group-commit
+        sizes, snapshot wall times, torn tails."""
+        fsync = prom.MetricFamily(
+            "pilosa_wal_fsync_total", "counter",
+            "WAL group-commit fsyncs across all fragments.")
+        fsync.add(WAL_STATS.get("fsync", 0))
+        bp = prom.MetricFamily(
+            "pilosa_wal_backpressure_total", "counter",
+            "Writers gated (state=gated) or shed with 503 (state=shed) "
+            "by the [storage] max-wal-ops bound.")
+        bp.add(WAL_STATS.get("backpressure", 0), {"state": "gated"})
+        bp.add(WAL_STATS.get("backpressure_shed", 0), {"state": "shed"})
+        snaps = prom.MetricFamily(
+            "pilosa_storage_snapshots_total", "counter",
+            "Background fragment snapshots by outcome.")
+        snaps.add(WAL_STATS.get("snapshots", 0), {"outcome": "ok"})
+        snaps.add(WAL_STATS.get("snapshots_failed", 0), {"outcome": "error"})
+        group = prom.MetricFamily(
+            "pilosa_wal_group_size", "histogram",
+            "Ops coalesced per WAL commit (group-commit batch size).")
+        group.add_histogram(GROUP_SIZE)
+        swall = prom.MetricFamily(
+            "pilosa_storage_snapshot_us", "histogram",
+            "Background snapshot wall time (microseconds).")
+        swall.add_histogram(SNAPSHOT_US)
+        torn = prom.MetricFamily(
+            "pilosa_wal_torn_tails_total", "counter",
+            "Torn final WAL records truncated at load (crash "
+            "mid-append recoveries — expected after power loss; "
+            "a climbing rate without crashes means flaky storage).")
+        torn.add(WAL_STATS.get("torn_tails", 0))
+        return [fsync, bp, snaps, group, swall, torn]
+
+    def _collect_integrity(self) -> list:
+        """Corrupt loads and repairs, the scrubber's progress, and the
+        shadow checks by backend."""
+        corrupt = prom.MetricFamily(
+            "pilosa_integrity_corrupt_total", "counter",
+            "Fragment loads that failed integrity verification "
+            "(footer CRC / container FNV / op-log checksum).")
+        corrupt.add(INTEGRITY_STATS.get("corrupt", 0))
+        repaired = prom.MetricFamily(
+            "pilosa_integrity_repaired_total", "counter",
+            "Corrupt fragments restored from a verified replica copy "
+            "(outcome=repaired) vs left pending with no donor "
+            "(outcome=unrepaired).")
+        repaired.add(INTEGRITY_STATS.get("repaired", 0),
+                     {"outcome": "repaired"})
+        repaired.add(INTEGRITY_STATS.get("unrepaired", 0),
+                     {"outcome": "unrepaired"})
+        sfrag = prom.MetricFamily(
+            "pilosa_scrub_fragments_total", "counter",
+            "Fragments verified by the background scrubber.")
+        sfrag.add(SCRUB_STATS.get("fragments", 0))
+        srep = prom.MetricFamily(
+            "pilosa_scrub_repairs_total", "counter",
+            "Scrubber-initiated repairs (snapshot rewrite, replica "
+            "read-repair, or anti-entropy merge).")
+        srep.add(SCRUB_STATS.get("repairs", 0))
+        age = prom.MetricFamily(
+            "pilosa_scrub_last_age_seconds", "gauge",
+            "Seconds since the least-recently-scrubbed fragment "
+            "was verified (0 until the first pass).")
+        age.add(self.holder.scrubber.oldest_scrub_age())
+        shadow_c = prom.MetricFamily(
+            "pilosa_shadow_checks_total", "counter",
+            "Sampled device results recomputed through the host "
+            "roaring fold.")
+        shadow_m = prom.MetricFamily(
+            "pilosa_shadow_mismatch_total", "counter",
+            "Shadow recomputations whose host answer DIFFERED from "
+            "the device answer. Any nonzero value is a sev: the "
+            "offending plan signature is quarantined.")
+        shadow = SHADOW_STATS.copy()
+        for b in sorted({k.split(":", 1)[1] for k in shadow if ":" in k}
+                        ) or ["mesh"]:
+            shadow_c.add(shadow.get(f"checks:{b}", 0), {"backend": b})
+            shadow_m.add(shadow.get(f"mismatch:{b}", 0), {"backend": b})
+        return [corrupt, repaired, sfrag, srep, age, shadow_c, shadow_m]
 
     def _post_frame(self, pv, params, headers, body) -> Response:
         opts = _decode_options(body, {
@@ -482,7 +785,14 @@ class Handler:
             if params.get("explain") == "true":
                 plan = self.executor.explain(pv["index"], q, slices or None)
                 return _json_resp({**plan, "query": body.decode()[:1024]})
+            t0 = time.monotonic()
             results = self.executor.execute(pv["index"], q, slices or None)
+            dt_us = int((time.monotonic() - t0) * 1e6)
+            tagged = self.stats.with_tags(f"index:{pv['index']}")
+            for call in q.calls:
+                tagged.count(f"query.{call.name}", 1)
+            tagged.timing("query", dt_us)
+            self.stats.timing("query", dt_us)
         except (FieldValueError, FieldNotFoundError, WriteBackpressureError,
                 SliceUnavailableError) as e:
             return _error_resp(e)

@@ -13,13 +13,16 @@ acknowledged (core/wal.py); the default, `group`, is the JAX server's.
 knobs (core/wal.WalConfig), --scrub-interval, --scrub-rate-limit-bytes
 and --shadow-sample-1-in its [integrity] ones (core/scrub.py,
 Executor.shadow_sample), with the JAX config's names and defaults.
-$PILOSA_TORCH_FAULT arms fault rules at start (fault.py).
+$PILOSA_TORCH_FAULT arms fault rules at start (fault.py). SIGTERM or
+SIGINT closes the server and the holder. A node run from a TOML config
+is `python -m pilosa_tpu_torch.ctl server -c FILE` (server.Server).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import threading
 import time
 import urllib.parse
@@ -30,11 +33,9 @@ from .. import fault
 from ..core.scrub import DEFAULT_SCRUB_RATE_LIMIT
 from ..core.wal import (DEFAULT_BACKPRESSURE_DEADLINE, DEFAULT_MAX_WAL_OPS,
                         FSYNC_GROUP, FSYNC_POLICIES, WalConfig)
-from ..fault import parse_duration
+from ..config import THRESHOLD_ENV, parse_duration
 from ..parallel.mesh import DEFAULT_SPARSE_DENSITY_THRESHOLD
 from ..parallel.serve import BUDGET_ENV, MESH_DEFAULTS
-
-THRESHOLD_ENV = "PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD"
 
 
 class APIServer:
@@ -104,20 +105,16 @@ def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
     shadow_sample: check 1 in N card answers on the host (0: off). Frame
     restore reaches other nodes through api.client.InternalClient. On
     a card, the K0 canary (ops.kernels.probe_ok) runs first, and a card
-    that fails it is refused before the socket is bound."""
-    from ..executor import Executor
-    from ..ops.kernels import probe_ok
-    from .client import InternalClient
-    from .handler import Handler
+    that fails it is refused before the socket is bound. The executor
+    and handler come from server.build_handler, as a Server's do."""
+    from ..server import build_handler, check_card
 
-    ex = Executor(holder, device=device,
-                  sparse_density_threshold=sparse_density_threshold,
-                  mesh_config=mesh_config, shadow_sample=shadow_sample)
-    if ex.device.type == "cuda" and not probe_ok(ex.device):
-        raise RuntimeError(f"kernel canary failed on {ex.device}: refusing "
-                           "to serve")
-    srv = APIServer(Handler(holder, ex, client_factory=InternalClient),
-                    host, port)
+    handler = build_handler(holder, device, sparse_density_threshold,
+                            mesh_config=mesh_config,
+                            shadow_sample=shadow_sample,
+                            stats=holder.stats)
+    check_card(handler.executor)
+    srv = APIServer(handler, host, port)
     srv.start()
     return srv
 
@@ -185,6 +182,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     from ..core import Holder
+    from ..utils.stats import ExpvarStats
 
     args = parse_args(argv)
     fault.load_env()
@@ -194,7 +192,7 @@ def main(argv=None) -> None:
         backpressure_deadline=args.backpressure_deadline,
         max_op_n=args.max_op_n or None),
         scrub_interval=args.scrub_interval,
-        scrub_rate_limit=args.scrub_rate_limit_bytes)
+        scrub_rate_limit=args.scrub_rate_limit_bytes, stats=ExpvarStats())
     t0 = time.monotonic()
     holder.open()
     open_s = time.monotonic() - t0
@@ -207,8 +205,10 @@ def main(argv=None) -> None:
                 quarantine_ttl=args.quarantine_ttl)
     print(f"serving {args.data_dir} on {host}:{port} ({args.device}); "
           f"holder opened in {open_s:.3f} s", flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
     try:
-        threading.Event().wait()
+        stop.wait()
     except KeyboardInterrupt:
         pass
     finally:

@@ -56,7 +56,7 @@ from .. import SLICE_WIDTH, fault
 from ..errors import CorruptFragmentError, WriteBackpressureError
 from ..roaring import Bitmap
 from ..roaring.serialize import CorruptSnapshotError, scan_ops
-from ..stats import StatMap
+from ..obs.metrics import StatMap
 from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE, new_cache, \
     sort_pairs
 from .row import Row
@@ -136,7 +136,8 @@ class Fragment:
     def __init__(self, path: str, index: str, frame: str, view: str,
                  slice_: int, cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 row_attr_store=None, wal: Optional[WalConfig] = None):
+                 row_attr_store=None, wal: Optional[WalConfig] = None,
+                 stats=None):
         self.path = path
         self.index = index
         self.frame = frame
@@ -153,7 +154,11 @@ class Fragment:
         # fsync, as the JAX package's does; servers pass their policy.
         self.wal_cfg = wal if wal is not None else WalConfig(FSYNC_NEVER)
         self.max_op_n = self.wal_cfg.max_op_n or MAX_OP_N
-        self._wal = WalCommitter(self.wal_cfg, path=path)
+        # The stats client (utils.stats, tagged index/frame/view/slice):
+        # setN, clearN, corruptN, wal_*N and the snapshot_us timing, at
+        # the JAX fragment's points; None records nothing.
+        self.stats = stats
+        self._wal = WalCommitter(self.wal_cfg, path=path, stats=stats)
         # The mutation log the stager reads (log_since): one (op 0 = set
         # / 1 = clear, pos, churn) per write, churn when the write added
         # or removed a container (a scatter cannot add or drop a slot).
@@ -246,6 +251,8 @@ class Fragment:
                 self.op_n = 0
                 INTEGRITY_STATS.inc("corrupt")
                 INTEGRITY_STATS.inc("unrepaired")
+                if self.stats:
+                    self.stats.count("corruptN", 1)
                 raise CorruptFragmentError(
                     f"fragment {self.index}/{self.frame}/{self.view}/"
                     f"{self.slice} is corrupt ({self.path}): {err}") from err
@@ -447,6 +454,8 @@ class Fragment:
             self._log_append(0, pos, churn)
             if changed:
                 self.cache.add(row_id, self.row_count(row_id))
+                if self.stats:
+                    self.stats.count("setN", 1)
             self._count_op()
         self._wal.wait_durable(seq)
         return changed
@@ -463,6 +472,8 @@ class Fragment:
             self._log_append(1, pos, churn)
             if changed:
                 self.cache.add(row_id, self.row_count(row_id))
+                if self.stats:
+                    self.stats.count("clearN", 1)
             self._count_op()
         self._wal.wait_durable(seq)
         return changed
@@ -484,6 +495,8 @@ class Fragment:
         if self.op_n <= limit:  # an unlocked read: advisory within an op
             return
         WAL_STATS.inc("backpressure")
+        if self.stats:
+            self.stats.count("wal_backpressureN", 1)
         give_up = time.monotonic() + self.wal_cfg.backpressure_deadline
         if deadline is not None:
             give_up = min(give_up, deadline)
@@ -497,6 +510,8 @@ class Fragment:
             remaining = give_up - time.monotonic()
             if remaining <= 0:
                 WAL_STATS.inc("backpressure_shed")
+                if self.stats:
+                    self.stats.count("wal_shedN", 1)
                 raise WriteBackpressureError(
                     f"write backpressure: {self.op_n} ops wait for a "
                     f"snapshot > max-wal-ops={limit} on {self.frame}/"
@@ -782,8 +797,10 @@ class Fragment:
                 if resnap:
                     self._start_snapshot()
                 done.set()
-        SNAPSHOT_US.observe(elapsed * 1e6)
+        SNAPSHOT_US.observe(int(elapsed * 1e6))
         WAL_STATS.inc("snapshots_failed" if err is not None else "snapshots")
+        if self.stats:
+            self.stats.timing("snapshot_us", int(elapsed * 1e6))
 
     def _await_snapshot(self, target_gen: int):
         """Wait, without _mu (the splice needs it), until `target_gen`

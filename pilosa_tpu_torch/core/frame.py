@@ -42,10 +42,11 @@ class Frame:
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  time_quantum: str = "",
-                 fields: Optional[Sequence] = None, wal=None):
+                 fields: Optional[Sequence] = None, wal=None, stats=None):
         validate_name(name)
         self.path = path
         self.wal = wal  # core/wal.WalConfig, or None: never
+        self.stats = stats  # utils.stats client, tagged frame:<name>
         self.index = index
         self.name = name
         self.meta = {"rowLabel": row_label,
@@ -146,7 +147,9 @@ class Frame:
     def _open_view(self, name: str) -> View:
         v = View(os.path.join(self.path, name), self.index, self.name, name,
                  self.meta["cacheType"], self.meta["cacheSize"],
-                 self.row_attr_store, wal=self.wal)
+                 self.row_attr_store, wal=self.wal,
+                 stats=self.stats.with_tags(f"view:{name}")
+                 if self.stats else None)
         v.open()
         self.views = {**self.views, name: v}
         return v

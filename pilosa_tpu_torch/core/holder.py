@@ -8,12 +8,14 @@ walks the fragments in a thread from open() to close()."""
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import threading
 from typing import Dict, List, Optional
 
 from ..errors import IndexExistsError
+from ..utils.stats import NopStats
 from .fragment import MUTATION_EPOCH
 from .index import Index
 from .scrub import DEFAULT_SCRUB_RATE_LIMIT, Scrubber
@@ -23,9 +25,14 @@ from .wal import WalConfig
 class Holder:
     def __init__(self, path: str, wal: Optional[WalConfig] = None,
                  scrub_interval: float = 0.0,
-                 scrub_rate_limit: int = DEFAULT_SCRUB_RATE_LIMIT):
+                 scrub_rate_limit: int = DEFAULT_SCRUB_RATE_LIMIT,
+                 stats=None):
         self.path = path
         self.wal = wal
+        # The stats client (utils.stats.ExpvarStats on a server), tagged
+        # index:<name> -> frame: -> view: -> slice: down to the
+        # fragments; NopStats records nothing.
+        self.stats = stats if stats is not None else NopStats()
         self.indexes: Dict[str, Index] = {}
         self._create_mu = threading.Lock()
         self.scrubber = Scrubber(self, interval=scrub_interval,
@@ -54,6 +61,28 @@ class Holder:
                 for _, v in sorted(f.views.items())
                 for _, frag in sorted(v.fragments.items())]
 
+    def flush_caches(self):
+        """Write every loaded fragment's rank cache to its `.cache`
+        file (the server's cache-flush loop, every minute)."""
+        for frag in self.fragments():
+            frag.flush_cache()
+
+    def warm(self, stop=None):
+        """Load every lazily opened fragment, so early queries find
+        parsed storage (the server's `warm` thread after a start).
+        `stop`, a threading.Event, is checked between fragments, so a
+        close is not held up behind a long warm. A fragment that fails
+        to load is logged and skipped; it raises again on first use."""
+        for frag in self.fragments():
+            if stop is not None and stop.is_set():
+                return
+            try:
+                with frag._mu:
+                    frag.ensure_loaded()
+            except Exception as e:  # noqa: BLE001 — one bad file
+                logging.getLogger("pilosa_tpu_torch.holder").warning(
+                    "warm: %s failed to load: %s", frag.path, e)
+
     def storage_state(self) -> List[dict]:
         """Each loaded fragment's durability state (Fragment.
         storage_state), for /debug/vars."""
@@ -62,7 +91,7 @@ class Holder:
 
     def _open_index(self, name: str, **options) -> Index:
         idx = Index(os.path.join(self.path, name), name, wal=self.wal,
-                    **options)
+                    stats=self.stats.with_tags(f"index:{name}"), **options)
         idx.open()
         self.indexes = {**self.indexes, name: idx}
         return idx

@@ -23,10 +23,11 @@ DEFAULT_COLUMN_LABEL = "columnID"
 class Index:
     def __init__(self, path: str, name: str,
                  column_label: str = DEFAULT_COLUMN_LABEL,
-                 time_quantum: str = "", wal=None):
+                 time_quantum: str = "", wal=None, stats=None):
         validate_name(name)
         self.path = path
         self.wal = wal  # core/wal.WalConfig, or None: never
+        self.stats = stats  # utils.stats client, tagged index:<name>
         self.name = name
         self.meta = {"columnLabel": column_label,
                      "timeQuantum": str(time_quantum)}
@@ -74,7 +75,9 @@ class Index:
 
     def _open_frame(self, name: str, **options) -> Frame:
         frame = Frame(os.path.join(self.path, name), self.name, name,
-                      wal=self.wal, **options)
+                      wal=self.wal,
+                      stats=self.stats.with_tags(f"frame:{name}")
+                      if self.stats else None, **options)
         frame.open()
         self.frames = {**self.frames, name: frame}
         return frame

@@ -32,18 +32,20 @@ time of its last verification.
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from typing import Optional
 
 from .. import fault
 from ..roaring import Bitmap
-from ..stats import StatMap
+from ..obs.metrics import StatMap
 from .fragment import INTEGRITY_STATS, bitmap_block_checksums
 
 SCRUB_STATS = StatMap()
 
 DEFAULT_SCRUB_RATE_LIMIT = 16 << 20
+SCRUB_JITTER = 0.1
 
 
 class Scrubber:
@@ -77,7 +79,11 @@ class Scrubber:
         self._thread.start()
 
     def _loop(self) -> None:
-        while not self._closing.wait(self.interval):
+        # Each pass starts up to SCRUB_JITTER of the interval late
+        # (uniform), so nodes that share a config do not scrub in
+        # lockstep, as the JAX server's scrub loop.
+        while not self._closing.wait(
+                self.interval * (1.0 + random.uniform(0.0, SCRUB_JITTER))):
             self.scrub_pass()
 
     def close(self) -> None:
@@ -181,6 +187,14 @@ class Scrubber:
         SCRUB_STATS.inc("corrupt")
         INTEGRITY_STATS.inc("scrub_detected")
         self._repair(frag)
+
+    def oldest_scrub_age(self) -> float:
+        """Seconds since the least recently scrubbed fragment was
+        scrubbed; 0.0 before the first scrub (/metrics
+        pilosa_scrub_last_age_seconds)."""
+        stamps = [f.last_scrub for f in self.holder.fragments()
+                  if f.last_scrub > 0]
+        return max(0.0, time.time() - min(stamps)) if stamps else 0.0
 
     def snapshot(self) -> dict:
         """The /debug/vars record."""

@@ -23,9 +23,10 @@ class View:
     def __init__(self, path: str, index: str, frame: str, name: str,
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 row_attr_store=None, wal=None):
+                 row_attr_store=None, wal=None, stats=None):
         self.path = path
         self.wal = wal  # core/wal.WalConfig, or None: never
+        self.stats = stats  # utils.stats client, tagged view:<name>
         self.index = index
         self.frame = frame
         self.name = name
@@ -56,7 +57,9 @@ class View:
         frag = Fragment(os.path.join(self.fragments_path, str(slice_)),
                         self.index, self.frame, self.name, slice_,
                         self.cache_type, self.cache_size,
-                        self.row_attr_store, wal=self.wal)
+                        self.row_attr_store, wal=self.wal,
+                        stats=self.stats.with_tags(f"slice:{slice_}")
+                        if self.stats else None)
         frag.open(lazy=lazy)
         # Copy-on-write: readers iterate fragments without the lock.
         self.fragments = {**self.fragments, slice_: frag}

@@ -50,7 +50,7 @@ import time
 from typing import Optional
 
 from .. import fault
-from ..stats import Histogram, StatMap
+from ..obs.metrics import Histogram, StatMap
 
 FSYNC_NEVER = "never"
 FSYNC_GROUP = "group"
@@ -104,9 +104,10 @@ class WalCommitter:
     """One fragment's commit barrier and op-record router. All state
     lives under one condition variable."""
 
-    def __init__(self, cfg: WalConfig, path: str = ""):
+    def __init__(self, cfg: WalConfig, path: str = "", stats=None):
         self.cfg = cfg
         self.path = path             # the fragment's, for the fault seam
+        self.stats = stats           # the fragment's stats client
         self._cv = threading.Condition()
         self._target = None          # the unbuffered append file
         self._buf = bytearray()      # accepted, not yet written
@@ -229,3 +230,5 @@ class WalCommitter:
             WAL_STATS.inc("fsync")
             WAL_STATS.inc("group_ops", batch)
             GROUP_SIZE.observe(batch)
+            if self.stats is not None:
+                self.stats.count("wal_fsyncN", 1)

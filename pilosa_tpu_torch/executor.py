@@ -58,6 +58,7 @@ from __future__ import annotations
 import itertools
 import logging
 import threading
+import time
 from collections import Counter
 from typing import List, Optional, Sequence
 
@@ -83,7 +84,7 @@ from .parallel.serve import mesh_config as mesh_config_check
 from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
 from .pql import Call, Cond, Query
-from .stats import StatMap
+from .obs.metrics import Histogram, StatMap
 
 _BINOPS = {"Intersect": "intersect", "Union": "union",
            "Difference": "difference"}
@@ -124,10 +125,42 @@ class Executor:
         self._mesh_mu = threading.Lock()
         self._stats_mu = threading.Lock()
         self.stats: Counter = Counter()
+        # Route telemetry of every Count and Sum / Min / Max (the JAX
+        # executor's): which engine served it ("mesh" = the card,
+        # "host-fold" = a lowerable tree folded on the host, "roaring" =
+        # a tree that does not lower, "bsi-mesh" / "bsi-host"), by
+        # locality tier ("route|tier"; always "local" on one card), and
+        # its latency in a log2 histogram a route. /metrics reads them.
+        self.route_stats = StatMap()
+        self.tier_stats = StatMap()
+        self._route_hists: dict = {}
 
     def _inc(self, key: str) -> None:
         with self._stats_mu:
             self.stats[key] += 1
+
+    @property
+    def device_stats(self):
+        """The card manager's counters, or None before a query built it
+        (never forces construction)."""
+        mgr = self._mesh_mgr
+        return mgr.stats if mgr is not None else None
+
+    def _record_route(self, route: str, t0: float, tier: str = "local"):
+        """Count one served query under `route` and `tier`, and its
+        latency since `t0` (time.monotonic()): one clock read, no device
+        sync."""
+        self.route_stats.inc(f"count_{route}")
+        self.tier_stats.inc(f"{route}|{tier}")
+        h = self._route_hists.get(route)
+        if h is None:
+            h = self._route_hists.setdefault(route, Histogram())
+        h.observe((time.monotonic() - t0) * 1e6)
+
+    @property
+    def route_latency_hists(self) -> dict:
+        """route -> Histogram of its latencies (us), for /metrics."""
+        return dict(self._route_hists)
 
     def mesh_manager(self):
         with self._mesh_mu:
@@ -329,6 +362,7 @@ class Executor:
         if len(c.children) > 1:
             raise QueryError("Count() only accepts a single bitmap input")
         child = c.children[0]
+        t0 = time.monotonic()
         leaves: list = []
         shape = _lower_tree(self.holder, index, child, leaves)
         if shape is not None and slices:
@@ -342,9 +376,13 @@ class Executor:
                     if self._shadow_sampled():
                         n = self._shadow_check_count(index, child, slices,
                                                      n, sig)
+                    self._record_route("mesh", t0)
                     return n
         self._inc("count_host")
-        return self._count_host(index, child, slices)
+        n = self._count_host(index, child, slices)
+        self._record_route("host-fold" if shape is not None else "roaring",
+                           t0)
+        return n
 
     def _count_host(self, index: str, child: Call, slices: List[int]) -> int:
         return sum(self._bitmap_slice(index, child, s).count()
@@ -586,6 +624,7 @@ class Executor:
         filter child. Sum answers {"value", "count"} ({0, 0} when no
         column holds a value), Min / Max the extremum and how many
         columns hold it, or None when no column holds a value."""
+        t0 = time.monotonic()
         frame, schema = self._bsi_call_schema(index, c)
         if len(c.children) > 1:
             raise QueryError(
@@ -615,6 +654,7 @@ class Executor:
         elif self._shadow_sampled():
             out = self._shadow_check_bsi(index, c, frame, schema, child,
                                          slices, out)
+        self._record_route("bsi-mesh" if on_card else "bsi-host", t0)
         if c.name == "Sum":
             s, n = out if out is not None else (0, 0)
             return {"value": int(s), "count": int(n)}

@@ -62,6 +62,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .config import parse_duration
+
 SEAMS = ("mesh.stage", "device.exec", "storage.fsync", "storage.rename",
          "storage.import_apply", "storage.corrupt")
 FAULT_ENV = "PILOSA_TORCH_FAULT"
@@ -237,17 +239,6 @@ def perturb(name: str, value, **ctx):
             if rule.delta is not None and _fires(rule, ctx):
                 value = value + rule.delta
     return value
-
-
-def parse_duration(v: str) -> float:
-    """Seconds from "2s", "300ms", "50us", "10m", "1h" or a bare number
-    of seconds."""
-    v = v.strip()
-    for suffix, scale in (("ms", 1e-3), ("us", 1e-6), ("s", 1.0),
-                          ("m", 60.0), ("h", 3600.0)):
-        if v.endswith(suffix):
-            return float(v[:-len(suffix)]) * scale
-    return float(v)
 
 
 def load_spec(spec: str) -> List[Rule]:

@@ -21,11 +21,13 @@ two-leaf op over them (K4 for two sorted-array leaves).
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..config import STAGE_CHUNK_ENV
 from ..ops import kernels
 from ..ops.bitops import (fold_tree, popcount, sparse_op_counts,
                           sparse_probe_intersect_counts)
@@ -33,8 +35,18 @@ from ..ops.pool import (CONTAINER_WORDS, INVALID_KEY, ROW_SPAN,
                         mutation_batch_width, pad_mutation_plan, pool_keys)
 from ..roaring import ARRAY_MAX_SIZE
 
-# Host bytes packed per host-to-device copy while staging.
-_STAGE_CHUNK_BYTES = 64 << 20
+# Megabytes packed per host-to-device copy while staging: the env wins,
+# which the config's [mesh] stage-chunk-mb installs as a default
+# (config.Config.apply_mesh_env).
+DEFAULT_STAGE_CHUNK_MB = 64
+
+
+def _stage_chunk_bytes() -> int:
+    try:
+        mb = int(os.environ.get(STAGE_CHUNK_ENV) or DEFAULT_STAGE_CHUNK_MB)
+    except ValueError:
+        mb = DEFAULT_STAGE_CHUNK_MB
+    return max(1, mb) << 20
 
 
 class ShardedIndex(NamedTuple):
@@ -71,7 +83,7 @@ def build_sharded_index(slices: Sequence, device,
     fragment (or one staged sorted-array). row_ids, when given, is the
     view's global row table (global_row_ids); capacity=0 stages an empty
     pool for a view whose populated slices all went sorted-array. The
-    pool fills in host chunks of _STAGE_CHUNK_BYTES, each copied into
+    pool fills in host chunks of _stage_chunk_bytes(), each copied into
     the preallocated device tensor."""
     device = torch.device(device)
     s = max(1, len(slices))
@@ -88,7 +100,7 @@ def build_sharded_index(slices: Sequence, device,
 
     words = torch.empty((s, cap, CONTAINER_WORDS), dtype=torch.int32,
                         device=device)
-    chunk = max(1, _STAGE_CHUNK_BYTES // max(1, cap * CONTAINER_WORDS * 4))
+    chunk = max(1, _stage_chunk_bytes() // max(1, cap * CONTAINER_WORDS * 4))
     for lo in range(0, s, chunk):
         hi = min(s, lo + chunk)
         buf = np.zeros((hi - lo, cap, CONTAINER_WORDS), dtype=np.uint32)

@@ -190,6 +190,22 @@ class Container:
         return self._combine(other, lambda a, b: a & ~b)
 
 
+    def check(self) -> list:
+        """Consistency errors of this container (none when sound)."""
+        errs = []
+        if self.array is not None:
+            if np.any(self.array[1:] <= self.array[:-1]):
+                errs.append("array not strictly sorted")
+            if len(self.array) > ARRAY_MAX_SIZE:
+                errs.append("array container over threshold")
+        else:
+            if len(self.bitmap) != BITMAP_N:
+                errs.append("bitmap container has wrong word count")
+            if popcount_words(self.bitmap) <= ARRAY_MAX_SIZE:
+                errs.append("bitmap container under threshold")
+        return errs
+
+
 class Bitmap:
     """Roaring bitmap: sorted (key -> Container) map over the uint64
     space, key = value >> 16. `op_writer`, when set, receives one WAL
@@ -407,6 +423,32 @@ class Bitmap:
         return out
 
     # -- serialization (serialize.py) --------------------------------------
+
+    def check(self) -> list:
+        """Consistency errors (`ctl check`): keys out of order, and each
+        container's own (Container.check)."""
+        errs = []
+        for i in range(1, len(self.keys)):
+            if self.keys[i] <= self.keys[i - 1]:
+                errs.append(f"keys out of order at {i}")
+        for key, c in zip(self.keys, self.containers):
+            for e in c.check():
+                errs.append(f"container {key}: {e}")
+        return errs
+
+    def info(self) -> dict:
+        """Per-container stats (`ctl inspect`): the op count and each
+        container's key, type, bits and allocated bytes."""
+        return {
+            "op_n": self.op_n,
+            "containers": [
+                {"key": key,
+                 "type": "array" if c.is_array() else "bitmap",
+                 "n": c.n,
+                 "alloc": (len(c.array) * 4 if c.is_array()
+                           else BITMAP_N * 8)}
+                for key, c in zip(self.keys, self.containers)],
+        }
 
     def write_to(self, w, footer: bool = False) -> int:
         from .serialize import write_bitmap

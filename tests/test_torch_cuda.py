@@ -1025,3 +1025,69 @@ def test_import_then_count_on_the_card(card, tmp_path, threshold):
         assert dev.mesh_manager().stats.get("incremental", 0) == 0
     finally:
         h.close()
+
+
+@pytest.mark.cuda
+def test_server_from_a_config_counts_on_the_card(card, tmp_path):
+    """A Server built from a Config (use-device auto: the card) answers
+    Counts and a Sum equal to the same data under a CPU executor, its
+    K0 canary and count kernels launch, and its /metrics shows
+    pilosa_hbm_resident_bytes equal to the staged bytes in /debug/vars
+    and the configured budget."""
+    import re
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+    from pilosa_tpu_torch.server import Server
+
+    cfg = Config.from_toml(
+        f'data-dir = "{tmp_path}"\nhost = "127.0.0.1:0"\n'
+        "[mesh]\nhbm-budget-bytes = 987654321\n"
+        "[integrity]\nshadow-sample-1-in = 1\n"
+        '[[schema.indexes]]\nname = "i"\n[[schema.indexes.frames]]\n'
+        'name = "f"\n[[schema.indexes.frames.fields]]\nname = "val"\n'
+        "min = -100\nmax = 100\n", is_text=True)
+    assert cfg.device() == "cuda"
+    before = dict(tk.LAUNCHES)
+    srv = Server(cfg)
+    srv.open(port=0)
+    try:
+        rng = np.random.default_rng(13)
+        h = srv.handler
+        body = "".join(
+            f"SetBit(rowID={r}, frame=f, columnID={c})"
+            for r, c in zip(rng.integers(0, 3, 3000),
+                            rng.integers(0, 3 * SLICE_WIDTH, 3000)))
+        body += "".join(f"SetValue(frame=f, columnID={c}, val={v})"
+                        for c, v in zip(range(0, 3 * SLICE_WIDTH, 9973),
+                                        rng.integers(-100, 101, 400)))
+        assert h.handle("POST", "/index/i/query",
+                        body=body.encode()).status == 200
+        queries = ["Count(Intersect(Bitmap(rowID=0, frame=f), "
+                   "Bitmap(rowID=1, frame=f)))",
+                   "Count(Union(Bitmap(rowID=2, frame=f), "
+                   "Bitmap(rowID=1, frame=f)))",
+                   'Sum(frame=f, field="val")']
+        got = [h.handle("POST", "/index/i/query", body=q.encode()).json()[
+            "results"][0] for q in queries]
+        cpu = Executor(srv.holder, device="cpu")
+        want = [cpu.execute("i", parse_string(q))[0] for q in queries]
+        assert got == want
+        launched = {k for k, n in tk.LAUNCHES.items() if n > before.get(k, 0)}
+        assert {"probe_ok", "pair_count"} <= launched
+        text = h.handle("GET", "/metrics").body.decode()
+        dv = h.handle("GET", "/debug/vars").json()
+
+        def total(name):
+            return sum(float(v) for v in re.findall(
+                rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+        assert total("pilosa_hbm_resident_bytes") == dv["mesh"][
+            "staged_bytes"] > 0
+        assert total("pilosa_hbm_budget_bytes") == 987654321
+        assert total("pilosa_shadow_mismatch_total") == 0
+        assert total("pilosa_shadow_checks_total") >= 3
+    finally:
+        srv.close()
