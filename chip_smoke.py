@@ -49,7 +49,7 @@ Phases, each fatal on failure:
   7. the card-memory governor over HTTP at 960 slices: index `r` gets a
      copy of `general`, and four views (`general` dense, `sparse`
      sorted-array, `mixed`, `r`'s `general`; 3.21 GB) are served under a
-     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 3
+     budget of 60% of their bytes (serve(..., hbm_budget_bytes=)): 2
      round-robin rounds of a Count(Intersect) on each, every answer
      equal to numpy, evictions required, and after each Count the staged
      bytes within the budget (over it by one view at most while a query
@@ -115,7 +115,7 @@ Phases, each fatal on failure:
      busy share of a round of TopNs;
  12. writes over HTTP on frame `general` at 960 slices, under the
      holder's `group` WAL policy (the server's default; the bulk loads
-     go through Fragment.replace and write no op records): 120 rounds,
+     go through Fragment.replace and write no op records): 90 rounds,
      each a batch of 1, 16 or 256 SetBit / ClearBit calls into existing
      containers of rows 0-7 from up to 16 clients, then a Count(
      Intersect) held against numpy with the writes applied and timed
@@ -137,7 +137,7 @@ Phases, each fatal on failure:
      Intersect(row 0, row 1)) and the bits a run kept are Intersect(
      row 0, row 21)) written to a new directory as footered
      snapshots, and index `d2`. (1) 16 clients SetBit into slices 0-3
-     until each fragment has taken 2 background snapshots at the default
+     until each fragment has taken 1 background snapshot at the default
      max_op_n while one client counts without pause: every Count lies
      between the truth with the writes acked before it and with those
      sent before its answer, the last is exact, the side .wal files are
@@ -168,14 +168,14 @@ Phases, each fatal on failure:
      from their /debug/vars);
  14. bulk data in and out, on a new holder and a server on the card
      (frames and files through the port's HTTP routes, InternalClient
-     and ctl): (1) frame `sparse`'s rows 0-7 at 960 slices (~189M bits)
-     into index `imp` as one protobuf POST /import a slice, from 4
+     and ctl): (1) frame `sparse`'s rows 0-7 at slices 0-479 (~94M
+     bits) into index `imp` as one protobuf POST /import a slice, from 4
      InternalClient threads in a spawned process of their own (MB/s,
      bits/s, request p50), then the first Count's staging, the 28 pairs
      lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
      imported into slice 17 of that staged view: the next Count
      restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
-     import --create` of a 500,000-line CSV (rows 0-3, 96 slices,
+     import --create` of a 250,000-line CSV (rows 0-3, 96 slices,
      minutes of April 2017 as local time) into index `tqi` (quantum YMD)
      on a server of its own: one day, 7 days and the month on rows 0
      and 3 equal numpy through the same conversion, with the kernels
@@ -203,12 +203,12 @@ Phases, each fatal on failure:
      [[schema.indexes]] cfg/f/val in [-1000, 1000] (the spawn-to-
      /version seconds; /schema shows the field; every log line is
      JSON): the pair (K1, lone p50 and QPS over the 28 pairs), the
-     partial row (K3), the 28 pairs spread over 16 clients, twice
+     partial row (K3), the 28 pairs spread over 16 clients, once
      (K2; 1 in 10 Counts pays a shadow fold); on cfg/f,
      SetValue on 2,000 columns over 96 slices, Sum (K5),
      Count(Range(val > 100)) (K3), 100 more SetValues and Sum again
      (K7 scatters them into the staged field), all against numpy; `ctl
-     bench` set-bit 2,000, intersect-count 200 (K4: rows of 1,000 bits
+     bench` set-bit 1,000, intersect-count 200 (K4: rows of 1,000 bits
      in one container stage as sorted arrays) and topn 200, then the
      Count and TopN(n=10) on index `bench` against numpy over its
      export; 20 scrapes of /metrics (p50 ms), each parsed as text
@@ -222,7 +222,37 @@ Phases, each fatal on failure:
      same node.toml: the schema again unchanged, the pair and the Sum
      exact, the first Count's seconds. K0, K1, K2, K3, K4, K5 and K7
      must launch (the children's counts from their /debug/vars);
- 16. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 16. admission and the query's own record: an in-process server.Server
+     on the card from a TOML ([sched] queue-depth 16, tenant-weights
+     gold = 4; [obs] profile-sample-rate 10, cost-debt-threshold 0.5;
+     [health] sweep-interval 100 ms, stall-after 4) over phase 15's
+     directory (`general` at 960 slices): (1) the lone Count(Intersect)
+     with ?profile=true: parse, plan, device_exec and readback_d2h, its
+     bytes_touched_hbm the K1 pair's 2 x 960 runs, its roofline share
+     at most 1 of the card's own peak (3.35e12 B/s on an H100), the
+     trace at /debug/traces/{id} down to the launch; the partial-row
+     Count profiled (K3); (2) the 28 pairs from 16 clients, twice,
+     through the scheduler, K2 launches a round and `sched_hinted` beside
+     phase 4's rounds without a scheduler; (3) overload: 64 clients, half
+     tenant gold, each request X-Pilosa-Deadline-Us 20000: 429s with
+     Retry-After or 504s, every 200 equal to numpy, the
+     pilosa_query_outcome_total deltas by outcome and tenant equal to the
+     clients' own counts, /debug/slo's availability and shed rate equal
+     to them, the served share of each tenant; then 20 requests shed
+     through the sched.admit seam (429); (4) /debug/costs: each tenant's
+     ledger queries equal its served Counts, `general`'s residency on
+     the pair's account, X-Pilosa-Cost-Debt on exactly the dominant
+     tenant's answers, /debug/queryshapes counting the pair's shape
+     exactly; (5) /healthz and /readyz, then one SetBit held 6 s at the
+     storage.fsync seam: `wal` STALLED at /debug/health, /readyz 503, one
+     dossier within dossier-max, then /readyz 200, the SetBit acked and
+     counted; `ctl health`, `costs` and `top -n 1` and `ctl diagnose -o
+     FILE` against the node; (6) the lone Count's p50 over 200 calls
+     with every store on and with [sched], [slo], [health], the cost
+     ledger and sampling off, in turns (off, on, on, off), the same
+     server's stores wired anew from each TOML, printed. K0,
+     K1, K2 and K3 must launch on this path;
+ 17. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -230,8 +260,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 17. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-15, each path's counters set to 0 just before it;
+ 18. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-16, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -1202,9 +1232,13 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
         lone_qps = 2 * len(lone_q) / (time.monotonic() - t0)
         # The 28 pairs from 16 clients, twice: the batch thread coalesces
         # them and repeated leaves take the shared-read kernel.
+        k2 = [tk.LAUNCHES["coarse_count_shared"]]
         conc_qps = [concurrent(host, port, lone_q, lone_w)]
+        k2.append(tk.LAUNCHES["coarse_count_shared"])
         busy = profiled(lambda: conc_qps.append(
             concurrent(host, port, lone_q, lone_w)))
+        k2.append(tk.LAUNCHES["coarse_count_shared"])
+        k2_rounds = [b - a for a, b in zip(k2, k2[1:])]
         # Non-uniform coarse and per-container rows under concurrency.
         mixed = [("and", ODD_ROW, 2), ("and", 3, ODD_ROW),
                  ("and", PARTIAL_ROW, 0), ("or", PARTIAL_ROW, 1)]
@@ -1220,7 +1254,8 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
         srv.close()
     log(f"slice phase on {card}: lone {lone_qps:.1f} QPS, "
         f"{CLIENTS} clients {conc_qps[0]:.1f} / {conc_qps[1]:.1f} QPS")
-    log(f"slice phase launches {launches}, by wrapper {by_wrapper}")
+    log(f"slice phase launches {launches}, by wrapper {by_wrapper}; K2 "
+        f"launches a 16-client round {k2_rounds}")
     log(f"slice phase profile (second {CLIENTS}-client round): device "
         f"busy {busy['device_busy_s']:.4f} s of {busy['wall_s']:.4f} s "
         f"wall = {busy['device_busy_share']:.4f}")
@@ -1232,7 +1267,8 @@ def slice_phase(holder, words: np.ndarray, card: str, device) -> dict:
     return {"launches": launches, "launches_by_wrapper": by_wrapper,
             "stats": stats, "first_query_s": first_s, "lone_qps": lone_qps,
             "collect_after_staging_ms": collect_ms, "profile": busy,
-            "concurrent_qps": conc_qps, "clients": CLIENTS}
+            "concurrent_qps": conc_qps, "clients": CLIENTS,
+            "k2_rounds": k2_rounds}
 
 
 # -- phase 5: K4 at the sparse slice's shapes ----------------------------------
@@ -1472,7 +1508,7 @@ def sparse_phase(holder, words: np.ndarray, sp: SparseRows, card: str,
 
 RES_FRAMES = (("i", "general"), ("i", "sparse"), ("i", "mixed"),
               ("r", "general"))
-RES_ROUNDS = 3           # round-robin rounds, each a Count on every frame
+RES_ROUNDS = 2           # round-robin rounds, each a Count on every frame
 RES_BUDGET_SHARE = 0.6   # the budget's share of the four views' bytes
 RES_SLACK = 64 << 20     # memory_allocated's room over staged_bytes
 RES_DELETE_SLACK = 1 << 20
@@ -2773,7 +2809,7 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
 
 # -- phase 11: writes into the staged image ------------------------------------
 
-WRITE_ROUNDS = 120
+WRITE_ROUNDS = 90
 WRITE_BATCHES = (1, 16, 256)  # SetBit / ClearBit calls a round, in turn
 WRITERS = 16                  # concurrent clients (rounds and the herd)
 WRITER_OPS = 100              # SetBits each herd client sends
@@ -3157,7 +3193,7 @@ def write_phase(holder, words: np.ndarray, card: str, device,
 DUR_SLICES = (0, 1, 2, 3)   # the slices the durability writers write
 DUR_MASK_ROW = 21           # holds every column a writer may set
 DUR_CANDIDATES = 40_000     # such columns per written slice
-DUR_SNAPSHOTS = 2           # background snapshots each written slice takes
+DUR_SNAPSHOTS = 1           # background snapshots each written slice takes
 DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
 DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
 KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
@@ -3958,8 +3994,9 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
 
 BULK_THREADS = 4          # import clients, as a parallel `ctl import`
 BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
+BULK_SLICES = SLICES // 2  # the slices the protobuf import loads (a cut)
 BULK_NEW_BITS = 1_000
-TQI_BITS = 500_000        # the timestamped CSV's lines
+TQI_BITS = 250_000        # the timestamped CSV's lines
 TQI_SLICES = 96
 TQI_ROWS = 4
 FR_SLICES = 96            # the frame restored from another node (a cut)
@@ -3987,16 +4024,16 @@ def slice_sets(sp: SparseRows, s: int) -> dict:
     return {r: cols[rows == r] for r in range(SPARSE_ROWS)}
 
 
-def import_client(host: str, seed: int, slices: int, threads: int,
-                  conn) -> None:
+def import_client(host: str, seed: int, draw: int, slices: int,
+                  threads: int, conn) -> None:
     """The import's clients, in a process of their own as `ctl import`
-    is: every slice's arrays made from the seed first, then, on the
-    parent's word, one POST /import a slice from `threads`
-    InternalClients. Sends the wall, the bodies' bytes and each
-    request's ms (or the errors) to `conn`."""
+    is: the arrays of the first `slices` of the `draw`-slice SparseRows
+    made from the seed first, then, on the parent's word, one POST
+    /import a slice from `threads` InternalClients. Sends the wall, the
+    bodies' bytes and each request's ms (or the errors) to `conn`."""
     from pilosa_tpu_torch.api.client import InternalClient
 
-    sp = SparseRows(slices, seed)
+    sp = SparseRows(draw, seed)
     bits = [sparse_slice_bits(sp, s) for s in range(slices)]
     del sp
     conn.send("ready")
@@ -4042,7 +4079,7 @@ def bulk_import(host: str, seed: int) -> dict:
     ctx = multiprocessing.get_context("spawn")
     mine, theirs = ctx.Pipe()
     proc = ctx.Process(target=import_client, args=(
-        host, seed, SLICES, BULK_THREADS, theirs), daemon=True)
+        host, seed, SLICES, BULK_SLICES, BULK_THREADS, theirs), daemon=True)
     proc.start()
     try:
         check(mine.poll(600) and mine.recv() == "ready",
@@ -4054,7 +4091,7 @@ def bulk_import(host: str, seed: int) -> dict:
         proc.join(60)
         if proc.is_alive():
             proc.kill()
-    check(not res["errors"] and len(res["ms"]) == SLICES,
+    check(not res["errors"] and len(res["ms"]) == BULK_SLICES,
           f"imports: {res['errors'][:3]}")
     return res
 
@@ -4121,8 +4158,9 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
 
     # Truths and request arrays, outside every timed window.
     pairs = list(itertools.combinations(range(SPARSE_ROWS), 2))
-    want = {(a, b): int(sp.inter((a, b)).sum()) for a, b in pairs}
-    nbits = int(sp.lens[:, :SPARSE_ROWS].sum(dtype=np.int64))
+    want = {(a, b): int(sp.inter((a, b))[:BULK_SLICES].sum())
+            for a, b in pairs}
+    nbits = int(sp.lens[:BULK_SLICES, :SPARSE_ROWS].sum(dtype=np.int64))
     rng = np.random.default_rng([seed, 14])
     new_rows = rng.integers(0, 2, BULK_NEW_BITS).astype(np.uint64)
     new_cols = (np.uint64(BULK_NEW_SLICE << 20)
@@ -4134,8 +4172,9 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
                   - len(np.intersect1d(sets[a], sets[b]))
                   + len(np.intersect1d(after[a], after[b]))
                   for a, b in pairs}
-    totals = np.array([int(sp.card(r).sum()) + len(after[r]) - len(sets[r])
-                       for r in range(SPARSE_ROWS)], dtype=np.int64)
+    totals = np.array([int(sp.card(r)[:BULK_SLICES].sum()) + len(after[r])
+                       - len(sets[r]) for r in range(SPARSE_ROWS)],
+                      dtype=np.int64)
     want_topn = TopnTruth.rank(totals, SPARSE_ROWS)
     mark("truths")
 
@@ -4167,19 +4206,19 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
     ex = srv.handler.executor
     c = Client(*srv.address, index="imp")
     try:
-        # 1. Protobuf import of frame `sparse`'s rows at SLICES slices.
+        # 1. Protobuf import of frame `sparse`'s rows at BULK_SLICES slices.
         c.call("POST", "/index/imp", "{}")
         c.call("POST", "/index/imp/frame/sparse", "{}")
         imp = bulk_import(host, seed)
         imp.pop("errors")
         imp_lat = np.asarray(imp.pop("ms"))
-        out["import"] = dict(imp, bits=nbits, slices=SLICES,
+        out["import"] = dict(imp, bits=nbits, slices=BULK_SLICES,
                              threads=BULK_THREADS,
                              mb_per_s=imp["bytes"] / imp["wall_s"] / 1e6,
                              bits_per_s=nbits / imp["wall_s"],
                              request_p50_ms=float(np.percentile(imp_lat, 50)),
                              request_p90_ms=float(np.percentile(imp_lat, 90)))
-        log(f"bulk: imported {nbits} bits in {SLICES} requests "
+        log(f"bulk: imported {nbits} bits in {BULK_SLICES} requests "
             f"({imp['bytes']} B) in {imp['wall_s']:.2f} s from "
             f"{BULK_THREADS} clients: {out['import']['mb_per_s']:.1f} MB/s, "
             f"{out['import']['bits_per_s']:.0f} bits/s, request p50 "
@@ -4404,7 +4443,7 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
         kern = {"pair_count_rows (TopN, imported frame sparse)": rows_case(
             mgr, ("imp", "sparse", "standard"), totals,
             f"pair_count_rows (TopN, imported {SPARSE_ROWS} rows x "
-            f"{SLICES} slices)")}
+            f"{BULK_SLICES} slices)")}
     finally:
         c.close()
         for server in servers:
@@ -4435,8 +4474,8 @@ CFG_MORE = 100            # SetValues into the staged field (K7)
 CFG_RANGE = 100           # Count(Range(val > CFG_RANGE))
 CFG_BUDGET_X = 1.5        # [mesh] hbm-budget-bytes over general's bytes
 CFG_SCRAPES = 20
-CFG_ROUNDS = 2            # rounds of the 28 pairs spread over 16 clients
-BENCH_OPS = (("set-bit", 2000), ("intersect-count", 200), ("topn", 200))
+CFG_ROUNDS = 1            # rounds of the 28 pairs spread over 16 clients
+BENCH_OPS = (("set-bit", 1000), ("intersect-count", 200), ("topn", 200))
 
 
 def ctl_run(root: Path, *argv, timeout: float = 600) -> str:
@@ -4875,7 +4914,456 @@ def config_phase(words: np.ndarray, tmp: str, root: Path, card: str,
         check(launches[k] > 0, f"kernel {k} launched on the config path")
     return out
 
-# -- phase 16: the on-chip probe tools -------------------------------------------
+
+# -- phase 16: admission and the query's own record -----------------------------
+
+ADM_PATH = ("probe_ok", "coarse_count", "coarse_count_shared", "tree_count")
+ADM_CLIENTS = 64          # the overload's clients, half of them tenant gold
+ADM_REQUESTS = 10         # requests each overload client sends
+ADM_DEADLINE_US = 20_000  # each overload request's X-Pilosa-Deadline-Us
+ADM_FORCED = 20           # requests shed through the sched.admit seam
+ADM_STALL_S = 6.0         # the held commit: past stall-after 4 x base 1 s
+ADM_LONE_CALLS = 200      # lone Counts a turn of the cost comparison
+ADM_DEBT_PROBES = 5       # requests a tenant sends to read its debt header
+
+
+def adm_toml(path: str, port: int, on: bool = True) -> str:
+    """The phase's node: every store on (the scheduler's queue depth 16,
+    tenant gold at weight 4, 1 in 10 queries profiled, the debt
+    threshold 0.5, the watchdog every 100 ms judging at 4x), or the
+    scheduler, SLO and health off, no cost ledger and no sampling."""
+    head = f'data-dir = "{path}"\nhost = "127.0.0.1:{port}"\n'
+    if not on:
+        return head + ("[sched]\nenabled = false\n[slo]\nenabled = false\n"
+                       "[health]\nenabled = false\n[obs]\n"
+                       "cost-ledger = false\nprofile-sample-rate = 0\n")
+    return head + ("[sched]\nqueue-depth = 16\n[sched.tenant-weights]\n"
+                   "gold = 4\n[obs]\nprofile-sample-rate = 10\n"
+                   "cost-debt-threshold = 0.5\n[health]\n"
+                   'sweep-interval = "100ms"\nstall-after = 4\n')
+
+
+def adm_post(conn, path: str, body: str, headers=None):
+    """(status, response headers, JSON doc) of one POST."""
+    conn.request("POST", path, body=body.encode(), headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+
+
+def adm_server(toml: str):
+    """An in-process Server on the card from TOML text, open."""
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.server import Server
+
+    srv = Server(Config.from_toml(toml, is_text=True))
+    srv.open()
+    return srv
+
+
+def adm_settle(srv) -> None:
+    """Wait for the server's `warm` thread (it loads every fragment the
+    open left lazy, under the interpreter lock) and collect, so that no
+    timed or profiled query shares the host with either."""
+    for t in srv._threads:
+        if t.name == "warm":
+            t.join(timeout=300)
+    gc.collect()
+
+
+def adm_outcomes(samples: dict) -> dict:
+    """{(outcome, tenant): n} of pilosa_query_outcome_total, route query."""
+    return {(dict(ls)["outcome"], dict(ls)["tenant"]): v
+            for (n, ls), v in samples.items()
+            if n == "pilosa_query_outcome_total"
+            and dict(ls).get("route") == "query"}
+
+
+def adm_overload(port: int, queries, want) -> dict:
+    """ADM_CLIENTS clients at once, the odd ones tenant gold, each sending
+    ADM_REQUESTS of the queries with a deadline of ADM_DEADLINE_US: each
+    answer is a 200 equal to numpy, a 429 with Retry-After >= 1, or a
+    504. Returns the clients' own counts by (outcome, tenant)."""
+    from pilosa_tpu_torch.obs.slo import outcome_for_status
+
+    counts: Counter = Counter()
+    debts: Counter = Counter()
+    errors, mu = [], threading.Lock()
+
+    def client(k):
+        tenant = "gold" if k % 2 else "default"
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for j in range(ADM_REQUESTS):
+                i = (k * ADM_REQUESTS + j) % len(queries)
+                status, hdr, doc = adm_post(
+                    conn, "/index/i/query", queries[i],
+                    {"X-Pilosa-Tenant": tenant,
+                     "X-Pilosa-Deadline-Us": str(ADM_DEADLINE_US)})
+                bad = None
+                if status == 200 and doc["results"] != [want[i]]:
+                    bad = (queries[i], doc, want[i])
+                elif status == 429 and int(hdr.get("Retry-After", 0)) < 1:
+                    bad = ("429 without Retry-After", hdr)
+                elif status not in (200, 429, 504):
+                    bad = (status, doc)
+                with mu:
+                    counts[(outcome_for_status(status), tenant)] += 1
+                    if status == 200 and "X-Pilosa-Cost-Debt" in hdr:
+                        debts[tenant] += 1
+                    if bad:
+                        errors.append(bad)
+        except Exception as e:  # noqa: BLE001 — reported below
+            with mu:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ADM_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"overload answers: {errors[:5]}")
+    return {"counts": counts, "debts": debts,
+            "seconds": time.monotonic() - t0}
+
+
+def adm_lone_p50(srv, toml: str, calls: int, want: int) -> dict:
+    """The lone pair Count's p50 / p90 (ms, over HTTP) over `calls`
+    calls on the open Server `srv`, its [obs], [sched], [slo] and
+    [health] wired anew from `toml` (Server._wire_observability; the
+    scheduler it held is closed first): the same staged view and the
+    same process for both configurations, so the turns differ only in
+    the stores."""
+    from pilosa_tpu_torch.config import Config
+
+    if srv.scheduler is not None:
+        srv.scheduler.close()
+    srv.config = Config.from_toml(toml, is_text=True)
+    srv._wire_observability()
+    gc.collect()
+    c = Client("127.0.0.1", int(srv.host.rpartition(":")[2]))
+    try:
+        lat = []
+        for _ in range(calls):
+            t0 = time.monotonic()
+            got = c.count(PAIR)
+            lat.append((time.monotonic() - t0) * 1e3)
+            check(got == want, ("cost comparison Count", got, want))
+    finally:
+        c.close()
+    return {"p50_ms": pct(lat, 50), "p90_ms": pct(lat, 90)}
+
+
+def admission_phase(words: np.ndarray, tmp: str, root: Path, card: str,
+                    seed: int, dense: dict) -> dict:
+    """Phase 16 (module docstring), on the config phase's directory:
+    `general` at 960 slices, the headline rows and a mask row."""
+    import torch
+
+    from pilosa_tpu_torch import fault
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.sched import AdmissionError
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    truth = DurTruth(words, seed)
+    path = os.path.join(tmp, "config_node")
+    pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+    lone_q = [pql("and", a, b) for a, b in pairs]
+    lone_w = [host_count(words, "and", a, b) for a, b in pairs]
+    served: Counter = Counter()  # 200 Counts by tenant, every step
+    tk.reset_launches()
+    port = free_port()
+    srv = adm_server(adm_toml(path, port))
+    h = srv.handler
+    mgr = None
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        c = Client("127.0.0.1", port)
+        # The ledger is process-wide: the earlier phases' servers charged
+        # it too, so this phase reads its own accounts as deltas.
+        ledger0: Counter = Counter()
+        for a in c.call("GET", "/debug/costs?limit=100000")["accounts"]:
+            ledger0[a["tenant"]] += a["queries"]
+        # (1) The lone Count, profiled, and its trace.
+        t0 = time.monotonic()
+        check(c.count(PAIR) == truth.count(), "the staging pair")
+        out["first_count_s"] = time.monotonic() - t0
+        adm_settle(srv)
+        mgr = h.executor.mesh_manager()
+        launches0 = dict(tk.LAUNCHES)
+        status, _, doc = adm_post(conn, "/index/i/query?profile=true", PAIR)
+        check(status == 200 and doc["results"] == [truth.count()],
+              ("profiled pair", status, doc))
+        prof = doc["profile"]
+        served["default"] += 2
+        phases = set(prof["phases_us"])
+        check({"parse", "plan", "device_exec", "readback_d2h"} <= phases,
+              f"profile phases {prof['phases_us']}")
+        want_bytes = 2 * SLICES * RUN_BYTES
+        check(prof["bytes"]["bytes_touched_hbm"] == want_bytes,
+              ("bytes_touched_hbm", prof["bytes"], want_bytes))
+        check(dict(tk.LAUNCHES)["coarse_count"]
+              > launches0["coarse_count"], "the profiled pair ran K1")
+        rf = prof["roofline"]
+        frac = rf["fraction_of_peak"]
+        check(frac is None or 0 < frac <= 1.0, f"roofline {rf}")
+        if card == "NVIDIA H100 80GB HBM3":
+            check(rf["peak_bytes_per_s"] == 3.35e12 and frac is not None,
+                  f"the H100's peak: {rf}")
+        out["profile"] = prof
+        recent = c.call("GET", "/debug/queries")["recent"]
+        tid = recent[0]["id"]
+        check(recent[0]["tags"]["query"] == PAIR, recent[0])
+        tr = c.call("GET", f"/debug/traces/{tid}")
+        names = [sp["name"] for sp in tr["spans"]]
+        check({"query", "parse", "plan", "launch"} <= set(names),
+              f"the trace's spans {names}")
+        out["trace_spans"] = names
+        k3 = dict(tk.LAUNCHES)["tree_count"]
+        status, _, doc = adm_post(conn, "/index/i/query?profile=true",
+                                  PARTIAL)
+        check(status == 200 and doc["results"] == [truth.partial()],
+              ("profiled partial row", status, doc))
+        served["default"] += 1
+        check(dict(tk.LAUNCHES)["tree_count"] > k3
+              and doc["profile"]["slices"][0]["kernel"] == "tree_count_rows",
+              ("the partial row ran K3", doc["profile"].get("slices")))
+        out["partial_profile"] = doc["profile"]
+        # (2) Overload, its outcome accounting and forced sheds, while
+        # the service estimate knows only lone Counts.
+        before = adm_outcomes(parse_prom(http_text("127.0.0.1", port,
+                                                   "/metrics")))
+        ov = adm_overload(port, lone_q, lone_w)
+        after = adm_outcomes(parse_prom(http_text("127.0.0.1", port,
+                                                  "/metrics")))
+        delta = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in set(after) | set(before)}
+        delta = {k: v for k, v in delta.items() if v}
+        check(delta == dict(ov["counts"]),
+              ("outcome_total against the clients", delta, ov["counts"]))
+        check(ov["counts"][("shed", "gold")] + ov["counts"][
+            ("shed", "default")] + ov["counts"][("deadline", "gold")]
+            + ov["counts"][("deadline", "default")] > 0,
+            f"the overload shed or expired: {ov['counts']}")
+        for t in ("gold", "default"):
+            served[t] += ov["counts"][("ok", t)]
+        slo = c.call("GET", "/debug/slo")
+        w5 = slo["windows"]["5m"]
+        n_before = sum(served.values()) - sum(
+            ov["counts"][("ok", t)] for t in ("gold", "default"))
+        total = n_before + sum(ov["counts"].values())
+        shed = sum(v for (o, _), v in ov["counts"].items() if o == "shed")
+        bad = sum(v for (o, _), v in ov["counts"].items() if o != "ok")
+        check(w5["requests"] == total and w5["shed"] == shed,
+              ("/debug/slo 5m", w5["requests"], w5["shed"], total, shed))
+        ev = w5["objectives"]
+        check(abs(ev["availability"]["sli"] - (total - bad) / total) < 1e-9
+              and abs(ev["shed_rate"]["shed_fraction"] - shed / total)
+              < 1e-9, ("availability and shed rate", ev))
+        share = {t: ov["counts"][("ok", t)] / sum(
+            v for (_, tt), v in ov["counts"].items() if tt == t)
+            for t in ("gold", "default")}
+        out["overload"] = {"counts": {f"{o}:{t}": v for (o, t), v
+                                      in sorted(ov["counts"].items())},
+                           "served_share": share,
+                           "seconds": ov["seconds"],
+                           "debt_headers": dict(ov["debts"]),
+                           "availability": ev["availability"]["sli"],
+                           "shed_fraction": ev["shed_rate"]["shed_fraction"]}
+        fault.arm("sched.admit", times=ADM_FORCED,
+                  error=AdmissionError("forced shed", 1.0, "forced"))
+        forced = [adm_post(conn, "/index/i/query", PAIR)
+                  for _ in range(ADM_FORCED)]
+        fault.reset()
+        check(all(s_ == 429 and hd.get("Retry-After") == "1"
+                  for s_, hd, _ in forced),
+              f"forced sheds {[(s_, hd.get('Retry-After')) for s_, hd, _ in forced]}")
+        # (3) The 28 pairs from 16 clients, twice, through the scheduler.
+        rounds = []
+        for _ in range(2):
+            k2, hinted = (dict(tk.LAUNCHES)["coarse_count_shared"],
+                          mgr.stats.get("sched_hinted", 0))
+            qps = concurrent("127.0.0.1", port, lone_q, lone_w)
+            rounds.append({"qps": qps, "k2": dict(tk.LAUNCHES)[
+                "coarse_count_shared"] - k2, "sched_hinted": mgr.stats.get(
+                    "sched_hinted", 0) - hinted})
+        served["default"] += 2 * CLIENTS * len(lone_q)
+        check(all(r["k2"] > 0 for r in rounds), f"K2 launched {rounds}")
+        out["rounds"] = rounds
+        out["sched_after_rounds"] = dict(srv.scheduler.stats)
+        # (4) Costs and shapes.
+        costs = c.call("GET", "/debug/costs?limit=100000&sort=queries")
+        by_tenant: Counter = Counter()
+        dev_us: Counter = Counter()
+        for a in costs["accounts"]:
+            by_tenant[a["tenant"]] += a["queries"]
+            dev_us[a["tenant"]] += a["device_us"]
+        by_tenant.subtract(ledger0)
+        check(by_tenant["gold"] == served["gold"]
+              and by_tenant["default"] == served["default"],
+              ("ledger queries against the served Counts", dict(by_tenant),
+               dict(served)))
+        pair_shape = "Count(Intersect(Bitmap,Bitmap))"
+        hbm = [a for a in costs["accounts"]
+               if a["tenant"] == "default" and a["shape"] == pair_shape]
+        check(hbm and hbm[0]["hbm_byte_seconds"] > 0,
+              ("general's residency on the pair's account", hbm))
+        tot_dev = sum(dev_us.values())
+        shares = {t: dev_us[t] / tot_dev for t in dev_us}
+        probes = {}
+        for t in ("gold", "default"):
+            got = [adm_post(conn, "/index/i/query", PAIR,
+                            {"X-Pilosa-Tenant": t})
+                   for _ in range(ADM_DEBT_PROBES)]
+            check(all(s_ == 200 and d["results"] == [truth.count()]
+                      for s_, _, d in got), ("debt probes", got))
+            served[t] += ADM_DEBT_PROBES
+            probes[t] = sum("X-Pilosa-Cost-Debt" in hd for _, hd, _ in got)
+        dominant = [t for t, v in shares.items() if v > 0.5]
+        check(dominant and all(
+            probes[t] == (ADM_DEBT_PROBES if shares.get(t, 0) > 0.5 else 0)
+            for t in probes),
+            ("X-Pilosa-Cost-Debt on the dominant tenant", shares, probes))
+        out["costs"] = {"queries": dict(by_tenant), "device_share": shares,
+                        "debt_probes": probes,
+                        "totals": costs["totals"]}
+        shapes = c.call("GET", "/debug/queryshapes?sort=count&limit=100")
+        rows = {r["signature"]: r["count"] for r in shapes["top"]}
+        check(rows.get(pair_shape) == sum(served.values()),
+              ("queryshapes' pair", rows, sum(served.values())))
+        out["queryshapes"] = rows
+        # (5) Health: a commit held past stall-after x the wal base.
+        check(c.call("GET", "/healthz")["status"] == "ok"
+              and c.call("GET", "/readyz")["status"] == "ok",
+              "healthz and readyz")
+        from pilosa_tpu_torch.obs.health import HEALTH
+
+        col = truth.next_col(0)
+        old_dossiers = set(HEALTH.list_dossiers())
+        fault.arm("storage.fsync", delay=ADM_STALL_S, times=1,
+                  kind="commit")
+        acked = []
+        writer = threading.Thread(target=lambda: acked.append(
+            adm_post(http.client.HTTPConnection("127.0.0.1", port,
+                                                timeout=120),
+                     "/index/i/query", setbit(col))))
+        t0 = time.monotonic()
+        writer.start()
+        stalled_s = ready_503 = None
+        while time.monotonic() - t0 < ADM_STALL_S - 0.5:
+            sub = c.call("GET", "/debug/health")["subsystems"].get("wal", {})
+            if sub.get("state") == "stalled":
+                stalled_s = time.monotonic() - t0
+                s_, body_ = c.raw("GET", "/readyz")
+                ready_503 = (s_, body_)
+                break
+            time.sleep(0.05)
+        check(stalled_s is not None and ready_503[0] == 503
+              and "stalled:wal" in ready_503[1]["reasons"],
+              ("wal stalled and /readyz 503", stalled_s, ready_503))
+        # The sweep marks the subsystem, logs the stack, then writes.
+        while True:
+            dossiers = [d for d in HEALTH.list_dossiers()
+                        if d not in old_dossiers]
+            if dossiers or time.monotonic() - t0 > ADM_STALL_S - 0.5:
+                break
+            time.sleep(0.05)
+        check(len(dossiers) == 1 and os.path.getsize(dossiers[0])
+              <= HEALTH.dossier_max_bytes,
+              ("one dossier within dossier-max", dossiers))
+        dossier = json.loads(Path(dossiers[0]).read_text())
+        check(dossier["schema"] == "pilosa-tpu/dossier/v1"
+              and dossier["reason"] == "stall-wal", dossier.get("reason"))
+        writer.join(timeout=60)
+        fault.reset()
+        check(acked and acked[0][0] == 200
+              and acked[0][2]["results"] == [True],
+              ("the held SetBit acked", acked))
+        truth.ack(col)
+        t1 = time.monotonic()
+        while c.raw("GET", "/readyz")[0] != 200:
+            check(time.monotonic() - t1 < 10, "/readyz back to 200")
+            time.sleep(0.05)
+        check(c.count(PAIR) == truth.count(), "the acked SetBit counted")
+        served["default"] += 1
+        out["health"] = {"stalled_after_s": stalled_s,
+                         "recovered_after_s": time.monotonic() - t0,
+                         "dossier_bytes": os.path.getsize(dossiers[0]),
+                         "trips": HEALTH.trips_total()}
+        host = f"127.0.0.1:{port}"
+        diag = Path(tmp) / "diagnose.json"
+        panels = {}
+
+        def panel(argv):
+            panels[argv[0]] = ctl_run(root, *argv, "--host", host,
+                                      timeout=120)
+
+        ctl_threads = [threading.Thread(target=panel, args=(argv,))
+                       for argv in (("health", "-n", 1), ("costs", "-n", 1),
+                                    ("top", "-n", 1),
+                                    ("diagnose", "-o", diag))]
+        for t in ctl_threads:
+            t.start()
+        for t in ctl_threads:
+            t.join()
+        check(len(panels) == 4 and all(
+            panels[k].strip() for k in ("health", "costs", "top")),
+            f"ctl health, costs, top and diagnose: {sorted(panels)}")
+        bundle = json.loads(diag.read_text())
+        check(bundle["schema"] == "pilosa-tpu/dossier/v1"
+              and "slo" in bundle["sections"], "ctl diagnose's dossier")
+        c.close()
+        conn.close()
+        out["mesh_stats"] = dict(mgr.stats)
+        # (6) The cost of the stores: the lone Count, off / on / on / off.
+        cost = {"off": [], "on": []}
+        for turn in ("off", "on", "on", "off"):
+            cost[turn].append(adm_lone_p50(
+                srv, adm_toml(path, port, turn == "on"), ADM_LONE_CALLS,
+                truth.count()))
+    finally:
+        fault.reset()
+        srv.close()
+    from pilosa_tpu_torch.obs import costs as obs_costs
+    from pilosa_tpu_torch.obs import health as obs_health
+
+    obs_costs.LEDGER.enabled = obs_costs.WATCH.enabled = True
+    obs_health.HEALTH.enabled = True
+    launches = {k: tk.LAUNCHES.get(k, 0) for k in KERNELS}
+    out["store_cost"] = cost
+    wall = time.monotonic() - t_phase
+    out.update(launches=launches, stats=out.get("mesh_stats", {}),
+               seconds=wall, kernels={})
+    p4 = dense.get("k2_rounds", [])
+    log(f"admission phase on {card}: profiled pair device_exec "
+        f"{prof['phases_us']['device_exec']:.1f} us, readback "
+        f"{prof['phases_us']['readback_d2h']:.1f} us, bytes "
+        f"{prof['bytes']['bytes_touched_hbm']}, roofline "
+        f"{rf['fraction_of_peak']} of {rf.get('peak_bytes_per_s')} B/s; "
+        f"spans {out['trace_spans']}")
+    log(f"admission phase K2 launches a round {[r['k2'] for r in rounds]} "
+        f"(sched_hinted {[r['sched_hinted'] for r in rounds]}, QPS "
+        f"{[round(r['qps'], 1) for r in rounds]}) beside phase 4's "
+        f"{p4} without a scheduler")
+    log(f"admission phase overload ({ADM_CLIENTS} clients x "
+        f"{ADM_REQUESTS}, deadline {ADM_DEADLINE_US} us): "
+        f"{json.dumps(out['overload'], sort_keys=True)}")
+    log(f"admission phase costs {json.dumps(out['costs'], sort_keys=True)}")
+    log(f"admission phase health {json.dumps(out['health'])}")
+    log(f"admission phase lone Count p50 ms, stores off / on / on / off: "
+        f"{cost['off'][0]['p50_ms']:.4f} / {cost['on'][0]['p50_ms']:.4f} / "
+        f"{cost['on'][1]['p50_ms']:.4f} / {cost['off'][1]['p50_ms']:.4f}")
+    log(f"admission phase launches {launches}; {wall:.1f} s")
+    for k in ADM_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the admission path")
+    return out
+
+
+# -- phase 17: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -5305,6 +5793,9 @@ def main(argv=None) -> int:
             gc.collect()
             node = config_phase(words, tmp, root, card, args.seed, sl)
             done("config")
+            gc.collect()
+            adm = admission_phase(words, tmp, root, card, args.seed, sl)
+            done("admission")
         finally:
             holder.close()
     probes = probe_phase(device, args.seed)
@@ -5318,7 +5809,8 @@ def main(argv=None) -> int:
     # probe path, whose own loops the other kernels' counts leave out.
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
-             "bulk": bulk, "config": node, "probes": probes}
+             "bulk": bulk, "config": node, "admission": adm,
+             "probes": probes}
     for name, r in paths.items():
         if name not in ("residency", "probes"):
             no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
@@ -5351,7 +5843,8 @@ def main(argv=None) -> int:
          "residency": res,
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
-         "config_node": node, "probes": probes, "phase_seconds": phase_s,
+         "config_node": node, "admission": adm, "probes": probes,
+         "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -18,8 +18,16 @@ bodies and status codes.
   POST   /index/{index}/query           PQL body          -> {"results": [...]}
          (?slices=0,1 restricts the slices; ?columnAttrs=true adds
          "columnAttrs", the attrs of the columns in Bitmap results;
-         ?explain=true answers the plan, Executor.explain, and runs
-         nothing)
+         ?explain=true answers the plan, Executor.explain, with a "cost"
+         block of what the cost ledger holds of the tenant x shape, and
+         runs nothing; ?profile=true adds "profile", the query's
+         measured phases, bytes and roofline. Headers: X-Pilosa-Tenant
+         (default "default"), X-Pilosa-Deadline-Us (the budget left, us;
+         or ?deadline=50ms; else [cluster] query-deadline). Admission
+         (with a scheduler): 429 + Retry-After when shed, 504 when the
+         deadline expires first; a 200 of a tenant over [obs]
+         cost-debt-threshold of the device time carries
+         X-Pilosa-Cost-Debt)
   POST   /import                        protobuf ImportRequest (wire/):
          Frame.import_bits      -> {}, or an ImportResponse when Accept
          names protobuf
@@ -33,7 +41,19 @@ bodies and status codes.
   GET    /slices/max[?inverse=true]     -> {"maxSlices": {index: n}}, or a
          MaxSlicesResponse
   GET    /schema                                          -> {"indexes": [...]}
-  GET    /metrics                       Prometheus text format 0.0.4 (below)
+  GET    /metrics                       Prometheus text format 0.0.4 (below;
+         ?exemplars=true: latency buckets carry trace ids)
+  GET    /healthz                       200 while the watchdog sweeps
+  GET    /readyz                        503 with "reasons" while a critical
+         subsystem (wal, sched-dispatch, mesh-count-batch) is stalled or
+         the server is not serving, else 200
+  GET    /debug/health                  the liveness table (obs/health.py)
+  GET    /debug/bundle[?write=true]     the diagnostic dossier
+  GET    /debug/slo                     SLIs, burn rates, error budgets
+  GET    /debug/costs[?sort=&limit=]    the cost ledger's accounts
+  GET    /debug/queries[?threshold_us=N]   recent and slow traces
+  GET    /debug/traces/{id}             one trace's spans
+  GET    /debug/queryshapes[?sort=&limit=]  the flight recorder
   GET    /debug/vars                    the stats client's snapshot (setN,
          query.us.p50, ..., flat keys "index:i,frame:f,...,setN"),
          "uptime_seconds", "version", {"storage": {"fragments": each
@@ -45,7 +65,8 @@ bodies and status codes.
          "torn_tails"}, "kernel_launches": each kernel's launches in this
          process (ops.kernels.LAUNCHES), and, once a query has built the
          card manager, "mesh": its counters, "hbm": {budget_bytes, the
-         residency report}, and "quarantined_plans"}
+         residency report}, and "quarantined_plans"}, and "sched" (the
+         scheduler's snapshot) when one is wired
 
 GET /metrics renders one obs.prom.Registry, whose collectors bridge the
 stores at scrape time (the JAX handler's families and names): the stats
@@ -61,9 +82,22 @@ pilosa_query_route_duration_microseconds{backend}), the fragments
 (pilosa_fragment_cardinality and pilosa_fragments{state}, sampled at
 most every metrics_sample_interval seconds), storage (pilosa_wal_*,
 pilosa_storage_*) and integrity (pilosa_integrity_*, pilosa_scrub_*,
-pilosa_shadow_*). A family whose store the port lacks (the compile
-counters, the plan and host query caches, the row caches, the cluster,
-the scheduler) is left out. A collector that raises is skipped.
+pilosa_shadow_*), the scheduler (pilosa_sched_*, with one), the SLO
+recorder (pilosa_query_outcome_total{outcome,tenant,route},
+pilosa_slo_*), the liveness plane (pilosa_health_*,
+pilosa_watchdog_*), the profiles (pilosa_query_phase_us,
+pilosa_roofline_*), the cost ledger (pilosa_cost_*,
+pilosa_perf_regression) and the flight recorder
+(pilosa_queryshape_*). A family whose store the port lacks (the compile
+counters, the plan and host query caches, the row caches, the cluster)
+is left out. A collector that raises is skipped.
+
+Every query outcome is recorded once, in _post_query, into the SLO
+recorder (shed, deadline, backpressure, client and server errors,
+successes), and every import's under route "import". A query runs under
+a trace (the tracer's rings behind /debug/queries), the tenant's cost
+account, and, with ?profile=true or every [obs] profile-sample-rate-th
+query, a measured profile.
 
 A delete drops the index's staged views from the card at once
 (Executor.invalidate_device_index). An import or a restore resets the
@@ -83,6 +117,7 @@ or a failed query.
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import re
 import threading
@@ -98,12 +133,17 @@ from ..core.timequantum import parse_time_quantum
 from ..core.view import VIEW_INVERSE
 from ..core.scrub import SCRUB_STATS
 from ..core.wal import GROUP_SIZE, SNAPSHOT_US, WAL_STATS
-from ..errors import (FragmentNotFoundError, FrameExistsError,
-                      FrameNotFoundError, IndexExistsError,
+from .. import fault
+from ..config import parse_duration
+from ..errors import (DeadlineExceededError, FragmentNotFoundError,
+                      FrameExistsError, FrameNotFoundError, IndexExistsError,
                       IndexNotFoundError, PilosaError, SliceUnavailableError,
                       WriteBackpressureError)
-from ..executor import SHADOW_STATS
-from ..obs import prom
+from ..executor import SHADOW_STATS, ExecOptions
+from ..obs import costs, health, profile, prom, slo
+from ..obs import span as obs_span
+from ..obs.trace import Tracer
+from ..sched import AdmissionError
 from ..ops import kernels
 from ..pql import ParseError, parse_string
 from ..utils.stats import ExpvarStats
@@ -148,6 +188,10 @@ def _json_resp(obj, status: int = 200) -> Response:
 
 
 def _error_status(err: Exception) -> int:
+    if isinstance(err, DeadlineExceededError):
+        return 504
+    if isinstance(err, AdmissionError):
+        return 429
     if isinstance(err, WriteBackpressureError):
         return 503
     if isinstance(err, SliceUnavailableError):
@@ -218,9 +262,31 @@ class Route(NamedTuple):
 class Handler:
     """Transport-agnostic request handler bound to a Holder + Executor."""
 
-    def __init__(self, holder, executor, client_factory=None, stats=None):
+    def __init__(self, holder, executor, client_factory=None, stats=None,
+                 tracer=None):
         self.holder = holder
         self.executor = executor
+        # The trace rings behind /debug/queries (a server passes one
+        # sized by [obs]).
+        self.tracer = tracer if tracer is not None else Tracer()
+        # [cluster] query-deadline, seconds (0: none): the deadline of a
+        # query that brings none.
+        self.default_deadline = 0.0
+        # [obs] profile-sample-rate: 0 profiles only ?profile=true; N
+        # also every Nth query, into pilosa_query_phase_us.
+        self.profile_sample_rate = 0
+        self._profile_seq = itertools.count(1)
+        # [obs] cost-debt-threshold: a tenant whose share of the device
+        # time passes it gets X-Pilosa-Cost-Debt (<= 0: never).
+        self.cost_debt_threshold = 0.5
+        # The query scheduler (sched.QueryScheduler; a Server wires it
+        # when [sched] is enabled). None: no admission.
+        self.scheduler = None
+        # The server's half of /readyz: open() done and close() not
+        # begun. None: serving.
+        self.ready_fn = None
+        # Every query outcome, once ([slo]; None: no accounting).
+        self.slo = slo.SLORecorder()
         # client_factory(host) -> api.client.InternalClient: frame restore
         # pulls a frame's fragments through it (None: 501).
         self.client_factory = client_factory
@@ -269,6 +335,15 @@ class Handler:
         r("GET", r"/version", self._get_version)
         r("GET", r"/debug/vars", self._get_expvar)
         r("GET", r"/metrics", self._get_metrics)
+        r("GET", r"/healthz", self._get_healthz)
+        r("GET", r"/readyz", self._get_readyz)
+        r("GET", r"/debug/health", self._get_debug_health)
+        r("GET", r"/debug/bundle", self._get_debug_bundle)
+        r("GET", r"/debug/slo", self._get_debug_slo)
+        r("GET", r"/debug/costs", self._get_debug_costs)
+        r("GET", r"/debug/queries", self._get_debug_queries)
+        r("GET", r"/debug/traces/(?P<tid>[^/]+)", self._get_debug_trace)
+        r("GET", r"/debug/queryshapes", self._get_debug_queryshapes)
 
     def _add_route(self, method: str, pattern: str, fn: Callable):
         self._routes.append(Route(method, re.compile("^" + pattern + "$"), fn))
@@ -344,6 +419,33 @@ class Handler:
     # -- bulk data in and out --------------------------------------------------
 
     def _post_import(self, pv, params, headers, body) -> Response:
+        """_post_import_inner with its outcome recorded under route
+        "import" (no latency: batch imports must not dilute the query
+        latency SLI), metered into the tenant's ("import") account of
+        the cost ledger (its op and WAL bytes)."""
+        tenant = headers.get("x-pilosa-tenant", "") or "default"
+        cost_token = None
+        if costs.LEDGER.enabled:
+            ctx, cost_token = costs.activate(self._tenant_label(tenant))
+            ctx.shape = "import"
+            costs.LEDGER.charge("queries", 1)
+        try:
+            if self.slo is None:
+                return self._post_import_inner(pv, params, headers, body)
+            try:
+                resp = self._post_import_inner(pv, params, headers, body)
+            except Exception as e:
+                self.slo.record(slo.outcome_for_status(_error_status(e)),
+                                tenant=tenant, route="import")
+                raise
+            self.slo.record(slo.outcome_for_status(resp.status),
+                            tenant=tenant, route="import")
+            return resp
+        finally:
+            if cost_token is not None:
+                costs.deactivate(cost_token)
+
+    def _post_import_inner(self, pv, params, headers, body) -> Response:
         """A protobuf ImportRequest into Frame.import_bits. A timestamp
         of 0 means none; the others are seconds since the epoch, read as
         UTC (numpy's datetime64 from the integer, which is
@@ -477,6 +579,8 @@ class Handler:
                              "fragments": INTEGRITY_STATS.copy(),
                              "torn_tails": wal.get("torn_tails", 0)},
                "kernel_launches": dict(kernels.LAUNCHES)}
+        if self.scheduler is not None:
+            out["sched"] = self.scheduler.snapshot()
         mgr = self.executor._mesh_mgr
         if mgr is not None:
             mesh = dict(mgr.stats)
@@ -490,19 +594,173 @@ class Handler:
 
     def _get_metrics(self, pv, params, headers, body) -> Response:
         """Prometheus text exposition (format 0.0.4) of every store the
-        port has, bridged at scrape time."""
+        port has, bridged at scrape time; ?exemplars=true adds the trace
+        ids of the latency buckets (OpenMetrics exemplar syntax)."""
         return Response(
             200,
             {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
-            self._prom.render().encode())
+            self._prom.render(
+                exemplars=params.get("exemplars") == "true").encode())
 
     def _register_collectors(self):
         reg = self._prom
         reg.register_collector(lambda: prom.expvar_families(self.stats))
         for fn in (self._collect_runtime, self._collect_device,
-                   self._collect_routes, self._collect_fragments,
-                   self._collect_storage, self._collect_integrity):
+                   self._collect_routes, self._collect_sched,
+                   self._collect_fragments, self._collect_storage,
+                   self._collect_integrity, self._collect_slo,
+                   self._collect_flight, health.families,
+                   profile.STATS.families, costs.families):
             reg.register_collector(fn)
+
+    def _collect_sched(self) -> list:
+        """Queue depth by tenant ("all" the total), sheds by reason,
+        admissions by path, expiries, queue waits and cohort sizes;
+        nothing without a scheduler."""
+        s = self.scheduler
+        if s is None:
+            return []
+        depth = prom.MetricFamily(
+            "pilosa_sched_queue_depth", "gauge",
+            "Admitted queries waiting for dispatch, by tenant "
+            "('all' = total).")
+        for tenant, n in sorted(s.queue_depths().items()):
+            depth.add(n, {"tenant": tenant})
+        st = s.stats.copy()
+        shed = prom.MetricFamily(
+            "pilosa_sched_shed_total", "counter",
+            "Requests shed at admission (HTTP 429), by reason.")
+        shed.add(st.get("shed_deadline", 0), {"reason": "deadline"})
+        shed.add(st.get("shed_queue_full", 0), {"reason": "queue_full"})
+        adm = prom.MetricFamily(
+            "pilosa_sched_admitted_total", "counter",
+            "Admitted queries by path (fastpath = idle, no queuing).")
+        adm.add(st.get("fastpath", 0), {"path": "fastpath"})
+        adm.add(st.get("queued", 0), {"path": "queued"})
+        exp = prom.MetricFamily(
+            "pilosa_sched_expired_total", "counter",
+            "Queries whose deadline expired while queued (HTTP 504).")
+        exp.add(st.get("expired_in_queue", 0))
+        wait = prom.MetricFamily(
+            "pilosa_sched_wait_microseconds", "histogram",
+            "Queue wait from admission to dispatch (log2 buckets, µs).")
+        wait.add_histogram(s.wait_hist)
+        batch = prom.MetricFamily(
+            "pilosa_sched_batch_size", "histogram",
+            "Released cohort sizes (>1 = coalesced arrivals).")
+        batch.add_histogram(s.batch_hist)
+        return [depth, shed, adm, exp, wait, batch]
+
+    def _collect_slo(self) -> list:
+        return [] if self.slo is None else self.slo.families()
+
+    def _collect_flight(self) -> list:
+        """The flight recorder's ring: shapes held, capacity, evictions."""
+        st = self.executor.flight.stats()
+        return [prom.MetricFamily(
+                    "pilosa_queryshape_tracked", "gauge",
+                    "Query shapes currently held by the flight recorder "
+                    "ring.").add(st["shapes"]),
+                prom.MetricFamily(
+                    "pilosa_queryshape_ring", "gauge",
+                    "Flight recorder ring capacity ([obs] "
+                    "queryshape-ring).").add(st["ring"]),
+                prom.MetricFamily(
+                    "pilosa_queryshape_evicted_total", "counter",
+                    "Query shapes evicted from the flight recorder ring "
+                    "(LRU).").add(st["evicted"])]
+
+    # -- the query's own record and the liveness plane -------------------------
+
+    def _get_debug_slo(self, pv, params, headers, body) -> Response:
+        if self.slo is None:
+            return _json_resp({"error": "slo accounting disabled"}, 404)
+        return _json_resp(self.slo.status())
+
+    def _get_debug_queryshapes(self, pv, params, headers, body) -> Response:
+        """Per-shape traffic, latency, routes, staged bytes and shadow
+        checks. ?sort=cost|p99|routed_host|count, ?limit=N."""
+        return _json_resp(self.executor.flight.snapshot(
+            sort=params.get("sort", "cost"),
+            limit=int(params.get("limit", "50"))))
+
+    def _get_debug_costs(self, pv, params, headers, body) -> Response:
+        """The top (tenant, shape) accounts of every dimension and the
+        baseline watch's bands. ?sort=device_us|hbm|staged|wal|net|
+        queries|regression, ?limit=N."""
+        ledger = costs.LEDGER
+        limit = int(params.get("limit", "50"))
+        doc = ledger.snapshot(sort=params.get("sort", "device_us"),
+                              limit=limit, watch=costs.WATCH)
+        doc["enabled"] = ledger.enabled
+        doc["regression"] = {
+            "active": [{"shape": s_, "dimension": d}
+                       for s_, d in costs.WATCH.active()],
+            "bands": costs.WATCH.snapshot(limit=limit)}
+        doc["debt_threshold"] = self.cost_debt_threshold
+        return _json_resp(doc)
+
+    def _get_debug_queries(self, pv, params, headers, body) -> Response:
+        """The recent and slow trace rings, newest first; ?threshold_us=N
+        refilters the recent ring."""
+        snap = self.tracer.snapshot()
+        if "threshold_us" in params:
+            thr = float(params["threshold_us"])
+            snap["slow"] = [t for t in snap["recent"]
+                            if t["duration_us"] >= thr]
+            snap["slow_threshold_us"] = thr
+        return _json_resp(snap)
+
+    def _get_debug_trace(self, pv, params, headers, body) -> Response:
+        tr = self.tracer.get(pv["tid"])
+        if tr is None:
+            return _json_resp({"error": "trace not found"}, 404)
+        return _json_resp(tr.to_dict())
+
+    def _get_healthz(self, pv, params, headers, body) -> Response:
+        """Liveness: 200 while the watchdog sweeps. A stalled subsystem
+        does not flip it (that is /readyz's)."""
+        h = health.HEALTH
+        if h.watchdog_alive():
+            return _json_resp({"status": "ok", "watchdog": "alive" if
+                               h.enabled and h._thread is not None
+                               else "off"})
+        return _json_resp({"status": "unhealthy", "watchdog": "dead"}, 503)
+
+    def _get_readyz(self, pv, params, headers, body) -> Response:
+        """Readiness: serving, and no critical subsystem stalled; 503
+        with the reasons otherwise."""
+        reasons = []
+        if self.ready_fn is not None:
+            try:
+                if not self.ready_fn():
+                    reasons.append("not-serving")
+            except Exception:  # noqa: BLE001 — a broken probe: not serving
+                reasons.append("not-serving")
+        h = health.HEALTH
+        reasons += [f"stalled:{name}" for name in h.stalled_critical()]
+        if not h.watchdog_alive():
+            reasons.append("watchdog-dead")
+        if reasons:
+            return _json_resp({"status": "unready", "reasons": reasons}, 503)
+        return _json_resp({"status": "ok"})
+
+    def _get_debug_health(self, pv, params, headers, body) -> Response:
+        return _json_resp(health.HEALTH.snapshot())
+
+    def _get_debug_bundle(self, pv, params, headers, body) -> Response:
+        """The diagnostic dossier a watchdog trip writes, on demand;
+        ?write=true also writes it under the data directory."""
+        h = health.HEALTH
+        doc = h.build_bundle(reason="on-demand")
+        if params.get("write") == "true":
+            try:
+                doc["written_to"] = h.write_dossier(doc=doc)
+            except OSError as e:
+                doc["written_to"] = None
+                doc["write_error"] = str(e)
+        return Response(200, {"Content-Type": "application/json"},
+                        h.encode_bundle(doc) + b"\n")
 
     def _collect_runtime(self) -> list:
         info = prom.MetricFamily("pilosa_build_info", "gauge",
@@ -778,31 +1036,211 @@ class Handler:
         return _json_resp({"views": sorted(f.views)})
 
     def _post_query(self, pv, params, headers, body) -> Response:
+        """_post_query_inner with its outcome recorded, exactly once, in
+        the SLO recorder (pilosa_query_outcome_total{outcome, tenant}):
+        successes with their latency and trace id, sheds, deadline
+        expiries, backpressure, client and server errors. ?explain=true
+        runs nothing and is not counted. A 200 of a tenant over the
+        cost-debt threshold carries X-Pilosa-Cost-Debt."""
+        if self.slo is None:
+            return self._post_query_inner(pv, params, headers, body, {})
+        info: dict = {}
+        t0 = time.monotonic()
+        try:
+            resp = self._post_query_inner(pv, params, headers, body, info)
+        except Exception as e:
+            if not info.get("explain"):
+                self.slo.record(slo.outcome_for_status(_error_status(e)),
+                                tenant=info.get("tenant", "default"))
+            raise
+        if info.get("explain"):
+            return resp
+        tenant = info.get("tenant", "default")
+        latency_us = ((time.monotonic() - t0) * 1e6 if resp.status < 400
+                      else None)
+        self.slo.record(slo.outcome_for_status(resp.status), tenant=tenant,
+                        latency_us=latency_us,
+                        trace_id=info.get("trace_id"))
+        if resp.status < 400:
+            debt = self._cost_debt(tenant)
+            if debt is not None:
+                resp.headers["X-Pilosa-Cost-Debt"] = debt
+        return resp
+
+    def _tenant_label(self, tenant: str) -> str:
+        """The bounded tenant label ([sched] tenant-weights, "default",
+        else "other"), the tenant itself without an SLO recorder."""
+        return self.slo.tenant_label(tenant) if self.slo is not None \
+            else tenant
+
+    def _cost_debt(self, tenant: str) -> Optional[str]:
+        """The tenant's share of the attributed device time, formatted,
+        when it passes cost_debt_threshold: observe-only, no
+        throttling."""
+        thr = self.cost_debt_threshold
+        if thr is None or thr <= 0 or not costs.LEDGER.enabled:
+            return None
+        label = self._tenant_label(tenant)
+        share = None
+        if self.scheduler is not None:
+            share = self.scheduler.tenant_cost_share(label)
+        if share is None:
+            share = costs.LEDGER.tenant_share(label)
+        return f"{share:.3f}" if share > thr else None
+
+    def _exec_options(self, params, headers) -> ExecOptions:
+        """The query's deadline: X-Pilosa-Deadline-Us (the budget left,
+        us), else ?deadline= (a duration, "50ms"), else the server's
+        default_deadline ([cluster] query-deadline; 0: none)."""
+        deadline = None
+        hdr = headers.get("x-pilosa-deadline-us", "")
+        if hdr:
+            deadline = time.monotonic() + int(hdr) / 1e6
+        elif params.get("deadline"):
+            deadline = time.monotonic() + parse_duration(params["deadline"])
+        elif self.default_deadline > 0:
+            deadline = time.monotonic() + self.default_deadline
+        return ExecOptions(deadline=deadline)
+
+    def _post_query_inner(self, pv, params, headers, body,
+                          info: dict) -> Response:
+        """Admission, the trace, the profile and the cost account around
+        _run_query. The profile starts before admission, so a queue wait
+        is its sched_wait phase; its device_exec + host_fold is charged
+        to the tenant's account as device time (times the sample rate
+        on the sampled path)."""
+        index = pv["index"]
+        tenant = headers.get("x-pilosa-tenant", "") or "default"
+        info["tenant"] = tenant
+        fault.point("handler.query", index=index, remote=False)
+        opt = self._exec_options(params, headers)
+        if params.get("explain") == "true":
+            info["explain"] = True
+            return self._explain_query(index, params, headers, body)
+        want_profile = params.get("profile") == "true"
+        sampled = (self.profile_sample_rate > 0
+                   and next(self._profile_seq)
+                   % self.profile_sample_rate == 0)
+        cost_ctx = cost_token = None
+        if costs.LEDGER.enabled:
+            cost_ctx, cost_token = costs.activate(
+                self._tenant_label(tenant),
+                float(self.profile_sample_rate) if sampled else 1.0)
+        prof = ptoken = None
+        if want_profile or sampled:
+            prof = profile.QueryProfile(backend=self.executor.device.type)
+            if self.slo is not None:
+                prof.tenant = self.slo.tenant_label(tenant)
+            ptoken = profile.activate(prof)
+        ticket = None
+        try:
+            if self.scheduler is not None:
+                try:
+                    with profile.phase("sched_wait"):
+                        ticket = self.scheduler.submit(
+                            tenant=tenant, deadline=opt.deadline)
+                except AdmissionError as e:
+                    self.stats.count("query.shed", 1)
+                    return self._shed_response(e)
+                except DeadlineExceededError as e:
+                    return _json_resp({"error": str(e)}, 504)
+            trace = self.tracer.start("query", index=index,
+                                      query=body[:256].decode(
+                                          errors="replace"))
+            info["trace_id"] = trace.trace_id
+            try:
+                with trace.root:
+                    return self._run_query(index, params, body, opt,
+                                           want_profile)
+            finally:
+                self.tracer.finish(trace)
+        finally:
+            if ticket is not None:
+                self.scheduler.done(ticket)
+            if prof is not None:
+                profile.deactivate(ptoken)
+                prof.finish()
+                profile.STATS.record(prof)
+            if cost_ctx is not None:
+                costs.deactivate(cost_token)
+                if prof is not None:
+                    costs.LEDGER.record_device_us(
+                        prof.phase_us("device_exec")
+                        + prof.phase_us("host_fold"),
+                        weight=cost_ctx.weight, tenant=cost_ctx.tenant,
+                        shape=cost_ctx.shape)
+
+    def _shed_response(self, e: AdmissionError) -> Response:
+        """429 with Retry-After (whole seconds, >= 1): do not retry
+        sooner."""
+        retry = max(1, int(round(e.retry_after_s)))
+        resp = _json_resp({"error": str(e), "reason": e.reason,
+                           "retry_after_s": retry}, 429)
+        resp.headers["Retry-After"] = str(retry)
+        return resp
+
+    def _explain_query(self, index: str, params, headers,
+                       body) -> Response:
+        """Executor.explain, with a "cost" block: what the ledger holds
+        of this tenant x shape (its account, the tenant's share of the
+        device time, the shape's regressed dimensions). Runs nothing."""
         slices = [int(s) for s in params.get("slices", "").split(",")
                   if s != ""]
         try:
             q = parse_string(body.decode())
-            if params.get("explain") == "true":
-                plan = self.executor.explain(pv["index"], q, slices or None)
-                return _json_resp({**plan, "query": body.decode()[:1024]})
+            plan = self.executor.explain(index, q, slices or None)
+        except (PilosaError, ParseError) as e:
+            return _json_resp({"error": str(e)}, 400)
+        plan = {**plan, "query": body.decode()[:1024]}
+        ledger = costs.LEDGER
+        if ledger.enabled and q.calls:
+            label = self._tenant_label(
+                headers.get("x-pilosa-tenant", "") or "default")
+            shape = self.executor._shape_sig(q.calls[0])
+            acct = ledger.snapshot(limit=ledger.max_accounts)
+            row = next((a for a in acct["accounts"]
+                        if a["tenant"] == label and a["shape"] == shape),
+                       None)
+            plan["cost"] = {
+                "tenant": label, "shape": shape,
+                "tenant_device_us_share": round(ledger.tenant_share(label),
+                                                4),
+                "account": {k: v for k, v in (row or {}).items()
+                            if k not in ("tenant", "shape")},
+                "regressed": [d for s_, d in costs.WATCH.active()
+                              if s_ == shape]}
+        return _json_resp(plan)
+
+    def _run_query(self, index: str, params, body, opt: ExecOptions,
+                   profile_section: bool) -> Response:
+        slices = [int(s) for s in params.get("slices", "").split(",")
+                  if s != ""]
+        try:
+            text = body.decode()
+            with obs_span("parse", bytes=len(text)), profile.phase("parse"):
+                q = parse_string(text)
             t0 = time.monotonic()
-            results = self.executor.execute(pv["index"], q, slices or None)
+            results = self.executor.execute(index, q, slices or None, opt)
             dt_us = int((time.monotonic() - t0) * 1e6)
-            tagged = self.stats.with_tags(f"index:{pv['index']}")
+            tagged = self.stats.with_tags(f"index:{index}")
             for call in q.calls:
                 tagged.count(f"query.{call.name}", 1)
             tagged.timing("query", dt_us)
             self.stats.timing("query", dt_us)
         except (FieldValueError, FieldNotFoundError, WriteBackpressureError,
-                SliceUnavailableError) as e:
+                SliceUnavailableError, DeadlineExceededError) as e:
             return _error_resp(e)
         except (PilosaError, ParseError) as e:
             return _json_resp({"error": str(e)}, 400)
         out = {"results": [_result_to_json(r) for r in results]}
         if params.get("columnAttrs") == "true":
             out["columnAttrs"] = [{"id": cid, "attrs": attrs} for cid, attrs
-                                  in self._column_attr_sets(pv["index"],
-                                                            results)]
+                                  in self._column_attr_sets(index, results)]
+        if profile_section:
+            prof = profile.current()
+            if prof is not None:
+                # Before serialization: total_us is the execution's.
+                out["profile"] = prof.to_dict()
         return _json_resp(out)
 
     def _column_attr_sets(self, index: str, results):

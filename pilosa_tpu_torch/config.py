@@ -15,10 +15,11 @@ Durations accept Go-style strings ("10m", "60s", "1h30m", "250ms",
 
 What the port's Server (server.py) acts on: data-dir, host, log-path,
 use-device, [log], [mesh], [storage], [integrity] (but
-result-cache-verify-1-in), [obs] metrics-sample-interval and
-[[schema.indexes]]. It reads and does not act on yet [anti-entropy],
-[rebalance], [sched], [slo], [health], the rest of [obs] and [cluster]'s
-timeouts, retries, breakers, hints and read staleness; it refuses a
+result-cache-verify-1-in), [obs] (but fleet-scrape-interval), [sched],
+[slo], [health], [cluster] query-deadline and [[schema.indexes]]. It
+reads and does not act on yet [anti-entropy], [rebalance] and
+[cluster]'s timeouts, retries, breakers, hints and read staleness; it
+refuses a
 config that needs a cluster (more than one [cluster] host, type gossip
 or spmd, ici-hosts).
 
@@ -523,6 +524,15 @@ class Config:
                                            c.health_dossier_keep))
         c.schema_indexes = _parse_schema(data.get("schema", {}))
         return c
+
+    def slo_objectives(self) -> dict:
+        """The [slo] targets keyed as obs.slo.SLORecorder takes them."""
+        return {
+            "availability": self.slo_availability,
+            "p99_us": self.slo_p99_us,
+            "latency_target": self.slo_latency_target,
+            "shed_rate_max": self.slo_shed_rate_max,
+        }
 
     def expanded_data_dir(self) -> str:
         return os.path.expanduser(self.data_dir)

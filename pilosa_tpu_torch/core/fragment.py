@@ -56,6 +56,8 @@ from .. import SLICE_WIDTH, fault
 from ..errors import CorruptFragmentError, WriteBackpressureError
 from ..roaring import Bitmap
 from ..roaring.serialize import CorruptSnapshotError, scan_ops
+from ..obs import profile as _profile
+from ..obs.health import HEALTH
 from ..obs.metrics import StatMap
 from .cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE, new_cache, \
     sort_pairs
@@ -457,7 +459,8 @@ class Fragment:
                 if self.stats:
                     self.stats.count("setN", 1)
             self._count_op()
-        self._wal.wait_durable(seq)
+        with _profile.phase("wal_commit"):
+            self._wal.wait_durable(seq)
         return changed
 
     def clear_bit(self, row_id: int, column_id: int,
@@ -475,7 +478,8 @@ class Fragment:
                 if self.stats:
                     self.stats.count("clearN", 1)
             self._count_op()
-        self._wal.wait_durable(seq)
+        with _profile.phase("wal_commit"):
+            self._wal.wait_durable(seq)
         return changed
 
     def _count_op(self):
@@ -742,7 +746,11 @@ class Fragment:
         start = time.monotonic()
         err: Optional[BaseException] = None
         try:
-            with open(self._tmp_path, "wb") as f:
+            # Visibility only (no base): a snapshot's wall time scales
+            # with the fragment, but a disk-wedged one shows in
+            # /debug/health with this thread's name.
+            with HEALTH.inflight("snapshot", "write"), \
+                    open(self._tmp_path, "wb") as f:
                 frozen.write_to(f, footer=True)
                 f.flush()
                 fault.point("storage.fsync", path=self.path,

@@ -126,10 +126,12 @@ class Frame:
             self._save_meta()
             return schema
 
-    def set_value(self, field: str, column_id: int, value: int) -> bool:
+    def set_value(self, field: str, column_id: int, value: int,
+                  deadline: Optional[float] = None) -> bool:
         """Write one integer value: set or clear every row of the field's
         bsi view for this column. Raises FieldNotFoundError (404) or
-        FieldValueError (422) before writing anything."""
+        FieldValueError (422) before writing anything. `deadline`
+        (time.monotonic()) caps each write's backpressure wait."""
         schema = self.fields.get(field)
         if schema is None:
             raise FieldNotFoundError(self.name, field)
@@ -137,9 +139,9 @@ class Frame:
         view = self.create_view_if_not_exists(schema.view)
         changed = False
         for row_id in set_rows:
-            changed |= view.set_bit(row_id, column_id)
+            changed |= view.set_bit(row_id, column_id, deadline)
         for row_id in clear_rows:
-            changed |= view.clear_bit(row_id, column_id)
+            changed |= view.clear_bit(row_id, column_id, deadline)
         return changed
 
     # -- views ---------------------------------------------------------------
@@ -172,11 +174,12 @@ class Frame:
     # -- writes ------------------------------------------------------------
 
     def set_bit(self, row_id: int, column_id: int,
-                t: Optional[datetime] = None) -> bool:
+                t: Optional[datetime] = None,
+                deadline: Optional[float] = None) -> bool:
         """Set on the standard view and, with a time t, on each of its
         time views under the frame's quantum; with inverse storage, also
         on the inverse view and its time views, row and column
-        swapped."""
+        swapped. `deadline` caps each write's backpressure wait."""
         views = [VIEW_STANDARD]
         if self.inverse_enabled:
             views.append(VIEW_INVERSE)
@@ -187,17 +190,19 @@ class Frame:
             a, b = ((row_id, column_id) if base == VIEW_STANDARD
                     else (column_id, row_id))
             for name in names:
-                changed |= self.create_view_if_not_exists(name).set_bit(a, b)
+                changed |= self.create_view_if_not_exists(name).set_bit(
+                    a, b, deadline)
         return changed
 
-    def clear_bit(self, row_id: int, column_id: int) -> bool:
+    def clear_bit(self, row_id: int, column_id: int,
+                  deadline: Optional[float] = None) -> bool:
         """Clear on the standard view and the inverse view; time views
         keep the bit, as in the JAX package."""
         v = self.views.get(VIEW_STANDARD)
-        changed = v.clear_bit(row_id, column_id) if v else False
+        changed = v.clear_bit(row_id, column_id, deadline) if v else False
         iv = self.views.get(VIEW_INVERSE)
         if self.inverse_enabled and iv is not None:
-            changed |= iv.clear_bit(column_id, row_id)
+            changed |= iv.clear_bit(column_id, row_id, deadline)
         return changed
 
     def import_bits(self, row_ids, column_ids, timestamps=None):

@@ -38,6 +38,7 @@ import time
 from typing import Optional
 
 from .. import fault
+from ..obs.health import HEALTH
 from ..roaring import Bitmap
 from ..obs.metrics import StatMap
 from .fragment import INTEGRITY_STATS, bitmap_block_checksums
@@ -81,9 +82,13 @@ class Scrubber:
     def _loop(self) -> None:
         # Each pass starts up to SCRUB_JITTER of the interval late
         # (uniform), so nodes that share a config do not scrub in
-        # lockstep, as the JAX server's scrub loop.
+        # lockstep, as the JAX server's scrub loop. The loop is the
+        # `scrub` heartbeat of the liveness plane (not critical).
+        hb = HEALTH.register("scrub",
+                             interval=self.interval * (1.0 + SCRUB_JITTER))
         while not self._closing.wait(
                 self.interval * (1.0 + random.uniform(0.0, SCRUB_JITTER))):
+            hb.beat()
             self.scrub_pass()
 
     def close(self) -> None:
@@ -91,6 +96,7 @@ class Scrubber:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            HEALTH.unregister("scrub")
 
     # -- one pass --------------------------------------------------------------
 
@@ -107,9 +113,15 @@ class Scrubber:
             self._closing.wait(lag)
 
     def scrub_pass(self) -> int:
-        """One walk over every fragment; returns how many it verified."""
+        """One walk over every fragment; returns how many it verified.
+        A pass is the `scrub` subsystem's in-flight op, visibility only
+        (its wall time scales with the data and the rate limit)."""
         if not self.enabled:
             return 0
+        with HEALTH.inflight("scrub", "pass"):
+            return self._scrub_pass()
+
+    def _scrub_pass(self) -> int:
         self._pass_t0 = time.monotonic()
         self._pass_bytes = 0
         self.last_pass_start = time.time()

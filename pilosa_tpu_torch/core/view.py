@@ -77,10 +77,12 @@ class View:
             frag = self.fragments.get(slice_)
             return frag if frag is not None else self._open_fragment(slice_)
 
-    def set_bit(self, row_id: int, column_id: int) -> bool:
+    def set_bit(self, row_id: int, column_id: int,
+                deadline: Optional[float] = None) -> bool:
         frag = self.create_fragment_if_not_exists(column_id // SLICE_WIDTH)
-        return frag.set_bit(row_id, column_id)
+        return frag.set_bit(row_id, column_id, deadline)
 
-    def clear_bit(self, row_id: int, column_id: int) -> bool:
+    def clear_bit(self, row_id: int, column_id: int,
+                  deadline: Optional[float] = None) -> bool:
         frag = self.fragments.get(column_id // SLICE_WIDTH)
-        return frag.clear_bit(row_id, column_id) if frag else False
+        return frag.clear_bit(row_id, column_id, deadline) if frag else False

@@ -50,6 +50,8 @@ import time
 from typing import Optional
 
 from .. import fault
+from ..obs.costs import LEDGER
+from ..obs.health import HEALTH
 from ..obs.metrics import Histogram, StatMap
 
 FSYNC_NEVER = "never"
@@ -135,6 +137,9 @@ class WalCommitter:
             else:
                 self._target.write(data)
             self._appended += 1
+        # Writes arrive on the request thread: the ambient (tenant,
+        # shape) account, or the system row, pays for its WAL bytes.
+        LEDGER.charge("wal_bytes", len(data))
         return len(data)
 
     def seq(self) -> int:
@@ -199,9 +204,13 @@ class WalCommitter:
                     break
                 self._cv.wait(0.05)
         try:
-            if window > 0:
-                time.sleep(window)
-            self._commit()
+            # The leader's turn (window, write, fsync) is one in-flight op
+            # of the `wal` subsystem: a disk that stops answering fsync
+            # wedges every writer behind it, the hang the watchdog sees.
+            with HEALTH.inflight("wal", "commit", base=max(1.0, window * 4)):
+                if window > 0:
+                    time.sleep(window)
+                self._commit()
         finally:
             with self._cv:
                 self._leader = False

@@ -21,10 +21,17 @@ a node, and bulk data in and out of one.
               fragment, each the fragment's own data + cache tar
     restore   such a tar -> the node, fragment by fragment
 
+    top       one screen from two /metrics scrapes: QPS, routes, phase
+              percentiles, roofline, scheduler, HBM, integrity, SLO
+              budgets (-n scrapes, --interval seconds)
+    costs     the cost ledger's panel from /debug/costs (--sort, --limit)
+    health    the liveness panel from /debug/health and /readyz
+    diagnose  GET /debug/bundle, the dossier, to -o FILE (--write also
+              keeps a copy under the node's <data-dir>/.dossier/)
+
 The flags are the JAX package's (`pilosa_tpu/ctl/main.py`); --host
 defaults to $PILOSA_TORCH_HOST, else localhost:10101. The JAX ctl's
-top, fleet, costs, health, diagnose and loadgen read stores the port
-does not have yet and are not here. Every batch of an
+fleet and loadgen wait for ROADMAP A9b. Every batch of an
 import goes to --host: a node with no cluster owns every slice. A CSV
 time is read as local time (`datetime.strptime(...).timestamp()`), as
 the JAX ctl reads it, and travels as seconds since the epoch.
@@ -36,6 +43,7 @@ import argparse
 import io
 import json
 import os
+import re
 import signal
 import sys
 import tarfile
@@ -363,6 +371,564 @@ def cmd_restore(args) -> int:
     return 0
 
 
+# -- the panels over a node's stores (top, costs, health, diagnose) ----------
+
+# Sample-name suffixes whose values are cumulative: a duplicate line of
+# one (the same family emitted twice) sums instead of replacing.
+CUMULATIVE_SUFFIXES = ("_total", "_bucket", "_count", "_sum")
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_SAMPLE_RE = re.compile(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)"
+                        r"(?:\s+#.*)?$")
+
+
+def _parse_prom(text: str) -> dict:
+    """Prometheus 0.0.4 text -> {(name, ((label, value), ...)): float},
+    labels sorted. Comments, exemplar suffixes and malformed lines are
+    passed over (a panel must survive a garbled scrape); duplicate
+    samples of a cumulative family sum, a gauge's last one wins (the JAX
+    package's obs/fleet.parse_text)."""
+    out: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            continue
+        name, rawlabels, value = m.groups()
+        try:
+            v = float(value)
+        except ValueError:
+            continue
+        labels = tuple(sorted(
+            (k, lv.replace('\\"', '"').replace("\\\\", "\\")
+                  .replace("\\n", "\n"))
+            for k, lv in _LABEL_RE.findall(rawlabels or "")))
+        key = (name, labels)
+        if key in out and name.endswith(CUMULATIVE_SUFFIXES):
+            out[key] += v
+        else:
+            out[key] = v
+    return out
+
+
+def _hist_percentiles(metrics: dict, name: str, fixed: dict):
+    """(p50, p95, p99, count) from `name`_bucket samples whose labels
+    include `fixed`: the smallest le whose cumulative count covers each
+    quantile; series the fixed labels leave open sum per le."""
+    by_le: dict = {}
+    for (mname, labels), v in metrics.items():
+        if mname != name + "_bucket":
+            continue
+        d = dict(labels)
+        if any(d.get(k) != str(val) for k, val in fixed.items()):
+            continue
+        le = d.get("le", "")
+        le = float("inf") if le == "+Inf" else float(le)
+        by_le[le] = by_le.get(le, 0.0) + v
+    if not by_le:
+        return None
+    buckets = sorted(by_le.items())
+    total = buckets[-1][1]
+    if total <= 0:
+        return (0.0, 0.0, 0.0, 0)
+    out = []
+    for q in (0.50, 0.95, 0.99):
+        thresh = q * total
+        out.append(next((le for le, cum in buckets if cum >= thresh),
+                        buckets[-1][0]))
+    return (*out, int(total))
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024 or unit == "TiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return f"{n:.1f}TiB"
+
+
+def _fmt_us(us: float) -> str:
+    if us == float("inf"):
+        return "inf"
+    if us >= 1e6:
+        return f"{us / 1e6:.2f}s"
+    if us >= 1e3:
+        return f"{us / 1e3:.1f}ms"
+    return f"{us:.0f}us"
+
+
+def render_top(host: str, cur: dict, prev: dict, dt: float) -> str:
+    """One screenful from two consecutive /metrics scrapes. Pure —
+    tests feed it canned scrapes."""
+    lines = [f"pilosa-tpu-torch top — {host}"]
+
+    up = cur.get(("pilosa_uptime_seconds", ()), 0.0)
+    qtot = cur.get(("pilosa_query_us_count", ()), 0.0)
+    qprev = prev.get(("pilosa_query_us_count", ()), 0.0) if prev else 0.0
+    qps = (qtot - qprev) / dt if prev and dt > 0 else 0.0
+    lines.append(f"uptime {up:.0f}s   queries {int(qtot)}   "
+                 f"qps {qps:.1f}")
+
+    # Route panel (pilosa_query_route_total{backend,tier}): per-backend
+    # QPS over the scrape interval, with the BSI aggregation path
+    # (bsi-mesh device / bsi-host fold) summed into one "aggregate qps"
+    # figure, plus the locality-tier split (local chip / pod ICI
+    # collective / cross-node HTTP).
+    by_backend: dict = {}
+    by_tier: dict = {}
+    for (name, labels), v in sorted(cur.items()):
+        if name != "pilosa_query_route_total":
+            continue
+        d = dict(labels)
+        b = d.get("backend", "")
+        by_backend[b] = by_backend.get(b, 0.0) + v
+        t = d.get("tier", "local")
+        by_tier[t] = by_tier.get(t, 0.0) + v
+    if by_backend:
+        def _route_prev(backend: str) -> float:
+            if not prev:
+                return 0.0
+            # Sum across tier series (and tolerate pre-tier scrapes
+            # whose series carry only the backend label).
+            return sum(v for (name, labels), v in prev.items()
+                       if name == "pilosa_query_route_total"
+                       and dict(labels).get("backend", "") == backend)
+
+        def _route_rate(backend: str, v: float) -> float:
+            pv = _route_prev(backend)
+            return (v - pv) / dt if prev and dt > 0 else 0.0
+        routes = sorted(by_backend.items())
+        lines.append("routes: " + "  ".join(
+            f"{b}={int(v)} ({_route_rate(b, v):.1f}/s)"
+            for b, v in routes))
+        agg = [(b, v) for b, v in routes if b.startswith("bsi-")]
+        if agg:
+            lines.append(
+                f"aggregates: qps "
+                f"{sum(_route_rate(b, v) for b, v in agg):.1f}   "
+                + "  ".join(f"{b}={int(v)}" for b, v in agg))
+        if by_tier:
+            lines.append("tiers:  " + "  ".join(
+                f"{t}={int(by_tier.get(t, 0.0))}"
+                for t in ("local", "ici", "http") if t in by_tier))
+
+    # Per-phase measured percentiles (pilosa_query_phase_us{phase,
+    # backend}) — only present once something has been profiled.
+    pairs = sorted({(dict(labels).get("phase", ""),
+                     dict(labels).get("backend", ""))
+                    for (name, labels) in cur
+                    if name == "pilosa_query_phase_us_bucket"})
+    if pairs:
+        lines.append("")
+        lines.append(f"{'phase':<16}{'backend':<10}{'p50':>9}"
+                     f"{'p95':>9}{'p99':>9}{'count':>8}")
+        for phase, backend in pairs:
+            pct = _hist_percentiles(cur, "pilosa_query_phase_us",
+                                    {"phase": phase, "backend": backend})
+            if pct is None:
+                continue
+            p50, p95, p99, n = pct
+            lines.append(f"{phase:<16}{backend:<10}{_fmt_us(p50):>9}"
+                         f"{_fmt_us(p95):>9}{_fmt_us(p99):>9}{n:>8}")
+    else:
+        lines.append("(no profiled queries yet — POST ?profile=true or "
+                     "set [obs] profile-sample-rate)")
+
+    roofs = [(dict(labels).get("backend", ""), v)
+             for (name, labels), v in sorted(cur.items())
+             if name == "pilosa_roofline_fraction"]
+    if roofs:
+        lines.append("")
+        for backend, frac in roofs:
+            bps = cur.get(("pilosa_roofline_bytes_per_second",
+                           (("backend", backend),)), 0.0)
+            lines.append(f"roofline {backend}: {frac:.3f} of peak "
+                         f"({_fmt_bytes(bps)}/s)")
+
+    # Scheduler panel (pilosa_sched_* — only present when [sched] is
+    # enabled): live queue depth, shed rate over the scrape interval,
+    # and the coalesced-cohort size distribution.
+    depth = cur.get(("pilosa_sched_queue_depth", (("tenant", "all"),)))
+    if depth is not None:
+        shed_cur = sum(v for (name, _), v in cur.items()
+                       if name == "pilosa_sched_shed_total")
+        shed_prev = sum(v for (name, _), v in prev.items()
+                        if name == "pilosa_sched_shed_total") if prev else 0.0
+        shed_rate = ((shed_cur - shed_prev) / dt
+                     if prev and dt > 0 else 0.0)
+        line = (f"sched: queue {int(depth)}   shed {int(shed_cur)} "
+                f"({shed_rate:.1f}/s)")
+        pct = _hist_percentiles(cur, "pilosa_sched_batch_size", {})
+        if pct is not None and pct[3] > 0:
+            p50, p95, _, n_b = pct
+            line += (f"   batch p50 {p50:.0f} p95 {p95:.0f} "
+                     f"({n_b} cohorts)")
+        lines.append("")
+        lines.append(line)
+
+    # Membership panel (pilosa_member_state{host,state} + migration
+    # gauges): per-state node counts and, mid-resize, the live
+    # transfer picture — join/leave progress at a glance.
+    members = [(dict(labels).get("host", ""),
+                dict(labels).get("state", "?"))
+               for (name, labels), v in sorted(cur.items())
+               if name == "pilosa_member_state"]
+    if members:
+        by_state: dict = {}
+        for _, st in members:
+            by_state[st] = by_state.get(st, 0) + 1
+        line = "members: " + "  ".join(
+            f"{st}={n_m}" for st, n_m in sorted(by_state.items()))
+        inflight = cur.get(("pilosa_migrations_in_flight", ()))
+        if inflight:
+            mbytes = cur.get(("pilosa_migration_bytes_total", ()), 0.0)
+            line += (f"   migrating {int(inflight)} "
+                     f"({_fmt_bytes(mbytes)} moved)")
+        handoff = cur.get(("pilosa_handoff_slices", ()), 0.0)
+        if handoff:
+            line += f"   handoff {int(handoff)} slice(s)"
+        lines.append(line)
+
+    brk = [(dict(labels).get("host", ""), v)
+           for (name, labels), v in sorted(cur.items())
+           if name == "pilosa_breaker_state"]
+    if brk:
+        state_names = {0: "closed", 1: "half-open", 2: "open"}
+        lines.append("breakers: " + "  ".join(
+            f"{h}={state_names.get(int(v), '?')}" for h, v in brk))
+
+    # Hinted-handoff panel: queued/replayed/dropped totals plus live
+    # backlog bytes per target. Healthy steady state reads
+    # queued == replayed with no backlog; a growing backlog names the
+    # target that needs attention (README runbook).
+    hq = sum(v for (name, _labels), v in cur.items()
+             if name == "pilosa_hints_queued_total")
+    hr = sum(v for (name, _labels), v in cur.items()
+             if name == "pilosa_hints_replayed_total")
+    hd = sum(v for (name, _labels), v in cur.items()
+             if name == "pilosa_hints_dropped_total")
+    backlog = [(dict(labels).get("target", ""), v)
+               for (name, labels), v in sorted(cur.items())
+               if name == "pilosa_hint_bytes" and v > 0]
+    if hq or hr or hd or backlog:
+        line = f"hints: queued {int(hq)}   replayed {int(hr)}"
+        if hd:
+            line += f"   dropped {int(hd)}"
+        if backlog:
+            line += "   backlog " + "  ".join(
+                f"{t}={_fmt_bytes(v)}" for t, v in backlog[:6])
+        lines.append(line)
+
+    hbm = [(dict(labels).get("device", ""), v)
+           for (name, labels), v in sorted(cur.items())
+           if name == "pilosa_hbm_resident_bytes"]
+    if hbm:
+        total = sum(v for _, v in hbm)
+        line = (f"hbm resident: {_fmt_bytes(total)} across "
+                f"{len(hbm)} device(s)  " + "  ".join(
+                    f"{d}={_fmt_bytes(v)}" for d, v in hbm[:8]))
+        budget = cur.get(("pilosa_hbm_budget_bytes", ()), 0.0)
+        if budget:
+            line += f"   budget {_fmt_bytes(budget)}"
+        res = cur.get(("pilosa_hbm_residency_ratio", ()))
+        if res is not None:
+            line += f"   residency {res:.0%}"
+        sparse = cur.get(("pilosa_hbm_sparse_bytes", ()), 0.0)
+        if sparse:
+            line += f"   sparse {_fmt_bytes(sparse)}"
+        ev = sum(v for (name, _labels), v in cur.items()
+                 if name == "pilosa_hbm_evictions_total")
+        if ev:
+            line += f"   evictions {int(ev)}"
+        quar = cur.get(("pilosa_plan_quarantined_total", ()), 0.0)
+        if quar:
+            line += f"   quarantined plans {int(quar)}"
+        lines.append(line)
+
+    # Integrity panel: scrubber progress + corruption/repair tallies +
+    # shadow verification. Mismatches > 0 is the wake-someone line.
+    sfrag = cur.get(("pilosa_scrub_fragments_total", ()), 0.0)
+    corrupt = cur.get(("pilosa_integrity_corrupt_total", ()), 0.0)
+    mism = sum(v for (name, _labels), v in cur.items()
+               if name == "pilosa_shadow_mismatch_total")
+    if sfrag or corrupt or mism:
+        line = f"integrity: scrubbed {int(sfrag)}"
+        age = cur.get(("pilosa_scrub_last_age_seconds", ()))
+        if age is not None:
+            line += f" (oldest {age:.0f}s ago)"
+        reps = cur.get(("pilosa_scrub_repairs_total", ()), 0.0)
+        line += f"   corrupt {int(corrupt)}   repairs {int(reps)}"
+        checks = sum(v for (name, _labels), v in cur.items()
+                     if name == "pilosa_shadow_checks_total")
+        if checks or mism:
+            line += f"   shadow {int(checks)} checks"
+            if mism:
+                line += f" / {int(mism)} MISMATCH"
+        lines.append(line)
+
+    # SLO panel (pilosa_slo_* — [slo] objectives): per-objective error
+    # budget remaining over the accounting window plus the fastest
+    # burn rate across windows. Budget 0 / VIOLATED is the page line.
+    slo_objs = sorted({dict(labels).get("objective", "")
+                       for (name, labels) in cur
+                       if name == "pilosa_slo_budget_remaining"})
+    if slo_objs:
+        parts = []
+        for obj in slo_objs:
+            rem = cur.get(("pilosa_slo_budget_remaining",
+                           (("objective", obj),)), 0.0)
+            burns = [(dict(labels).get("window", ""), v)
+                     for (name, labels), v in cur.items()
+                     if name == "pilosa_slo_burn_rate"
+                     and dict(labels).get("objective") == obj]
+            part = f"{obj} {rem * 100:.0f}%"
+            if burns:
+                w, rate = max(burns, key=lambda x: (x[1], x[0]))
+                part += f" (burn {rate:.2f}@{w})"
+            if rem <= 0:
+                part += " VIOLATED"
+            parts.append(part)
+        lines.append("")
+        lines.append("slo budget: " + "   ".join(parts))
+    return "\n".join(lines) + "\n"
+
+
+
+def cmd_top(args) -> int:
+    """Scrape /metrics on an interval and render a one-screen summary
+    (QPS, per-phase percentiles, roofline, scheduler queue/shed/batch,
+    membership + migrations, breakers, HBM residency) —
+    the operator's first-response tool."""
+    import urllib.request
+
+    url = f"http://{args.host}/metrics"
+    prev: dict = {}
+    t_prev = 0.0
+    n = 0
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                text = resp.read().decode()
+        except OSError as e:
+            print(f"scrape {url}: {e}", file=sys.stderr)
+            return 1
+        now = time.monotonic()
+        cur = _parse_prom(text)
+        out = render_top(args.host, cur, prev, now - t_prev)
+        if sys.stdout.isatty() and args.n != 1:
+            sys.stdout.write("\x1b[2J\x1b[H")
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        prev, t_prev = cur, now
+        n += 1
+        if args.n and n >= args.n:
+            return 0
+        time.sleep(args.interval)
+
+
+def render_costs(host: str, doc: dict) -> str:
+    """One screenful from a /debug/costs document: dimension totals,
+    ledger health, active regressions, then the top accounts. Pure —
+    tests feed it canned snapshots."""
+    totals = doc.get("totals") or {}
+    lines = [f"pilosa-tpu-torch costs — via {host}   "
+             f"accounts {doc.get('n_accounts', 0)}   "
+             f"views {doc.get('resident_views', 0)}   "
+             f"sort {doc.get('sort', 'device_us')}"]
+    if not doc.get("enabled", True):
+        lines.append("cost ledger DISABLED ([obs] cost-ledger = false)")
+        return "\n".join(lines) + "\n"
+    lines.append(
+        f"totals: device {_fmt_us(totals.get('device_us', 0.0))}"
+        f" (saved {_fmt_us(totals.get('saved_device_us', 0.0))})   "
+        f"hbm {_fmt_bytes(totals.get('hbm_byte_seconds', 0.0))}·s   "
+        f"staged {_fmt_bytes(totals.get('staged_bytes', 0.0))}   "
+        f"wal {_fmt_bytes(totals.get('wal_bytes', 0.0))}   "
+        f"net http {_fmt_bytes(totals.get('net_http_bytes', 0.0))}"
+        f" / ici {_fmt_bytes(totals.get('net_ici_bytes', 0.0))}")
+    ev = doc.get("events") or {}
+    if ev.get("folded") or ev.get("unattributed"):
+        lines.append(f"ledger events: tracked {int(ev.get('tracked', 0))}"
+                     f"   folded {int(ev.get('folded', 0))}"
+                     f"   unattributed {int(ev.get('unattributed', 0))}")
+    reg = (doc.get("regression") or {}).get("active") or []
+    for r in reg:
+        lines.append(f"REGRESSION: shape {r.get('shape', '?')} "
+                     f"{r.get('dimension', '?')}")
+    lines.append("")
+    lines.append(f"{'tenant':<14} {'shape':<22} {'queries':>8} "
+                 f"{'device':>9} {'saved':>9} {'hbm·s':>9} "
+                 f"{'staged':>9} {'wal':>9} {'net':>9}")
+    for row in doc.get("accounts") or []:
+        net = (row.get("net_http_bytes", 0.0)
+               + row.get("net_ici_bytes", 0.0))
+        line = (f"{row.get('tenant', '?'):<14} "
+                f"{row.get('shape', '-')[:22]:<22} "
+                f"{int(row.get('queries', 0)):>8} "
+                f"{_fmt_us(row.get('device_us', 0.0)):>9} "
+                f"{_fmt_us(row.get('saved_device_us', 0.0)):>9} "
+                f"{_fmt_bytes(row.get('hbm_byte_seconds', 0.0)):>9} "
+                f"{_fmt_bytes(row.get('staged_bytes', 0.0)):>9} "
+                f"{_fmt_bytes(row.get('wal_bytes', 0.0)):>9} "
+                f"{_fmt_bytes(net):>9}")
+        if row.get("regressed"):
+            line += "  REGRESSED"
+        lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+
+def cmd_costs(args) -> int:
+    """Poll /debug/costs on an interval and render the attribution
+    panel: who is spending the fleet's device time, HBM byte-seconds,
+    WAL and network bytes — plus any active perf regressions."""
+    import json as _json
+    import urllib.request
+
+    url = (f"http://{args.host}/debug/costs?sort={args.sort}"
+           f"&limit={args.limit}")
+    n = 0
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                doc = _json.loads(resp.read().decode())
+        except OSError as e:
+            print(f"scrape {url}: {e}", file=sys.stderr)
+            return 1
+        out = render_costs(args.host, doc)
+        if sys.stdout.isatty() and args.n != 1:
+            sys.stdout.write("\x1b[2J\x1b[H")
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        n += 1
+        if args.n and n >= args.n:
+            return 0
+        time.sleep(args.interval)
+
+
+def render_health(host: str, doc: dict, ready_doc: dict) -> str:
+    """One screenful from a /debug/health document plus the /readyz
+    verdict: watchdog vitals, then the per-subsystem heartbeat table,
+    in-flight ops, gossiped peer health. Pure — tests feed it canned
+    snapshots."""
+    ready = ready_doc.get("status") == "ok"
+    lines = [f"pilosa-tpu-torch health — via {host}   "
+             f"readyz {'OK' if ready else 'UNREADY'}   "
+             f"watchdog {'alive' if doc.get('watchdog_alive') else 'DEAD'}"
+             f"   sweeps {int(doc.get('sweeps', 0))}"
+             f"   trips {int(doc.get('trips_total', 0))}"]
+    if not ready:
+        reasons = ready_doc.get("reasons") or []
+        lines.append("unready: " + ", ".join(str(r) for r in reasons))
+    lines.append("")
+    lines.append(f"{'subsystem':<18} {'state':<8} {'crit':<5} "
+                 f"{'interval':>9} {'age':>8} {'beats':>9} "
+                 f"{'trips':>6}  thread")
+    subs = doc.get("subsystems") or {}
+    for name in sorted(subs):
+        s = subs[name]
+        state = s.get("state", "?")
+        if s.get("parked"):
+            state = "idle"
+        iv = s.get("interval_s")
+        age = s.get("age_s")
+        line = (f"{name:<18} {state:<8} "
+                f"{'yes' if s.get('critical') else '-':<5} "
+                f"{(f'{iv:.2f}s' if iv else 'event'):>9} "
+                f"{(f'{age:.1f}s' if age is not None else '-'):>8} "
+                f"{int(s.get('beats', 0)):>9} "
+                f"{int(s.get('trips', 0)):>6}  {s.get('thread', '-')}")
+        if s.get("state") == "stalled":
+            line += f"   STALLED {s.get('stalled_for_s', 0):.1f}s"
+        lines.append(line)
+    infl = doc.get("inflight") or []
+    if infl:
+        lines.append("")
+        lines.append("in-flight ops:")
+        for op in infl:
+            bound = op.get("deadline_s")
+            lines.append(
+                f"  {op.get('subsystem', '?')}/{op.get('kind', '?')} "
+                f"running {op.get('age_s', 0):.1f}s"
+                f" (bound {f'{bound:.1f}s' if bound else 'none'})"
+                f" on {op.get('thread', '?')}")
+    peers = doc.get("peers") or {}
+    if peers:
+        lines.append("")
+        lines.append("gossiped peers:")
+        for h in sorted(peers):
+            p = peers[h]
+            verdict = "ok" if p.get("ready", True) else "UNREADY"
+            stalled = p.get("stalled") or []
+            line = f"  {h:<24} {verdict}"
+            if stalled:
+                line += "   stalled: " + ",".join(stalled)
+            lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+
+def cmd_health(args) -> int:
+    """Poll /debug/health (+ /readyz) on an interval and render the
+    liveness panel: watchdog vitals, per-subsystem heartbeats,
+    in-flight ops, gossiped peer verdicts."""
+    import json as _json
+    import urllib.request
+
+    n = 0
+    while True:
+        try:
+            with urllib.request.urlopen(
+                    f"http://{args.host}/debug/health", timeout=10) as resp:
+                doc = _json.loads(resp.read().decode())
+            try:
+                with urllib.request.urlopen(
+                        f"http://{args.host}/readyz", timeout=10) as resp:
+                    ready_doc = _json.loads(resp.read().decode())
+            except urllib.error.HTTPError as e:  # 503 carries the body
+                ready_doc = _json.loads(e.read().decode())
+        except OSError as e:
+            print(f"scrape {args.host}: {e}", file=sys.stderr)
+            return 1
+        out = render_health(args.host, doc, ready_doc)
+        if sys.stdout.isatty() and args.n != 1:
+            sys.stdout.write("\x1b[2J\x1b[H")
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        n += 1
+        if args.n and n >= args.n:
+            return 0
+        time.sleep(args.interval)
+
+
+def cmd_diagnose(args) -> int:
+    """Pull GET /debug/bundle — the same bounded JSON dossier the
+    watchdog writes on a trip — and save it locally for attachment to
+    an incident. `--write` also asks the node to persist a copy under
+    its own <data-dir>/.dossier/."""
+    import urllib.request
+
+    url = f"http://{args.host}/debug/bundle"
+    if args.write:
+        url += "?write=true"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            body = resp.read()
+    except OSError as e:
+        print(f"fetch {url}: {e}", file=sys.stderr)
+        return 1
+    out = args.output
+    if out == "-":
+        sys.stdout.write(body.decode())
+        return 0
+    with open(out, "wb") as f:
+        f.write(body)
+    print(f"wrote {out} ({len(body)} bytes)")
+    return 0
+
+
+
 def _add_host(p):
     p.add_argument("--host",
                    default=os.environ.get("PILOSA_TORCH_HOST",
@@ -449,6 +1015,50 @@ def make_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("sort", help="sort import CSV in fragment order")
     p.add_argument("path", help="CSV file ('-' for stdin)")
     p.set_defaults(fn=cmd_sort)
+
+    p = sub.add_parser("top", help="live /metrics summary for a node")
+    _add_host(p)
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between scrapes (default 2)")
+    p.add_argument("-n", type=int, default=0,
+                   help="number of scrapes, 0 = until interrupted")
+    p.set_defaults(fn=cmd_top)
+
+    p = sub.add_parser("costs",
+                       help="per-tenant/per-shape cost attribution panel")
+    _add_host(p)
+    p.add_argument("--sort", default="device_us",
+                   choices=["device_us", "hbm", "staged", "wal", "net",
+                            "queries", "regression"],
+                   help="account ordering (default device_us)")
+    p.add_argument("--limit", type=int, default=20,
+                   help="accounts shown (default 20)")
+    p.add_argument("--interval", type=float, default=5.0,
+                   help="seconds between polls (default 5)")
+    p.add_argument("-n", type=int, default=0,
+                   help="number of polls, 0 = until interrupted")
+    p.set_defaults(fn=cmd_costs)
+
+    p = sub.add_parser("health",
+                       help="liveness panel: watchdog, heartbeats, "
+                            "in-flight ops")
+    _add_host(p)
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between polls (default 2)")
+    p.add_argument("-n", type=int, default=0,
+                   help="number of polls, 0 = until interrupted")
+    p.set_defaults(fn=cmd_health)
+
+    p = sub.add_parser("diagnose",
+                       help="pull a diagnostic dossier (/debug/bundle) "
+                            "from a node")
+    _add_host(p)
+    p.add_argument("-o", "--output", default="-",
+                   help="file to write ('-' for stdout)")
+    p.add_argument("--write", action="store_true",
+                   help="also persist a copy under the node's "
+                        "<data-dir>/.dossier/")
+    p.set_defaults(fn=cmd_diagnose)
 
     p = sub.add_parser("config", help="print the default config")
     p.set_defaults(fn=cmd_config)

@@ -61,6 +61,11 @@ class CorruptFragmentError(SliceUnavailableError):
         super().__init__(msg)
 
 
+class DeadlineExceededError(PilosaError):
+    """The query's deadline expired: before or during admission, while
+    queued, or between its calls. HTTP 504."""
+
+
 class WriteBackpressureError(PilosaError):
     """A write was shed: the fragment's ops not yet covered by a
     snapshot passed max_wal_ops, and no snapshot landed within the

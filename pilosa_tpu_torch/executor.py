@@ -45,6 +45,18 @@ the ids the card returned; TopN and the aggregates count per-row planes
 keyed by view, not by one plan signature, so their mismatch quarantines
 nothing (as in the JAX package).
 
+Observability (the JAX executor's seams): every Count and Sum / Min /
+Max records its route, tier and latency (`_record_route`), with the
+active trace's id as the latency histogram's exemplar, one row of the
+query-shape flight recorder (`flight`, keyed by `_shape_sig`) and the
+cost ledger's per-call tap (obs.costs.observe_route). `execute` takes
+an ExecOptions whose `deadline` is checked before each call and caps a
+write's backpressure wait; its setup and each Count's lowering are the
+profile's `plan` phase, a host fold its `host_fold` phase, and the
+manager's staging and launches add `stage_h2d`, `device_exec` and
+`readback_d2h`. `estimate_service_us` and `burst_hint` are the query
+scheduler's hooks (sched/).
+
 Bitmap and Range calls materialize roaring rows per slice on the host; a
 time Range ORs the row over the views that cover [start, end). A root
 Bitmap result carries the row's attrs (or the column's, for a column
@@ -74,8 +86,8 @@ from .core.index import DEFAULT_COLUMN_LABEL
 from .core.row import Row
 from .core.timequantum import parse_time, views_by_time_range
 from .core.view import VIEW_INVERSE, VIEW_STANDARD
-from .errors import DeviceResourceError, FrameNotFoundError, \
-    IndexNotFoundError, IndexRequiredError, QueryError
+from .errors import DeadlineExceededError, DeviceResourceError, \
+    FrameNotFoundError, IndexNotFoundError, IndexRequiredError, QueryError
 from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD,
                             format_pool_bytes)
 from .parallel.plan import (DEFAULT_FRAME, _lower_tree, _tree_signature,
@@ -84,6 +96,8 @@ from .parallel.serve import mesh_config as mesh_config_check
 from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
 from .pql import Call, Cond, Query
+from . import obs
+from .obs.flight import FlightRecorder
 from .obs.metrics import Histogram, StatMap
 
 _BINOPS = {"Intersect": "intersect", "Union": "union",
@@ -100,6 +114,44 @@ MIN_THRESHOLD = 1
 SHADOW_STATS = StatMap()
 
 _log = logging.getLogger("pilosa_tpu_torch.executor")
+
+
+def _call_shape(c) -> str:
+    """Structural fingerprint of a Call tree, names and frame arguments
+    with row and column ids elided: `Count(Intersect(Bitmap[f],
+    Bitmap[f]))`. The flight recorder's and the cost ledger's shape key
+    (one entry a query shape, not a query)."""
+    frame = c.args.get("frame")
+    label = f"{c.name}[{frame}]" if isinstance(frame, str) else c.name
+    if c.children:
+        return (label + "("
+                + ",".join(_call_shape(k) for k in c.children) + ")")
+    return label
+
+
+class ExecOptions:
+    """Per-execute context. `deadline`: the time.monotonic() instant by
+    which the whole query must finish (None: none); execute checks it
+    before each call, and a write's backpressure wait ends at it. The
+    JAX package's `partial` and `staleness` come with the cluster
+    (ROADMAP A11)."""
+
+    __slots__ = ("deadline",)
+
+    def __init__(self, deadline: Optional[float] = None):
+        self.deadline = deadline
+
+    def deadline_left(self) -> Optional[float]:
+        """Seconds left (negative once expired), None without one."""
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
+
+    def check_deadline(self, what: str = "query") -> None:
+        left = self.deadline_left()
+        if left is not None and left <= 0:
+            raise DeadlineExceededError(
+                f"{what}: deadline exceeded by {-left * 1e6:.0f}us")
 
 
 class Executor:
@@ -134,6 +186,9 @@ class Executor:
         self.route_stats = StatMap()
         self.tier_stats = StatMap()
         self._route_hists: dict = {}
+        # Query shapes behind GET /debug/queryshapes ([obs]
+        # queryshape-ring sets its ring).
+        self.flight = FlightRecorder()
 
     def _inc(self, key: str) -> None:
         with self._stats_mu:
@@ -146,16 +201,74 @@ class Executor:
         mgr = self._mesh_mgr
         return mgr.stats if mgr is not None else None
 
-    def _record_route(self, route: str, t0: float, tier: str = "local"):
+    def _record_route(self, route: str, t0: float, tier: str = "local",
+                      call=None, staged_bytes: int = 0,
+                      shadow_checked: bool = False,
+                      shadow_mismatch: bool = False):
         """Count one served query under `route` and `tier`, and its
         latency since `t0` (time.monotonic()): one clock read, no device
-        sync."""
+        sync. With a trace active its id is the latency's exemplar (so
+        /metrics?exemplars=true links a slow bucket to /debug/traces/
+        <id>); with `call`, one flight-recorder row of its shape and the
+        cost ledger's tap (staged bytes and the op count into the
+        ambient (tenant, shape) account, and the baseline watch)."""
         self.route_stats.inc(f"count_{route}")
         self.tier_stats.inc(f"{route}|{tier}")
         h = self._route_hists.get(route)
         if h is None:
             h = self._route_hists.setdefault(route, Histogram())
-        h.observe((time.monotonic() - t0) * 1e6)
+        lat_us = (time.monotonic() - t0) * 1e6
+        trace = getattr(obs.current_span(), "trace", None)
+        h.observe(lat_us, exemplar=getattr(trace, "trace_id", None))
+        if call is not None:
+            sig = self._shape_sig(call)
+            self.flight.record(sig, route, tier, lat_us,
+                               staged_bytes=staged_bytes,
+                               shadow_checked=shadow_checked,
+                               shadow_mismatch=shadow_mismatch,
+                               example=lambda: str(call))
+            obs.costs.observe_route(sig, route, tier, lat_us,
+                                    staged_bytes=staged_bytes)
+
+    @staticmethod
+    def _shape_sig(c) -> str:
+        """_call_shape of `c`, memoized on the Call (immutable after
+        parse)."""
+        sig = c.__dict__.get("_shape_sig")
+        if sig is None:
+            try:
+                sig = _call_shape(c)
+            except Exception:  # noqa: BLE001 — telemetry never raises
+                sig = c.name
+            c.__dict__["_shape_sig"] = sig
+        return sig
+
+    def _h2d_bytes(self) -> int:
+        """The manager's cumulative staged bytes (0 without one): a
+        delta over a call attributes its staging to it (approximate
+        under concurrency)."""
+        mgr = self._mesh_mgr
+        return int(mgr.stats.get("h2d_bytes", 0)) if mgr is not None else 0
+
+    def estimate_service_us(self) -> Optional[float]:
+        """The scheduler's service-time estimate: p95 of the busiest
+        route's latency (us), None before 4 of them were measured."""
+        best, best_n = None, 0
+        for h in list(self._route_hists.values()):
+            if h.total > best_n:
+                best, best_n = h, h.total
+        if best is None or best_n < 4:
+            return None
+        return best.percentile(0.95)
+
+    def burst_hint(self, n: int) -> None:
+        """The scheduler's cohort hint: n queries were released together,
+        so the manager's batch loop holds its drain window open for them
+        (MeshManager.expect_burst). Nothing before the manager exists: a
+        hint never builds it."""
+        mgr = self._mesh_mgr
+        if mgr is not None and n > 1:
+            mgr.expect_burst(n)
 
     @property
     def route_latency_hists(self) -> dict:
@@ -181,32 +294,43 @@ class Executor:
             self._mesh_mgr.invalidate(index)
 
     def execute(self, index: str, q: Query,
-                slices: Optional[Sequence[int]] = None) -> list:
+                slices: Optional[Sequence[int]] = None,
+                opt: Optional[ExecOptions] = None) -> list:
         """Execute each call in order; one result per call. With `slices`
         given, a Bitmap is taken as a column Bitmap when it names the
         default column label ("columnID"), and it then reads no slice;
         without them, by the index's own label over the inverse view's
-        slices (as the JAX package does)."""
+        slices (as the JAX package does). `opt`: its deadline is checked
+        before each call (DeadlineExceededError) and caps a write's
+        backpressure wait."""
         if not index:
             raise IndexRequiredError()
-        idx = self.holder.index(index)
-        need = any(c.name not in _WRITE_CALLS for c in q.calls)
-        column_label = DEFAULT_COLUMN_LABEL
-        defaulted = False
-        if slices:
-            slices = list(slices)
-        else:
-            slices = []
-            if need:
-                if idx is None:
-                    raise IndexNotFoundError()
-                defaulted = True
-                slices = list(range(idx.max_slice() + 1))
-                column_label = idx.column_label
+        with obs.profile.phase("plan"):
+            opt = opt or ExecOptions()
+            idx = self.holder.index(index)
+            need = any(c.name not in _WRITE_CALLS for c in q.calls)
+            column_label = DEFAULT_COLUMN_LABEL
+            defaulted = False
+            if slices:
+                slices = list(slices)
+            else:
+                slices = []
+                if need:
+                    if idx is None:
+                        raise IndexNotFoundError()
+                    defaulted = True
+                    slices = list(range(idx.max_slice() + 1))
+                    column_label = idx.column_label
         if q.calls and all(c.name == "SetRowAttrs" for c in q.calls):
             return self._execute_bulk_set_row_attrs(index, q.calls)
         results = []
+        cost_ctx = obs.costs.current()
         for call in q.calls:
+            opt.check_deadline(call.name)
+            if cost_ctx is not None:
+                # Before it runs: its staging's residency and WAL bytes
+                # charge the (tenant, shape) account of this call.
+                cost_ctx.shape = self._shape_sig(call)
             call_slices = slices
             if call.name == "Bitmap" and need:
                 f = self.holder.frame(index,
@@ -216,10 +340,12 @@ class Executor:
                 if call.is_inverse(f.row_label, column_label):
                     call_slices = (list(range(idx.max_inverse_slice() + 1))
                                    if defaulted else [])
-            results.append(self._execute_call(index, call, call_slices))
+            results.append(self._execute_call(index, call, call_slices,
+                                              opt.deadline))
         return results
 
-    def _execute_call(self, index: str, c: Call, slices: List[int]):
+    def _execute_call(self, index: str, c: Call, slices: List[int],
+                      deadline: Optional[float] = None):
         if c.name == "Count":
             return self._execute_count(index, c, slices)
         if c.name == "SetBit":
@@ -231,12 +357,12 @@ class Executor:
                     t = parse_time(ts)
                 except ValueError:
                     raise QueryError(f"invalid date: {ts}") from None
-            return f.set_bit(row_id, col_id, t)
+            return f.set_bit(row_id, col_id, t, deadline=deadline)
         if c.name == "ClearBit":
             f, row_id, col_id = self._bit_args(index, c)
-            return f.clear_bit(row_id, col_id)
+            return f.clear_bit(row_id, col_id, deadline=deadline)
         if c.name == "SetValue":
-            return self._execute_set_value(index, c)
+            return self._execute_set_value(index, c, deadline)
         if c.name in _BSI_AGGREGATES:
             return self._execute_bsi_aggregate(index, c, slices)
         if c.name == "TopN":
@@ -363,25 +489,40 @@ class Executor:
             raise QueryError("Count() only accepts a single bitmap input")
         child = c.children[0]
         t0 = time.monotonic()
+        h2d0 = self._h2d_bytes()
         leaves: list = []
-        shape = _lower_tree(self.holder, index, child, leaves)
-        if shape is not None and slices:
-            num = self._num_slices(index, slices)
-            sig = plan_signature(shape)
-            if not self._route_to_host(index, leaves, num, sig):
-                n = self._on_card(self.mesh_manager().count, index, shape,
-                                  leaves, slices, num, sig)
-                if n is not None:
-                    self._inc("count_device")
-                    if self._shadow_sampled():
-                        n = self._shadow_check_count(index, child, slices,
-                                                     n, sig)
-                    self._record_route("mesh", t0)
-                    return n
+        with obs.span("plan", call="Count", slices=len(slices)) as psp, \
+                obs.profile.phase("plan"):
+            shape = _lower_tree(self.holder, index, child, leaves)
+            if shape is not None and slices:
+                num = self._num_slices(index, slices)
+                sig = plan_signature(shape)
+                routed = self._route_to_host(index, leaves, num, sig)
+            psp.tag(route="roaring" if shape is None else
+                    "host-fold" if not slices or routed else "mesh")
+        if shape is not None and slices and not routed:
+            n = self._on_card(self.mesh_manager().count, index, shape,
+                              leaves, slices, num, sig)
+            if n is not None:
+                self._inc("count_device")
+                checked = mismatch = False
+                if self._shadow_sampled():
+                    checked = True
+                    m = self._shadow_check_count(index, child, slices, n,
+                                                 sig)
+                    mismatch, n = m != n, m
+                self._record_route(
+                    "mesh", t0, call=c,
+                    staged_bytes=max(0, self._h2d_bytes() - h2d0),
+                    shadow_checked=checked, shadow_mismatch=mismatch)
+                return n
         self._inc("count_host")
-        n = self._count_host(index, child, slices)
+        with obs.span("host_fold", slices=len(slices)), \
+                obs.profile.phase("host_fold"):
+            n = self._count_host(index, child, slices)
         self._record_route("host-fold" if shape is not None else "roaring",
-                           t0)
+                           t0, call=c,
+                           staged_bytes=max(0, self._h2d_bytes() - h2d0))
         return n
 
     def _count_host(self, index: str, child: Call, slices: List[int]) -> int:
@@ -625,6 +766,7 @@ class Executor:
         column holds a value), Min / Max the extremum and how many
         columns hold it, or None when no column holds a value."""
         t0 = time.monotonic()
+        h2d0 = self._h2d_bytes()
         frame, schema = self._bsi_call_schema(index, c)
         if len(c.children) > 1:
             raise QueryError(
@@ -649,12 +791,20 @@ class Executor:
             except (_Unstaged, DeviceResourceError):
                 on_card = False
         self._inc("bsi_device" if on_card else "bsi_host")
+        checked = mismatch = False
         if not on_card:
-            out = self._bsi_host(index, frame, schema, c, child, slices)
+            with obs.profile.phase("host_fold"):
+                out = self._bsi_host(index, frame, schema, c, child, slices)
         elif self._shadow_sampled():
+            checked = True
+            before = SHADOW_STATS.get("mismatch:bsi", 0)
             out = self._shadow_check_bsi(index, c, frame, schema, child,
                                          slices, out)
-        self._record_route("bsi-mesh" if on_card else "bsi-host", t0)
+            mismatch = SHADOW_STATS.get("mismatch:bsi", 0) != before
+        self._record_route("bsi-mesh" if on_card else "bsi-host", t0,
+                           call=c,
+                           staged_bytes=max(0, self._h2d_bytes() - h2d0),
+                           shadow_checked=checked, shadow_mismatch=mismatch)
         if c.name == "Sum":
             s, n = out if out is not None else (0, 0)
             return {"value": int(s), "count": int(n)}
@@ -904,7 +1054,8 @@ class Executor:
 
     # -- writes --------------------------------------------------------------
 
-    def _execute_set_value(self, index: str, c: Call) -> bool:
+    def _execute_set_value(self, index: str, c: Call,
+                           deadline: Optional[float] = None) -> bool:
         """SetValue(frame=f, columnID=N, <field>=V): overwrite a column's
         integer value. Validated before anything is written: 404 for an
         unknown field, 422 for a value outside its range."""
@@ -933,7 +1084,7 @@ class Executor:
         if schema is None:
             raise FieldNotFoundError(frame, fname)
         schema.validate(value)
-        return f.set_value(fname, col_id, value)
+        return f.set_value(fname, col_id, value, deadline=deadline)
 
     def _bit_args(self, index: str, c: Call):
         idx = self.holder.index(index)

@@ -1,5 +1,6 @@
-"""Fault injection at the card's and the storage's seams (a reduced copy
-of pilosa_tpu/fault.py, with its rule knobs and spec syntax).
+"""Fault injection at the card's, the storage's and the request path's
+seams (a reduced copy of pilosa_tpu/fault.py, with its rule knobs and
+spec syntax).
 
     mesh.stage          before a view is packed and staged on the card
                         (index, frame, view, slices): an out-of-memory
@@ -19,6 +20,13 @@ of pilosa_tpu/fault.py, with its rule knobs and spec syntax).
                         kind="snapshot" for the main file, "side-wal"
                         for a snapshot's side log, "scrub" for the
                         scrubber's read): `corrupt` flips bits in them
+    handler.query       the server side of POST /index/{i}/query (host,
+                        index, remote): a delay is a slow node, an
+                        error a failing one
+    sched.admit         query-scheduler admission (tenant): a delay
+                        stalls admission like an overloaded scheduler;
+                        an error (an AdmissionError instance) forces
+                        sheds (429)
 
 Arm a rule programmatically::
 
@@ -65,7 +73,8 @@ import torch
 from .config import parse_duration
 
 SEAMS = ("mesh.stage", "device.exec", "storage.fsync", "storage.rename",
-         "storage.import_apply", "storage.corrupt")
+         "storage.import_apply", "storage.corrupt", "handler.query",
+         "sched.admit")
 FAULT_ENV = "PILOSA_TORCH_FAULT"
 SEED_ENV = "PILOSA_TORCH_FAULT_SEED"
 

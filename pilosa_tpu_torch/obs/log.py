@@ -4,8 +4,8 @@ One logging setup for the whole process (`setup()`, driven by the
 [log] config section) and one way to get a logger (`get_logger`), so
 the scattered inline `logging.basicConfig` / `logging.getLogger`
 fallbacks converge on a single pipeline. Every record — text or JSON —
-carries the active trace/span id from the contextvar CURRENT once a
-tracer sets it (none does yet).
+carries the active trace/span id from the contextvar CURRENT, which
+obs/trace.py's spans set.
 
 `get_logger("mesh")` returns the stdlib logger "pilosa_tpu_torch.mesh":
 library code keeps working under plain `logging.basicConfig` (tests,
@@ -26,10 +26,8 @@ from contextvars import ContextVar
 
 ROOT = "pilosa_tpu_torch"
 
-# The active span, read by TraceContextFilter. The port owns this
-# variable and sets it nowhere yet (it has no tracer, obs/trace in the
-# JAX package), so every record carries trace_id None and JSON lines no
-# trace ids.
+# The active span (obs/trace.Span), read by TraceContextFilter: a
+# record written inside a query carries its trace and span ids.
 CURRENT: ContextVar = ContextVar("pilosa_tpu_torch_span", default=None)
 
 _LEVELS = {

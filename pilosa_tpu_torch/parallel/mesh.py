@@ -17,6 +17,14 @@ kept on the card with a staged view), K3. count_batch picks the kernel.
 Slices of low fill stage instead as sorted u16 value arrays
 (SparseShardedIndex, pick_slice_formats); count_sparse_pair counts a
 two-leaf op over them (K4 for two sorted-array leaves).
+
+With a query profile active (obs/profile.py), count_batch synchronizes
+the card after its launch, so the profile's `device_exec` is the launch
+to the kernel's end and `readback_d2h` the totals' copy back, and adds
+`bytes_touched_hbm`: what the kernel that ran reads from the pools
+(kernel_read_bytes). Without a profile it adds no sync. A staging is
+the `h2d-pack` subsystem's in-flight op on the liveness plane
+(obs/health.py).
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import STAGE_CHUNK_ENV
+from ..obs.health import HEALTH
 from ..ops import kernels
 from ..ops.bitops import (fold_tree, popcount, sparse_op_counts,
                           sparse_probe_intersect_counts)
@@ -85,7 +95,13 @@ def build_sharded_index(slices: Sequence, device,
     pool for a view whose populated slices all went sorted-array. The
     pool fills in host chunks of _stage_chunk_bytes(), each copied into
     the preallocated device tensor."""
-    device = torch.device(device)
+    with HEALTH.inflight("h2d-pack", "stage"), \
+            obs.device_scope("pilosa:h2d_stage"):
+        return _build_sharded_index(slices, torch.device(device), capacity,
+                                    row_ids)
+
+
+def _build_sharded_index(slices, device, capacity, row_ids) -> ShardedIndex:
     s = max(1, len(slices))
     if row_ids is None:
         row_ids = global_row_ids(slices)
@@ -545,6 +561,22 @@ def shared_plan(leaf_keys: Sequence[Sequence]):
     return tuple(leaf_map), positions
 
 
+RUN_BYTES = ROW_SPAN * CONTAINER_WORDS * 4  # one 16-container row run
+
+
+def kernel_read_bytes(name: str, layouts, positions=None) -> int:
+    """The pool bytes one count_batch launch reads: K3 (tree_count_rows)
+    each present container of each (query, leaf) and its (S, 16) index
+    row; K1 each (query, leaf)'s run in every slice that holds it; K2
+    each unique leaf's run once (`positions`, shared_plan's)."""
+    if name == "tree_count_rows":
+        return sum(int(lay.hit.sum()) * CONTAINER_WORDS * 4 + lay.idx.size * 4
+                   for req in layouts for lay in req)
+    lays = ([layouts[b][l] for b, l in positions] if positions is not None
+            else [lay for req in layouts for lay in req])
+    return sum(int((lay.starts >= 0).sum()) for lay in lays) * RUN_BYTES
+
+
 def count_batch(tree, pools: Sequence[torch.Tensor],
                 layouts: Sequence[Sequence[LeafLayout]], mask: np.ndarray,
                 leaf_keys=None, index_rows=None):
@@ -557,11 +589,38 @@ def count_batch(tree, pools: Sequence[torch.Tensor],
     does); without index_rows it goes up now. Returns (per-query totals,
     name of the wrapper that ran)."""
     device = pools[0].device
-    batch, num_leaves = len(layouts), len(pools)
+    batch = len(layouts)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    prof = obs.profile.current()
+    with obs.span("launch", queries=batch) as sp, \
+            obs.profile.phase("device_exec"), obs.device_scope(
+                "pilosa:count_fused" if batch == 1 else "pilosa:count_batch"):
+        per, name, positions = _launch_count(tree, pools, layouts, leaf_keys,
+                                             index_rows, dev)
+        sp.tag(kernel=name)
+        if prof is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if prof is not None:
+        prof.add_bytes("bytes_touched_hbm",
+                       kernel_read_bytes(name, layouts, positions))
+        prof.add_slice(engine="device", kernel=name, queries=batch,
+                       leaves=len(pools), slices=int(mask.sum()))
+    with obs.profile.phase("readback_d2h"):
+        totals = combine_counts(per, dev(mask))
+    if prof is not None:
+        prof.add_bytes("bytes_read_back", 8 * batch)
+    return totals, name
+
+
+def _launch_count(tree, pools, layouts, leaf_keys, index_rows, dev):
+    """count_batch's launch: (per-(query, slice) counts on the card, the
+    wrapper's name, shared_plan's positions or None)."""
+    device = pools[0].device
+    batch = len(layouts)
+    positions = None
     flat = [lay for req in layouts for lay in req]
     if all(lay.starts is not None for lay in flat):
         plan = shared_plan(leaf_keys) if (batch > 1 and leaf_keys) else None
@@ -601,7 +660,7 @@ def count_batch(tree, pools: Sequence[torch.Tensor],
                 for req in layouts]
         per = kernels.tree_count_rows(pools, rows, tree)
         name = "tree_count_rows"
-    return combine_counts(per, dev(mask)), name
+    return per, name, positions
 
 
 def row_table(keys_host: np.ndarray, num_rows: int) -> np.ndarray:

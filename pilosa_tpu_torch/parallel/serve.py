@@ -7,7 +7,20 @@ slice set, collapses identical requests, and runs each group as one
 kernel launch of up to _MAX_BATCH queries (mesh.count_batch). A group
 whose queries repeat leaves reads each unique row once (K2, the
 shared-read program): there is no compile to amortize on this path, so
-the upgrade happens the first time a composition shows sharing.
+the upgrade happens the first time a composition shows sharing. When
+the previous drain held more than one request, or the query scheduler
+hinted that a cohort was released together (expect_burst), the drain
+waits a short window for stragglers ($PILOSA_TORCH_BATCH_WINDOW_MS,
+default 3 ms, the JAX package's), so the cohort reaches the card as one
+launch; a hinted drain counts `sched_hinted`.
+
+Observability (the JAX package's seams): the batch thread is the
+`mesh-count-batch` subsystem of the liveness plane, each group's launch
+an in-flight op with a 30 s base; the cost ledger meters each staged
+view's bytes x seconds from its staging to its eviction, shared among
+the (tenant, shape) accounts that touched it; a profiled query's
+staging is its `stage_h2d` phase (and `bytes_staged`), and a batched
+query's wait on the batch thread its `device_exec`.
 
 Slices of low fill stage as sorted u16 value arrays instead of packed
 words (mesh.pick_slice_formats at sparse_density_threshold, default
@@ -92,9 +105,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import fault, resolve_device
+from .. import fault, obs, resolve_device
 from ..core.fragment import MUTATION_EPOCH
 from ..errors import DeviceResourceError
+from ..obs.costs import LEDGER
+from ..obs.health import HEALTH
 from ..ops import kernels
 from ..ops.pool import (CONTAINER_WORDS, INVALID_KEY, fold_log_entries,
                         pack_bitmap, pack_sparse, plan_slice_mutations)
@@ -103,7 +118,8 @@ from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
                    build_sparse_sharded_index, count_batch,
                    count_sparse_pair, dense_row, estimate_staged_bytes,
                    format_pool_bytes, global_row_ids, index_row,
-                   leaf_layout, materialize_block, pack_mutation_batches,
+                   kernel_read_bytes, leaf_layout, materialize_block,
+                   pack_mutation_batches,
                    pick_slice_formats, resolve_row_indices, row_table,
                    slice_format_stats, slice_mask, split_bitmaps_by_format)
 from .plan import (PlanQuarantine, _tree_signature, format_signature,
@@ -123,6 +139,9 @@ MESH_DEFAULTS = {"hbm_budget_bytes": 0, "hbm_headroom": 0.15,
 BUDGET_ENV = "PILOSA_TORCH_HBM_BUDGET_BYTES"
 # The budget when the device is the CPU.
 CPU_BUDGET_BYTES = 8 << 30
+# The herd drain window, ms (the JAX package's PILOSA_TPU_BATCH_WINDOW_MS).
+BATCH_WINDOW_ENV = "PILOSA_TORCH_BATCH_WINDOW_MS"
+DEFAULT_BATCH_WINDOW_MS = 3.0
 
 
 def mesh_config(config: Optional[dict]) -> dict:
@@ -286,7 +305,7 @@ class StagedView:
                  "num_slices", "layouts", "sparse_layouts", "index_rows",
                  "validated", "rows_dev", "last_stage_s", "inc_ewma_s",
                  "inc_spend_s", "inc_count", "last_used", "pins", "retired",
-                 "grown")
+                 "grown", "key")
 
     def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
                  sparse: Optional[SparseShardedIndex] = None,
@@ -315,6 +334,7 @@ class StagedView:
         self.pins = 0
         self.retired = False
         self.grown = False
+        self.key = None  # (index, frame, view), the cost ledger's
 
     def release(self) -> None:
         """Drop the view's tensors: it has left the manager and no query
@@ -367,7 +387,7 @@ class _CountRequest:
 
     __slots__ = ("tree", "sig", "pools", "index_rows", "layouts",
                  "leaf_keys", "mask", "group_key", "dedup_key", "done",
-                 "result", "error")
+                 "result", "error", "kernel")
 
     def __init__(self, tree, sig: str, pools, index_rows, layouts,
                  leaf_keys, mask):
@@ -384,6 +404,7 @@ class _CountRequest:
         self.done = threading.Event()
         self.result = None
         self.error = None
+        self.kernel = None  # the wrapper the batch thread ran it on
 
     def clear(self) -> None:
         """Drop what the request holds of the card once its count is
@@ -457,6 +478,10 @@ class MeshManager:
         self.stats: Counter = Counter()
         self._batch_q: "queue.Queue[_CountRequest]" = queue.Queue()
         self._batch_thread: Optional[threading.Thread] = None
+        # The scheduler's cohort hint: requests released together that
+        # the batch loop should drain in one window (expect_burst).
+        self._burst_mu = threading.Lock()
+        self._burst_hint = 0
         self._lone_mu = threading.Lock()
         self._counts_inflight = 0
         # The cost gate's measurements: a worker waits on a CUDA event
@@ -525,6 +550,7 @@ class MeshManager:
         sv = self._views.pop(key)
         self._views_gen += 1
         sv.retired = True
+        LEDGER.view_evicted(key)
         if sv.pins == 0:
             sv.release()
         if reason:
@@ -602,6 +628,9 @@ class MeshManager:
         with self._mu:
             grown = False
             for sv in pins:
+                if sv.grown and not sv.retired:
+                    # Its row tables grew: the byte-seconds meter follows.
+                    LEDGER.view_staged(sv.key, self._view_bytes(sv))
                 grown = grown or sv.grown
                 sv.grown = False
                 sv.pins -= 1
@@ -837,6 +866,7 @@ class MeshManager:
         if sv is not None:
             self._views.move_to_end(key)
             sv.last_used = self._use_epoch
+            LEDGER.view_touched(key)
         if sv is None or sv.num_slices != num_slices:
             return self._stage(key, num_slices, epoch)
         if sv.validated == epoch:
@@ -925,9 +955,11 @@ class MeshManager:
         DeviceResourceError("oom"). A view over the whole budget raises
         DeviceResourceError("hbm_infeasible") before a byte moves. Call
         under _mu."""
-        return self._oom_ladder(
-            lambda: self._stage_once(key, num_slices, epoch),
-            f"staging {key}")
+        with obs.span("stage", view="/".join(key), slices=num_slices), \
+                obs.profile.phase("stage_h2d"):
+            return self._oom_ladder(
+                lambda: self._stage_once(key, num_slices, epoch),
+                f"staging {key}")
 
     def _stage_once(self, key, num_slices: int, epoch: int) -> StagedView:
         """Pack the view on the host, each slice's format picked under its
@@ -991,9 +1023,14 @@ class MeshManager:
         sv.validated = epoch
         sv.inc_ewma_s = inc_ewma_s
         sv.last_used = self._use_epoch
+        sv.key = key
         self._views[key] = sv
         self._views_gen += 1
         self._evict_over_budget()
+        nbytes = _pool_bytes(sharded, sparse)
+        LEDGER.view_staged(key, nbytes)
+        obs.profile.add_bytes("bytes_staged", nbytes)
+        self._inc("h2d_bytes", nbytes)
         self._inc("stage")
         self._inc("stage_us", int((time.monotonic() - t0) * 1e6))
         self._measure_async(sv.sharded.words, t0,
@@ -1207,7 +1244,20 @@ class MeshManager:
             else:
                 self._ensure_batch_thread()
                 self._batch_q.put(req)
-                req.done.wait()
+                prof = obs.profile.current()
+                if prof is None:
+                    with obs.span("batch_wait"):
+                        req.done.wait()
+                else:
+                    # The batch thread launches and reads back: from here
+                    # the wait is the device's time (and the readback).
+                    with prof.phase("device_exec"):
+                        req.done.wait()
+                    prof.add_bytes("bytes_touched_hbm", kernel_read_bytes(
+                        req.kernel or "", [req.layouts]))
+                    prof.add_slice(engine="device_batched",
+                                   leaves=len(req.leaf_keys),
+                                   slices=int(req.mask.sum()))
             err = req.error
             if isinstance(err, DeviceResourceError):
                 raise DeviceResourceError(str(err), reason=err.reason) \
@@ -1317,13 +1367,19 @@ class MeshManager:
         """kernels.pair_count_rows over a_idx's rows, MAX_ROWS_PER_LAUNCH
         a launch, as int64 numpy totals."""
         parts = []
-        for lo in range(0, a_idx.shape[0], MAX_ROWS_PER_LAUNCH):
-            parts.append(kernels.pair_count_rows(
-                pool, a_idx[lo:lo + MAX_ROWS_PER_LAUNCH].contiguous(),
-                "and", **b))
-            self._inc("kernel:pair_count_rows")
-        counts = (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu(
-        ).numpy()
+        prof = obs.profile.current()
+        with obs.profile.phase("device_exec"), \
+                obs.device_scope("pilosa:row_counts"):
+            for lo in range(0, a_idx.shape[0], MAX_ROWS_PER_LAUNCH):
+                parts.append(kernels.pair_count_rows(
+                    pool, a_idx[lo:lo + MAX_ROWS_PER_LAUNCH].contiguous(),
+                    "and", **b))
+                self._inc("kernel:pair_count_rows")
+            if prof is not None and pool.device.type == "cuda":
+                torch.cuda.synchronize(pool.device)
+        with obs.profile.phase("readback_d2h"):
+            counts = (parts[0] if len(parts) == 1 else torch.cat(parts)
+                      ).cpu().numpy()
         return fault.perturb("device.exec", counts, sig="__row_counts__",
                              kind="count-result")
 
@@ -1454,6 +1510,12 @@ class MeshManager:
         under _guarded_exec with the plan signature tagged by its
         format pair."""
         total, sig = req.host_total, req.sig
+        with obs.profile.phase("device_exec"), \
+                obs.device_scope("pilosa:count_sparse"):
+            return total + self._run_sparse_jobs(req, sig)
+
+    def _run_sparse_jobs(self, req: _SparseCount, sig: str) -> int:
+        total = 0
         for job in req.jobs:
             gk, gmask = job[0], job[-1].astype(np.int64)
             if gk == "dd":
@@ -1480,31 +1542,79 @@ class MeshManager:
                     daemon=True)
                 self._batch_thread.start()
 
+    def expect_burst(self, n: int) -> None:
+        """The scheduler's cohort hint (Executor.burst_hint): n requests
+        were just released together, so the next drain waits the window
+        for all of them instead of launching the first alone."""
+        with self._burst_mu:
+            self._burst_hint += int(n)
+
+    @staticmethod
+    def _drain_window_s() -> float:
+        """The herd drain window: $PILOSA_TORCH_BATCH_WINDOW_MS, default
+        3 ms (an unreadable value reads as the default)."""
+        try:
+            ms = float(os.environ.get(BATCH_WINDOW_ENV)
+                       or DEFAULT_BATCH_WINDOW_MS)
+        except ValueError:
+            ms = DEFAULT_BATCH_WINDOW_MS
+        return max(0.0, ms) / 1e3
+
     def _batch_loop(self):
         """Drain what queued while the card was busy, group it, and run
-        each group as one launch."""
+        each group as one launch. Event-driven on the liveness plane: an
+        empty queue is idle, not a hang; each group's launch is judged
+        as an in-flight op."""
+        hb = HEALTH.register("mesh-count-batch", interval=None,
+                             critical=True)
+        last = 1
         while True:
-            self._run_batch(self._batch_q.get())
+            hb.idle()
+            first = self._batch_q.get()
+            hb.beat()
+            last = self._run_batch(first, last)
 
-    def _run_batch(self, first: _CountRequest) -> None:
+    def _run_batch(self, first: _CountRequest, last: int = 1) -> int:
         """One drain of the batch loop (its locals go when it returns:
-        an idle batch thread holds no request)."""
+        an idle batch thread holds no request). When the previous drain
+        (`last` requests) showed concurrency, or a cohort was hinted, it
+        waits the drain window for stragglers. Returns its size."""
         reqs = [first]
+        with self._burst_mu:
+            hinted = self._burst_hint > 1
+        deadline = (time.monotonic() + self._drain_window_s()
+                    if (last > 1 or hinted) else 0.0)
         while len(reqs) < self._MAX_BATCH:
             try:
                 reqs.append(self._batch_q.get_nowait())
             except queue.Empty:
-                break
+                wait = deadline - time.monotonic()
+                if wait <= 0:
+                    break
+                try:
+                    reqs.append(self._batch_q.get(timeout=wait))
+                except queue.Empty:
+                    break
+        with self._burst_mu:
+            if self._burst_hint:
+                self._burst_hint = max(0, self._burst_hint - len(reqs))
+        if hinted:
+            self._inc("sched_hinted")
         groups: Dict[tuple, List[_CountRequest]] = {}
         for r in reqs:
             groups.setdefault(r.group_key, []).append(r)
         for group in groups.values():
             try:
-                self._run_count_group(group)
+                # A launch that never returns wedges every count queued
+                # behind this loop: the watchdog must see it.
+                with HEALTH.inflight("mesh-count-batch", "count-group",
+                                     base=30.0):
+                    self._run_count_group(group)
             except Exception as e:  # noqa: BLE001 — fail this group only
                 for r in group:
                     r.error = e
                     r.done.set()
+        return len(reqs)
 
     def _run_count_group(self, group: List[_CountRequest]):
         """One launch for the group, under _guarded_exec; identical
@@ -1527,4 +1637,5 @@ class MeshManager:
         slot = {id(r): i for i, r in enumerate(distinct)}
         for r in group:
             r.result = int(totals[slot[id(uniq[r.dedup_key])]])
+            r.kernel = kernel
             r.done.set()

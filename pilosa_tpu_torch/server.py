@@ -4,17 +4,33 @@ Wires Config -> Holder (the stats client, the [storage] WalConfig, the
 [integrity] scrubber) -> Executor (the device from use-device, the
 [mesh] knobs, the sparse-density threshold, the shadow sample) ->
 Handler -> APIServer. `build_handler` is the one place a node's
-executor and handler are made: `api.server.serve` uses it too.
+executor and handler are made: `api.server.serve` uses it too, and its
+handler keeps the JAX Handler's defaults (a tracer and an SLO recorder,
+no scheduler).
+
+Admission and the query's own record (the JAX server's wiring,
+pilosa_tpu/server.py:283-472): [obs] sizes the trace rings, the slow
+threshold, the profile sample rate, the flight recorder's ring and the
+cost ledger's knobs (the ledger and its watch are process-wide); [sched]
+builds the query scheduler (when enabled) with the executor's service
+estimate and cohort hint; [slo] the SLO recorder, its tenant labels
+bounded by [sched] tenant-weights; [health] the process-wide liveness
+registry (sweep interval, stall-after, dossiers under
+<data-dir>/.dossier/; sched-dispatch, wal and mesh-count-batch are
+critical: their stall makes /readyz answer 503); [cluster]
+query-deadline the deadline of a query that brings none.
 
 open() opens the holder, applies the declared [[schema.indexes]]
 (idempotent), runs the K0 canary on a card (a card that fails it is
 refused before the socket is bound), binds (port 0 picks a free port and
-the node's host becomes the real address), and starts the daemons: the
-rank-cache flush every 60 s, the scrubber at scrub-interval with 10%
-jitter when [integrity] is enabled, and the `warm` thread that loads
-the fragments a start left lazy. close() stops them in the JAX node's
-order: `warm` is joined before the holder closes, and the staged views
-leave the card first.
+the node's host becomes the real address), starts the watchdog, and
+starts the daemons: the rank-cache flush every 60 s (the `cache-flush`
+heartbeat), the scrubber at scrub-interval with 10% jitter when
+[integrity] is enabled, and the `warm` thread that loads the fragments
+a start left lazy. close() stops them in the JAX node's order: /readyz
+turns 503, the scheduler releases what it queued, the watchdog stops,
+`warm` is joined before the holder closes, and the staged views leave
+the card first.
 
 The port serves one node. A config that needs a cluster (more than one
 [cluster] host, type gossip or spmd, ici-hosts) is refused with an
@@ -33,8 +49,8 @@ CACHE_FLUSH_INTERVAL = 60.0
 
 # What the port reads from a config and does not act on yet (one log
 # line at open()).
-NOT_ACTED_ON = ("[anti-entropy]", "[rebalance]", "[sched]", "[slo]",
-                "[health]", "[obs] but metrics-sample-interval",
+NOT_ACTED_ON = ("[anti-entropy]", "[rebalance]",
+                "[obs] fleet-scrape-interval",
                 "[cluster] timeouts, retries, breakers, hints and read "
                 "staleness", "[integrity] result-cache-verify-1-in")
 
@@ -58,7 +74,7 @@ def refuse_cluster(cfg: Config) -> None:
 
 def build_handler(holder, device, sparse_density_threshold: float,
                   mesh_config: Optional[dict] = None, shadow_sample: int = 0,
-                  stats=None):
+                  stats=None, tracer=None):
     """The node's Executor and Handler over an open or opening holder;
     frame restore reaches other nodes through api.client.InternalClient.
     Returns the Handler (its `executor` is the Executor)."""
@@ -69,7 +85,8 @@ def build_handler(holder, device, sparse_density_threshold: float,
     ex = Executor(holder, device=device,
                   sparse_density_threshold=sparse_density_threshold,
                   mesh_config=mesh_config, shadow_sample=shadow_sample)
-    return Handler(holder, ex, client_factory=InternalClient, stats=stats)
+    return Handler(holder, ex, client_factory=InternalClient, stats=stats,
+                   tracer=tracer)
 
 
 def check_card(executor) -> None:
@@ -87,6 +104,7 @@ class Server:
 
     def __init__(self, config: Optional[Config] = None, logger=None):
         from .core.holder import Holder
+        from .obs.trace import Tracer
         from .utils.stats import ExpvarStats
 
         self.config = cfg = config or Config()
@@ -102,14 +120,82 @@ class Server:
                              scrub_rate_limit=cfg.integrity_rate_limit,
                              stats=self.stats)
         self.host = cfg.host
+        self.tracer = Tracer(ring=cfg.trace_ring,
+                             slow_us=cfg.slow_query_threshold * 1e6)
         self.handler = build_handler(
             self.holder, cfg.device(), cfg.sparse_density_threshold(),
             mesh_config=cfg.mesh_config(),
-            shadow_sample=cfg.integrity_shadow_sample, stats=self.stats)
+            shadow_sample=cfg.integrity_shadow_sample, stats=self.stats,
+            tracer=self.tracer)
         self.handler.metrics_sample_interval = cfg.metrics_sample_interval
         self.executor = self.handler.executor
+        self._ready = False
+        self._wire_observability()
         self._api = None
         self._threads: list = []
+        self._health_started = False
+
+    def _wire_observability(self):
+        """[obs], [sched], [slo], [health] and [cluster] query-deadline
+        onto the handler, the executor and the process-wide stores."""
+        import os
+
+        from .obs import costs, health, slo
+
+        cfg, h, ex = self.config, self.handler, self.executor
+        h.profile_sample_rate = cfg.profile_sample_rate
+        h.default_deadline = cfg.query_deadline
+        ex.flight.ring = max(1, int(cfg.queryshape_ring))
+        self.scheduler = None
+        if cfg.sched_enabled:
+            from .sched import QueryScheduler
+
+            self.scheduler = QueryScheduler(
+                max_window_us=cfg.sched_max_window_us,
+                idle_window_us=cfg.sched_idle_window_us,
+                queue_depth=cfg.sched_queue_depth,
+                default_service_us=cfg.sched_default_service_us,
+                tenant_weights=cfg.sched_tenant_weights,
+                estimator=ex.estimate_service_us,
+                on_release=ex.burst_hint)
+            h.scheduler = self.scheduler
+        on = bool(cfg.cost_ledger)
+        costs.LEDGER.enabled = costs.WATCH.enabled = on
+        costs.LEDGER.max_accounts = max(1, int(cfg.cost_max_accounts))
+        costs.WATCH.max_bands = max(1, int(cfg.cost_watch_bands))
+        costs.WATCH.k = float(cfg.cost_regression_k)
+        costs.WATCH.min_n = max(2, int(cfg.cost_regression_min_n))
+        h.cost_debt_threshold = float(cfg.cost_debt_threshold)
+        if self.scheduler is not None and on:
+            self.scheduler.cost_share_fn = costs.LEDGER.tenant_share
+        h.slo = (slo.SLORecorder(objectives=cfg.slo_objectives(),
+                                 tenants=cfg.sched_tenant_weights)
+                 if cfg.slo_enabled else None)
+        reg = health.HEALTH
+        reg.enabled = bool(cfg.health_enabled)
+        reg.sweep_interval = max(0.01, float(cfg.health_sweep_interval))
+        reg.stall_after = max(1.0, float(cfg.health_stall_after))
+        reg.dossier_max_bytes = max(1024, int(cfg.health_dossier_max))
+        reg.dossier_keep = max(1, int(cfg.health_dossier_keep))
+        reg.dossier_dir = os.path.join(cfg.expanded_data_dir(), ".dossier")
+        reg.mark_critical("sched-dispatch", "wal", "mesh-count-batch")
+        h.ready_fn = lambda: self._ready
+        reg.bundle_providers.update({
+            "config": lambda: health.redact_config(vars(cfg)),
+            "slow_queries": self._bundle_endpoint("/debug/queries"),
+            "queryshapes": self._bundle_endpoint("/debug/queryshapes"),
+            "slo": self._bundle_endpoint("/debug/slo"),
+            "costs": self._bundle_endpoint("/debug/costs"),
+            "vars": self._bundle_endpoint("/debug/vars"),
+        })
+
+    def _bundle_endpoint(self, path: str):
+        """A dossier section: this node's own answer at `path`."""
+        def provider():
+            resp = self.handler.handle("GET", path)
+            return resp.json() if resp.status == 200 else {
+                "status": resp.status}
+        return provider
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -129,16 +215,32 @@ class Server:
         self._api.start()
         self.logger.info("config read but not acted on yet: %s",
                          "; ".join(NOT_ACTED_ON))
+        from .obs.health import HEALTH
+
+        # The watchdog before the loops it watches.
+        HEALTH.start()
+        self._health_started = True
+        hb = HEALTH.register("cache-flush", interval=CACHE_FLUSH_INTERVAL)
         for name, target, args in (
                 ("cache-flush", self._loop,
-                 (self.holder.flush_caches, CACHE_FLUSH_INTERVAL)),
+                 (self.holder.flush_caches, CACHE_FLUSH_INTERVAL, hb)),
                 ("warm", self.holder.warm, (self.closing,))):
             t = threading.Thread(target=target, name=name, args=args,
                                  daemon=True)
             t.start()
             self._threads.append(t)
+        self._ready = True
 
     def close(self):
+        from .obs.health import HEALTH
+
+        self._ready = False
+        if self.scheduler is not None:
+            self.scheduler.close()
+        if self._health_started:
+            HEALTH.unregister("cache-flush")
+            HEALTH.stop()
+            self._health_started = False
         self.closing.set()
         # Join warm BEFORE holder.close(): a warm mid-load after close
         # would reopen a WAL fd on a fragment whose flock was released.
@@ -152,8 +254,9 @@ class Server:
             self.logger.warning("view drop at close: %s", e)
         self.holder.close()
 
-    def _loop(self, fn, interval: float):
+    def _loop(self, fn, interval: float, hb):
         while not self.closing.wait(interval):
+            hb.beat()
             try:
                 fn()
             except Exception as e:  # noqa: BLE001 — daemons never die

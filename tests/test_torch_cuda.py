@@ -1051,6 +1051,12 @@ def test_server_from_a_config_counts_on_the_card(card, tmp_path):
         "min = -100\nmax = 100\n", is_text=True)
     assert cfg.device() == "cuda"
     before = dict(tk.LAUNCHES)
+    from pilosa_tpu_torch.executor import SHADOW_STATS
+
+    # SHADOW_STATS is process-wide: a mismatch an earlier test forced
+    # (test_shadow_verification_on_the_card) is not this server's.
+    mismatch0 = sum(v for k, v in SHADOW_STATS.copy().items()
+                    if k.startswith("mismatch:"))
     srv = Server(cfg)
     srv.open(port=0)
     try:
@@ -1087,7 +1093,125 @@ def test_server_from_a_config_counts_on_the_card(card, tmp_path):
         assert total("pilosa_hbm_resident_bytes") == dv["mesh"][
             "staged_bytes"] > 0
         assert total("pilosa_hbm_budget_bytes") == 987654321
-        assert total("pilosa_shadow_mismatch_total") == 0
+        assert total("pilosa_shadow_mismatch_total") == mismatch0
         assert total("pilosa_shadow_checks_total") >= 3
     finally:
         srv.close()
+
+
+# -- admission and the query's own record on the card ---------------------------
+
+
+def _profiled(fn):
+    from pilosa_tpu_torch.obs import profile
+
+    prof = profile.QueryProfile(backend="cuda")
+    tok = profile.activate(prof)
+    try:
+        out = fn()
+    finally:
+        profile.deactivate(tok)
+    prof.finish()
+    return out, prof
+
+
+@pytest.mark.cuda
+def test_profiled_lone_count_device_exec_on_the_card(card, tmp_path):
+    """A profiled lone pair Count's device_exec (the launch to a
+    synchronize) lies between K1's own CUDA-event time and the event
+    time of K1 plus the readback (with 1 ms for the launch's host side);
+    its bytes are the K1 pair's: 2 runs of 16 containers a slice."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel.mesh import combine_counts
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        s = 96
+        words = dense_frame(h, "i", "f", 2, s, seed=21)
+        ex = Executor(h, device=card, sparse_density_threshold=0)
+        q = parse_string(pair_pql("f"))
+        assert ex.execute("i", q)[0] == pair_truth(words)  # stages
+        n, prof = _profiled(lambda: ex.execute("i", q)[0])
+        assert n == pair_truth(words)
+        dev_ms = prof.phase_us("device_exec") / 1e3
+        rb_ms = prof.phase_us("readback_d2h") / 1e3
+        assert prof.to_dict()["bytes"]["bytes_touched_hbm"] == \
+            2 * s * 16 * 2048 * 4
+        sv = ex.mesh_manager()._views[("i", "f", "standard")]
+        pool = sv.sharded.words
+        starts = torch.tensor([sv.layout(0).uniform, sv.layout(1).uniform],
+                              dtype=torch.int32, device=card)
+        mask = torch.ones(s, dtype=torch.int64, device=card)
+        tree = ["and", ["leaf", 0], ["leaf", 1]]
+        kern, whole = [], []
+        for _ in range(20):
+            a, b, c = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            a.record()
+            per = tk.coarse_count_uniform((pool, pool), starts, tree)
+            b.record()
+            combine_counts(per, mask)
+            c.record()
+            c.synchronize()
+            kern.append(a.elapsed_time(b))
+            whole.append(a.elapsed_time(c))
+        assert 0.8 * min(kern) <= dev_ms, (dev_ms, kern)
+        assert dev_ms <= float(np.median(whole)) + 1.0, (dev_ms, whole)
+        assert rb_ms > 0
+        rf = prof.roofline()
+        assert rf["engine"] == "device"
+        if rf["fraction_of_peak"] is not None:
+            assert 0 < rf["fraction_of_peak"] <= 1.0
+    finally:
+        h.close()
+
+
+@pytest.mark.cuda
+def test_unprofiled_count_adds_no_synchronize(card, tmp_path, monkeypatch):
+    """Without a profile, a staged Count (lone and through the handler's
+    admission, trace and cost account) calls torch.cuda.synchronize
+    nowhere; with one, the launch synchronizes once."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.server import build_handler
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        words = dense_frame(h, "i", "f", 2, 8, seed=22)
+        hd = build_handler(h, card, 0)
+        from pilosa_tpu_torch.sched import QueryScheduler
+
+        hd.scheduler = QueryScheduler()
+        body = pair_pql("f").encode()
+        assert hd.handle("POST", "/index/i/query", body=body).json()[
+            "results"] == [pair_truth(words)]
+        calls = []
+        real = torch.cuda.synchronize
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a, **k: (calls.append(1), real(*a, **k)))
+        for _ in range(5):
+            assert hd.handle("POST", "/index/i/query", body=body).status \
+                == 200
+        assert calls == []
+        r = hd.handle("POST", "/index/i/query", {"profile": "true"}, {},
+                      body)
+        assert r.json()["profile"]["phases_us"]["device_exec"] > 0
+        assert len(calls) == 1
+        hd.scheduler.close()
+    finally:
+        h.close()
+
+
+@pytest.mark.cuda
+def test_peak_bandwidth_of_the_card(card):
+    """The roofline's peak is the card's own by name: 3.35e12 B/s on an
+    NVIDIA H100 80GB HBM3, none for a card the table does not hold."""
+    from pilosa_tpu_torch.obs import profile
+
+    name = torch.cuda.get_device_name()
+    want = {"NVIDIA H100 80GB HBM3": 3.35e12}.get(name)
+    assert profile.peak_bytes_per_s("cuda") == want
+    assert profile.DEVICE_PEAK_BYTES_PER_S.get(name) == want

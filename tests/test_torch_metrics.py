@@ -436,7 +436,26 @@ def _lone_fused_off(monkeypatch):
     monkeypatch.setenv("PILOSA_TPU_DEVICE_MIN_WORK", "0")
 
 
-def test_metrics_of_both_handlers_after_the_same_stream(tmp_path):
+@pytest.fixture
+def fresh_shadow_stats():
+    """Both packages' SHADOW_STATS are process-wide: a check an earlier
+    test of the same process ran (tests/test_torch_integrity.py's bsi
+    shadow checks) must not show as a series of this stream. Their
+    contents are set aside for the test and put back after it."""
+    from pilosa_tpu.executor import SHADOW_STATS as jax_shadow
+    from pilosa_tpu_torch.executor import SHADOW_STATS as port_shadow
+
+    saved = [(m, dict(m)) for m in (jax_shadow, port_shadow)]
+    for m, _ in saved:
+        m.clear()
+    yield
+    for m, old in saved:
+        m.clear()
+        m.update(old)
+
+
+def test_metrics_of_both_handlers_after_the_same_stream(tmp_path,
+                                                        fresh_shadow_stats):
     jstats, pstats = JaxExpvarStats(), ExpvarStats()
     jh = JaxHolder(str(tmp_path / "jax"), stats=jstats,
                    wal=JaxWalConfig(fsync_policy="always"))

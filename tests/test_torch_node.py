@@ -51,12 +51,13 @@ def run_ctl(mod, argv, capsys):
 def test_parser_covers_every_subcommand():
     ap = port_ctl.make_parser()
     for cmd in ["server", "import", "export", "backup", "restore", "bench",
-                "check", "inspect", "sort", "config"]:
+                "check", "inspect", "sort", "config", "top", "costs",
+                "health", "diagnose"]:
         with pytest.raises(SystemExit) as e:
             ap.parse_args([cmd, "--help"])
         assert e.value.code == 0
     with pytest.raises(SystemExit):
-        ap.parse_args(["top"])  # not ported: no stub
+        ap.parse_args(["fleet"])  # not ported: no stub
 
 
 def test_config_command_prints_the_jax_text(capsys):
