@@ -280,7 +280,30 @@ Phases, each fatal on failure:
      launch K1, K3, K5 and K7; A's and B's QPS, per-tenant p50/p99 and
      shed rate are printed (the latency verdicts are recorded, not
      gated);
- 18. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 18. the host folds (run right after phase 9, on the main holder while
+     its frames hold the data as made: `general`, `sparse`, `mixed` and
+     field `val`, through an in-process Executor on the card):
+     (1) the pair, a 29-leaf OR (rows 0-28 of `general`; rows 10-28
+     hold no bit), a Difference, the partial-row pair (K3), Count(Range(
+     val > 1000)) (K3), the `sparse` pair (K4) and the `mixed` pair,
+     each answered by the card, by HostCountPlan with the native
+     library (ops.native, csrc/pilosa_native.cpp built with g++) and
+     under PILOSA_TORCH_NO_NATIVE=1, by the Row fold and by numpy, all
+     equal; the Row fold and HostCountPlan cold (a fresh HostQueryCache)
+     and warm (memo hits) timed lone, then the pair over slices 0-239
+     from 16 threads at once beside one lone call (each cache's block
+     and memo hits and misses printed); (2) the
+     pair's plan quarantined: the next Count answers on host-fold
+     through HostCountPlan, fallback_quarantined up by one, the host
+     cache's counters moved, no launch; (3) 20 lone pairs shadow-checked
+     1 in 1: 20 checks, no mismatch, the profile's host_fold p50; (4)
+     Intersect(Bitmap(0), Bitmap(1)) over the 960 slices through
+     HostMaterializePlan and through the Row path, per-slice counts and
+     every container's form and words equal to each other and to numpy,
+     both timed; (5) `python -m pilosa_tpu_torch.tools.sparse_sweep` at
+     0.3%, 3% and 30% over 96 slices on the card: ok, formats sparse,
+     sparse, dense. K1, K3 and K4 must launch on this path;
+ 19. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -288,8 +311,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 19. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-17, each path's counters set to 0 just before it;
+ 20. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-18, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -5668,7 +5691,286 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
     return out
 
 
-# -- phase 18: the on-chip probe tools -------------------------------------------
+# -- phase 18: the host folds ------------------------------------------------------
+
+# The kernels the host fold phase's card answers launch.
+HF_PATH = ("coarse_count", "tree_count", "sparse_pair_count")
+HF_THREADS = 16       # threads folding at once ...
+HF_THREAD_SLICES = 240  # ... over slices 0-239 (a cut: over all 960 the
+                        # 16 Row folds alone took 65.9 s)
+HF_SHADOW = 20        # lone pairs shadow-checked 1 in 1
+HF_OR_LEAVES = 29     # rows 0-28 of `general`; rows 10-28 hold no bit
+HF_SWEEP = ["--slices", "96", "--iters", "5",
+            "--densities", "0.003,0.03,0.3"]
+HF_SWEEP_FORMATS = {"0.003": "sparse", "0.03": "sparse", "0.3": "dense"}
+
+
+def hf_trees(words: np.ndarray, sp: SparseRows, truth: BsiTruth) -> dict:
+    """name -> (the Count's child as PQL, its numpy truth)."""
+    def child(q: str) -> str:
+        return q[len("Count("):-1]
+
+    even = sp.inter((0, 1))[0::2]
+    ored = np.bitwise_or.reduce(words, axis=1)
+    return {
+        "pair": (child(pql("and", 0, 1)), host_count(words, "and", 0, 1)),
+        f"{HF_OR_LEAVES}-leaf OR": (
+            "Union(" + ", ".join(f"Bitmap(rowID={r})"
+                                 for r in range(HF_OR_LEAVES)) + ")",
+            int(np.bitwise_count(ored).sum(dtype=np.int64))),
+        "difference": (child(pql("andnot", 0, 1)),
+                       host_count(words, "andnot", 0, 1)),
+        "partial pair (K3)": (child(pql("and", PARTIAL_ROW, 0)),
+                              host_count(words, "and", PARTIAL_ROW, 0)),
+        "Range(val > 1000) (K3)": (child(range_pql(">", 1000)),
+                                   truth.range_count(">", 1000)),
+        "sparse pair (K4)": (child(fpql("and", 0, "sparse", 1, "sparse")),
+                             int(sp.inter((0, 1)).sum())),
+        "mixed pair": (child(fpql("and", 0, "mixed", 1, "mixed")),
+                       op_count("and", even, sp.card(0)[0::2],
+                                sp.card(1)[0::2])
+                       + host_count(words[1::2], "and", 0, 1)),
+    }
+
+
+def host_fold_phase(holder, words: np.ndarray, sp: SparseRows,
+                    truth: BsiTruth, smi: str, device) -> dict:
+    """Phase 18 (module docstring), on the main holder as phases 4-9
+    left it, through an in-process Executor on `device`; the counters
+    are set to 0 just before it and read just after."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch import obs
+    from pilosa_tpu_torch.core.row import Row
+    from pilosa_tpu_torch.executor import SHADOW_STATS, Executor
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.ops import native
+    from pilosa_tpu_torch.parallel.plan import (HostCountPlan, HostQueryCache,
+                                                _lower_tree, plan_signature)
+    from pilosa_tpu_torch.pql import parse_string
+    from pilosa_tpu_torch.tools import sparse_sweep
+
+    t_phase = time.monotonic()
+    slices = list(range(SLICES))
+    out: dict = {"native_lib": native.lib_path().name, "trees": {}}
+    tk.reset_launches()
+    ex = Executor(holder, device=device)
+
+    def row_fold(child) -> int:
+        return sum(ex._bitmap_slice("i", child, s).count() for s in slices)
+
+    def timed(fn):
+        t0 = time.monotonic()
+        n = fn()
+        return n, time.monotonic() - t0
+
+    def plan(lowered, cache):
+        return HostCountPlan(holder, "i", *lowered, cache=cache)
+
+    # (1) Each tree: the card, HostCountPlan (native cold and warm, and
+    # numpy), the Row fold and numpy, all equal; the folds timed lone.
+    lowered_of = {}
+    for name, (child_pql, want) in hf_trees(words, sp, truth).items():
+        q = parse_string(f"Count({child_pql})")
+        child = q.calls[0].children[0]
+        card_n = ex.execute("i", q)[0]
+        leaves: list = []
+        shape = _lower_tree(holder, "i", child, leaves)
+        check(shape is not None, f"{name} lowers")
+        lowered_of[name] = (shape, leaves)
+        cache = HostQueryCache()
+        cold, cold_s = timed(lambda: plan((shape, leaves),
+                                          cache).count_slices(slices))
+        warm, warm_s = timed(lambda: plan((shape, leaves),
+                                          cache).count_slices(slices))
+        os.environ["PILOSA_TORCH_NO_NATIVE"] = "1"
+        try:
+            check(not native.has_native(), "PILOSA_TORCH_NO_NATIVE=1 is numpy")
+            nonat, numpy_s = timed(lambda: plan(
+                (shape, leaves), HostQueryCache()).count_slices(slices))
+        finally:
+            del os.environ["PILOSA_TORCH_NO_NATIVE"]
+        check(native.has_native(), "the native kernels are live again")
+        rowf, row_s = timed(lambda: row_fold(child))
+        got = {"card": card_n, "native cold": cold, "native warm": warm,
+               "numpy": nonat, "row fold": rowf, "numpy truth": want}
+        check(len(set(got.values())) == 1, f"{name}: every answer equal "
+              f"{got}")
+        out["trees"][name] = {
+            "count": want, "leaves": len(leaves), "row_fold_s": row_s,
+            "cold_s": cold_s, "warm_s": warm_s, "numpy_cold_s": numpy_s,
+            "cache": dict(cache.stats)}
+        log(f"host fold phase: {name} ({len(leaves)} leaves) = {want}: "
+            f"Row fold {row_s * 1e3:.1f} ms, HostCountPlan cold "
+            f"{cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.2f} ms, numpy "
+            f"(PILOSA_TORCH_NO_NATIVE=1) {numpy_s * 1e3:.1f} ms; cache "
+            f"{json.dumps(cache.stats)}")
+    check(ex.stats["count_device"] == len(out["trees"])
+          and ex.stats["count_host"] == 0,
+          f"every tree answered on the card: {dict(ex.stats)}")
+
+    # The pair from HF_THREADS threads at once over HF_THREAD_SLICES
+    # slices: the Row fold, cold plans (a fresh cache each) and warm
+    # plans (one warmed cache), beside one lone call of each there.
+    pair_pql = hf_trees(words, sp, truth)["pair"][0]
+    pair = lowered_of["pair"]
+    pair_child = parse_string(pair_pql).calls[0]
+    some = slices[:HF_THREAD_SLICES]
+    some_want = host_count(words[:HF_THREAD_SLICES], "and", 0, 1)
+
+    def in_threads(fn, n):
+        with ThreadPoolExecutor(n) as pool:
+            t0 = time.monotonic()
+            res = list(pool.map(lambda _: fn(), range(n)))
+            wall = time.monotonic() - t0
+        check(res == [some_want] * n, (f"{n} threads", res))
+        return wall
+
+    shared = HostQueryCache()
+    plan(pair, shared).count_slices(some)
+    forms_ = {
+        "row_fold": lambda: sum(ex._bitmap_slice("i", pair_child, s).count()
+                                for s in some),
+        "cold": lambda: plan(pair, HostQueryCache()).count_slices(some),
+        "warm": lambda: plan(pair, shared).count_slices(some)}
+    threads = {"threads": HF_THREADS, "slices": len(some)}
+    for what, fn in forms_.items():
+        threads[f"{what}_lone_s"] = in_threads(fn, 1)
+        threads[f"{what}_s"] = in_threads(fn, HF_THREADS)
+    out["threads"] = dict(threads, cache=dict(shared.stats))
+    log(f"host fold phase: the pair over {len(some)} slices from "
+        f"{HF_THREADS} threads at once, wall (one lone call): Row fold "
+        f"{threads['row_fold_s']:.3f} s ({threads['row_fold_lone_s']:.3f}),"
+        f" HostCountPlan cold {threads['cold_s']:.3f} s "
+        f"({threads['cold_lone_s']:.3f}), warm {threads['warm_s']:.3f} s "
+        f"({threads['warm_lone_s']:.4f}); the warm cache "
+        f"{json.dumps(shared.stats)}")
+
+    # (2) The route: a quarantined plan answers on the host through
+    # HostCountPlan, no K1 launch for it.
+    pair_want = host_count(words, "and", 0, 1)
+    q = parse_string(pql("and", 0, 1))
+    mgr = ex.mesh_manager()
+    sig = plan_signature(pair[0])
+    gov = ("fallback_quarantined", "routed_host", "plan_quarantined")
+    g0 = {k: mgr.stats.get(k, 0) for k in gov}
+    hc0 = dict(ex.host_cache_stats)
+    k0 = dict(tk.LAUNCHES)
+    routes0 = ex.route_stats.copy()
+    mgr.quarantine_plan(sig)
+    got, route_s = timed(lambda: ex.execute("i", q)[0])
+    mgr.clear_quarantine(sig)
+    gd = {k: mgr.stats.get(k, 0) - g0[k] for k in gov}
+    hcd = {k: v - hc0[k] for k, v in ex.host_cache_stats.items()}
+    kd = {k: n - k0.get(k, 0) for k, n in tk.LAUNCHES.items()
+          if n != k0.get(k, 0)}
+    rd = ex.route_stats.copy().get("count_host-fold", 0) \
+        - routes0.get("count_host-fold", 0)
+    out["route"] = {"s": route_s, "governor": gd, "host_cache": hcd,
+                    "launches": kd}
+    log(f"host fold phase: the quarantined pair on host-fold in "
+        f"{route_s * 1e3:.1f} ms: {gd}, host cache {hcd}, launches {kd}")
+    check(got == pair_want, ("the quarantined pair", got))
+    check(gd == {"fallback_quarantined": 1, "routed_host": 1,
+                 "plan_quarantined": 1} and rd == 1,
+          f"the pair routed to host-fold once: {gd}, {rd}")
+    check(hcd["memo_miss"] == SLICES and hcd["block_miss"] > 0,
+          f"the host cache's counters moved: {hcd}")
+    check(not kd, f"no launch for the quarantined pair: {kd}")
+
+    # (3) Shadow checks 1 in 1 over lone pairs; host_fold from profiles.
+    s0 = SHADOW_STATS.copy()
+    ex.shadow_sample = 1
+    fold_us = []
+    for _ in range(HF_SHADOW):
+        prof = obs.profile.QueryProfile()
+        tok = obs.profile.activate(prof)
+        try:
+            got = ex.execute("i", q)[0]
+        finally:
+            obs.profile.deactivate(tok)
+        check(got == pair_want, ("a shadow-checked pair", got))
+        fold_us.append(prof.phase_us("host_fold"))
+    ex.shadow_sample = 0
+    sd = {k: v - s0.get(k, 0) for k, v in SHADOW_STATS.copy().items()
+          if v != s0.get(k, 0)}
+    out["shadow"] = {"checks": sd, "host_fold_p50_ms":
+                     float(np.percentile(fold_us, 50)) / 1e3,
+                     "host_fold_p90_ms":
+                     float(np.percentile(fold_us, 90)) / 1e3}
+    log(f"host fold phase: {HF_SHADOW} lone pairs at 1 in 1: {sd}; the "
+        f"profile's host_fold p50 {out['shadow']['host_fold_p50_ms']:.2f} "
+        f"ms, p90 {out['shadow']['host_fold_p90_ms']:.2f} ms")
+    check(sd == {"checks:mesh": HF_SHADOW},
+          f"{HF_SHADOW} checks, no mismatch: {sd}")
+
+    # (4) A Bitmap result: HostMaterializePlan against the Row path and
+    # numpy, per slice and container by container.
+    bq = parse_string("Intersect(Bitmap(rowID=0), Bitmap(rowID=1))")
+    folded, fold_s = timed(lambda: ex.execute("i", bq)[0])
+
+    def rows_path():
+        r = Row()
+        for s in slices:
+            r.merge(ex._bitmap_slice("i", bq.calls[0], s))
+        return r
+    merged, merge_s = timed(rows_path)
+    both = words[:, 0] & words[:, 1]
+    per = np.bitwise_count(both).sum(axis=2, dtype=np.int64)  # (S, 16)
+    bad = []
+    for s in slices:
+        keys = np.flatnonzero(per[s]).tolist()
+        for r, what in ((folded, "fold"), (merged, "rows")):
+            seg = r.segments.get(s)
+            if seg is None or seg.keys != keys or seg.count() != per[s].sum():
+                bad.append((what, s))
+                continue
+            for k, c in zip(seg.keys, seg.containers):
+                if (c.array is None) != (per[s, k] > 4096) or \
+                        not np.array_equal(c.words(), both[s, k]):
+                    bad.append((what, s, k))
+    check(not bad, f"the Bitmap result's containers: {bad[:10]}")
+    check(folded._counts == {s: int(per[s].sum()) for s in slices
+                             if per[s].any()},
+          "the folded Row's per-slice counts")
+    out["bitmap"] = {"fold_s": fold_s, "row_path_s": merge_s,
+                     "bits": int(per.sum()), "containers":
+                     int(np.count_nonzero(per)),
+                     "host_cache": dict(ex.host_cache_stats)}
+    log(f"host fold phase: Intersect(Bitmap(0), Bitmap(1)) over {SLICES} "
+        f"slices, {out['bitmap']['bits']} bits: HostMaterializePlan "
+        f"{fold_s:.3f} s, the Row path {merge_s:.3f} s")
+    del folded, merged
+
+    # (5) The density sweep on the card's path.
+    sweep_out = REPO / "chiprun_out" / "SPARSE_SWEEP.json"
+    t0 = time.monotonic()
+    rc = sparse_sweep.main(["--device", device.type, *HF_SWEEP,
+                            "--out", str(sweep_out)])
+    sweep = json.loads(sweep_out.read_text())
+    out["sweep"] = {"rc": rc, "s": time.monotonic() - t0,
+                    "report": sweep}
+    check(rc == 0 and sweep["ok"], f"sparse_sweep: {sweep['failures']}")
+    fmts = {d: row["format"] for d, row in sweep["sweep"].items()}
+    check(fmts == HF_SWEEP_FORMATS, f"the sweep's formats: {fmts}")
+
+    mesh_stats = dict(mgr.stats)
+    mgr.invalidate()
+    launches = {k: tk.LAUNCHES.get(k, 0) for k in KERNELS}
+    out.update(launches=launches, stats=mesh_stats, host_cache=dict(
+        ex.host_cache_stats), seconds=time.monotonic() - t_phase,
+        kernels={})
+    log(f"host fold phase on {smi}: launches {launches}; the executor's "
+        f"host cache {json.dumps(out['host_cache'])}; "
+        f"{out['seconds']:.1f} s")
+    for k in HF_PATH:
+        check(launches[k] > 0, f"kernel {k} launched by the host fold phase")
+    for k in ("fallback_oom", "fallback_hbm_infeasible"):
+        check(mesh_stats.get(k, 0) == 0, f"host fold phase: {k} = 0")
+    return out
+
+
+# -- phase 19: the on-chip probe tools -------------------------------------------
 
 
 def probe_phase(device, seed: int) -> dict:
@@ -6117,6 +6419,12 @@ def main(argv=None) -> int:
         return kernel_times_only(root, smi, args.seed, ptxas)
     if args.loadgen_rates:
         return loadgen_rates_only(root, smi, args.seed)
+    from pilosa_tpu_torch.ops import native
+
+    t0 = time.monotonic()
+    check(native.has_native(), "the host fold's C++ library")
+    log(f"native: {native.lib_path().name} built (g++) and loaded in "
+        f"{time.monotonic() - t0:.2f} s")
     from pilosa_tpu_torch.ops import kernels as tk
 
     for name in ("coarse_count", "coarse_count_blocked", "tree_count"):
@@ -6168,6 +6476,8 @@ def main(argv=None) -> int:
             bsi = bsi_phase(holder, truth, card, device)
             bsi["data_s"] = gen_s
             done("bsi")
+            hf = host_fold_phase(holder, words, sp, truth, smi, device)
+            done("host_fold")
             ttruth = TimeTruth(TIME_SLICES, args.seed)
             gen_s = add_time_index(holder, ttruth)
             gc.collect()
@@ -6223,9 +6533,11 @@ def main(argv=None) -> int:
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
              "bulk": bulk, "config": node, "admission": adm,
-             "loadgen": lg, "probes": probes}
+             "loadgen": lg, "host_fold": hf, "probes": probes}
     for name, r in paths.items():
-        if name not in ("residency", "probes"):
+        # The residency and host fold phases move the fallbacks on
+        # purpose, and check them themselves.
+        if name not in ("residency", "host_fold", "probes"):
             no_fallback(f"{name} phase", r.get("mesh_stats", r["stats"]))
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()}
                for k in KERNELS}
@@ -6257,7 +6569,7 @@ def main(argv=None) -> int:
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
          "config_node": node, "admission": adm, "loadgen": lg,
-         "probes": probes,
+         "host_fold": hf, "probes": probes,
          "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -78,8 +78,9 @@ bodies and status codes.
          "torn_tails"}, "kernel_launches": each kernel's launches in this
          process (ops.kernels.LAUNCHES), and, once a query has built the
          card manager, "mesh": its counters, "hbm": {budget_bytes, the
-         residency report}, and "quarantined_plans"}, and "sched" (the
-         scheduler's snapshot) when one is wired
+         residency report}, and "quarantined_plans"}, "host_cache": the
+         host folds' cache counters (Executor.host_cache_stats), and
+         "sched" (the scheduler's snapshot) when one is wired
 
 GET /metrics renders one obs.prom.Registry, whose collectors bridge the
 stores at scrape time (the JAX handler's families and names): the stats
@@ -89,7 +90,9 @@ manager's counters (pilosa_mesh_*, pilosa_dispatch_total{mode},
 pilosa_hbm_evictions_total{reason}, pilosa_device_fallback_total
 {reason}, pilosa_plan_quarantined_total, pilosa_hbm_resident_bytes
 {device} and the rest of the residency report, pilosa_hbm_budget_bytes;
-none before a query built the manager), the executor's routes
+none before a query built the manager), the host folds' cache
+(pilosa_host_cache_*: block, memo and matrix hits and misses; the
+query_* gauges stay 0), the executor's routes
 (pilosa_query_route_total{backend,tier},
 pilosa_query_route_duration_microseconds{backend}), the fragments
 (pilosa_fragment_cardinality and pilosa_fragments{state}, sampled at
@@ -102,8 +105,7 @@ pilosa_watchdog_*), the profiles (pilosa_query_phase_us,
 pilosa_roofline_*), the cost ledger (pilosa_cost_*,
 pilosa_perf_regression) and the flight recorder
 (pilosa_queryshape_*). A family whose store the port lacks (the compile
-counters, the plan and host query caches, the row caches, the cluster)
-is left out. A collector that raises is skipped.
+counters, the plan cache, the row caches, the cluster) is left out. A collector that raises is skipped.
 
 Every query outcome is recorded once, in _post_query, into the SLO
 recorder (shed, deadline, backpressure, client and server errors,
@@ -611,6 +613,9 @@ class Handler:
                              "fragments": INTEGRITY_STATS.copy(),
                              "torn_tails": wal.get("torn_tails", 0)},
                "kernel_launches": dict(kernels.LAUNCHES)}
+        hc = getattr(self.executor, "host_cache_stats", None)
+        if hc:
+            out["host_cache"] = dict(hc)
         if self.scheduler is not None:
             out["sched"] = self.scheduler.snapshot()
         mgr = self.executor._mesh_mgr
@@ -638,6 +643,7 @@ class Handler:
         reg = self._prom
         reg.register_collector(lambda: prom.expvar_families(self.stats))
         for fn in (self._collect_runtime, self._collect_device,
+                   self._collect_host_cache,
                    self._collect_routes, self._collect_sched,
                    self._collect_fragments, self._collect_storage,
                    self._collect_integrity, self._collect_slo,
@@ -1075,6 +1081,15 @@ class Handler:
                                "Seconds since this handler started.")
         up.add(time.monotonic() - self._start_time)
         return [info, up]
+
+    def _collect_host_cache(self) -> list:
+        """The host folds' cache counters, one gauge family a key
+        (pilosa_host_cache_block_hit, ...), as the JAX handler exports
+        them."""
+        hc = getattr(self.executor, "host_cache_stats", None)
+        if hc is None:
+            return []
+        return prom.statmap_families(dict(hc), "pilosa_host_cache_")
 
     def _collect_device(self) -> list:
         """The card manager's counters, dispatch modes, evictions,

@@ -1,5 +1,7 @@
 """Row: a query-level bitmap spanning many slices (slice -> slice-local
-roaring bitmap)."""
+roaring bitmap), with a per-slice count cache (`_counts`: filled by
+count(), or up front by the host fold that built the row,
+parallel/plan.HostMaterializePlan)."""
 
 from __future__ import annotations
 
@@ -14,11 +16,12 @@ from ..roaring import Bitmap
 class Row:
     """Segmented bitmap over the global column space."""
 
-    __slots__ = ("segments", "attrs")
+    __slots__ = ("segments", "attrs", "_counts")
 
     def __init__(self):
         self.segments: Dict[int, Bitmap] = {}
         self.attrs: dict = {}
+        self._counts: Dict[int, int] = {}
 
     @classmethod
     def from_segment(cls, slice_: int, bitmap: Bitmap) -> "Row":
@@ -31,6 +34,7 @@ class Row:
         for s, seg in other.segments.items():
             mine = self.segments.get(s)
             self.segments[s] = seg if mine is None else mine.union(seg)
+            self._counts.pop(s, None)
 
     def _binop(self, other: "Row", op: str, keep_left_only: bool) -> "Row":
         out = Row()
@@ -55,10 +59,22 @@ class Row:
         return self._binop(other, "difference", keep_left_only=True)
 
     def count(self) -> int:
-        return sum(seg.count() for seg in self.segments.values())
+        total = 0
+        for s, seg in self.segments.items():
+            n = self._counts.get(s)
+            if n is None:
+                n = self._counts[s] = seg.count()
+            total += n
+        return total
 
     def intersection_count(self, other: "Row") -> int:
-        return self.intersect(other).count()
+        """|self ∩ other| from the segments' containers, nothing built."""
+        total = 0
+        for s, seg in self.segments.items():
+            oseg = other.segments.get(s)
+            if oseg is not None:
+                total += seg.intersection_count(oseg)
+        return total
 
     def columns(self) -> np.ndarray:
         """Absolute column IDs, sorted uint64."""

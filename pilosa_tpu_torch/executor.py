@@ -4,7 +4,7 @@ Count over a lowerable Bitmap / Intersect / Union / Difference / Range
 tree goes to the card through MeshManager.count: on the card every
 lowerable Count runs a kernel, with no cost routing to the host.
 Unlowerable trees (and views that cannot be staged) count on the host
-from roaring rows, which `stats["count_host"]` shows.
+(below), which `stats["count_host"]` shows.
 
 Sum / Min / Max over an integer field (optionally filtered by one bitmap
 child) run on the card too: Sum from the per-row counts of the field's
@@ -69,12 +69,22 @@ manager's staging and launches add `stage_h2d`, `device_exec` and
 `readback_d2h`. `estimate_service_us` and `burst_hint` are the query
 scheduler's hooks (sched/).
 
-Bitmap and Range calls materialize roaring rows per slice on the host; a
-time Range ORs the row over the views that cover [start, end). A root
-Bitmap result carries the row's attrs (or the column's, for a column
-Bitmap). SetBit (with an optional timestamp) / ClearBit / SetValue write
-through the frame; SetRowAttrs / SetColumnAttrs through the attribute
-stores.
+The host folds (parallel/plan.py, the JAX package's): a lowerable Count
+on the host-fold route (quarantined, hbm_infeasible, a
+DeviceResourceError, or a view that cannot stage), every shadow check
+and its recounts run HostCountPlan, which folds dense word blocks with
+the C++ kernels of ops.native and memoizes per-slice counts against the
+fragments' generations in the executor's HostQueryCache
+(`host_cache_stats`); a Count that does not lower folds roaring Rows
+(route "roaring"). A root Intersect / Union / Difference / Range that
+lowers with more than one leaf materializes through HostMaterializePlan
+(the leaves folded once, only the result built as roaring); a single
+leaf, and any tree that does not lower, materializes roaring rows per
+slice (a time Range ORs the row over the views that cover [start,
+end)). A root Bitmap result carries the row's attrs (or the column's,
+for a column Bitmap). SetBit (with an optional timestamp) / ClearBit /
+SetValue write through the frame; SetRowAttrs / SetColumnAttrs through
+the attribute stores.
 """
 
 from __future__ import annotations
@@ -102,8 +112,9 @@ from .errors import DeadlineExceededError, DeviceResourceError, \
     FrameNotFoundError, IndexNotFoundError, IndexRequiredError, QueryError
 from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD,
                             format_pool_bytes)
-from .parallel.plan import (DEFAULT_FRAME, _lower_tree, _tree_signature,
-                            canonical_tree, plan_signature)
+from .parallel.plan import (DEFAULT_FRAME, HostCountPlan,
+                            HostMaterializePlan, HostQueryCache, _lower_tree,
+                            _tree_signature, canonical_tree, plan_signature)
 from .parallel.serve import mesh_config as mesh_config_check
 from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
@@ -115,6 +126,9 @@ from .obs.metrics import Histogram, StatMap
 _BINOPS = {"Intersect": "intersect", "Union": "union",
            "Difference": "difference"}
 _BSI_AGGREGATES = ("Sum", "Min", "Max")
+# Root calls whose result folds on the host through HostMaterializePlan
+# when they lower with more than one leaf.
+_MATERIALIZED = ("Intersect", "Union", "Difference", "Range")
 _WRITE_CALLS = ("ClearBit", "SetBit", "SetValue", "SetRowAttrs",
                 "SetColumnAttrs")
 
@@ -204,6 +218,8 @@ class Executor:
         # Query shapes behind GET /debug/queryshapes ([obs]
         # queryshape-ring sets its ring).
         self.flight = FlightRecorder()
+        # The host folds' caches (blocks, per-slice counts, matrices).
+        self._host_cache = HostQueryCache()
 
     def _inc(self, key: str) -> None:
         with self._stats_mu:
@@ -386,6 +402,13 @@ class Executor:
             return self._execute_bulk_set_row_attrs(index, [c])[0]
         if c.name == "SetColumnAttrs":
             return self._execute_set_column_attrs(index, c)
+        if c.name in _MATERIALIZED:
+            leaves: list = []
+            shape = _lower_tree(self.holder, index, c, leaves)
+            if shape is not None and len(leaves) > 1:
+                return HostMaterializePlan(
+                    self.holder, index, shape, leaves,
+                    cache=self._host_cache).materialize_row(slices)
         row = Row()
         for s in slices:
             row.merge(self._bitmap_slice(index, c, s))
@@ -525,7 +548,7 @@ class Executor:
                 if self._shadow_sampled():
                     checked = True
                     m = self._shadow_check_count(
-                        index, child, slices, n, sig, leaves, epoch,
+                        index, child, slices, n, sig, (shape, leaves), epoch,
                         lambda: self._on_card(
                             self.mesh_manager().count, index, shape,
                             leaves, slices, num, sig))
@@ -536,17 +559,39 @@ class Executor:
                     shadow_checked=checked, shadow_mismatch=mismatch)
                 return n
         self._inc("count_host")
-        with obs.span("host_fold", slices=len(slices)), \
-                obs.profile.phase("host_fold"):
-            n = self._count_host(index, child, slices)
+        n = self._count_host(index, child, slices,
+                             (shape, leaves) if shape is not None else None)
         self._record_route("host-fold" if shape is not None else "roaring",
                            t0, call=c,
                            staged_bytes=max(0, self._h2d_bytes() - h2d0))
         return n
 
-    def _count_host(self, index: str, child: Call, slices: List[int]) -> int:
-        return sum(self._bitmap_slice(index, child, s).count()
-                   for s in slices)
+    def _count_host(self, index: str, child: Call, slices: List[int],
+                    lowered: Optional[tuple] = None) -> int:
+        """The host's Count of `child` over `slices`: HostCountPlan over
+        the lowered tree (`lowered` = (shape, leaves) from _lower_tree,
+        lowered here when None) through the executor's HostQueryCache,
+        or the Row fold when the tree does not lower. Every host Count
+        comes here: the host-fold route, the shadow checks and their
+        recounts (_settle)."""
+        if lowered is None:
+            leaves: list = []
+            shape = _lower_tree(self.holder, index, child, leaves)
+            if shape is not None:
+                lowered = (shape, leaves)
+        if lowered is not None:
+            return HostCountPlan(self.holder, index, *lowered,
+                                 cache=self._host_cache).count_slices(slices)
+        with obs.span("host_fold", slices=len(slices)), \
+                obs.profile.phase("host_fold"):
+            return sum(self._bitmap_slice(index, child, s).count()
+                       for s in slices)
+
+    @property
+    def host_cache_stats(self) -> dict:
+        """The host folds' cache counters (HostQueryCache.stats): /debug/
+        vars `host_cache` and the pilosa_host_cache_* families."""
+        return self._host_cache.stats
 
     # -- shadow verification ---------------------------------------------------
 
@@ -563,24 +608,25 @@ class Executor:
                    backend, what, device, host, index, len(slices))
 
     def _shadow_check_count(self, index: str, child: Call, slices,
-                            device_n: int, sig: str, leaves, epoch: int,
-                            recount) -> int:
-        """A card Count against the host fold of the same tree. On a
+                            device_n: int, sig: str, lowered: tuple,
+                            epoch: int, recount) -> int:
+        """A card Count against the host fold of the same tree
+        (HostCountPlan over `lowered`, its (shape, leaves)). On a
         mismatch: the host value, and the plan signature quarantined,
         so a plan that miscomputes stops serving. `epoch`
         (MUTATION_EPOCH.n before the card counted) and `recount()` (the
         card's count again; None: it could not) are _settle's."""
         SHADOW_STATS.inc("checks:mesh")
-        host_n = self._count_host(index, child, slices)
+        host_n = self._count_host(index, child, slices, lowered)
         if host_n == int(device_n) or MUTATION_EPOCH.n == epoch:
             return self._shadow_verdict_count(index, slices, device_n,
                                               host_n, sig)
         rows: dict = {}
-        for frame, view, row, _q in leaves:
+        for frame, view, row, _q in lowered[1]:
             rows.setdefault((frame, view), set()).add(int(row))
         settled = self._settle(
             index, rows, slices, recount,
-            lambda _n: self._count_host(index, child, slices))
+            lambda _n: self._count_host(index, child, slices, lowered))
         if settled is None:
             return device_n
         return self._shadow_verdict_count(index, slices, *settled, sig)

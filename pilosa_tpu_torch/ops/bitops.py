@@ -1,5 +1,6 @@
 """Bitwise folds and the plain popcount over int32 word tensors, and the
-plain counts over sorted-array containers.
+plain counts over sorted-array containers. fold_tree folds numpy uint64
+blocks too (the host folds, parallel/plan.HostCountPlan).
 
 Pools hold uint32 words reinterpreted as int32: torch has no uint32
 `~` or `>>`, and its int32 `>>` is arithmetic. Every function here is
@@ -10,6 +11,19 @@ as uint32 (and the sorted-array values as uint16).
 from __future__ import annotations
 
 import torch
+
+
+def flat_fold_op(tree):
+    """The one combining op of a depth-one tree whose leaves appear in
+    index order (["op", ["leaf", 0], ["leaf", 1], ...]), the shape the
+    host's fused fold takes (ops.native.fold_blocks), or None for a
+    nested, unary or reordered tree."""
+    if tree[0] == "leaf" or len(tree) < 3:
+        return None
+    for i, child in enumerate(tree[1:]):
+        if child[0] != "leaf" or child[1] != i:
+            return None
+    return tree[0]
 
 
 def fold_tree(tree, leaf_fn):

@@ -3,9 +3,12 @@
 A reduced copy of the JAX package's host bitmap: containers split the
 uint64 value space into 2^16-wide blocks keyed by value >> 16, each an
 `array` of sorted values when its cardinality is <= 4096 and a
-1024-word uint64 `bitmap` otherwise. Everything here is numpy; the
-device never sees these objects, only the packed words the stager
-builds from them (parallel/mesh.py).
+1024-word uint64 `bitmap` otherwise. Everything here is host code:
+numpy, and the host fold's C++ kernels (ops.native, as the JAX package's
+roaring uses them) for popcounts, value extraction, the sorted-array
+set ops, array x bitmap membership and intersection counts. The device
+never sees these objects, only the packed words the stager builds from
+them (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from bisect import bisect_left
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
+
+from ..ops import native as _native
 
 # Cardinality at which an array container converts to a bitmap.
 ARRAY_MAX_SIZE = 4096
@@ -37,13 +42,13 @@ def values_to_bitmap_words(values: np.ndarray) -> np.ndarray:
 
 
 def bitmap_to_values(words: np.ndarray) -> np.ndarray:
-    """Unpack a 1024-word uint64 bitmap into sorted uint32 values."""
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    return np.flatnonzero(bits).astype(_U32)
+    """Unpack a 1024-word uint64 bitmap into sorted uint32 values (the
+    native trailing-zero scan)."""
+    return _native.bitmap_to_values(words)
 
 
 def popcount_words(words: np.ndarray) -> int:
-    return int(np.bitwise_count(words).sum(dtype=np.int64))
+    return _native.popcnt_slice(words)
 
 
 class Container:
@@ -168,27 +173,41 @@ class Container:
         self.normalize()
         return self.n - before
 
-    def _combine(self, other: "Container", op) -> "Container":
-        return Container(bitmap=op(self.words(), other.words())).normalize()
-
     def intersect(self, other: "Container") -> "Container":
         if self.is_array() and other.is_array():
-            return Container(array=np.intersect1d(
-                self.array, other.array, assume_unique=True).astype(_U32))
-        return self._combine(other, np.bitwise_and)
+            return Container(array=_native.intersect_sorted(self.array,
+                                                            other.array))
+        if self.is_array() or other.is_array():
+            arr, bm = (self, other) if self.is_array() else (other, self)
+            a = arr.array
+            return Container(array=a[_native.bitmap_contains(bm.bitmap, a)])
+        return Container(bitmap=self.bitmap & other.bitmap).normalize()
+
+    def intersection_count(self, other: "Container") -> int:
+        """|self ∩ other| without building it."""
+        if self.is_array() and other.is_array():
+            return _native.intersection_count_sorted(self.array,
+                                                     other.array)
+        if self.is_array() or other.is_array():
+            arr, bm = (self, other) if self.is_array() else (other, self)
+            return int(_native.bitmap_contains(bm.bitmap, arr.array).sum())
+        return _native.popcnt_and_slice(self.bitmap, other.bitmap)
 
     def union(self, other: "Container") -> "Container":
         if self.is_array() and other.is_array():
-            return Container(array=np.union1d(
-                self.array, other.array).astype(_U32)).normalize()
-        return self._combine(other, np.bitwise_or)
+            return Container(array=_native.union_sorted(
+                self.array, other.array)).normalize()
+        return Container(bitmap=self.words() | other.words()).normalize()
 
     def difference(self, other: "Container") -> "Container":
-        if self.is_array() and other.is_array():
-            return Container(array=np.setdiff1d(
-                self.array, other.array, assume_unique=True).astype(_U32))
-        return self._combine(other, lambda a, b: a & ~b)
-
+        if self.is_array():
+            a = self.array
+            if other.is_array():
+                return Container(array=_native.difference_sorted(
+                    a, other.array))
+            return Container(
+                array=a[~_native.bitmap_contains(other.bitmap, a)])
+        return Container(bitmap=self.bitmap & ~other.words()).normalize()
 
     def check(self) -> list:
         """Consistency errors of this container (none when sound)."""
@@ -410,6 +429,21 @@ class Bitmap:
     def intersect(self, other: "Bitmap") -> "Bitmap":
         return self._merge(other, "intersect")
 
+    def intersection_count(self, other: "Bitmap") -> int:
+        """|self ∩ other| from the containers both hold, nothing built."""
+        total = i = j = 0
+        while i < len(self.keys) and j < len(other.keys):
+            if self.keys[i] < other.keys[j]:
+                i += 1
+            elif self.keys[i] > other.keys[j]:
+                j += 1
+            else:
+                total += self.containers[i].intersection_count(
+                    other.containers[j])
+                i += 1
+                j += 1
+        return total
+
     def union(self, other: "Bitmap") -> "Bitmap":
         return self._merge(other, "union")
 
@@ -421,6 +455,36 @@ class Bitmap:
         out.keys = list(self.keys)
         out.containers = [c.clone() for c in self.containers]
         return out
+
+    @classmethod
+    def from_dense_words(cls, words: np.ndarray, counts=None,
+                         own: bool = False, key_base: int = 0) -> "Bitmap":
+        """A bitmap of dense 64-bit words covering keys [key_base,
+        key_base + len(words) / 1024): one container per nonzero
+        1024-word block, in the form its count gives (array at <= 4096),
+        as every set op normalizes. `counts`: the per-block popcounts
+        (ops.native.popcnt_blocks), counted here when None. `own=True`
+        says `words` is this call's alone, so bitmap containers may be
+        views into it (blocks are disjoint runs)."""
+        if len(words) % BITMAP_N:
+            raise ValueError("words must be whole 1024-word containers")
+        blocks = words.reshape(-1, BITMAP_N)
+        if counts is None:
+            counts = _native.popcnt_blocks(words)
+        b = cls()
+        for key in np.flatnonzero(counts).tolist():
+            c = Container.__new__(Container)
+            c.shared = False
+            c.fnv = None
+            if counts[key] <= ARRAY_MAX_SIZE:
+                c.array = bitmap_to_values(blocks[key])
+                c.bitmap = None
+            else:
+                c.array = None
+                c.bitmap = blocks[key] if own else blocks[key].copy()
+            b.keys.append(key_base + key)
+            b.containers.append(c)
+        return b
 
     # -- serialization (serialize.py) --------------------------------------
 

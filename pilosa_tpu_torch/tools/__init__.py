@@ -13,4 +13,10 @@ and metrics_lint (the /metrics conventions gate):
 
     python -m pilosa_tpu_torch.ctl loadgen [--in-process] [--host H:P] ...
     python -m pilosa_tpu_torch.tools.metrics_lint [--url URL | --file F]
+
+The density sweep (sparse_sweep): each density's pair served through
+MeshManager.count and gated on the host fold's C++ kernels:
+
+    python -m pilosa_tpu_torch.tools.sparse_sweep [--device cuda|cpu]
+        [--slices 8] [--iters 5] [--densities 0.003,0.03,0.3] [--out F]
 """

@@ -1,5 +1,6 @@
 """What the on-chip probes share: their arguments, the device, timing,
-seeded pools, whole-pool uploads and the JSON record.
+seeded pools, whole-pool uploads and the JSON record; and the density
+sweep's holder and timing (build_sparse_holder, best_of: bench.py's).
 
 Every probe takes --device (default cuda: without a card it raises,
 nothing falls back), --out (default chiprun_out/probes/ of this
@@ -194,6 +195,44 @@ def build_holder(path: str, words: np.ndarray) -> Holder:
                 bm.containers.append(Container(bitmap=words[s, r, b]))
         view.create_fragment_if_not_exists(s).replace(bm)
     return h
+
+
+def build_sparse_holder(tmp: str, num_slices: int, density: float = 0.03,
+                        seed: int = 23) -> Holder:
+    """Index `i`, frame `general`: two rows of ~density containers in all
+    16 blocks of every slice (bench.py's build_sparse_holder, the same
+    draws from the same seed). Containers normalize at the 4096-value
+    roaring break-even, so a density above ~6.25% makes bitmap
+    containers (staged dense) and a lower one sorted arrays."""
+    rng = np.random.default_rng(seed)
+    h = Holder(str(Path(tmp) / f"sparse{num_slices}x{density}"))
+    h.open()
+    view = h.create_index_if_not_exists("i").create_frame_if_not_exists(
+        "general").create_view_if_not_exists("standard")
+    n = int(65536 * density)
+    for s in range(num_slices):
+        bm = Bitmap()
+        for r in (0, 1):
+            for b in range(16):
+                vals = np.sort(rng.choice(65536, size=n, replace=False)
+                               ).astype(np.uint32)
+                bm.keys.append(r * 16 + b)
+                bm.containers.append(Container(array=vals).normalize())
+        view.create_fragment_if_not_exists(s).replace(bm)
+    return h
+
+
+def best_of(fn: Callable, reps: int, iters: int) -> float:
+    """The least mean seconds a call over `reps` runs of `iters` calls
+    (bench.py's best_of). `fn` returns a host value, so each call ends
+    with its answer read back."""
+    best = 1e9
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return best
 
 
 def write_record(out_dir: Path, name: str, doc: dict) -> Path:

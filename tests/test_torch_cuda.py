@@ -1284,3 +1284,60 @@ def test_pprof_profile_on_the_card(loadgen_node):
     assert "serve.py:_batch_loop" in body
     assert all(line.rsplit(" ", 1)[1].isdigit()
                for line in body.splitlines())
+
+
+@pytest.mark.cuda
+def test_sparse_sweep_on_the_card(card, tmp_path):
+    """The density sweep on the card at 2 densities over 8 slices: K4
+    for the sorted-array pair, K1 for the dense one, each equal to the
+    host fold's C++ kernels, the formats as the densities ask."""
+    from pilosa_tpu_torch.tools import sparse_sweep
+
+    out = tmp_path / "sweep.json"
+    assert sparse_sweep.main(["--slices", "8", "--iters", "3",
+                              "--densities", "0.03,0.3",
+                              "--out", str(out)]) == 0
+    rep = json.loads(out.read_text())
+    assert rep["ok"] is True
+    assert [rep["sweep"][d]["format"] for d in ("0.03", "0.3")] == \
+        ["sparse", "dense"]
+
+
+@pytest.mark.cuda
+def test_card_answer_equals_host_count_plan(card, tmp_path, monkeypatch):
+    """The headline pair at 8 dense rows: the card's Count, HostCountPlan
+    with the native library and under PILOSA_TORCH_NO_NATIVE=1, the Row
+    fold and numpy all agree."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import native
+    from pilosa_tpu_torch.parallel.plan import (HostCountPlan,
+                                                HostQueryCache, _lower_tree)
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        words = dense_frame(h, "i", "general", 8, 8, seed=17)
+        ex = Executor(h, device=card)
+        q = parse_string(pair_pql("general"))
+        assert ex.execute("i", q) == [pair_truth(words)]
+        assert ex.stats["count_device"] == 1
+        child = q.calls[0].children[0]
+        leaves: list = []
+        shape = _lower_tree(h, "i", child, leaves)
+        slices = list(range(8))
+        want = pair_truth(words)
+        assert native.has_native()
+        assert HostCountPlan(h, "i", shape, leaves,
+                             cache=HostQueryCache()).count_slices(slices) \
+            == want
+        monkeypatch.setenv("PILOSA_TORCH_NO_NATIVE", "1")
+        assert not native.has_native()
+        assert HostCountPlan(h, "i", shape, leaves).count_slices(
+            slices) == want
+        monkeypatch.delenv("PILOSA_TORCH_NO_NATIVE")
+        assert sum(ex._bitmap_slice("i", child, s).count()
+                   for s in slices) == want
+    finally:
+        h.close()
