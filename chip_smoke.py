@@ -107,9 +107,10 @@ Phases, each fatal on failure:
      n ~ U[1, 4096], 10% absent; 64 slices) in every form: n, threshold,
      ids, a src Bitmap, field / filters after SetRowAttrs over HTTP on
      100 rows (and a Bitmap's attrs), tanimotoThreshold. Every answer is
-     checked against numpy with the card path's semantics; every TopN
-     must run on the card and launch K5, which is then held exactly
-     against its plain version and the truth at the `topn` shape and at
+     checked against numpy with the card path's semantics; the
+     repeat-TopN memo is emptied before each TopN (phase 19 measures
+     it), so every TopN must run on the card and launch K5, which is
+     then held exactly against its plain version and the truth at the `topn` shape and at
      `general`'s (10 rows x 960 slices) and timed beside its byte bound
      and the index table's bytes; torch.profiler measures the card's
      busy share of a round of TopNs;
@@ -303,7 +304,32 @@ Phases, each fatal on failure:
      both timed; (5) `python -m pilosa_tpu_torch.tools.sparse_sweep` at
      0.3%, 3% and 30% over 96 slices on the card: ok, formats sparse,
      sparse, dense. K1, K3 and K4 must launch on this path;
- 19. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 19. how the executor picks its engine (run right after phase 11, on
+     the main holder): (1) a server.Server started on the card over an
+     empty directory checks its kernels: the K0 canary, then K1 and K4
+     each equal to its plain version and timed (/debug/vars
+     count_calibration `measured`, K1's and K4's ms against their plain
+     versions' printed); a second start checks and times them again
+     (nothing is kept between starts); a third, whose K1 answers one
+     too many (planted in this phase only), raises; (2) the crossover:
+     the `general` pair over its first 4, 8, 24, 48, 96, 240 and 960
+     slices (8 to 1,920 work units) through an executor with the
+     default (device_min_work 0: the card), one with 192 (the JAX
+     package's default: the host fold below 192 units) and one with
+     10**9 (the host fold always,
+     cold with a new HostQueryCache before each call, and warm), each
+     route's p50 of 20 lone calls printed, every answer equal to numpy;
+     (3) the repeat-TopN memo: TopN(n=100) on index `t`, frame `topn`:
+     the first call launches K5 and 20 repeats none (each a memo hit),
+     their p50 and that of 10 calls after the memo was emptied printed;
+     a SetBit into a staged row's container (a clear bit of a top row's
+     bitmap in slice 0), reaching the image by K7 or a restage (which is
+     printed), then the TopN: fresh, exact, K5 launched again; the
+     ClearBit back, then that TopN from 16 threads at once: the K5
+     launches of one TopN, the others shared in flight or hit; the Sum
+     of `val` twice, the second with no launch. K1 and K5 must launch on
+     this path;
+ 20. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -311,8 +337,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 20. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-18, each path's counters set to 0 just before it;
+ 21. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-19, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -320,6 +346,14 @@ Phases, each fatal on failure:
 Each HTTP phase runs one full pass of Python's cyclic collector right
 after its staging query and reports its time, so that no timed window
 holds the pass that staging would otherwise set off.
+
+Every server start, in every phase and child, runs the start-up check
+(server.check_card: K0, then K1 and K4 against their plain versions);
+the check's K1 and K4 launches compare and serve nothing, so they are
+not counted (ops.kernels.uncounted) and each path's counts are its own.
+Cost routing is off by default, so no Count or aggregate of phases 3-18
+is routed to the host fold by its size; phase 19 sets its thresholds on
+its executors.
 
 Exits non-zero, with no result line, when no CUDA card is present.
 Details go to chiprun_out/chip_smoke.json.
@@ -2309,6 +2343,12 @@ def add_time_index(holder, truth: TimeTruth) -> float:
     return time.monotonic() - t0
 
 
+def empty_memo(mgr) -> None:
+    """Empty a manager's repeat-TopN memo: the next TopN launches K5."""
+    with mgr._mu:
+        mgr._topn_memo.clear()
+
+
 def staged_bytes(mgr, index: str) -> dict:
     """Bytes of every staged view of an index: packed words (dense) and
     sorted arrays with their cardinalities (sparse)."""
@@ -2739,7 +2779,9 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
     after SetRowAttrs over HTTP on 100 rows, tanimotoThreshold), each
     held against the numpy truth with the card path's semantics, and a
     Bitmap's attrs. K5 at the `topn` shape against its plain version.
-    The counters are set to 0 just before the server starts (it
+    The repeat-TopN memo is emptied before each TopN, so that each
+    launches K5 and the times are K5 serving's (phase 19 times the
+    memo). The counters are set to 0 just before the server starts (it
     launches K0) and read after the last query."""
     import torch
 
@@ -2780,9 +2822,14 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
         got = c.call("POST", f"/index/{index}/query", q)["results"][0]
         check(got == want, (q, str(got)[:200], str(want)[:200]))
 
+    def ask_topn(index, q, want):
+        empty_memo(mgr)
+        ask(index, q, want)
+
     def lat(index, q, want, n):
         out = []
         for _ in range(n):
+            empty_memo(mgr)
             t0 = time.monotonic()
             ask(index, q, want)
             out.append((time.monotonic() - t0) * 1e3)
@@ -2793,14 +2840,14 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
     try:
         gq = f"TopN(frame=general, n={TOPN_N})"
         t0 = time.monotonic()
-        ask("i", gq, want_general)
+        ask_topn("i", gq, want_general)
         general_first_s = time.monotonic() - t0
         lone = lat("i", gq, want_general, TOPN_LONE_CALLS)
         log(f"topn phase: lone {gq} over HTTP at {SLICES} slices: p50 "
             f"{lone['p50_ms']:.3f} ms, p90 {lone['p90_ms']:.3f} ms "
             f"({TOPN_LONE_CALLS} calls; first {general_first_s:.2f} s)")
         t0 = time.monotonic()
-        ask("t", *queries[0])
+        ask_topn("t", *queries[0])
         torch.cuda.synchronize()
         first_s = time.monotonic() - t0
         staged = staged_bytes(mgr, "t")
@@ -2817,7 +2864,7 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
                      f"Bitmap(rowID={r0}, frame=topn)")["results"][0]
         check(got["attrs"] == {"cat": cats[r0]}, ("Bitmap attrs", got["attrs"]))
         for q, want in queries:
-            ask("t", q, want)
+            ask_topn("t", q, want)
         check(len(queries[-1][1]) > 0, "the Tanimoto band holds rows")
         topn_lat = lat("t", queries[0][0], queries[0][1], TOPN_TIMED_CALLS)
         busy = profiled(lambda: lat("t", queries[0][0], queries[0][1],
@@ -2853,7 +2900,8 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
           == 1 + TOPN_LONE_CALLS + 1 + len(queries) + TOPN_TIMED_CALLS
           + PROFILED_CALLS,
           f"every TopN on the card: {stats}")
-    check(mstats.get("kernel:pair_count_rows", 0) >= stats["topn_device"],
+    check(mstats.get("kernel:pair_count_rows", 0) >= stats["topn_device"]
+          and mstats.get("memo_hit", 0) == 0,
           "each TopN counted on K5")
     return {"launches": launches, "stats": stats, "mesh_stats": mstats,
             "slices": TOPN_SLICES, "rows": TOPN_ROWS,
@@ -5973,6 +6021,292 @@ def host_fold_phase(holder, words: np.ndarray, sp: SparseRows,
 # -- phase 19: the on-chip probe tools -------------------------------------------
 
 
+# -- phase 19: how the executor picks its engine -------------------------------
+
+ENGINE_PATH = ("coarse_count", "pair_count")
+ENGINE_SWEEP = (4, 8, 24, 48, 96, 240, 960)  # slices of the `general` pair
+ENGINE_CALLS = 20        # lone calls a p50
+ENGINE_COLD_TOPN = 10    # TopNs each after the memo was emptied
+ENGINE_THREADS = 16      # threads asking one cold TopN at once
+JAX_MIN_WORK = 192       # the JAX package's default threshold
+
+
+def engine_node(tmp: str, name: str):
+    """A server.Server on the card over an empty directory of its own,
+    from the smallest TOML (port 0), not opened."""
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.server import Server
+
+    return Server(Config.from_toml(
+        f'data-dir = "{Path(tmp) / name}"\nhost = "127.0.0.1:0"\n',
+        is_text=True))
+
+
+def engine_calibration(tmp: str) -> dict:
+    """Each Server start on the card checks its kernels (the K0 canary,
+    then K1 and K4 each against its plain version, timed): `measured` at
+    a first start and again at a second, and a third start whose K1
+    answers one too many (planted here, nowhere else) raises."""
+    from pilosa_tpu_torch.ops import calibrate as cal
+    from pilosa_tpu_torch.ops import kernels as tk
+
+    out: dict = {}
+    for start in ("first", "second"):
+        srv = engine_node(tmp, f"engine_{start}")
+        t0 = time.monotonic()
+        try:
+            srv.open(port=0)
+            open_s = time.monotonic() - t0
+            rec = srv.handler.handle("GET", "/debug/vars").json()[
+                "count_calibration"]
+        finally:
+            srv.close()
+        check(rec["source"] == rec["sparse"]["source"] == "measured",
+              f"the {start} start checks its kernels: {rec}")
+        check(rec["backend"] == rec["sparse"]["backend"] == "pallas",
+              f"the verdict is the kernels: {rec}")
+        out[start] = dict(rec, open_s=open_s)
+        log(f"engine phase: {start} start measured: K1 {rec['pallas_ms']} "
+            f"ms against plain {rec['xla_ms']} ms at {rec['shape']}; K4 "
+            f"{rec['sparse']['pallas_ms']} ms against plain "
+            f"{rec['sparse']['xla_ms']} ms at {rec['sparse']['shape']}; "
+            f"open {open_s:.2f} s; {json.dumps(rec, sort_keys=True)}")
+    real = tk.coarse_count_uniform
+    tk.coarse_count_uniform = lambda *a, **k: real(*a, **k) + 1
+    srv = engine_node(tmp, "engine_planted")
+    try:
+        srv.open(port=0)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        tk.coarse_count_uniform = real
+        srv.close()
+    snap = cal.calibration_snapshot()
+    check(raised is not None and "mismatch" in raised
+          and snap["source"] == "error",
+          f"a planted K1 mismatch stops the third start: {raised}; {snap}")
+    out["planted_mismatch"] = {"raised": raised, "record": snap}
+    log(f"engine phase: planted K1 mismatch: the third start raised "
+        f"{raised[:160]!r}")
+    return out
+
+
+def p50_ms(fn, calls: int, before=None) -> float:
+    """p50 of `calls` lone calls of fn() on the host's clock, ms (before()
+    runs ahead of each, outside the timing)."""
+    out = []
+    for _ in range(calls):
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(out, 50))
+
+
+def engine_phase(holder, words: np.ndarray, ntruth: "TopnTruth",
+                 btruth: "BsiTruth", tmp: str, device) -> dict:
+    """Phase 19 (module docstring), run right after the TopN phase: the
+    kernel check at each start, then, with the counters set to 0, the
+    crossover sweep of the `general` pair through an executor with the
+    default (device_min_work 0, the card), one with 192 (the JAX
+    package's default) and one with 10**9 (the host fold, cold and
+    warm), and the repeat-TopN memo on index `t` and on the Sum of
+    `val`. Every answer equals numpy; the counters are read just
+    after."""
+    import torch
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels as tk
+    from pilosa_tpu_torch.parallel.plan import HostQueryCache
+    from pilosa_tpu_torch.parallel.serve import MAX_ROWS_PER_LAUNCH
+    from pilosa_tpu_torch.pql import parse_string
+
+    t_phase = time.monotonic()
+    out: dict = {"calibration": engine_calibration(tmp)}
+    tk.reset_launches()
+    ex0 = Executor(holder, device=device)
+    check(ex0._min_work() == 0, f"cost routing off by default: "
+          f"{ex0._min_work()}")
+    exd = Executor(holder, device=device, device_min_work=JAX_MIN_WORK)
+    exh = Executor(holder, device=device, device_min_work=10 ** 9)
+
+    def ask(ex, q, slices=None):
+        return ex.execute("i", parse_string(q), slices)[0]
+
+    # (1) The crossover: each route's p50 at each size, every answer exact.
+    pair = pql("and", 0, 1)
+    sweep = {}
+    for s in ENGINE_SWEEP:
+        slices = list(range(s))
+        want = int(np.bitwise_count(words[:s, 0] & words[:s, 1]).sum())
+        row = {"work_units": 2 * s}
+
+        def one(ex, s_=slices, want_=want):
+            got = ask(ex, pair, s_)
+            check(got == want_, (f"pair over {len(s_)} slices", got, want_))
+
+        one(ex0)  # stages `general` on this manager at the first size
+        row["mesh_ms"] = p50_ms(lambda: one(ex0), ENGINE_CALLS)
+        before = dict(exd.route_stats)
+        one(exd)
+        moved = [k for k, v in exd.route_stats.items()
+                 if v != before.get(k, 0)]
+        row["at192_route"] = moved[0][len("count_"):]
+        want_route = "host-fold" if 2 * s < JAX_MIN_WORK else "mesh"
+        check(row["at192_route"] == want_route,
+              f"route at 192 over {s} slices: {moved}")
+        if want_route == "mesh":
+            row["at192_ms"] = p50_ms(lambda: one(exd), ENGINE_CALLS)
+        else:
+            row["at192_cold_ms"] = p50_ms(
+                lambda: one(exd), ENGINE_CALLS,
+                before=lambda: setattr(exd, "_host_cache", HostQueryCache()))
+            row["at192_warm_ms"] = p50_ms(lambda: one(exd), ENGINE_CALLS)
+        row["host_cold_ms"] = p50_ms(
+            lambda: one(exh), ENGINE_CALLS,
+            before=lambda: setattr(exh, "_host_cache", HostQueryCache()))
+        row["host_warm_ms"] = p50_ms(lambda: one(exh), ENGINE_CALLS)
+        sweep[s] = row
+        log(f"engine phase: pair over {s} slices ({2 * s} units): card "
+            f"{row['mesh_ms']:.3f} ms; at 192 -> {row['at192_route']} "
+            + (f"{row['at192_ms']:.3f} ms" if want_route == "mesh" else
+               f"cold {row['at192_cold_ms']:.3f} / warm "
+               f"{row['at192_warm_ms']:.3f} ms")
+            + f"; host fold cold {row['host_cold_ms']:.3f} / warm "
+            f"{row['host_warm_ms']:.3f} ms (p50 of {ENGINE_CALLS})")
+    out["sweep"] = sweep
+    n_host = sum(2 * s < JAX_MIN_WORK for s in ENGINE_SWEEP)
+    check(exd.mesh_manager().stats.get("routed_host", 0)
+          == n_host * (2 * ENGINE_CALLS + 1),
+          f"routed_host of the executor at 192: {exd.mesh_manager().stats}")
+    check(ex0.mesh_manager().stats.get("routed_host", 0) == 0,
+          "nothing routed at device_min_work=0")
+
+    # (2) The memo: TopN(n=100) on frame `topn`, first, cold and repeats.
+    mgr = ex0.mesh_manager()
+    key = ("t", "topn", "standard")
+    q = f"TopN(frame=topn, n={TOPN_N})"
+    counts = ntruth.counts.copy()
+
+    def topn(want):
+        got = [{"id": int(r), "count": int(c)}
+               for r, c in ex0.execute("t", parse_string(q))[0]]
+        check(got == want, f"{q} = numpy")
+
+    def k5():
+        torch.cuda.synchronize()
+        return tk.LAUNCHES["pair_count"]
+
+    per_topn = -(-TOPN_ROWS // MAX_ROWS_PER_LAUNCH)
+    ex0.execute("t", parse_string("Count(Bitmap(rowID=0, frame=topn))"))
+    want = TopnTruth.rank(counts, TOPN_N)
+    n0, t0 = k5(), time.perf_counter()
+    topn(want)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(k5() - n0 == per_topn, "the first TopN launches K5")
+
+    cold_ms = p50_ms(lambda: topn(want), ENGINE_COLD_TOPN,
+                     before=lambda: empty_memo(mgr))
+    n0, hits0 = k5(), mgr.stats.get("memo_hit", 0)
+    repeat_ms = p50_ms(lambda: topn(want), ENGINE_CALLS)
+    check(k5() == n0, "repeated TopNs launch no K5")
+    check(mgr.stats["memo_hit"] - hits0 == ENGINE_CALLS,
+          "each repeat is a memo hit")
+    log(f"engine phase: {q}: first {first_ms:.3f} ms, cold p50 "
+        f"{cold_ms:.3f} ms ({ENGINE_COLD_TOPN} calls after the memo was "
+        f"emptied), repeats p50 {repeat_ms:.3f} ms ({ENGINE_CALLS} calls, "
+        f"0 K5 launches)")
+    out["memo"] = {"first_ms": first_ms, "cold_p50_ms": cold_ms,
+                   "repeat_p50_ms": repeat_ms, "calls": ENGINE_CALLS}
+
+    # A SetBit into a container the image holds (a bitmap row of slice 0
+    # among the top rows, at a clear bit), then the same TopN from one
+    # thread; the ClearBit back, then the same TopN from ENGINE_THREADS
+    # threads at once, which must launch as one.
+    from concurrent.futures import ThreadPoolExecutor
+
+    w, bm_rows, _arrays = ntruth.slice_rows(0)
+    top = [p["id"] for p in want]
+    r = next(r for r in top if r in set(bm_rows.tolist()))
+    bits = np.unpackbits(w[r].view(np.uint8), bitorder="little")
+    col = int(np.flatnonzero(bits == 0)[0])
+    writes = {}
+    for op, delta, threads in (("SetBit", 1, 1),
+                               ("ClearBit", -1, ENGINE_THREADS)):
+        st0 = dict(mgr.stats)
+        n0, k7 = k5(), tk.LAUNCHES["apply_writes"]
+        ex0.execute("t", parse_string(
+            f"{op}(rowID={r}, frame=topn, columnID={col})"))
+        counts[r] += delta
+        want = TopnTruth.rank(counts, TOPN_N)
+        gate = threading.Barrier(threads)
+
+        def herd(_, want_=want):
+            gate.wait()
+            topn(want_)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool_ex:
+            list(pool_ex.map(herd, range(threads)))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        via = ("scatter" if mgr.stats.get("incremental", 0)
+               > st0.get("incremental", 0) else "restage")
+        shared = (mgr.stats.get("inflight_shared", 0)
+                  - st0.get("inflight_shared", 0))
+        hits = mgr.stats.get("memo_hit", 0) - st0.get("memo_hit", 0)
+        check(k5() - n0 == per_topn,
+              f"{threads} TopN after {op} launch K5 as one: {k5() - n0}")
+        check(shared + hits == threads - 1,
+              f"the others shared or hit: {shared} + {hits}")
+        writes[op] = {"via": via, "k7": tk.LAUNCHES["apply_writes"] - k7,
+                      "threads": threads, "k5": k5() - n0,
+                      "shared": shared, "memo_hits": hits,
+                      "wall_ms": wall_ms}
+        log(f"engine phase: {op} row {r} column {col}, then {q} from "
+            f"{threads} thread(s): fresh and exact, the write reached the "
+            f"image by {via} (K7 launches {writes[op]['k7']}), "
+            f"{k5() - n0} K5 launch, {shared} shared in flight, {hits} "
+            f"memo hits, {wall_ms:.1f} ms wall")
+    out["memo"]["writes"] = writes
+
+    # The Sum of `val` twice: the second answers from the plane counts.
+    sq = agg_pql("Sum", False)
+    want = btruth.aggregate("Sum", False)
+    n0 = k5()
+    t0 = time.perf_counter()
+    check(ask(ex0, sq) == want, "Sum = numpy")
+    sum_first_ms = (time.perf_counter() - t0) * 1e3
+    first_k5 = k5() - n0
+    n0, hits0 = k5(), mgr.stats.get("memo_hit", 0)
+    t0 = time.perf_counter()
+    check(ask(ex0, sq) == want, "repeated Sum = numpy")
+    sum_repeat_ms = (time.perf_counter() - t0) * 1e3
+    check(first_k5 > 0 and k5() == n0
+          and mgr.stats["memo_hit"] - hits0 == first_k5,
+          f"the repeated Sum hits: K5 {first_k5} then {k5() - n0}")
+    log(f"engine phase: {sq}: first {sum_first_ms:.1f} ms ({first_k5} K5 "
+        f"launches), repeat {sum_repeat_ms:.3f} ms (0 launches, "
+        f"{first_k5} memo hits)")
+    out["memo"]["sum"] = {"first_ms": sum_first_ms, "first_k5": first_k5,
+                          "repeat_ms": sum_repeat_ms}
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    stats = {"ex0": dict(ex0.stats), "at192": dict(exd.stats),
+             "host": dict(exh.stats)}
+    mstats = dict(mgr.stats)
+    for e in (ex0, exd, exh):
+        e.invalidate_device_index()
+    for k in ENGINE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the engine path")
+    out.update(launches=launches, stats=stats, mesh_stats=mstats,
+               at192_mesh_stats=dict(exd.mesh_manager().stats),
+               phase_s=time.monotonic() - t_phase)
+    log(f"engine phase: launches {launches}; {out['phase_s']:.1f} s")
+    return out
+
+
 def probe_phase(device, seed: int) -> dict:
     """The probe tools through their main(), the counters set to 0 just
     before and read just after; then K6 (coarse_count_blocked) at every T
@@ -6496,6 +6830,8 @@ def main(argv=None) -> int:
             topn["data_s"] = gen_s
             kern.update(topn["kernels"])
             done("topn")
+            eng = engine_phase(holder, words, ntruth, truth, tmp, device)
+            done("engine")
             gc.collect()
             writes = write_phase(holder, words, card, device, args.seed)
             kern.update(writes["kernels"])
@@ -6533,7 +6869,8 @@ def main(argv=None) -> int:
     paths = {"dense": sl, "sparse": sps, "residency": res, "bsi": bsi,
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
              "bulk": bulk, "config": node, "admission": adm,
-             "loadgen": lg, "host_fold": hf, "probes": probes}
+             "loadgen": lg, "host_fold": hf, "engine": eng,
+             "probes": probes}
     for name, r in paths.items():
         # The residency and host fold phases move the fallbacks on
         # purpose, and check them themselves.
@@ -6569,7 +6906,7 @@ def main(argv=None) -> int:
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
          "config_node": node, "admission": adm, "loadgen": lg,
-         "host_fold": hf, "probes": probes,
+         "host_fold": hf, "engine": eng, "probes": probes,
          "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -77,10 +77,14 @@ bodies and status codes.
          "shadow": SHADOW_STATS, "fragments": INTEGRITY_STATS,
          "torn_tails"}, "kernel_launches": each kernel's launches in this
          process (ops.kernels.LAUNCHES), and, once a query has built the
-         card manager, "mesh": its counters, "hbm": {budget_bytes, the
-         residency report}, and "quarantined_plans"}, "host_cache": the
-         host folds' cache counters (Executor.host_cache_stats), and
-         "sched" (the scheduler's snapshot) when one is wired
+         card manager, "mesh": its counters (the repeat-TopN memo's
+         memo_hit / memo_store / memo_size and inflight_shared among
+         them), "hbm": {budget_bytes, the residency report}, and
+         "quarantined_plans"}, "host_cache": the host folds' cache
+         counters (Executor.host_cache_stats), "sched" (the scheduler's
+         snapshot) when one is wired, and "count_calibration" (the last
+         start-up check's record, ops.calibrate, K4's under "sparse")
+         once a start on a card has checked its kernels
 
 GET /metrics renders one obs.prom.Registry, whose collectors bridge the
 stores at scrape time (the JAX handler's families and names): the stats
@@ -161,6 +165,7 @@ from ..obs import span as obs_span
 from ..obs.trace import Tracer
 from ..sched import AdmissionError
 from ..ops import kernels
+from ..ops.calibrate import calibration_snapshot
 from ..pql import ParseError, parse_string
 from ..utils.stats import ExpvarStats
 from ..wire import (PROTOBUF_CT, BlockDataRequest, BlockDataResponse,
@@ -597,8 +602,9 @@ class Handler:
 
     def _get_expvar(self, pv, params, headers, body) -> Response:
         """The stats client's snapshot, uptime and version, and the
-        `storage`, `integrity` and `mesh` parts of the JAX handler's
-        /debug/vars (pilosa_tpu/api/handler.py:1497-1525)."""
+        `storage`, `integrity`, `mesh` and `count_calibration` parts of
+        the JAX handler's /debug/vars
+        (pilosa_tpu/api/handler.py:1497-1530)."""
         wal = WAL_STATS.copy()
         snapshot = getattr(self.stats, "snapshot", None)  # NopStats: none
         out = snapshot() if snapshot is not None else {}
@@ -625,6 +631,9 @@ class Handler:
                            **mgr.device_memory()}
             mesh["quarantined_plans"] = mgr.quarantined_plans()
             out["mesh"] = mesh
+        cal = calibration_snapshot()
+        if cal is not None:
+            out["count_calibration"] = cal
         return _json_resp(out)
 
     # -- /metrics --------------------------------------------------------------

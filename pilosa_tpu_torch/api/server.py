@@ -103,10 +103,11 @@ def serve(holder, device="cuda", host: str = "127.0.0.1", port: int = 0,
     the card-memory governor's knobs (hbm_budget_bytes, hbm_headroom,
     quarantine_after, quarantine_ttl; parallel.serve.MESH_DEFAULTS).
     shadow_sample: check 1 in N card answers on the host (0: off). Frame
-    restore reaches other nodes through api.client.InternalClient. On
-    a card, the K0 canary (ops.kernels.probe_ok) runs first, and a card
-    that fails it is refused before the socket is bound. The executor
-    and handler come from server.build_handler, as a Server's do."""
+    restore reaches other nodes through api.client.InternalClient.
+    server.check_card runs first (on a card the K0 canary and the
+    check of K1 and K4), and a card that fails it is refused before
+    the socket is bound. The executor and handler come from
+    server.build_handler, as a Server's do."""
     from ..server import build_handler, check_card
 
     handler = build_handler(holder, device, sparse_density_threshold,

@@ -29,8 +29,9 @@ Where the port departs from the JAX node, on purpose:
   never probes and never falls back: without a card the node refuses
   to start (Config.device).
 - [mesh] count-backend: `auto` and `pallas` both mean the hand-written
-  CUDA kernels (there is no calibrator); `xla` and `pallas_interpret`
-  raise at load, naming the key (parse_count_backend).
+  CUDA kernels, checked against their plain versions at every start
+  (server.check_card); `xla` and `pallas_interpret` raise at load,
+  naming the key (parse_count_backend).
 - [mesh] stage-chunk-mb becomes the env default
   $PILOSA_TORCH_STAGE_CHUNK_MB (apply_mesh_env);
   $PILOSA_TORCH_SPARSE_DENSITY_THRESHOLD and
@@ -106,8 +107,8 @@ def parse_write_consistency(value: str) -> str:
 
 def parse_count_backend(value) -> str:
     """[mesh] count-backend. `auto` and `pallas` both mean the
-    hand-written CUDA kernels: the port has no calibrator to choose
-    between backends. `xla` and `pallas_interpret` have no counterpart
+    hand-written CUDA kernels: the port has no second engine for a
+    calibration to choose. `xla` and `pallas_interpret` have no counterpart
     that serves on a card (only the plain PyTorch versions, which never
     do), so they raise, as does any other value."""
     v = str(value or "").strip().lower()

@@ -1,10 +1,21 @@
 """Executor: PQL evaluation over a Holder.
 
 Count over a lowerable Bitmap / Intersect / Union / Difference / Range
-tree goes to the card through MeshManager.count: on the card every
-lowerable Count runs a kernel, with no cost routing to the host.
-Unlowerable trees (and views that cannot be staged) count on the host
-(below), which `stats["count_host"]` shows.
+tree goes to the card through MeshManager.count, unless cost routing
+sends it to the host fold (the JAX executor's, below). Unlowerable trees
+(and views that cannot be staged) count on the host (below), which
+`stats["count_host"]` shows.
+
+Cost routing (the JAX package's pilosa_tpu/executor.py:1880-1990): a
+lowerable Count whose work, slices x leaves, is under `device_min_work`
+folds on the host (HostCountPlan, route reason "min_work"), and so does a
+Sum / Min / Max whose slices x the field's rows is; on the CPU with the
+native library built, larger ones fold there too ("cpu_native"; off with
+PILOSA_TORCH_CPU_ROUTE_NATIVE=off or 0). The threshold is the
+`device_min_work` argument, else $PILOSA_TORCH_DEVICE_MIN_WORK, else
+_DEFAULT_MIN_WORK (0); zero or less turns cost routing off, the
+`cpu_native` route with it. Every routed
+call counts in the manager's `routed_host`.
 
 Sum / Min / Max over an integer field (optionally filtered by one bitmap
 child) run on the card too: Sum from the per-row counts of the field's
@@ -26,7 +37,8 @@ Within the card's memory governor (MeshManager, parallel/serve.py): a
 Count whose plan signature is quarantined, or one of whose views would
 alone pass the HBM budget, goes straight to the host fold
 (`_route_to_host`, counted in the manager's `routed_host` and
-`fallback_<reason>`), and a DeviceResourceError from the manager (the
+`fallback_<reason>`; these come before the cost reasons), and a
+DeviceResourceError from the manager (the
 same causes found later, or out of memory after its evict-and-retry
 ladder) sends that one Count, aggregate or TopN to the host path. Any
 other device error propagates. `explain()` reports a Count's route and
@@ -91,6 +103,7 @@ from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 import time
 from collections import Counter
@@ -135,6 +148,11 @@ _WRITE_CALLS = ("ClearBit", "SetBit", "SetValue", "SetRowAttrs",
 # The host TopN's threshold when none is given (the card path's
 # rank_pairs keeps no row under one bit either).
 MIN_THRESHOLD = 1
+
+# Cost routing's environment (the JAX package's PILOSA_TPU_* twins).
+MIN_WORK_ENV = "PILOSA_TORCH_DEVICE_MIN_WORK"
+CPU_ROUTE_ENV = "PILOSA_TORCH_CPU_ROUTE_NATIVE"
+USE_DEVICE_ENV = "PILOSA_TORCH_USE_DEVICE"
 
 # Shadow verification: "checks:<backend>" / "mismatch:<backend>".
 SHADOW_STATS = StatMap()
@@ -188,14 +206,29 @@ class Executor:
     sparse_density_threshold: mean container fill under which a slice
     stages as sorted arrays (<= 0 stages everything dense). mesh_config:
     the manager's [mesh] knobs (parallel.serve.MESH_DEFAULTS).
-    shadow_sample: check 1 in N card answers on the host (0: off)."""
+    shadow_sample: check 1 in N card answers on the host (0: off).
+    device_min_work: cost routing's threshold in slices x leaves (None:
+    $PILOSA_TORCH_DEVICE_MIN_WORK, else _DEFAULT_MIN_WORK; <= 0: off)."""
+
+    # Off unless asked for. The JAX package's default, 192
+    # (pilosa_tpu/executor.py:1888), was tuned on its own device. On the
+    # card a cold host fold is no faster than the kernels at any size
+    # chip_smoke's engine phase sweeps, and a warm one wins only at small
+    # sizes (PERF.md), so a default waits for a benchmark that measures
+    # how often the fold's caches are warm.
+    _DEFAULT_MIN_WORK = 0
 
     def __init__(self, holder, device="cuda",
                  sparse_density_threshold: float =
                  DEFAULT_SPARSE_DENSITY_THRESHOLD,
                  mesh_config: Optional[dict] = None,
-                 shadow_sample: int = 0):
+                 shadow_sample: int = 0,
+                 device_min_work: Optional[int] = None):
         self.holder = holder
+        self.device_min_work = device_min_work
+        # Resolved once, at the first routing decision.
+        self._min_work_resolved: Optional[int] = None
+        self._cpu_route_native: Optional[bool] = None
         self.shadow_sample = int(shadow_sample)
         self._shadow_counter = itertools.count()
         self.device = resolve_device(device)
@@ -532,12 +565,20 @@ class Executor:
         with obs.span("plan", call="Count", slices=len(slices)) as psp, \
                 obs.profile.phase("plan"):
             shape = _lower_tree(self.holder, index, child, leaves)
+            routed = None
             if shape is not None and slices:
                 num = self._num_slices(index, slices)
                 sig = plan_signature(shape)
-                routed = self._route_to_host(index, leaves, num, sig)
+                routed = self._route_to_host(
+                    len(slices), len(leaves), index=index, leaves=leaves,
+                    num_slices=num, sig=sig)
             psp.tag(route="roaring" if shape is None else
                     "host-fold" if not slices or routed else "mesh")
+            if routed:
+                psp.tag(route_reason=routed)
+            switches = self._kill_switches()
+            if switches:
+                psp.tag(kill_switches=switches)
         if shape is not None and slices and not routed:
             epoch = MUTATION_EPOCH.n  # before the count: _settle's witness
             n = self._on_card(self.mesh_manager().count, index, shape,
@@ -767,10 +808,12 @@ class Executor:
         for a tree that does not lower), its `plan` {signature,
         quarantined}, the resident format of each leaf's view
         (`device_format`) and what staging the others would take
-        (`staging`). No view stages and no counter moves. Serves POST
-        /index/{index}/query?explain=true (the JAX package's
-        Executor.explain, pilosa_tpu/executor.py:1366-1505, without
-        placement, cluster and calibration)."""
+        (`staging`), and the cost model that routed it (`cost_model`,
+        `kill_switches`); for Sum / Min / Max, the route, the field's
+        planes and rows and the cost model. No view stages and no counter
+        moves. Serves POST /index/{index}/query?explain=true (the JAX
+        package's Executor.explain, pilosa_tpu/executor.py:1366-1557,
+        without placement, cluster and the whole-query memo)."""
         if not index:
             raise IndexRequiredError()
         idx = self.holder.index(index)
@@ -791,16 +834,23 @@ class Executor:
         if c.name in _WRITE_CALLS:
             info["route"] = "write"
             return info
+        if c.name in _BSI_AGGREGATES and slices:
+            return self._explain_bsi_aggregate(index, c, slices, info)
         if c.name != "Count" or len(c.children) != 1 or not slices:
             return info
         leaves: list = []
         shape = _lower_tree(self.holder, index, c.children[0], leaves)
-        if shape is None or not leaves:
+        lowerable = shape is not None and bool(leaves)
+        info["cost_model"] = self._cost_model(lowerable, len(leaves),
+                                              len(slices))
+        info["kill_switches"] = self._kill_switches()
+        if not lowerable:
             info["route"] = "roaring"
             return info
         sig = plan_signature(shape)
         num = self._num_slices(index, slices)
-        reason = self._would_route_to_host(index, leaves, num, sig)
+        reason = self._would_route_to_host(len(slices), len(leaves), index,
+                                           leaves, num, sig)
         info["route"] = "host-fold" if reason else "mesh"
         if reason:
             info["route_reason"] = reason
@@ -814,6 +864,30 @@ class Executor:
             info["device_format"] = self._explain_format(leaves, shape,
                                                          resident)
         info["staging"] = self._explain_staging(index, keys, num, resident)
+        return info
+
+    def _explain_bsi_aggregate(self, index: str, c: Call, slices, info):
+        """A Sum / Min / Max's planned route ("bsi-mesh", or "bsi-host"
+        with its reason), its field's planes and rows and the cost model
+        (pilosa_tpu/executor.py:1512-1560); a call that cannot run
+        reports its error instead."""
+        try:
+            _frame, schema = self._bsi_call_schema(index, c)
+        except (IndexNotFoundError, FrameNotFoundError, FieldNotFoundError,
+                QueryError) as err:
+            info["route"] = "error"
+            info["error"] = str(err) or type(err).__name__
+            return info
+        reason = self._would_route_to_host(len(slices), schema.row_count,
+                                           index)
+        info["route"] = "bsi-host" if reason else "bsi-mesh"
+        if reason:
+            info["route_reason"] = reason
+        info["bsi"] = {"field": c.args.get("field"),
+                       "planes": schema.bit_depth, "rows": schema.row_count}
+        info["cost_model"] = self._cost_model(None, schema.row_count,
+                                              len(slices))
+        info["kill_switches"] = self._kill_switches()
         return info
 
     @staticmethod
@@ -865,32 +939,106 @@ class Executor:
                 "sparse_density_threshold": self.sparse_density_threshold,
                 "views": views}
 
-    def _would_route_to_host(self, index: str, leaves, num_slices: int,
-                             sig: str) -> Optional[str]:
-        """The routing reason of a Count, or None: "quarantined" when its
-        plan signature is, "hbm_infeasible" when one of its views would
-        alone pass the HBM budget. The resilience half of the JAX
-        package's (pilosa_tpu/executor.py:1951-1970): the port has no
-        cost routing. It asks an existing manager only (without one
-        nothing is staged or quarantined) and changes nothing."""
+    def _would_route_to_host(self, n_slices: int, num_leaves: int,
+                             index: Optional[str] = None, leaves=None,
+                             num_slices: int = 0,
+                             sig: Optional[str] = None) -> Optional[str]:
+        """The routing reason of a call over `n_slices` slices and
+        `num_leaves` leaves (a Count's leaves, an aggregate's field rows),
+        or None (the card), as pilosa_tpu/executor.py:1951-1976 decides
+        it. The resilience half first, given the context and a manager
+        (without one nothing is staged or quarantined): "quarantined"
+        when `sig` is, "hbm_infeasible" when a view of `leaves` would
+        alone pass the HBM budget at `num_slices`. Then the cost half:
+        "min_work" under the threshold, "cpu_native" above it on the CPU
+        (_cpu_native_routes). Changes nothing; explain() asks it too."""
         mgr = self._mesh_mgr
-        if mgr is None:
+        if mgr is not None:
+            if sig and mgr.plan_quarantined(sig):
+                return "quarantined"
+            if index is not None and leaves and mgr.stage_infeasible(
+                    index, leaves, num_slices):
+                return "hbm_infeasible"
+        thr = self._min_work()
+        if thr <= 0:
             return None
-        if mgr.plan_quarantined(sig):
-            return "quarantined"
-        if mgr.stage_infeasible(index, leaves, num_slices):
-            return "hbm_infeasible"
+        if n_slices * max(1, num_leaves) < thr:
+            return "min_work"
+        if self._cpu_native_routes():
+            return "cpu_native"
         return None
 
-    def _route_to_host(self, index: str, leaves, num_slices: int,
-                       sig: str) -> Optional[str]:
+    def _route_to_host(self, n_slices: int, num_leaves: int,
+                       index: Optional[str] = None, leaves=None,
+                       num_slices: int = 0,
+                       sig: Optional[str] = None) -> Optional[str]:
         """_would_route_to_host, counted in the manager's `routed_host`
-        and `fallback_<reason>`."""
-        reason = self._would_route_to_host(index, leaves, num_slices, sig)
+        (the manager is made for it, as in the JAX package), and in
+        `fallback_<reason>` for the resilience reasons."""
+        reason = self._would_route_to_host(n_slices, num_leaves, index,
+                                           leaves, num_slices, sig)
         if reason:
-            self._mesh_mgr._inc("routed_host")
-            self._mesh_mgr._inc(f"fallback_{reason}")
+            mgr = self.mesh_manager()
+            mgr._inc("routed_host")
+            if reason in ("quarantined", "hbm_infeasible"):
+                mgr._inc(f"fallback_{reason}")
         return reason
+
+    def _min_work(self) -> int:
+        """Cost routing's threshold: the argument, else
+        $PILOSA_TORCH_DEVICE_MIN_WORK (an unreadable value reads as
+        unset), else _DEFAULT_MIN_WORK; the environment is read once."""
+        thr = self.device_min_work
+        if thr is None:
+            thr = self._min_work_resolved
+        if thr is None:
+            raw = os.environ.get(MIN_WORK_ENV, "")
+            try:
+                thr = int(raw) if raw else None
+            except ValueError:
+                thr = None
+            if thr is None:
+                thr = self._DEFAULT_MIN_WORK
+            self._min_work_resolved = thr
+        return int(thr)
+
+    def _cpu_native_routes(self) -> bool:
+        """Whether calls above the threshold fold on the host too: the
+        executor's device is the CPU (the JAX package's cpu backend: the
+        plain versions there lose to the C++ fold), the native library
+        built (ops.native; a failed build raises), and
+        $PILOSA_TORCH_CPU_ROUTE_NATIVE is not off or 0. Decided once."""
+        verdict = self._cpu_route_native
+        if verdict is None:
+            from .ops import native
+
+            verdict = (os.environ.get(CPU_ROUTE_ENV, "on").lower()
+                       not in ("off", "0")
+                       and self.device.type == "cpu"
+                       and native.has_native())
+            self._cpu_route_native = verdict
+        return verdict
+
+    @staticmethod
+    def _kill_switches() -> list:
+        """The routing switches set in the environment, as name=value
+        (trace tags and explain())."""
+        return [f"{name}={os.environ[env]}"
+                for env, name in ((USE_DEVICE_ENV, "use_device"),
+                                  (MIN_WORK_ENV, "device_min_work"),
+                                  (CPU_ROUTE_ENV, "cpu_route_native"))
+                if os.environ.get(env, "")]
+
+    def _cost_model(self, lowerable: Optional[bool], leaves: int,
+                    n_slices: int) -> dict:
+        """explain()'s cost_model block (`lowerable` only for a Count)."""
+        out = {"backend_on": True}
+        if lowerable is not None:
+            out["lowerable"] = lowerable
+        return {**out, "leaves": leaves,
+                "work_units": n_slices * max(1, leaves),
+                "min_work": self._min_work(),
+                "cpu_native_routes": self._cpu_native_routes()}
 
     def _num_slices(self, index: str, slices: List[int]) -> int:
         return max(max(slices), self.holder.index(index).max_slice()) + 1
@@ -933,6 +1081,9 @@ class Executor:
             ftree = _lower_tree(self.holder, index, child, fleaves)
             filt = (ftree, fleaves) if ftree is not None else None
         on_card = bool(slices) and (child is None or filt is not None)
+        if on_card and self._route_to_host(len(slices), schema.row_count,
+                                           index=index):
+            on_card = False
         if on_card:
             num = self._num_slices(index, slices)
             try:

@@ -42,11 +42,14 @@ given CPU tensors runs the plain version; given CUDA tensors it launches
 its kernel or raises. The tree reaches a kernel as an accumulator-form
 program (tree_program, csrc/fold.cuh) of at most MAX_LEAVES leaves and
 depth MAX_DEPTH.
-LAUNCHES counts kernel launches per kernel, and only launches.
+LAUNCHES counts kernel launches per kernel, and only launches; not those
+made inside uncounted(), the start-up check's (ops.calibrate), which
+compare kernels with their plain versions and serve nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -78,12 +81,23 @@ LAUNCHES = {"coarse_count": 0, "coarse_count_shared": 0, "tree_count": 0,
             "coarse_count_blocked": 0, "stream_popcount": 0,
             "apply_writes": 0, "sector_probe": 0}
 _LAUNCH_MU = threading.Lock()
+_UNCOUNTED = threading.local()
 
 
 def reset_launches() -> None:
     with _LAUNCH_MU:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made by this thread inside the block are not counted."""
+    _UNCOUNTED.on = True
+    try:
+        yield
+    finally:
+        _UNCOUNTED.on = False
 
 
 def tree_depth(tree) -> int:
@@ -233,6 +247,8 @@ def _stream(t: torch.Tensor) -> int:
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if getattr(_UNCOUNTED, "on", False):
+        return
     with _LAUNCH_MU:
         LAUNCHES[name] += 1
 

@@ -90,10 +90,26 @@ file. Every served Count and every per-row count passes the result seam
 fault.perturb("device.exec", ..., kind="count-result"), where a delta=
 rule models a kernel that silently miscomputes; the executor's shadow
 verification is what catches it.
+
+The repeat-TopN memo (the JAX package's _topn_memo): the finished
+per-row counts of _row_counts (TopN in every form, a src's and the
+Tanimoto band's, the integer fields' planes) are kept, up to
+_TOPN_MEMO_MAX entries in LRU order, as host arrays only, so the memo
+holds no card memory. A JAX scatter makes a new array, so the JAX memo
+keys on the arrays' identities; K7 scatters into the same tensor, so
+here the key names each staged view by a serial number never reused and
+a write generation every scatter moves (plus the slice mask, the rows
+asked, and a src's plan signature and leaves), and every swap of an
+image purges the entries that read it: a view leaving the manager
+(DELETE, the budget, the OOM ladder, a demote, a restage) and a scatter,
+before K7 launches. An entry computed before a purge is not stored after
+it (_memo_epoch). Identical concurrent per-row counts share one
+execution (_single_flight). The ranking itself runs on every call.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -127,6 +143,8 @@ from .plan import (PlanQuarantine, _tree_signature, format_signature,
 
 # Rows one pair_count_rows launch takes (its grid's y limit).
 MAX_ROWS_PER_LAUNCH = 65535
+# StagedView serial numbers: one a staging, never reused (the memo's key).
+_SERIALS = itertools.count(1)
 
 # The [mesh] knobs MeshManager(config=) takes, with the JAX package's
 # defaults (pilosa_tpu/config.py:113-124): the HBM budget in bytes (0:
@@ -299,13 +317,15 @@ class StagedView:
     `inc_count`. The governor's: `last_used` (the use-epoch of the
     resolution that last touched it), `pins` (queries in flight holding
     it), `retired` (no longer the manager's) and `grown` (a row table was
-    built since the budget last looked)."""
+    built since the budget last looked). The memo's: `serial` (this
+    staging's number, never reused) and `write_gen` (the scatters into
+    its pool so far)."""
 
     __slots__ = ("sharded", "sparse", "slice_formats", "slice_gens",
                  "num_slices", "layouts", "sparse_layouts", "index_rows",
                  "validated", "rows_dev", "last_stage_s", "inc_ewma_s",
                  "inc_spend_s", "inc_count", "last_used", "pins", "retired",
-                 "grown", "key")
+                 "grown", "key", "serial", "write_gen")
 
     def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
                  sparse: Optional[SparseShardedIndex] = None,
@@ -335,6 +355,8 @@ class StagedView:
         self.retired = False
         self.grown = False
         self.key = None  # (index, frame, view), the cost ledger's
+        self.serial = next(_SERIALS)
+        self.write_gen = 0
 
     def release(self) -> None:
         """Drop the view's tensors: it has left the manager and no query
@@ -433,6 +455,10 @@ class MeshManager:
     leaves out takes its default)."""
 
     _MAX_BATCH = 16
+    # Finished per-row counts kept (the memo's bound): entries are host
+    # arrays, and the bound keeps masks and srcs that never repeat from
+    # piling up.
+    _TOPN_MEMO_MAX = 128
     # A staging whose measurement failed counts at least this long, so
     # the gate does not read a fast failure as a cheap restage.
     _FAILED_STAGE_FLOOR_S = 60.0
@@ -490,6 +516,14 @@ class MeshManager:
         self._measure_thread: Optional[threading.Thread] = None
         self._inc_ewma_s: Optional[float] = None  # all views: a gauge
         self._scattered = False  # the first scatter runs unmeasured
+        # The repeat-TopN memo: key -> (per-row counts, serials read),
+        # least recently used first. _memo_epoch moves at every purge; a
+        # store carrying an older epoch is dropped.
+        self._topn_memo: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._memo_epoch = 0
+        # Per-row counts in flight: key -> [done, result, error].
+        self._inflight: Dict[tuple, list] = {}
+        self._inflight_mu = threading.Lock()
 
     def _inc(self, key: str, n: int = 1) -> None:
         with self._stats_mu:
@@ -550,6 +584,7 @@ class MeshManager:
         sv = self._views.pop(key)
         self._views_gen += 1
         sv.retired = True
+        self._purge_memo(sv)
         LEDGER.view_evicted(key)
         if sv.pins == 0:
             sv.release()
@@ -934,6 +969,9 @@ class MeshManager:
                 for s, (pos, val) in pending.items()}
         except KeyError:
             return self._stage(key, sv.num_slices, epoch)
+        # K7 writes into this very pool: what was memoized from it goes.
+        self._purge_memo(sv)
+        sv.write_gen += 1
         apply_writes(sv.sharded, *pack_mutation_batches(
             per_slice, sv.sharded.num_slices, sv.sharded.capacity))
         sv.slice_gens = new_gens
@@ -1296,7 +1334,9 @@ class MeshManager:
         counts, full counts). None when a view cannot be staged or the
         slices reach past it. The views stay pinned, and the row table
         is built and the launches run, outside _mu, under
-        _guarded_exec."""
+        _guarded_exec. A repeat over unchanged images is answered from
+        the memo, and identical concurrent calls share one execution
+        (_single_flight)."""
         pins: list = []
         try:
             with self._mu:
@@ -1306,6 +1346,7 @@ class MeshManager:
                 if sv is None or mask is None:
                     return None
                 self._pin(sv, pins)
+                read = [sv]
                 all_rows = sv.sharded.row_ids
                 sel = (None if rows is None else
                        np.nonzero(np.isin(all_rows, np.asarray(
@@ -1326,6 +1367,7 @@ class MeshManager:
                             if staged[(f, v)] is None:
                                 return None
                             self._pin(staged[(f, v)], pins)
+                    read += list(staged.values())
                     dense = [dense_row(staged[(f, v)].sharded, r)
                              for f, v, r, _req in leaves]
                     if tree == ["leaf", 0] and leaves[0][:2] == (frame, view):
@@ -1336,6 +1378,15 @@ class MeshManager:
                                    for f, v, _r, _q in leaves],
                             [staged[(f, v)].layout(d) for (f, v, _r, _q), d
                              in zip(leaves, dense)])}
+                key = self._memo_key(
+                    read, num_slices, mask.tobytes(),
+                    None if sel is None else sel.tobytes(), with_full,
+                    None if src is None else (plan_signature(src[0]),
+                                              tuple(src[1])))
+                epoch = self._memo_epoch
+                hit = self._memo_get(key)
+                if hit is not None:
+                    return hit
 
             def launch():
                 table = sv.row_table()
@@ -1359,9 +1410,97 @@ class MeshManager:
 
             sig = "__row_counts__" + ("" if src is None else
                                       ":" + plan_signature(src[0]))
-            return self._guarded_exec(sig, launch, kind="row_counts")
+
+            def compute():
+                # A leader that finished after our miss stored it.
+                out = self._memo_get(key)
+                if out is None:
+                    out = self._guarded_exec(sig, launch, kind="row_counts")
+                    self._memo_put(key, out, epoch)
+                return out
+
+            return self._single_flight(key, compute)
         finally:
             self._release_pins(pins)
+
+    # -- the repeat-TopN memo ------------------------------------------------
+
+    @staticmethod
+    def _memo_key(views, *parts) -> tuple:
+        """A memo key: the (serial, write generation) of each staged view
+        read, then `parts`."""
+        return (tuple((sv.serial, sv.write_gen) for sv in views),) + parts
+
+    def _memo_get(self, key: tuple):
+        """The memoized per-row counts of `key`, or None."""
+        with self._mu:
+            hit = self._topn_memo.get(key)
+            if hit is None:
+                return None
+            self._topn_memo.move_to_end(key)
+        self._inc("memo_hit")
+        return hit[0]
+
+    def _memo_put(self, key: tuple, value, epoch: int) -> None:
+        """Memoize `value` (host arrays only) under `key`; dropped when a
+        purge ran since `epoch` (_memo_epoch read with the staged views
+        the value was counted from)."""
+        with self._mu:
+            if epoch != self._memo_epoch:
+                return
+            if key in self._topn_memo:
+                self._topn_memo.move_to_end(key)
+                return
+            if len(self._topn_memo) >= self._TOPN_MEMO_MAX:
+                self._topn_memo.popitem(last=False)
+            self._topn_memo[key] = (value,
+                                    frozenset(s for s, _gen in key[0]))
+            self._inc("memo_store")
+            self._set("memo_size", len(self._topn_memo))
+
+    def _purge_memo(self, sv: StagedView) -> None:
+        """Drop every entry that read `sv`, whose image is about to change
+        or go, and move the epoch. Call under _mu."""
+        self._memo_epoch += 1
+        dead = [k for k, (_v, serials) in self._topn_memo.items()
+                if sv.serial in serials]
+        for k in dead:
+            del self._topn_memo[k]
+        if dead:
+            self._set("memo_size", len(self._topn_memo))
+
+    def _single_flight(self, key: tuple, compute):
+        """compute() once for identical concurrent callers: the first is
+        the leader, the others wait for its result or its error
+        (`inflight_shared`). Runs outside _mu and around _guarded_exec,
+        so a waiter never queues on a launch of its own."""
+        with self._inflight_mu:
+            pending = self._inflight.get(key)
+            leader = pending is None
+            if leader:
+                pending = self._inflight[key] = [threading.Event(), None,
+                                                 None]
+        if not leader:
+            pending[0].wait()
+            self._inc("inflight_shared")
+            err = pending[2]
+            if isinstance(err, DeviceResourceError):
+                raise DeviceResourceError(str(err), reason=err.reason) \
+                    from err
+            if err is not None:
+                raise RuntimeError(f"shared per-row count failed: {err}") \
+                    from err
+            return pending[1]
+        try:
+            pending[1] = compute()
+            return pending[1]
+        except BaseException as e:
+            pending[2] = e
+            raise
+        finally:
+            with self._inflight_mu:
+                self._inflight.pop(key, None)
+            pending[0].set()
 
     def _pair_rows(self, pool, a_idx, b) -> np.ndarray:
         """kernels.pair_count_rows over a_idx's rows, MAX_ROWS_PER_LAUNCH

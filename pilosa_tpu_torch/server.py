@@ -21,9 +21,11 @@ critical: their stall makes /readyz answer 503); [cluster]
 query-deadline the deadline of a query that brings none.
 
 open() opens the holder, applies the declared [[schema.indexes]]
-(idempotent), runs the K0 canary on a card (a card that fails it is
-refused before the socket is bound), binds (port 0 picks a free port and
-the node's host becomes the real address), starts the watchdog, and
+(idempotent), runs the K0 canary on a card and then the check of K1
+and K4 against their plain versions (ops.calibrate; a card that fails
+either is refused before the socket is bound), binds (port 0 picks a
+free port and the node's host becomes the real address), starts the
+watchdog, and
 starts the daemons: the rank-cache flush every 60 s (the `cache-flush`
 heartbeat), the scrubber at scrub-interval with 10% jitter when
 [integrity] is enabled, and the `warm` thread that loads the fragments
@@ -90,13 +92,24 @@ def build_handler(holder, device, sparse_density_threshold: float,
 
 
 def check_card(executor) -> None:
-    """The K0 canary (ops.kernels.probe_ok) on a card; RuntimeError when
-    it fails. Nothing on the CPU."""
+    """On a card, the K0 canary (ops.kernels.probe_ok), then K1 and K4
+    held against their plain versions and timed (ops.calibrate.
+    check_kernels, /debug/vars count_calibration). RuntimeError when the
+    canary fails, CalibrationError (a RuntimeError) when a kernel
+    disagrees or raises. The JAX node calibrates in a background thread
+    and serves on XLA whatever comes of it (pilosa_tpu/server.py:203-217);
+    the port has no second engine to serve with, so it checks before it
+    serves, at every start. Nothing on the CPU."""
+    from .ops.calibrate import check_kernels
     from .ops.kernels import probe_ok
 
-    if executor.device.type == "cuda" and not probe_ok(executor.device):
-        raise RuntimeError(f"kernel canary failed on {executor.device}: "
+    dev = executor.device
+    if dev.type != "cuda":
+        return
+    if not probe_ok(dev):
+        raise RuntimeError(f"kernel canary failed on {dev}: "
                            "refusing to serve")
+    check_kernels(dev)
 
 
 class Server:

@@ -1341,3 +1341,70 @@ def test_card_answer_equals_host_count_plan(card, tmp_path, monkeypatch):
                    for s in slices) == want
     finally:
         h.close()
+
+
+@pytest.mark.cuda
+def test_calibration_is_measured_on_the_card(card):
+    """The start-up check on the card: K1 and K4 each equal to its plain
+    version and timed at the JAX package's shapes, the kernels the
+    verdict; its launches compare and serve nothing, so no counter
+    moves."""
+    from pilosa_tpu_torch.ops import calibrate
+
+    calibrate.reset_for_tests()
+    try:
+        before = dict(tk.LAUNCHES)
+        rec = calibrate.check_kernels(card)
+        srec = rec["sparse"]
+        assert rec["source"] == srec["source"] == "measured"
+        assert rec["backend"] == srec["backend"] == "pallas"
+        assert rec["interpret"] is False and srec["interpret"] is False
+        assert rec["shape"] == {"slices": 64, "capacity": 128}
+        assert srec["shape"] == {"containers": 512, "values": 512}
+        assert min(rec["pallas_ms"], rec["xla_ms"], srec["pallas_ms"],
+                   srec["xla_ms"]) > 0
+        assert rec["device"] == f"cuda:{torch.cuda.get_device_name(card)}"
+        assert dict(tk.LAUNCHES) == before
+    finally:
+        calibrate.reset_for_tests()
+
+
+@pytest.mark.cuda
+def test_repeated_topn_makes_no_launch_on_the_card(card, tmp_path):
+    """A repeated TopN answers from the memo with no K5 launch; a SetBit
+    into a container the image holds is scattered in place (K7) and the
+    next TopN launches K5 again and sees it."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        words = dense_frame(h, "i", "general", 8, 8, seed=23)
+        counts = np.bitwise_count(words).sum(axis=(0, 2, 3))
+        ex = Executor(h, device=card)
+        q = parse_string("TopN(frame=general, n=8)")
+
+        def truth():
+            return sorted(((r, int(c)) for r, c in enumerate(counts)),
+                          key=lambda p: (-p[1], p[0]))
+
+        assert [tuple(p) for p in ex.execute("i", q)[0]] == truth()
+        mgr = ex.mesh_manager()
+        k5 = tk.LAUNCHES["pair_count"]
+        for _ in range(5):
+            assert [tuple(p) for p in ex.execute("i", q)[0]] == truth()
+        assert tk.LAUNCHES["pair_count"] == k5
+        assert mgr.stats["memo_hit"] == 5
+        word = int(words[0, 0, 0, 0])
+        bit = next(b for b in range(64) if not word >> b & 1)
+        ex.execute("i", parse_string(
+            f"SetBit(rowID=0, frame=general, columnID={bit})"))
+        counts[0] += 1
+        k7 = tk.LAUNCHES["apply_writes"]
+        assert [tuple(p) for p in ex.execute("i", q)[0]] == truth()
+        assert tk.LAUNCHES["apply_writes"] == k7 + 1
+        assert tk.LAUNCHES["pair_count"] == k5 + 1
+    finally:
+        h.close()

@@ -285,8 +285,19 @@ def test_card_path_matches_jax_device_path(topn_dirs):
     h.open()
     try:
         ex = Executor(h, device="cpu")
-        got = run(lambda q: ex.execute("i", parse_string(q))[0], queries)
         mgr = ex.mesh_manager().stats
+        # Per query: (K5 launches, repeat-TopN memo hits).
+        moved = []
+
+        def execute(q):
+            k5, hits = mgr["kernel:pair_count_rows"], mgr["memo_hit"]
+            try:
+                return ex.execute("i", parse_string(q))[0]
+            finally:
+                moved.append((mgr["kernel:pair_count_rows"] - k5,
+                              mgr["memo_hit"] - hits))
+
+        got = run(execute, queries)
     finally:
         h.close()
     assert got == want
@@ -294,12 +305,32 @@ def test_card_path_matches_jax_device_path(topn_dirs):
     assert [p[0] for p in got[4]] == [p[0] for p in got[4] if p[0] in
                                       (1, 3, 5, 8)]
     # Every form of TOPN (and the repeats after the writes) ran on the
-    # card, each on K5, but the unknown frame (host: no fragment) and
-    # the empty list (a parse error in both packages).
+    # card, but the unknown frame (host: no fragment) and the empty list
+    # (a parse error in both packages): each on K5, or from the memo of
+    # an earlier TopN over its frame since that frame's last write. The
+    # first TopN over a frame after a write launches K5.
     assert got[len(TOPN) - 1] == ("error", "ParseError")
     n_card = len(TOPN) - 2 + 5
     assert ex.stats["topn_device"] == n_card
-    assert mgr["kernel:pair_count_rows"] >= n_card
+    card = [i for i, q in enumerate(queries[:len(TOPN) + len(WRITES) + 5])
+            if q.startswith("TopN") and "nosuch" not in q and "ids=[])"
+            not in q]
+    assert len(card) == n_card
+    read_since_write: set = set()
+    for i, q in enumerate(queries[:card[-1] + 1]):
+        frame = "small" if "frame=small" in q else "topn"
+        if not q.startswith("TopN"):
+            read_since_write.discard(frame)
+        elif i in card:
+            k5, hits = moved[i]
+            assert (k5 >= 1) != (hits >= 1), (q, moved[i])
+            assert hits == 0 or frame in read_since_write, q
+            read_since_write.add(frame)
+    after_writes = len(TOPN) + len(WRITES)
+    assert moved[after_writes][0] >= 1 and moved[after_writes][1] == 0
+    assert moved[after_writes + 3][0] >= 1
+    assert moved[after_writes + 3][1] == 0
+    assert mgr["kernel:pair_count_rows"] >= n_card - mgr["memo_hit"]
     # The unknown frame and HOST_ONLY, but the ids of the wrong type (a
     # TypeError before either path).
     assert ex.stats["topn_host"] == 1 + len(HOST_ONLY) - 1
@@ -423,6 +454,7 @@ def test_row_counts_chunk_their_launches(topn_dirs, monkeypatch):
         want = mgr.row_counts("i", "topn", "standard", [0, 1, 2], NUM_SLICES)
         monkeypatch.setattr(tserve, "MAX_ROWS_PER_LAUNCH", 7)
         mgr.stats.clear()
+        mgr._topn_memo.clear()  # else the repeat is a memo hit
         got = mgr.row_counts("i", "topn", "standard", [0, 1, 2], NUM_SLICES)
         assert got[0].tolist() == want[0].tolist()
         assert got[1].tolist() == want[1].tolist()
