@@ -3,7 +3,8 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--dense-qps-of ROOT | --lone-latency-of
-                          ROOT | --sparse-qps-of ROOT | --kernel-times-of ROOT]
+                          ROOT | --sparse-qps-of ROOT | --kernel-times-of ROOT
+                          | --loadgen-rates | --cluster-only]
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
@@ -133,11 +134,11 @@ Phases, each fatal on failure:
      restage, by design;
  13. durability and integrity at 960 slices under `group`: index `i`,
      frame `general` (the headline rows after phase 12's writes, and a
-     mask row 21 of 40,000 columns in each of slices 0-3 where row 0 is
+     mask row 21 of 40,000 columns in each of slices 0-1 where row 0 is
      clear and row 1 set, so that each SetBit there adds one to Count(
      Intersect(row 0, row 1)) and the bits a run kept are Intersect(
      row 0, row 21)) written to a new directory as footered
-     snapshots, and index `d2`. (1) 16 clients SetBit into slices 0-3
+     snapshots, and index `d2`. (1) 16 clients SetBit into slices 0-1
      until each fragment has taken 1 background snapshot at the default
      max_op_n while one client counts without pause: every Count lies
      between the truth with the writes acked before it and with those
@@ -148,8 +149,10 @@ Phases, each fatal on failure:
      version at the largest batch. (2) Backpressure: DUR_STALL armed
      through the spec syntax with max_wal_ops 256: all 16 writers get
      503 with Retry-After, and the Count keeps every acked write. (3)
-     Power loss: the server as a child process on the card with
-     PILOSA_TORCH_FAULT arming SIGKILL before the 301st commit fsync,
+     Power loss, on a second directory of the same kind over the first
+     96 slices (a cut for time: every start stages them): the server as
+     a child process on the card with
+     PILOSA_TORCH_FAULT arming SIGKILL before the 151st commit fsync,
      the 2nd snapshot fsync and the 2nd snapshot rename in turn
      (--max-op-n 500), 16 HTTP writers until it dies; each restart on
      the same directory keeps every acked bit and nothing unsent, and
@@ -169,25 +172,25 @@ Phases, each fatal on failure:
      from their /debug/vars);
  14. bulk data in and out, on a new holder and a server on the card
      (frames and files through the port's HTTP routes, InternalClient
-     and ctl): (1) frame `sparse`'s rows 0-7 at slices 0-95 (~19M
+     and ctl): (1) frame `sparse`'s rows 0-7 at slices 0-47 (~9.4M
      bits) into index `imp` as one protobuf POST /import a slice, from 4
      InternalClient threads in a spawned process of their own (MB/s,
      bits/s, request p50), then the first Count's staging, the 28 pairs
      lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
      imported into slice 17 of that staged view: the next Count
      restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
-     import --create` of a 50,000-line CSV (rows 0-3, 96 slices,
+     import --create` of a 25,000-line CSV (rows 0-3, 96 slices,
      minutes of April 2017 as local time) into index `tqi` (quantum YMD)
      on a server of its own: one day, 7 days and the month on rows 0
      and 3 equal numpy through the same conversion, with the kernels
      each launched, and `ctl export` gives the imported set; (4) `ctl
-     backup` of index `i`'s `general` (960 slices) from a server on the
-     main holder and `ctl restore` into index `rst`: every restored file
-     equals its backed-up data member, and the pair (K1), the partial
-     row (K3) and the 28 pairs from 16 clients (K2) equal numpy (backup
-     and restore MB/s); (5) POST /index/fr/frame/general/restore?host=
-     from a third server holding 96 slices of the headline rows (a cut
-     for time); (6) GET /export of slices 0-3 byte for byte, the block
+     backup` of index `fr`'s `general` (48 slices of the headline rows,
+     a cut for time) from a third server and `ctl restore` into index
+     `rst`: every restored file equals its backed-up data member, and
+     the pair (K1), the partial row (K3) and the 28 pairs from 16
+     clients (K2) equal numpy (backup and restore MB/s); (5) POST
+     /index/fr/frame/general/restore?host= from that third server; (6)
+     GET /export of slices 0-3 byte for byte, the block
      digests and block data (JSON, protobuf) of slice 0 against numpy.
      Then K5 at the imported frame's shape against its plain version.
      The main holder's index `tq` is dropped first: a fragment holds two
@@ -291,7 +294,7 @@ Phases, each fatal on failure:
      library (ops.native, csrc/pilosa_native.cpp built with g++) and
      under PILOSA_TORCH_NO_NATIVE=1, by the Row fold and by numpy, all
      equal; the Row fold and HostCountPlan cold (a fresh HostQueryCache)
-     and warm (memo hits) timed lone, then the pair over slices 0-239
+     and warm (memo hits) timed lone, then the pair over slices 0-119
      from 16 threads at once beside one lone call (each cache's block
      and memo hits and misses printed); (2) the
      pair's plan quarantined: the next Count answers on host-fold
@@ -329,7 +332,48 @@ Phases, each fatal on failure:
      launches of one TopN, the others shared in flight or hit; the Sum
      of `val` twice, the second with no launch. K1 and K5 must launch on
      this path;
- 20. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 20. the HTTP cluster (run after phase 17, with the main holder closed
+     and the parent's managers released, so the card holds the nodes
+     alone): index `i`, frame `general`'s 960 slices (the headline rows
+     as phases 4-12 left them), each slice's file serialized once and
+     copied into the data dir of each of its owners by the port's
+     placement over 4 hosts at replicas 3 (each slice in three dirs;
+     the slice count of each node logged); four `ctl server -c
+     clusterK.toml` children on the card ([cluster] type http, the four
+     hosts, replicas 3, write-consistency quorum, polling-interval 1 s,
+     hint-drain-interval 500 ms, breaker-cooldown 1 s; [mesh]
+     hbm-budget-bytes 8 GiB each: nodes that share a card each need
+     one), /readyz and /slices/max = 959 on each. (1) From every
+     coordinator: the 28 pairs, Union, Difference and the partial row
+     (K3) Counts and TopN(frame=general, n=100), equal to numpy; each
+     node's own K1, K3 and K5 launches and a route of tier http on each;
+     each node's staged bytes (its own slices only) beside phase 4's
+     one-node view; (2) the
+     lone Count p50 through one coordinator (200 Counts), the 28 pairs
+     from 16 clients spread over the four coordinators (QPS), and a
+     ?profile=true Count on each: its device_exec beside its
+     fanout_remote; (3) 2,000 seeded SetBit / ClearBit writes into row
+     3 from 8 clients through the four coordinators, every one acked,
+     then Counts of row 3 exact from every coordinator, each owner of
+     50 sampled slices answering its own remote leg (remote=true, one
+     slice) exactly, and every node's K7 launches moved; (4) `ctl
+     import --create` of `sparse`'s rows 0-1 in block 0 of slices
+     0-95 (a cut) against one node (the owner lookup through
+     /fragment/nodes, each owner copying to the others under quorum):
+     the pair's Count (K4) exact from every coordinator; an ImportRequest
+     to a non-owner answers 412; (5) node 3 SIGKILLed: Counts from
+     nodes 0-2 exact (their re-splits logged), 500 SetBits through
+     nodes 0-2 acked under quorum (2 of 3) with hints for node 3; node 3
+     restarted from its TOML: the status poll sees it UP, the drainers
+     replay (timed until every backlog reads 0), and then every
+     coordinator's Counts and node 3's own legs equal numpy with the
+     writes made while it was down; (6) SIGTERM to all four at once
+     (each exits 0),
+     `ctl check` of every data dir's fragment files (in parallel), the
+     dirs deleted. K0, K1, K2, K3, K4, K5 and K7 must launch on this
+     path (the children's counts from their /debug/vars, node 3's
+     summed over its two lives);
+ 21. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -337,8 +381,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 21. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-19, each path's counters set to 0 just before it;
+ 22. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-20, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -376,6 +420,9 @@ stream alone at shadow samples off, 1 in 256 and 1 in 4 (16 clients,
 closed), and prints their QPS, each op's latency and statuses, a CPU
 profile of the node under the 1-in-4 run and one Count's host fold over
 the 960 slices on the quiet node, as one JSON line.
+With --cluster-only it runs phases 1 and 2 and then phase 20 on fresh
+data (nothing of phase 4 beside it) and prints its record as one JSON
+line.
 With --lone-latency-of ROOT it runs phases 1 and 2 and the lone Counts
 of phase 4 only, 56 of them as in phase 4 and then 560 more, and prints
 their latency and the collector's full passes as one JSON line.
@@ -3294,14 +3341,15 @@ def write_phase(holder, words: np.ndarray, card: str, device,
 
 # -- phase 13: durability and integrity --------------------------------------------
 
-DUR_SLICES = (0, 1, 2, 3)   # the slices the durability writers write
+DUR_SLICES = (0, 1)         # the slices the durability writers write (a cut)
 DUR_MASK_ROW = 21           # holds every column a writer may set
 DUR_CANDIDATES = 40_000     # such columns per written slice
 DUR_SNAPSHOTS = 1           # background snapshots each written slice takes
 DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
 DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
 KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
-KILLS = (("commit fsync", "storage.fsync:kind=commit,after=300,"
+KILL_SLICES = 96            # the power-loss and rot steps' slices (a cut)
+KILLS = (("commit fsync", "storage.fsync:kind=commit,after=150,"
           "error=SIGKILL"),
          ("snapshot fsync", "storage.fsync:kind=snapshot,after=1,"
           "error=SIGKILL"),
@@ -4070,9 +4118,14 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
         srv.close()
         holder_d.close()
     mark("backpressure")
-    kills = dur_kills(root, path, truth, device)
+    # The power-loss and rot steps on a directory of their own, over the
+    # first KILL_SLICES slices (a cut: every child start stages them).
+    kpath = os.path.join(tmp, "durability_kills")
+    ktruth = DurTruth(words[:KILL_SLICES], seed)
+    write_dur_dir(kpath, ktruth)
+    kills = dur_kills(root, kpath, ktruth, device)
     mark("power loss")
-    rot = dur_rot(root, path, truth, device)
+    rot = dur_rot(root, kpath, ktruth, device)
     mark("rot")
     shadow = dur_shadow(holder, words, sp, bsi, device)
     mark("shadow")
@@ -4098,12 +4151,12 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
 
 BULK_THREADS = 4          # import clients, as a parallel `ctl import`
 BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
-BULK_SLICES = SLICES // 10  # the slices the protobuf import loads (a cut)
+BULK_SLICES = SLICES // 20  # the slices the protobuf import loads (a cut)
 BULK_NEW_BITS = 1_000
-TQI_BITS = 50_000         # the timestamped CSV's lines
+TQI_BITS = 25_000         # the timestamped CSV's lines (a cut)
 TQI_SLICES = 96
 TQI_ROWS = 4
-FR_SLICES = 96            # the frame restored from another node (a cut)
+FR_SLICES = 48            # the frame restored from another node (a cut)
 CSV_TIME = "%Y-%m-%dT%H:%M"  # the ctl's time column
 TQI_RANGES = (("1 day", 10, 11), ("7 days", 3, 10), ("month", 1, 31))
 BULK_PATH = ("sparse_pair_count", "pair_count", "coarse_count",
@@ -4302,10 +4355,9 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
     tar_path.parent.mkdir(exist_ok=True)
     tk.reset_launches()
     srv = serve(bh, device=device)
-    main_srv = serve(holder, device=device)
     fr_srv = serve(fh, device=device)
     tq_srv = serve(th, device=device)
-    servers = [srv, main_srv, fr_srv, tq_srv]
+    servers = [srv, fr_srv, tq_srv]
     host = "%s:%d" % srv.address
     ex = srv.handler.executor
     c = Client(*srv.address, index="imp")
@@ -4435,10 +4487,11 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
             "imported set")
         mark("ctl import")
 
-        # 4. ctl backup of index i's `general`, ctl restore into `rst`.
-        mhost = "%s:%d" % main_srv.address
+        # 4. ctl backup of index fr's `general` (FR_SLICES slices, a
+        # cut), ctl restore into `rst`.
+        fhost = "%s:%d" % fr_srv.address
         t0 = time.monotonic()
-        check(ctl(["backup", "--host", mhost, "-i", "i", "-f", "general",
+        check(ctl(["backup", "--host", fhost, "-i", "fr", "-f", "general",
                    "-o", str(tar_path)]) == 0, "ctl backup")
         backup_s = time.monotonic() - t0
         tar_bytes = tar_path.stat().st_size
@@ -4457,15 +4510,16 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
                 frag = bh.fragment("rst", "general", "standard", s)
                 with open(frag.path, "rb") as f:
                     n_same += f.read() == data
-        check(n_same == SLICES, f"{n_same} restored files = their data "
-                                "members")
+        check(n_same == FR_SLICES, f"{n_same} restored files = their "
+                                   "data members")
         rst = Client(*srv.address, index="rst")
         try:
             launched = {}
             for key in (("and", 0, 1), ("and", PARTIAL_ROW, 0)):
                 k_before = dict(tk.LAUNCHES)
                 got = rst.count(pql(*key))
-                check(got == host_count(words, *key), ("rst", key, got))
+                check(got == host_count(words[:FR_SLICES], *key),
+                      ("rst", key, got))
                 torch.cuda.synchronize()
                 launched[pql(*key)] = sorted(
                     k for k, n in tk.LAUNCHES.items()
@@ -4476,8 +4530,9 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
         dense_q = [pql("and", a, b) for a, b in
                    itertools.combinations(range(DENSE_ROWS), 2)]
         rst_qps = concurrent(*srv.address, dense_q,
-                             [host_count(words, "and", a, b) for a, b in
-                              itertools.combinations(range(DENSE_ROWS), 2)],
+                             [host_count(words[:FR_SLICES], "and", a, b)
+                              for a, b in itertools.combinations(
+                                  range(DENSE_ROWS), 2)],
                              index="rst")
         check(tk.LAUNCHES["coarse_count_shared"] > k2,
               "16 clients on the restored frame ran K2")
@@ -4489,7 +4544,7 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
                          "backup_mb_per_s": tar_bytes / backup_s / 1e6,
                          "restore_mb_per_s": tar_bytes / restore_s / 1e6,
                          "launched": launched, "concurrent_qps": rst_qps}
-        log(f"bulk: backup of {SLICES} fragments ({tar_bytes} B) in "
+        log(f"bulk: backup of {FR_SLICES} fragments ({tar_bytes} B) in "
             f"{backup_s:.2f} s ({tar_bytes / backup_s / 1e6:.1f} MB/s), "
             f"restore in {restore_s:.2f} s "
             f"({tar_bytes / restore_s / 1e6:.1f} MB/s); every data member "
@@ -5744,7 +5799,7 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
 # The kernels the host fold phase's card answers launch.
 HF_PATH = ("coarse_count", "tree_count", "sparse_pair_count")
 HF_THREADS = 16       # threads folding at once ...
-HF_THREAD_SLICES = 240  # ... over slices 0-239 (a cut: over all 960 the
+HF_THREAD_SLICES = 120  # ... over slices 0-119 (a cut: over all 960 the
                         # 16 Row folds alone took 65.9 s)
 HF_SHADOW = 20        # lone pairs shadow-checked 1 in 1
 HF_OR_LEAVES = 29     # rows 0-28 of `general`; rows 10-28 hold no bit
@@ -6405,6 +6460,589 @@ def probe_phase(device, seed: int) -> dict:
             "records": records, "kernels": results, "checked": checked}
 
 
+# -- phase 20: the HTTP cluster ----------------------------------------------------
+
+CLUSTER_NODES = 4
+CLUSTER_REPLICAS = 3
+CLUSTER_PATH = ("probe_ok", "coarse_count", "coarse_count_shared",
+                "tree_count", "sparse_pair_count", "pair_count",
+                "apply_writes")
+CLUSTER_BUDGET = 8 << 30     # [mesh] hbm-budget-bytes of each node
+CLUSTER_LONE = 200           # lone Counts through coordinator 0
+CLUSTER_WRITES = 2_000       # SetBit / ClearBit writes ...
+CLUSTER_WRITERS = 8          # ... from this many clients
+CLUSTER_SAMPLED = 50         # slices whose owners are asked one by one
+CLUSTER_IMPORT_SLICES = 96   # `ctl import` of `sparse`'s rows 0-1 ...
+CLUSTER_IMPORT_BLOCKS = 1    # ... in block 0 of those slices (a cut)
+CLUSTER_DOWN_WRITES = 500    # SetBits while one node is down
+CLUSTER_DRAIN_S = 60.0       # the drain's limit after the restart
+CLUSTER_WRITE_ROW = 3        # the row the writes move (0-7 all dense)
+
+
+def cluster_ports(n: int) -> list:
+    """n free loopback ports below the kernel's ephemeral range: once a
+    node dies, a port inside it can become the source port of a peer's
+    outgoing connection, and the node could not bind it again."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        lo = 32768
+    rng = random.Random()
+    out: list = []
+    while len(out) < n:
+        p = rng.randrange(max(1024, lo - 12000), lo)
+        if p in out:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                continue
+        out.append(p)
+    return out
+
+
+def cl_toml(path: str, hosts, k: int) -> str:
+    quoted = ", ".join(f'"{h}"' for h in hosts)
+    return (f'data-dir = "{path}"\nhost = "{hosts[k]}"\n'
+            f"[mesh]\nhbm-budget-bytes = {CLUSTER_BUDGET}\n"
+            '[cluster]\ntype = "http"\n'
+            f"hosts = [{quoted}]\nreplicas = {CLUSTER_REPLICAS}\n"
+            'write-consistency = "quorum"\npolling-interval = "1s"\n'
+            'hint-drain-interval = "500ms"\nbreaker-cooldown = "1s"\n')
+
+
+def cl_node_dirs(words: np.ndarray, tmp: str, hosts) -> tuple:
+    """A data dir a node: index `i`, frame `general` holding `words`
+    (as build_holder), each fragment file written once a slice and
+    copied into the dir of each owner of the slice by the port's
+    placement (each owner appends its own WAL to its file: never a
+    link). (dirs, slices a node)."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    cl = Cluster([Node(h) for h in hosts], replica_n=CLUSTER_REPLICAS)
+    dirs = [os.path.join(tmp, f"cluster{k}") for k in range(len(hosts))]
+    frag_dirs = []
+    for d in dirs:
+        h = Holder(d)
+        h.open()
+        h.create_index("i").create_frame("general").create_view_if_not_exists(
+            "standard")
+        h.close()
+        frag_dirs.append(Path(d) / "i" / "general" / "standard" /
+                         "fragments")
+        frag_dirs[-1].mkdir(parents=True, exist_ok=True)
+    owned = [0] * len(hosts)
+    for s in range(words.shape[0]):
+        bm = Bitmap()
+        for r in range(words.shape[1]):
+            for b in range(16):
+                if words[s, r, b].any():
+                    bm.keys.append(r * 16 + b)
+                    bm.containers.append(Container(bitmap=words[s, r, b]))
+        data = bm.to_bytes()
+        for n in cl.fragment_nodes("i", s):
+            k = hosts.index(n.host)
+            owned[k] += 1
+            (frag_dirs[k] / str(s)).write_bytes(data)
+    return dirs, owned
+
+
+def cl_get(port: int, path: str) -> dict:
+    c = Client("127.0.0.1", port)
+    try:
+        return c.call("GET", path)
+    finally:
+        c.close()
+
+
+def cl_vars(port: int) -> dict:
+    return cl_get(port, "/debug/vars")
+
+
+def cl_wait_max(ports, last: int) -> None:
+    """Until /slices/max of index `i` reads `last` on every node in
+    `ports`: a node holds only its own slices, and a coordinator covers
+    the cluster's once its status poll merged the peers' max."""
+    deadline = time.monotonic() + 60
+    while True:
+        maxes = [cl_get(p, "/slices/max")["maxSlices"].get("i")
+                 for p in ports]
+        if all(m == last for m in maxes):
+            return
+        check(time.monotonic() < deadline,
+              f"/slices/max reaches {last} on every node: {maxes}")
+        time.sleep(0.1)
+
+
+def cl_answers(words: np.ndarray, specs) -> list:
+    """[(Count PQL, numpy's answer)] of (op, a, b) specs."""
+    return [(pql(op, a, b), host_count(words, op, a, b))
+            for op, a, b in specs]
+
+
+def cl_check(ports, answers, what: str) -> None:
+    """Every answer from every coordinator in `ports`."""
+    for k, p in enumerate(ports):
+        c = Client("127.0.0.1", p)
+        try:
+            for q, w in answers:
+                got = c.count(q)
+                check(got == w, (what, k, q, got, w))
+        finally:
+            c.close()
+
+
+def cl_leg(port: int, query: str, slices) -> list:
+    """A remote leg's answer: the node serves `slices` itself."""
+    from pilosa_tpu_torch.api.client import InternalClient
+
+    return InternalClient(f"127.0.0.1:{port}", retry_max=0).execute_remote(
+        None, "i", query, slices)
+
+
+def cl_spread(ports, queries, want) -> float:
+    """CLIENTS clients, client k on coordinator k % len(ports), each
+    sending every query once from its own offset; answers checked;
+    queries per second."""
+    errors = []
+
+    def client(k):
+        c = Client("127.0.0.1", ports[k % len(ports)])
+        try:
+            for j in range(len(queries)):
+                i = (j + k) % len(queries)
+                got = c.count(queries[i])
+                if got != want[i]:
+                    errors.append((ports[k % len(ports)], queries[i], got,
+                                   want[i]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.monotonic() - t0
+    check(not errors, f"cluster answers: {errors[:5]}")
+    return CLIENTS * len(queries) / dt
+
+
+def cl_import_csv(path: str, sp: SparseRows) -> tuple:
+    """`sparse`'s rows 0-1 in blocks 0-CLUSTER_IMPORT_BLOCKS-1 of slices
+    0-CLUSTER_IMPORT_SLICES-1 as `row,col` lines; (lines, the pair's
+    intersection count)."""
+    n = 0
+    with open(path, "w") as f:
+        for s in range(CLUSTER_IMPORT_SLICES):
+            for r in (0, 1):
+                for b in range(CLUSTER_IMPORT_BLOCKS):
+                    cols = (s << 20) + (b << 16) + sp.values(s, r, b)
+                    f.write("".join(f"{r},{c}\n" for c in cols.tolist()))
+                    n += len(cols)
+    inter = sp.inter([0, 1])[:CLUSTER_IMPORT_SLICES, :CLUSTER_IMPORT_BLOCKS]
+    return n, int(inter.sum(dtype=np.int64))
+
+
+def cl_write_plan(words: np.ndarray, seed: int):
+    """CLUSTER_WRITES SetBit / ClearBit calls on row CLUSTER_WRITE_ROW
+    in existing containers, split over CLUSTER_WRITERS clients by column
+    (so each column's last call decides it), and the final state of each
+    column written: [(client, [pql, ...])], {col: set?}."""
+    rng = np.random.default_rng([seed, 20])
+    s = rng.integers(0, words.shape[0], CLUSTER_WRITES)
+    off = rng.integers(0, 1 << 20, CLUSTER_WRITES)
+    cols = (s << 20) | off
+    sets = rng.integers(0, 2, CLUSTER_WRITES).astype(bool)
+    plans = [[] for _ in range(CLUSTER_WRITERS)]
+    final = {}
+    for col, st in zip(cols.tolist(), sets.tolist()):
+        call = "SetBit" if st else "ClearBit"
+        plans[col % CLUSTER_WRITERS].append(
+            f"{call}(rowID={CLUSTER_WRITE_ROW}, frame=general, "
+            f"columnID={col})")
+        final[col] = st
+    return plans, final
+
+
+def cl_apply(words: np.ndarray, final: dict) -> None:
+    cols = np.fromiter(final, dtype=np.int64)
+    flip_bits(words, np.full(len(cols), CLUSTER_WRITE_ROW), cols,
+              np.fromiter(final.values(), dtype=bool))
+
+
+def slice_count(words: np.ndarray, s: int, op: str, a: int, b: int) -> int:
+    return host_count(words[s:s + 1], op, a, b)
+
+
+def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
+                  card: str, seed: int, dense: dict) -> dict:
+    """Phase 20 (module docstring). `dense` is phase 4's record (its
+    staged bytes and QPS, beside the cluster's; None: not run)."""
+    import shutil
+    import signal
+
+    from pilosa_tpu_torch import wire
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.monotonic() - t_phase - sum(steps.values())
+
+    ports = cluster_ports(CLUSTER_NODES)
+    hosts = [f"127.0.0.1:{p}" for p in ports]
+    t0 = time.monotonic()
+    dirs, owned = cl_node_dirs(words, tmp, hosts)
+    log(f"cluster phase: general written into the node dirs in "
+        f"{time.monotonic() - t0:.1f} s; slices a node (of "
+        f"{words.shape[0]}, replicas {CLUSTER_REPLICAS}) {owned}")
+    check(sum(owned) == CLUSTER_REPLICAS * words.shape[0],
+          ("every slice on its replicas", owned))
+    mark("data")
+    tomls = []
+    for k in range(CLUSTER_NODES):
+        tomls.append(Path(tmp) / f"cluster{k}.toml")
+        tomls[-1].write_text(cl_toml(dirs[k], hosts, k))
+    outs = [REPO / "chiprun_out" / f"cluster{k}.out"
+            for k in range(CLUSTER_NODES)]
+    outs[0].parent.mkdir(exist_ok=True)
+    for o in outs:
+        o.unlink(missing_ok=True)
+    nodes = [None] * CLUSTER_NODES
+
+    def spawn(k):
+        nodes[k] = NodeChild(root, tomls[k], ports[k], outs[k])
+
+    threads = [threading.Thread(target=spawn, args=(k,))
+               for k in range(CLUSTER_NODES)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(all(nodes), "the four nodes started")
+    out["ready_s"] = time.monotonic() - t0
+    launches: Counter = Counter()
+    last = words.shape[0] - 1
+    try:
+        cl_wait_max(ports, last)
+        for p in ports:
+            st, doc = Client("127.0.0.1", p).raw("GET", "/readyz")
+            check(st == 200, ("readyz", p, st, doc))
+        out["max_slice_s"] = time.monotonic() - t0
+        mark("start")
+        # (3) Reads from every coordinator.
+        pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+        few = [("and", 0, 1), ("or", 2, 5), ("andnot", 4, 6),
+               ("and", PARTIAL_ROW, 0), ("and", CLUSTER_WRITE_ROW, 0),
+               ("or", CLUSTER_WRITE_ROW, 1)]
+        reads = cl_answers(words, [("and", a, b) for a, b in pairs]
+                           + [("or", 0, 1), ("andnot", 1, 0)] + few)
+        cl_check(ports, reads, "a coordinator's Count")
+        top = general_topn(words, 100)
+        for k, p in enumerate(ports):
+            c = Client("127.0.0.1", p)
+            try:
+                got = c.call("POST", "/index/i/query",
+                             "TopN(frame=general, n=100)")["results"][0]
+                check(got == top, ("TopN", k, got[:3], top[:3]))
+            finally:
+                c.close()
+        staged = []
+        for k, p in enumerate(ports):
+            v = cl_vars(p)
+            staged.append(v.get("mesh", {}).get("staged_bytes", 0))
+            m = parse_prom(http_text("127.0.0.1", p, "/metrics"))
+            check(fam_sum(m, "pilosa_query_route_total", tier="http") > 0,
+                  ("a route of tier http on coordinator", k))
+            kl = v["kernel_launches"]
+            check(kl.get("coarse_count", 0) > 0 and kl.get("tree_count", 0)
+                  > 0 and kl.get("pair_count", 0) > 0,
+                  ("node", k, "launched its own K1, K3 and K5", kl))
+        out["staged_bytes"] = staged
+        out["staged_bytes_one_node"] = (dense["stats"]["staged_bytes"]
+                                        if dense else None)
+        mark("reads")
+        # Measured beside phase 4.
+        c = Client("127.0.0.1", ports[0])
+        lat = []
+        try:
+            for i in range(CLUSTER_LONE):
+                q, w = reads[i % len(pairs)]  # row 3 is not written yet
+                t0 = time.monotonic()
+                got = c.count(q)
+                lat.append((time.monotonic() - t0) * 1e3)
+                check(got == w, ("lone", q, got, w))
+        finally:
+            c.close()
+        out["lone"] = {"n": len(lat), "p50_ms": pct(lat, 50),
+                       "p90_ms": pct(lat, 90),
+                       "phase4_mean_ms": (1e3 / dense["lone_qps"]
+                                          if dense else None)}
+        lone_q = [q for q, _ in reads[:len(pairs)]]
+        lone_w = [w for _, w in reads[:len(pairs)]]
+        out["qps"] = cl_spread(ports, lone_q, lone_w)
+        out["phase4_qps"] = dense["concurrent_qps"] if dense else None
+        profiles = []
+        for p in ports:
+            c = Client("127.0.0.1", p)
+            try:
+                doc = c.call("POST", "/index/i/query?profile=true",
+                             reads[0][0])
+                check(doc["results"][0] == reads[0][1], "profiled Count")
+                ph = doc["profile"]["phases_us"]
+                profiles.append({"device_exec_us": ph.get("device_exec", 0),
+                                 "fanout_remote_us": ph.get(
+                                     "fanout_remote", 0),
+                                 "total_us": doc["profile"]["total_us"]})
+            finally:
+                c.close()
+        check(all(x["fanout_remote_us"] > 0 for x in profiles),
+              ("every coordinator's profile has fanout_remote", profiles))
+        out["profiles"] = profiles
+        mark("measured")
+        # (4) Writes from CLUSTER_WRITERS clients through the coordinators.
+        plans, final = cl_write_plan(words, seed)
+        k7_before = [cl_vars(p)["kernel_launches"].get("apply_writes", 0)
+                     for p in ports]
+        errors = []
+
+        def writer(t):
+            c = Client("127.0.0.1", ports[t % CLUSTER_NODES])
+            try:
+                for body in plans[t]:
+                    st, doc = c.raw("POST", "/index/i/query", body)
+                    if st != 200:
+                        errors.append((st, doc))
+            except Exception as e:  # noqa: BLE001
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        t0 = time.monotonic()
+        ws = [threading.Thread(target=writer, args=(t,))
+              for t in range(CLUSTER_WRITERS)]
+        for t in ws:
+            t.start()
+        for t in ws:
+            t.join()
+        out["write_qps"] = CLUSTER_WRITES / (time.monotonic() - t0)
+        check(not errors, f"every write acked: {errors[:3]}")
+        cl_apply(words, final)
+        cl_check(ports, cl_answers(words, few), "after the writes")
+        rng = np.random.default_rng([seed, 21])
+        from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+
+        placement = Cluster([Node(h) for h in hosts],
+                            replica_n=CLUSTER_REPLICAS)
+        sampled = rng.choice(words.shape[0], CLUSTER_SAMPLED, replace=False)
+        q = pql("and", CLUSTER_WRITE_ROW, 0)
+        for s in sampled.tolist():
+            want = slice_count(words, s, "and", CLUSTER_WRITE_ROW, 0)
+            for n in placement.fragment_nodes("i", s):
+                got = cl_leg(ports[hosts.index(n.host)], q, [s])
+                check(got == [want], ("owner's leg", s, n.host, got, want))
+        k7 = [cl_vars(p)["kernel_launches"].get("apply_writes", 0) - b
+              for p, b in zip(ports, k7_before)]
+        check(all(n > 0 for n in k7), ("each owner scattered (K7)", k7))
+        out["k7_by_node"] = k7
+        mark("writes")
+        # (5) The import: the owner lookup, 412, the copies.
+        csv = Path(tmp) / "cluster_import.csv"
+        lines, want_inter = cl_import_csv(str(csv), sp)
+        owners0 = [hosts.index(n.host)
+                   for n in placement.fragment_nodes("i", 0)]
+        stranger = [k for k in range(CLUSTER_NODES) if k not in owners0][0]
+        body = wire.ImportRequest(index="i", frame="general", slice=0,
+                                  row_ids=[1], column_ids=[5]).encode()
+        conn = http.client.HTTPConnection("127.0.0.1", ports[stranger],
+                                          timeout=60)
+        try:
+            conn.request("POST", "/import", body=body,
+                         headers={"Content-Type": wire.PROTOBUF_CT})
+            resp = conn.getresponse()
+            check(resp.status == 412, ("a non-owner's import",
+                                       resp.status, resp.read()[:200]))
+            resp.read()
+        finally:
+            conn.close()
+        t0 = time.monotonic()
+        err = ctl_run(root, "import", "--host", hosts[1], "-i", "i",
+                      "-f", "sparse", "--create", csv)
+        out["import_s"] = time.monotonic() - t0
+        out["import_lines"] = lines
+        csv.unlink()
+        q = ("Count(Intersect(Bitmap(rowID=0, frame=sparse), "
+             "Bitmap(rowID=1, frame=sparse)))")
+        k4 = []
+        for k, p in enumerate(ports):
+            c = Client("127.0.0.1", p)
+            try:
+                got = c.count(q)
+                check(got == want_inter, ("import's pair", k, got,
+                                          want_inter))
+            finally:
+                c.close()
+            k4.append(cl_vars(p)["kernel_launches"].get(
+                "sparse_pair_count", 0))
+        check(sum(k4) > 0, ("the import's Counts on K4", k4))
+        mark("import")
+        # (6) A node dies.
+        down = CLUSTER_NODES - 1
+        launches.update(nodes[down].launches())
+        nodes[down].proc.send_signal(signal.SIGKILL)
+        nodes[down].proc.wait(timeout=30)
+        nodes[down].out.close()
+        live = ports[:down]
+        # What each live node held of node 3 when the reads began (its
+        # status poll marks it DOWN within a second, and then no leg
+        # goes there to fail and re-split).
+        seen = [cl_vars(p)["cluster"]["members"][hosts[down]] for p in live]
+        cl_check(live, cl_answers(words, few), "with a node down")
+        resplits = [cl_vars(p)["cluster"]["resplits"] for p in live]
+        extra = rng.choice(1 << 20, CLUSTER_DOWN_WRITES, replace=False)
+        extra_cols = ((np.arange(CLUSTER_DOWN_WRITES) % words.shape[0])
+                      << 20) | extra
+        errors = []
+
+        def down_writer(t):
+            c = Client("127.0.0.1", live[t % len(live)])
+            try:
+                for col in extra_cols[t::CLUSTER_WRITERS].tolist():
+                    st, doc = c.raw(
+                        "POST", "/index/i/query",
+                        f"SetBit(rowID={CLUSTER_WRITE_ROW}, frame=general, "
+                        f"columnID={col})")
+                    if st != 200:
+                        errors.append((st, doc))
+            except Exception as e:  # noqa: BLE001
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        ws = [threading.Thread(target=down_writer, args=(t,))
+              for t in range(CLUSTER_WRITERS)]
+        for t in ws:
+            t.start()
+        for t in ws:
+            t.join()
+        check(not errors, f"quorum acks with a node down: {errors[:3]}")
+        cl_apply(words, dict.fromkeys(extra_cols.tolist(), True))
+        target = "".join(ch if ch.isalnum() or ch in "._-" else "_"
+                         for ch in hosts[down])
+        backlog = [cl_vars(p)["hints"]["targets"].get(target, {}).get(
+            "records", 0) for p in live]
+        check(sum(backlog) > 0, ("hints for the dead node", backlog))
+        out["down"] = {"resplits": resplits, "backlog": backlog,
+                       "state_at_reads": seen}
+        mark("failure")
+        # Its restart, the drain, and its answers.
+        t0 = time.monotonic()
+        nodes[down] = NodeChild(root, tomls[down], ports[down], outs[down])
+        out["restart_ready_s"] = nodes[down].ready_s
+        deadline = time.monotonic() + CLUSTER_DRAIN_S
+        while True:
+            left = [cl_vars(p)["hints"]["backlog_records"] for p in live]
+            if not any(left):
+                break
+            check(time.monotonic() < deadline, ("the drain", left))
+            time.sleep(0.2)
+        out["drain_s"] = time.monotonic() - t0
+        cl_wait_max([ports[down]], last)  # its poll merged the peers'
+        cl_check(ports, cl_answers(words, few), "after the drain")
+        q = pql("and", CLUSTER_WRITE_ROW, 0)
+        mine = [s for s in sampled.tolist() if hosts[down] in
+                [n.host for n in placement.fragment_nodes("i", s)]]
+        for s in mine:
+            want = slice_count(words, s, "and", CLUSTER_WRITE_ROW, 0)
+            got = cl_leg(ports[down], q, [s])
+            check(got == [want], ("the restarted node's leg", s, got, want))
+        mark("restart and drain")
+        mesh = Counter()
+        for p in ports:
+            v = cl_vars(p)
+            mesh.update({k: v.get("mesh", {}).get(k, 0) for k in FALLBACKS})
+        for n in nodes:
+            launches.update(n.launches())
+    finally:
+        stops, stop_errors = [], []
+
+        def stop(n):
+            try:
+                stops.append(n.stop())
+            except Exception as e:  # noqa: BLE001 — checked below
+                stop_errors.append(repr(e))
+
+        ts = [threading.Thread(target=stop, args=(n,)) for n in nodes
+              if n is not None and n.proc.poll() is None]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    out["stop_s"] = stops
+    check(not stop_errors and len(stops) == CLUSTER_NODES,
+          ("four SIGTERM exits with 0", stops, stop_errors))
+    # (7) ctl check on every data dir, then they go.
+    files = [sorted(str(f) for f in Path(d).glob("i/*/standard/fragments/*")
+                    if f.name.isdigit()) for d in dirs]
+    t0 = time.monotonic()
+    reports = [None] * CLUSTER_NODES
+
+    def ctl_check(k):
+        reports[k] = ctl_run(root, "check", *files[k])
+
+    ts = [threading.Thread(target=ctl_check, args=(k,))
+          for k in range(CLUSTER_NODES)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    check(all(r is not None and r.count(": ok (") == len(f)
+              for r, f in zip(reports, files)),
+          ("ctl check on each node's files", [len(f) for f in files]))
+    out["check_s"] = time.monotonic() - t0
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    mark("stop and check")
+    launches = {k: launches.get(k, 0) for k in KERNELS}
+    wall = time.monotonic() - t_phase
+    out.update(launches=launches, mesh_stats=dict(mesh), stats={},
+               steps=steps, seconds=wall, owned=owned, kernels={})
+    log(f"cluster on {card}: {CLUSTER_NODES} nodes ready in "
+        f"{out['ready_s']:.2f} s, /slices/max {last} on each at "
+        f"{out['max_slice_s']:.2f} s; staged bytes a node {staged} (one "
+        f"node: {out['staged_bytes_one_node']}); lone p50 "
+        f"{out['lone']['p50_ms']:.3f} ms through one coordinator (phase 4's "
+        f"mean {out['lone']['phase4_mean_ms']} ms); {CLIENTS} clients "
+        f"over the four coordinators {out['qps']:.1f} QPS (phase 4: "
+        f"{out['phase4_qps']}); profiles {json.dumps(profiles)}; "
+        f"{CLUSTER_WRITES} writes {out['write_qps']:.1f}/s, K7 a node {k7}; "
+        f"import of {lines} lines {out['import_s']:.2f} s; node {down} "
+        f"down (seen {seen}): resplits {resplits}, backlog {backlog}; "
+        f"restart ready "
+        f"{out['restart_ready_s']:.2f} s, drained in {out['drain_s']:.2f} "
+        f"s; SIGTERM exits {[round(x, 2) for x in stops]}; ctl check "
+        f"{out['check_s']:.2f} s")
+    log(f"cluster phase launches {launches}; {wall:.1f} s, by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    for k in CLUSTER_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the cluster path")
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -6662,6 +7300,20 @@ def kernel_times_only(root: Path, smi: str, seed: int, ptxas: dict) -> int:
     return 0
 
 
+def cluster_only(root: Path, card: str, seed: int) -> int:
+    """--cluster-only: phase 20 on fresh data; its record as one JSON
+    line (chiprun_out/cluster.json)."""
+    words = make_words(SLICES, seed)
+    sp = SparseRows(SLICES, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = cluster_phase(words, sp, tmp, root, card, seed, None)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "cluster.json").write_text(json.dumps(rec, indent=1))
+    print(json.dumps({k: v for k, v in rec.items() if k != "kernels"}))
+    return 0
+
+
 def save_ptxas(build_dir: Path, tag: str) -> dict:
     """Copies the build's ptxas reports (nvcc -Xptxas -v, one log per
     library) to chiprun_out/ptxas/<tag>/ and returns each library's
@@ -6706,6 +7358,10 @@ def main(argv=None) -> int:
                          "scattered-sector probe) with the kernels of the "
                          "package under ROOT, and print their times and "
                          "ptxas report as one JSON line")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="run only phase 20, the four-node cluster, on "
+                         "fresh data (no phase 4 to set beside it), and "
+                         "print its record as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6753,6 +7409,8 @@ def main(argv=None) -> int:
         return kernel_times_only(root, smi, args.seed, ptxas)
     if args.loadgen_rates:
         return loadgen_rates_only(root, smi, args.seed)
+    if args.cluster_only:
+        return cluster_only(root, card, args.seed)
     from pilosa_tpu_torch.ops import native
 
     t0 = time.monotonic()
@@ -6857,6 +7515,18 @@ def main(argv=None) -> int:
             done("loadgen")
         finally:
             holder.close()
+        # The parent's managers go first: the card holds the four nodes.
+        from pilosa_tpu_torch.parallel.serve import MeshManager
+
+        for obj in gc.get_objects():
+            if isinstance(obj, MeshManager):
+                obj.invalidate()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"cluster phase: the parent holds "
+            f"{torch.cuda.memory_allocated()} B on the card")
+        cl = cluster_phase(words, sp, tmp, root, card, args.seed, sl)
+        done("cluster")
     probes = probe_phase(device, args.seed)
     kern.update(probes["kernels"])
     done("probes")
@@ -6870,7 +7540,7 @@ def main(argv=None) -> int:
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
              "bulk": bulk, "config": node, "admission": adm,
              "loadgen": lg, "host_fold": hf, "engine": eng,
-             "probes": probes}
+             "cluster": cl, "probes": probes}
     for name, r in paths.items():
         # The residency and host fold phases move the fallbacks on
         # purpose, and check them themselves.
@@ -6906,7 +7576,7 @@ def main(argv=None) -> int:
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
          "config_node": node, "admission": adm, "loadgen": lg,
-         "host_fold": hf, "engine": eng, "probes": probes,
+         "host_fold": hf, "engine": eng, "cluster": cl, "probes": probes,
          "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

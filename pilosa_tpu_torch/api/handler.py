@@ -16,7 +16,13 @@ bodies and status codes.
          of the frame from node H (400 without host, 501 without a
          client factory)                                  -> {}
   POST   /index/{index}/query           PQL body          -> {"results": [...]}
-         (?slices=0,1 restricts the slices; ?columnAttrs=true adds
+         or a protobuf QueryRequest (query, slices, column_attrs, remote:
+         a coordinator's leg, served here only, no admission) with a
+         QueryResponse back when Accept names protobuf (its `err` the
+         error's message, at the error's status)
+         (?slices=0,1 restricts the slices; ?partial=true leaves out a
+         slice no owner can serve and adds "partial" and
+         "missing_slices"; ?columnAttrs=true adds
          "columnAttrs", the attrs of the columns in Bitmap results;
          ?explain=true answers the plan, Executor.explain, with a "cost"
          block of what the cost ledger holds of the tenant x shape, and
@@ -30,7 +36,20 @@ bodies and status codes.
          X-Pilosa-Cost-Debt)
   POST   /import                        protobuf ImportRequest (wire/):
          Frame.import_bits      -> {}, or an ImportResponse when Accept
-         names protobuf
+         names protobuf; in a cluster 412 on a node that does not own
+         the slice, and (with hinted handoff) copied to the slice's other
+         owners under write-consistency, the misses hinted, 503 below
+         it (?remote=true: a copy, applied here only)
+  GET    /fragment/nodes?index=&slice=  the slice's owners -> [{"host",
+         "internalHost"}] ([] without a cluster)
+  GET    /hosts                         the cluster's nodes, same form
+  GET    /status                        this node's status and the peers'
+         last polled ones -> {"nodes": [{"host", "state", "indexes":
+         [{"name", "maxSlice", "frames"}]}]}, or a ClusterStatus
+  POST   /internal/message              a framed broadcast message (one
+         tag byte, then CreateSlice / CreateIndex / DeleteIndex /
+         CreateFrame / DeleteFrame), applied by the server
+  GET    /internal/status               this node's NodeStatus (protobuf)
   GET    /export?index=&frame=&view=&slice=   every bit as `row,col` lines
   GET    /fragment/data?index=&frame=&view=&slice=   the fragment's tar
   POST   /fragment/data?...             restore the fragment from a tar
@@ -108,8 +127,15 @@ pilosa_slo_*), the liveness plane (pilosa_health_*,
 pilosa_watchdog_*), the profiles (pilosa_query_phase_us,
 pilosa_roofline_*), the cost ledger (pilosa_cost_*,
 pilosa_perf_regression) and the flight recorder
-(pilosa_queryshape_*). A family whose store the port lacks (the compile
-counters, the plan cache, the row caches, the cluster) is left out. A collector that raises is skipped.
+(pilosa_queryshape_*), the cluster (pilosa_cluster_* transport
+counters and pilosa_breaker_state{host,state} with a cluster client,
+pilosa_member_state{host,state} with a cluster), hinted handoff
+(pilosa_hints_queued/replayed/dropped_total{target}, pilosa_hint_bytes
+{target} with a hint manager) and the replicated writes'
+pilosa_write_consistency_total{level,outcome}. A family whose store the
+port lacks (the compile counters, the plan cache, the row caches, the
+epochs and the result cache) is left out. A collector that raises is
+skipped.
 
 Every query outcome is recorded once, in _post_query, into the SLO
 recorder (shed, deadline, backpressure, client and server errors,
@@ -147,6 +173,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..bsi.field import FieldNotFoundError, FieldValueError
+from .client import ClientError
 from ..core.fragment import INTEGRITY_STATS
 from ..core.row import Row
 from ..core.timequantum import parse_time_quantum
@@ -158,9 +185,11 @@ from ..config import parse_duration
 from ..errors import (DeadlineExceededError, FragmentNotFoundError,
                       FrameExistsError, FrameNotFoundError, IndexExistsError,
                       IndexNotFoundError, PilosaError, SliceUnavailableError,
-                      WriteBackpressureError)
-from ..executor import SHADOW_STATS, ExecOptions
+                      WriteBackpressureError, WriteConsistencyError)
+from ..executor import (CONSISTENCY_STATS, SHADOW_STATS, ExecOptions,
+                        required_acks)
 from ..obs import costs, health, profile, prom, slo
+from ..parallel.cluster import NODE_STATE_DOWN
 from ..obs import span as obs_span
 from ..obs.trace import Tracer
 from ..sched import AdmissionError
@@ -169,7 +198,11 @@ from ..ops.calibrate import calibration_snapshot
 from ..pql import ParseError, parse_string
 from ..utils.stats import ExpvarStats
 from ..wire import (PROTOBUF_CT, BlockDataRequest, BlockDataResponse,
-                    ImportRequest, ImportResponse, MaxSlicesResponse)
+                    ColumnAttrSet, CreateFrameMessage, CreateIndexMessage,
+                    DeleteFrameMessage, DeleteIndexMessage, FrameMeta,
+                    ImportRequest, ImportResponse, IndexMeta,
+                    MaxSlicesResponse, QueryRequest, QueryResponse,
+                    attrs_to_proto, result_to_proto, unmarshal_message)
 
 VERSION = "0.1.0"
 
@@ -213,9 +246,9 @@ def _error_status(err: Exception) -> int:
         return 504
     if isinstance(err, AdmissionError):
         return 429
-    if isinstance(err, WriteBackpressureError):
+    if isinstance(err, (WriteBackpressureError, WriteConsistencyError)):
         return 503
-    if isinstance(err, SliceUnavailableError):
+    if isinstance(err, (SliceUnavailableError, ClientError)):
         return 500
     if isinstance(err, (IndexNotFoundError, FrameNotFoundError,
                         FragmentNotFoundError, FieldNotFoundError)):
@@ -237,10 +270,11 @@ def _error_resp(e: Exception) -> Response:
     Retry-After (whole seconds, >= 1), as the JAX handler's does."""
     status = _error_status(e)
     msg = str(e) or type(e).__name__
-    if status == 500 and not isinstance(e, SliceUnavailableError):
+    if status == 500 and not isinstance(e, (SliceUnavailableError,
+                                            ClientError)):
         msg = f"internal error: {type(e).__name__}: {e}"
     resp = _json_resp({"error": msg}, status)
-    if isinstance(e, WriteBackpressureError):
+    if isinstance(e, (WriteBackpressureError, WriteConsistencyError)):
         retry = max(1, int(round(e.retry_after_s)))
         resp.headers["Retry-After"] = str(retry)
     return resp
@@ -257,6 +291,18 @@ def _result_to_json(result):
     if isinstance(result, list):  # TopN pairs
         return [{"id": int(k), "count": int(n)} for k, n in result]
     return result  # int, bool, a Sum/Min/Max {value, count}, or None
+
+
+def frame_meta(f) -> FrameMeta:
+    """A frame's FrameMeta (CreateFrame messages, NodeStatus); its
+    integer fields as the JSON list of their dicts."""
+    return FrameMeta(
+        row_label=f.row_label, inverse_enabled=f.inverse_enabled,
+        cache_type=f.meta["cacheType"], cache_size=int(f.meta["cacheSize"]),
+        time_quantum=str(f.time_quantum),
+        fields_json=json.dumps([s.to_dict()
+                                for _, s in sorted(f.fields.items())])
+        if f.fields else "")
 
 
 def _decode_options(body: bytes, mapping: Dict[str, str]) -> dict:
@@ -284,9 +330,29 @@ class Handler:
     """Transport-agnostic request handler bound to a Holder + Executor."""
 
     def __init__(self, holder, executor, client_factory=None, stats=None,
-                 tracer=None):
+                 tracer=None, cluster=None, host: str = "", broadcaster=None,
+                 broadcast_handler=None, status_handler=None):
         self.holder = holder
         self.executor = executor
+        # The cluster (parallel.cluster.Cluster; None: one node) and this
+        # node's host in it: /hosts, /fragment/nodes and the import's
+        # ownership check read them.
+        self.cluster = cluster
+        self.host = host
+        # Schema changes go to the peers through the broadcaster
+        # (parallel.broadcast); the Server applies what arrives at
+        # /internal/message (broadcast_handler.receive_message) and
+        # answers /status and /internal/status (status_handler's
+        # cluster_status and local_status). None: not served (501).
+        self.broadcaster = broadcaster
+        self.broadcast_handler = broadcast_handler
+        self.status_handler = status_handler
+        # Hinted handoff (parallel.hints.HintManager, a Server wires it)
+        # and [cluster] write-consistency: with hints an /import is
+        # copied to the slice's other owners (?remote=true legs apply
+        # here only) and the misses journaled.
+        self.hints = None
+        self.write_consistency = "quorum"
         # The trace rings behind /debug/queries (a server passes one
         # sized by [obs]).
         self.tracer = tracer if tracer is not None else Tracer()
@@ -358,6 +424,11 @@ class Handler:
         r("POST", r"/fragment/data", self._post_fragment_data)
         r("GET", r"/fragment/blocks", self._get_fragment_blocks)
         r("GET", r"/fragment/block/data", self._get_fragment_block_data)
+        r("GET", r"/fragment/nodes", self._get_fragment_nodes)
+        r("GET", r"/hosts", self._get_hosts)
+        r("GET", r"/status", self._get_status)
+        r("POST", r"/internal/message", self._post_internal_message)
+        r("GET", r"/internal/status", self._get_internal_status)
         r("GET", r"/schema", self._get_schema)
         r("GET", r"/slices/max", self._get_slice_max)
         r("GET", r"/version", self._get_version)
@@ -455,6 +526,43 @@ class Handler:
             return _proto_resp(MaxSlicesResponse(max_slices=maxes))
         return _json_resp({"maxSlices": maxes})
 
+    # -- the cluster's routes ---------------------------------------------------
+
+    def _get_hosts(self, pv, params, headers, body) -> Response:
+        nodes = self.cluster.nodes if self.cluster else []
+        return _json_resp([n.to_dict() for n in nodes])
+
+    def _get_fragment_nodes(self, pv, params, headers, body) -> Response:
+        nodes = (self.cluster.fragment_nodes(params["index"],
+                                             int(params["slice"]))
+                 if self.cluster else [])
+        return _json_resp([n.to_dict() for n in nodes])
+
+    def _get_status(self, pv, params, headers, body) -> Response:
+        """This node's status and the peers' last known ones."""
+        if self.status_handler is None:
+            return _json_resp({"error": "status not supported"}, 501)
+        status = self.status_handler.cluster_status()
+        if self._accepts_proto(headers):
+            return _proto_resp(status)
+        return _json_resp({"nodes": [{
+            "host": n.host, "state": n.state,
+            "indexes": [{"name": i.name, "maxSlice": i.max_slice,
+                         "frames": [f.name for f in i.frames]}
+                        for i in n.indexes]} for n in status.nodes]})
+
+    def _post_internal_message(self, pv, params, headers,
+                               body) -> Response:
+        if self.broadcast_handler is None:
+            return _json_resp({"error": "broadcast not supported"}, 501)
+        self.broadcast_handler.receive_message(unmarshal_message(body))
+        return _json_resp({})
+
+    def _get_internal_status(self, pv, params, headers, body) -> Response:
+        if self.status_handler is None:
+            return _json_resp({"error": "status not supported"}, 501)
+        return _proto_resp(self.status_handler.local_status())
+
     # -- bulk data in and out --------------------------------------------------
 
     def _post_import(self, pv, params, headers, body) -> Response:
@@ -491,6 +599,11 @@ class Handler:
         datetime.fromtimestamp(t, timezone.utc) without its zone, the
         JAX handler's conversion)."""
         req = ImportRequest.decode(body)
+        if (self.cluster is not None and self.host
+                and not self.cluster.owns_fragment(self.host, req.index,
+                                                   req.slice)):
+            return _json_resp(
+                {"error": f"host does not own slice {req.slice}"}, 412)
         idx = self.holder.index(req.index)
         if idx is None:
             raise IndexNotFoundError()
@@ -501,10 +614,73 @@ class Handler:
         if len(req.timestamps):
             timestamps = req.timestamps.astype("datetime64[s]")
             timestamps[req.timestamps == 0] = np.datetime64("NaT")
+        coord = None
+        if (params.get("remote", "").lower() != "true"
+                and self.hints is not None and self.cluster is not None
+                and self.client_factory is not None):
+            coord = self._import_precheck(req)  # may 503 before applying
         f.import_bits(req.row_ids, req.column_ids, timestamps)
+        if coord is not None:
+            self._import_replicate(req, coord)
         if self._accepts_proto(headers):
             return _proto_resp(ImportResponse())
         return _json_resp({})
+
+    def _import_precheck(self, req):
+        """Before the local apply: the slice's other owners split into
+        live and known DOWN, and a 503 when write-consistency cannot be
+        reached. (live, down, required, level), or None when this node
+        is the only owner."""
+        owners = self.cluster.fragment_nodes(req.index, req.slice)
+        others = [n for n in owners if n.host != self.host]
+        if not others:
+            return None
+        level = self.write_consistency
+        required = required_acks(level, len(owners))
+        down = [n for n in others if n.state == NODE_STATE_DOWN]
+        live = [n for n in others if n.state != NODE_STATE_DOWN]
+        if 1 + len(live) < required:
+            CONSISTENCY_STATS.inc(f"{level}:rejected_unavailable")
+            raise WriteConsistencyError(
+                f"import: write-consistency={level} needs {required} of "
+                f"{len(owners)} replicas, only {1 + len(live)} reachable",
+                level=level, required=required, acked=0)
+        return live, down, required, level
+
+    def _import_replicate(self, req, coord) -> None:
+        """After the local apply: the batch to the live owners in
+        parallel with ?remote=true, a hint for every owner it missed,
+        and a 503 when the acks fall short (the hints are durable
+        already, so a client's retry is safe)."""
+        live, down, required, level = coord
+        ts = req.timestamps if len(req.timestamps) else None
+
+        def send(node):
+            self.client_factory(node.host).import_bits(
+                req.index, req.frame, req.slice, req.row_ids,
+                req.column_ids, ts, remote=True)
+
+        failures = []
+        futs = [(n, self.executor._pool.submit(send, n)) for n in live]
+        for n, fut in futs:
+            try:
+                fut.result()
+            except Exception as e:  # noqa: BLE001 — collected
+                failures.append((n.host, e))
+        for host in [n.host for n in down] + [h for h, _ in failures]:
+            self.hints.enqueue_import(host, req.index, req.frame, req.slice,
+                                      req.row_ids, req.column_ids, ts)
+        acked = 1 + len(live) - len(failures)
+        if acked >= required:
+            CONSISTENCY_STATS.inc(
+                f"{level}:hinted" if (down or failures) else f"{level}:ok")
+            return
+        CONSISTENCY_STATS.inc(f"{level}:below_consistency")
+        raise WriteConsistencyError(
+            f"import: write-consistency={level}: {acked} of {required} "
+            f"required replica acks ({len(failures)} failed mid-import; "
+            f"misses journaled as hints)",
+            level=level, required=required, acked=acked)
 
     def _get_export(self, pv, params, headers, body) -> Response:
         """Every bit of one fragment as `row,col` lines."""
@@ -584,12 +760,19 @@ class Handler:
     def _post_index(self, pv, params, headers, body) -> Response:
         opts = _decode_options(body, {"columnLabel": "column_label",
                                       "timeQuantum": "time_quantum"})
-        self.holder.create_index(pv["index"], **opts)
+        idx = self.holder.create_index(pv["index"], **opts)
+        if self.broadcaster is not None:
+            self.broadcaster.send_sync(CreateIndexMessage(
+                index=idx.name, meta=IndexMeta(
+                    column_label=idx.column_label,
+                    time_quantum=str(idx.time_quantum))))
         return _json_resp({})
 
     def _delete_index(self, pv, params, headers, body) -> Response:
         self.holder.delete_index(pv["index"])
         self.executor.invalidate_device_index(pv["index"])
+        if self.broadcaster is not None:
+            self.broadcaster.send_sync(DeleteIndexMessage(index=pv["index"]))
         return _json_resp({})
 
     def _delete_frame(self, pv, params, headers, body) -> Response:
@@ -598,6 +781,9 @@ class Handler:
             raise IndexNotFoundError()
         idx.delete_frame(pv["frame"])
         self.executor.invalidate_device_index(pv["index"])
+        if self.broadcaster is not None:
+            self.broadcaster.send_sync(DeleteFrameMessage(
+                index=pv["index"], frame=pv["frame"]))
         return _json_resp({})
 
     def _get_expvar(self, pv, params, headers, body) -> Response:
@@ -622,6 +808,21 @@ class Handler:
         hc = getattr(self.executor, "host_cache_stats", None)
         if hc:
             out["host_cache"] = dict(hc)
+        cc = getattr(self.executor, "client", None)
+        cluster = {}
+        cstats = getattr(cc, "stats", None)
+        if cstats is not None and hasattr(cstats, "copy"):
+            cluster = dict(cstats.copy())
+            breakers = getattr(cc, "breakers", None)
+            if breakers is not None:
+                cluster["breakers"] = breakers.snapshot()
+        if self.cluster is not None:
+            cluster["members"] = self.cluster.node_states()
+            cluster["resplits"] = self.executor.stats.get("resplit", 0)
+        if cluster:
+            out["cluster"] = cluster
+        if self.hints is not None:
+            out["hints"] = self.hints.snapshot()
         if self.scheduler is not None:
             out["sched"] = self.scheduler.snapshot()
         mgr = self.executor._mesh_mgr
@@ -652,7 +853,8 @@ class Handler:
         reg = self._prom
         reg.register_collector(lambda: prom.expvar_families(self.stats))
         for fn in (self._collect_runtime, self._collect_device,
-                   self._collect_host_cache,
+                   self._collect_host_cache, self._collect_cluster,
+                   self._collect_membership, self._collect_hints,
                    self._collect_routes, self._collect_sched,
                    self._collect_fragments, self._collect_storage,
                    self._collect_integrity, self._collect_slo,
@@ -1091,6 +1293,88 @@ class Handler:
         up.add(time.monotonic() - self._start_time)
         return [info, up]
 
+    def _collect_cluster(self) -> list:
+        """The cluster client's transport counters (pilosa_cluster_*)
+        and each peer's breaker (pilosa_breaker_state: 0 closed, 1
+        half-open, 2 open); nothing without a cluster client."""
+        cc = getattr(self.executor, "client", None)
+        cstats = getattr(cc, "stats", None)
+        fams: list = []
+        if cstats is not None and hasattr(cstats, "copy"):
+            fams.extend(prom.statmap_families(dict(cstats.copy()),
+                                              "pilosa_cluster_"))
+        snap = getattr(getattr(cc, "breakers", None), "snapshot", None)
+        if callable(snap):
+            order = {"closed": 0, "half-open": 1, "open": 2}
+            f = prom.MetricFamily(
+                "pilosa_breaker_state", "gauge",
+                "Circuit breaker per peer: 0=closed, 1=half-open, "
+                "2=open.")
+            for host, state in sorted(snap().items()):
+                f.add(order.get(state, -1), {"host": host, "state": state})
+            fams.append(f)
+        return fams
+
+    def _collect_membership(self) -> list:
+        """Each node's state (pilosa_member_state: 0 DOWN, 1 JOINING, 2
+        LEAVING, 3 UP); nothing without a cluster."""
+        if self.cluster is None:
+            return []
+        order = {"DOWN": 0, "JOINING": 1, "LEAVING": 2, "UP": 3}
+        f = prom.MetricFamily(
+            "pilosa_member_state", "gauge",
+            "Membership state per node: 0=DOWN, 1=JOINING, 2=LEAVING, "
+            "3=UP/ACTIVE.")
+        for host, state in sorted(self.cluster.node_states().items()):
+            f.add(order.get(state, -1), {"host": host, "state": state})
+        return [f]
+
+    def _collect_hints(self) -> list:
+        """Hinted handoff (parallel.hints.HINT_STATS, by target), the
+        backlog's bytes with a hint manager, and the replicated writes'
+        outcomes (executor.CONSISTENCY_STATS)."""
+        from ..parallel.hints import HINT_STATS
+
+        stats = HINT_STATS.copy()
+        targets = sorted({k.split(":", 1)[1] for k in stats
+                          if k.startswith(("queued:", "replayed:",
+                                           "dropped:"))})
+        queued = prom.MetricFamily(
+            "pilosa_hints_queued_total", "counter",
+            "Missed replica writes durably journaled as hints.")
+        replayed = prom.MetricFamily(
+            "pilosa_hints_replayed_total", "counter",
+            "Hints replayed and acked by their target.")
+        dropped = prom.MetricFamily(
+            "pilosa_hints_dropped_total", "counter",
+            "Hints spilled oldest-first past hint-max-bytes or lost to "
+            "a torn log tail (anti-entropy heals these).")
+        for t in targets:
+            queued.add(stats.get(f"queued:{t}", 0), {"target": t})
+            replayed.add(stats.get(f"replayed:{t}", 0), {"target": t})
+            dropped.add(stats.get(f"dropped:{t}", 0), {"target": t})
+        fams = [queued, replayed, dropped]
+        if self.hints is not None:
+            hb = prom.MetricFamily(
+                "pilosa_hint_bytes", "gauge",
+                "Current hint-log backlog bytes per target.")
+            for t, nbytes in sorted(
+                    self.hints.backlog_bytes_by_target().items()):
+                hb.add(nbytes, {"target": t})
+            fams.append(hb)
+        wc = prom.MetricFamily(
+            "pilosa_write_consistency_total", "counter",
+            "Replicated-write outcomes by consistency level: ok "
+            "(all replicas acked), hinted (level reached, misses "
+            "journaled), below_consistency (503 after dispatch), "
+            "rejected_unavailable (503 before local apply).")
+        for key, n in sorted(CONSISTENCY_STATS.copy().items()):
+            level, _, outcome = key.partition(":")
+            if outcome:
+                wc.add(n, {"level": level, "outcome": outcome})
+        fams.append(wc)
+        return fams
+
     def _collect_host_cache(self) -> list:
         """The host folds' cache counters, one gauge family a key
         (pilosa_host_cache_block_hit, ...), as the JAX handler exports
@@ -1337,7 +1621,10 @@ class Handler:
         idx = self.holder.index(pv["index"])
         if idx is None:
             raise IndexNotFoundError()
-        idx.create_frame(pv["frame"], **opts)
+        f = idx.create_frame(pv["frame"], **opts)
+        if self.broadcaster is not None:
+            self.broadcaster.send_sync(CreateFrameMessage(
+                index=idx.name, frame=f.name, meta=frame_meta(f)))
         return _json_resp({})
 
     def _patch_index_time_quantum(self, pv, params, headers,
@@ -1417,37 +1704,53 @@ class Handler:
             share = costs.LEDGER.tenant_share(label)
         return f"{share:.3f}" if share > thr else None
 
-    def _exec_options(self, params, headers) -> ExecOptions:
+    def _exec_options(self, params, headers, remote: bool) -> ExecOptions:
         """The query's deadline: X-Pilosa-Deadline-Us (the budget left,
-        us), else ?deadline= (a duration, "50ms"), else the server's
-        default_deadline ([cluster] query-deadline; 0: none)."""
+        us, which a coordinator sends its legs), else ?deadline= (a
+        duration, "50ms"), else, for a coordinator, the server's
+        default_deadline ([cluster] query-deadline; 0: none);
+        ?partial=true leaves out the slices no owner can serve."""
         deadline = None
         hdr = headers.get("x-pilosa-deadline-us", "")
         if hdr:
             deadline = time.monotonic() + int(hdr) / 1e6
         elif params.get("deadline"):
             deadline = time.monotonic() + parse_duration(params["deadline"])
-        elif self.default_deadline > 0:
+        elif not remote and self.default_deadline > 0:
             deadline = time.monotonic() + self.default_deadline
-        return ExecOptions(deadline=deadline)
+        return ExecOptions(remote=remote, deadline=deadline,
+                           partial=params.get("partial") == "true")
 
     def _post_query_inner(self, pv, params, headers, body,
                           info: dict) -> Response:
         """Admission, the trace, the profile and the cost account around
-        _run_query. The profile starts before admission, so a queue wait
-        is its sched_wait phase; its device_exec + host_fold is charged
-        to the tenant's account as device time (times the sample rate
-        on the sampled path)."""
+        _run_query. The request is PQL with ?slices= and ?columnAttrs=,
+        or a protobuf QueryRequest (its query, slices, column_attrs and
+        remote: a coordinator's leg, which skips admission and the query
+        stats). The profile starts before admission, so a queue wait is
+        its sched_wait phase; its device_exec + host_fold is charged to
+        the tenant's account as device time (times the sample rate on
+        the sampled path)."""
         index = pv["index"]
+        if self._sends_proto(headers):
+            req = QueryRequest.decode(body)
+            query, slices = req.query, [int(s) for s in req.slices]
+            column_attrs, remote = req.column_attrs, req.remote
+        else:
+            query = body.decode()
+            slices = [int(s) for s in params.get("slices", "").split(",")
+                      if s != ""]
+            column_attrs = params.get("columnAttrs") == "true"
+            remote = False
         tenant = headers.get("x-pilosa-tenant", "") or "default"
         info["tenant"] = tenant
-        fault.point("handler.query", index=index, remote=False)
-        opt = self._exec_options(params, headers)
-        if params.get("explain") == "true":
+        fault.point("handler.query", index=index, remote=remote)
+        opt = self._exec_options(params, headers, remote)
+        if params.get("explain") == "true" and not remote:
             info["explain"] = True
             return self._explain_query(index, params, headers, body)
-        want_profile = params.get("profile") == "true"
-        sampled = (self.profile_sample_rate > 0
+        want_profile = params.get("profile") == "true" and not remote
+        sampled = (self.profile_sample_rate > 0 and not remote
                    and next(self._profile_seq)
                    % self.profile_sample_rate == 0)
         cost_ctx = cost_token = None
@@ -1463,24 +1766,24 @@ class Handler:
             ptoken = profile.activate(prof)
         ticket = None
         try:
-            if self.scheduler is not None:
+            if self.scheduler is not None and not remote:
                 try:
                     with profile.phase("sched_wait"):
                         ticket = self.scheduler.submit(
                             tenant=tenant, deadline=opt.deadline)
                 except AdmissionError as e:
                     self.stats.count("query.shed", 1)
-                    return self._shed_response(e)
+                    return self._shed_response(e, headers)
                 except DeadlineExceededError as e:
-                    return _json_resp({"error": str(e)}, 504)
+                    return self._query_error(e, headers)
             trace = self.tracer.start("query", index=index,
-                                      query=body[:256].decode(
-                                          errors="replace"))
+                                      query=query[:256])
             info["trace_id"] = trace.trace_id
             try:
                 with trace.root:
-                    return self._run_query(index, params, body, opt,
-                                           want_profile)
+                    return self._run_query(index, query, slices,
+                                           column_attrs, remote, headers,
+                                           opt, want_profile)
             finally:
                 self.tracer.finish(trace)
         finally:
@@ -1499,13 +1802,33 @@ class Handler:
                         weight=cost_ctx.weight, tenant=cost_ctx.tenant,
                         shape=cost_ctx.shape)
 
-    def _shed_response(self, e: AdmissionError) -> Response:
+    def _shed_response(self, e: AdmissionError, headers=None) -> Response:
         """429 with Retry-After (whole seconds, >= 1): do not retry
         sooner."""
         retry = max(1, int(round(e.retry_after_s)))
-        resp = _json_resp({"error": str(e), "reason": e.reason,
-                           "retry_after_s": retry}, 429)
+        if headers is not None and self._accepts_proto(headers):
+            resp = _proto_resp(QueryResponse(err=str(e)), 429)
+        else:
+            resp = _json_resp({"error": str(e), "reason": e.reason,
+                               "retry_after_s": retry}, 429)
         resp.headers["Retry-After"] = str(retry)
+        return resp
+
+    def _query_error(self, e: Exception, headers) -> Response:
+        """A failed query's answer: _error_resp's status (504, 503 with
+        Retry-After, 404 / 422 for the field errors, 500 for an
+        unreadable slice) for its errors, 400 for the rest; a protobuf
+        caller gets a QueryResponse whose err is the message."""
+        if isinstance(e, (FieldValueError, FieldNotFoundError,
+                          WriteBackpressureError, WriteConsistencyError,
+                          SliceUnavailableError, DeadlineExceededError)):
+            resp = _error_resp(e)
+        else:
+            resp = _json_resp({"error": str(e)}, 400)
+        if self._accepts_proto(headers):
+            return Response(resp.status, {
+                **resp.headers, "Content-Type": PROTOBUF_CT},
+                QueryResponse(err=resp.json()["error"]).encode())
         return resp
 
     def _explain_query(self, index: str, params, headers,
@@ -1540,31 +1863,38 @@ class Handler:
                               if s_ == shape]}
         return _json_resp(plan)
 
-    def _run_query(self, index: str, params, body, opt: ExecOptions,
+    def _run_query(self, index: str, query: str, slices, column_attrs: bool,
+                   remote: bool, headers, opt: ExecOptions,
                    profile_section: bool) -> Response:
-        slices = [int(s) for s in params.get("slices", "").split(",")
-                  if s != ""]
         try:
-            text = body.decode()
-            with obs_span("parse", bytes=len(text)), profile.phase("parse"):
-                q = parse_string(text)
+            with obs_span("parse", bytes=len(query)), profile.phase("parse"):
+                q = parse_string(query)
             t0 = time.monotonic()
             results = self.executor.execute(index, q, slices or None, opt)
-            dt_us = int((time.monotonic() - t0) * 1e6)
-            tagged = self.stats.with_tags(f"index:{index}")
-            for call in q.calls:
-                tagged.count(f"query.{call.name}", 1)
-            tagged.timing("query", dt_us)
-            self.stats.timing("query", dt_us)
-        except (FieldValueError, FieldNotFoundError, WriteBackpressureError,
-                SliceUnavailableError, DeadlineExceededError) as e:
-            return _error_resp(e)
+            if not remote:  # a clustered query counts once, where it came
+                dt_us = int((time.monotonic() - t0) * 1e6)
+                tagged = self.stats.with_tags(f"index:{index}")
+                for call in q.calls:
+                    tagged.count(f"query.{call.name}", 1)
+                tagged.timing("query", dt_us)
+                self.stats.timing("query", dt_us)
         except (PilosaError, ParseError) as e:
-            return _json_resp({"error": str(e)}, 400)
+            return self._query_error(e, headers)
+        col_sets = self._column_attr_sets(index, results) \
+            if column_attrs else []
+        if self._accepts_proto(headers):
+            return _proto_resp(QueryResponse(
+                results=[result_to_proto(r) for r in results],
+                column_attr_sets=[ColumnAttrSet(id=cid,
+                                                attrs=attrs_to_proto(a))
+                                  for cid, a in col_sets]))
         out = {"results": [_result_to_json(r) for r in results]}
-        if params.get("columnAttrs") == "true":
-            out["columnAttrs"] = [{"id": cid, "attrs": attrs} for cid, attrs
-                                  in self._column_attr_sets(index, results)]
+        if column_attrs:
+            out["columnAttrs"] = [{"id": cid, "attrs": attrs}
+                                  for cid, attrs in col_sets]
+        if opt.partial:
+            out["partial"] = bool(opt.missing_slices)
+            out["missing_slices"] = sorted(set(opt.missing_slices))
         if profile_section:
             prof = profile.current()
             if prof is not None:

@@ -16,12 +16,14 @@ Durations accept Go-style strings ("10m", "60s", "1h30m", "250ms",
 What the port's Server (server.py) acts on: data-dir, host, log-path,
 use-device, [log], [mesh], [storage], [integrity] (but
 result-cache-verify-1-in), [obs] (but fleet-scrape-interval), [sched],
-[slo], [health], [cluster] query-deadline and [[schema.indexes]]. It
-reads and does not act on yet [anti-entropy], [rebalance] and
-[cluster]'s timeouts, retries, breakers, hints and read staleness; it
-refuses a
-config that needs a cluster (more than one [cluster] host, type gossip
-or spmd, ici-hosts).
+[slo], [health], [[schema.indexes]] and [cluster]'s type (http or
+static), hosts, replicas, partitions, query-deadline, client-timeout,
+retries, retry-backoff, breaker-threshold, breaker-cooldown,
+prefer-local-reads, write-consistency, hint-max-bytes,
+hint-drain-interval and polling-interval. It reads and does not act on
+yet [anti-entropy], [rebalance] and [cluster] default-read-staleness
+and result-cache-size; it refuses type gossip or spmd and a non-empty
+ici-hosts, naming the key.
 
 Where the port departs from the JAX node, on purpose:
 

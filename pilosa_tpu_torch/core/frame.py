@@ -42,9 +42,11 @@ class Frame:
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  time_quantum: str = "",
-                 fields: Optional[Sequence] = None, wal=None, stats=None):
+                 fields: Optional[Sequence] = None, wal=None, stats=None,
+                 broadcaster=None):
         validate_name(name)
         self.path = path
+        self.broadcaster = broadcaster  # parallel.broadcast, or None
         self.wal = wal  # core/wal.WalConfig, or None: never
         self.stats = stats  # utils.stats client, tagged frame:<name>
         self.index = index
@@ -151,7 +153,7 @@ class Frame:
                  self.meta["cacheType"], self.meta["cacheSize"],
                  self.row_attr_store, wal=self.wal,
                  stats=self.stats.with_tags(f"view:{name}")
-                 if self.stats else None)
+                 if self.stats else None, broadcaster=self.broadcaster)
         v.open()
         self.views = {**self.views, name: v}
         return v

@@ -33,6 +33,10 @@ class Holder:
         # index:<name> -> frame: -> view: -> slice: down to the
         # fragments; NopStats records nothing.
         self.stats = stats if stats is not None else NopStats()
+        # The schema and slice changes' broadcaster
+        # (parallel.broadcast): set before open(), it reaches every
+        # index, frame and view made after (None: no peers).
+        self.broadcaster = None
         self.indexes: Dict[str, Index] = {}
         self._create_mu = threading.Lock()
         self.scrubber = Scrubber(self, interval=scrub_interval,
@@ -91,7 +95,8 @@ class Holder:
 
     def _open_index(self, name: str, **options) -> Index:
         idx = Index(os.path.join(self.path, name), name, wal=self.wal,
-                    stats=self.stats.with_tags(f"index:{name}"), **options)
+                    stats=self.stats.with_tags(f"index:{name}"),
+                    broadcaster=self.broadcaster, **options)
         idx.open()
         self.indexes = {**self.indexes, name: idx}
         return idx
@@ -138,7 +143,8 @@ class Holder:
         return v.fragment(slice_) if v else None
 
     def max_slices(self) -> Dict[str, int]:
-        """{index: its highest slice}, over every view of every frame."""
+        """{index: its highest slice}, over every view of every frame
+        and the highest a peer announced (Index.max_slice)."""
         return {name: idx.max_slice() for name, idx in self.indexes.items()}
 
     def max_inverse_slices(self) -> Dict[str, int]:

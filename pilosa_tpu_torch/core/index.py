@@ -1,7 +1,10 @@
 """Index: a namespace of frames and the column attribute store
 (`attrs.db`), with the JSON `.meta` the JAX package writes (columnLabel,
 timeQuantum). A frame created without a time quantum takes the
-index's."""
+index's. In a cluster a node holds only the slices it owns, so the
+index also keeps the highest slice a peer announced (a CreateSlice
+message or the status poll): max_slice() is the cluster's, and a
+coordinator's query covers every slice."""
 
 from __future__ import annotations
 
@@ -23,11 +26,15 @@ DEFAULT_COLUMN_LABEL = "columnID"
 class Index:
     def __init__(self, path: str, name: str,
                  column_label: str = DEFAULT_COLUMN_LABEL,
-                 time_quantum: str = "", wal=None, stats=None):
+                 time_quantum: str = "", wal=None, stats=None,
+                 broadcaster=None):
         validate_name(name)
         self.path = path
         self.wal = wal  # core/wal.WalConfig, or None: never
         self.stats = stats  # utils.stats client, tagged index:<name>
+        self.broadcaster = broadcaster  # parallel.broadcast, or None
+        self.remote_max_slice = 0
+        self.remote_max_inverse_slice = 0
         self.name = name
         self.meta = {"columnLabel": column_label,
                      "timeQuantum": str(time_quantum)}
@@ -77,17 +84,28 @@ class Index:
         frame = Frame(os.path.join(self.path, name), self.name, name,
                       wal=self.wal,
                       stats=self.stats.with_tags(f"frame:{name}")
-                      if self.stats else None, **options)
+                      if self.stats else None,
+                      broadcaster=self.broadcaster, **options)
         frame.open()
         self.frames = {**self.frames, name: frame}
         return frame
 
     def max_slice(self) -> int:
-        return max((f.max_slice() for f in self.frames.values()), default=0)
+        """The highest slice held here or announced by a peer."""
+        m = max((f.max_slice() for f in self.frames.values()), default=0)
+        return max(m, self.remote_max_slice)
 
     def max_inverse_slice(self) -> int:
-        return max((f.max_inverse_slice() for f in self.frames.values()),
-                   default=0)
+        m = max((f.max_inverse_slice() for f in self.frames.values()),
+                default=0)
+        return max(m, self.remote_max_inverse_slice)
+
+    def set_remote_max_slice(self, n: int):
+        self.remote_max_slice = max(self.remote_max_slice, int(n))
+
+    def set_remote_max_inverse_slice(self, n: int):
+        self.remote_max_inverse_slice = max(self.remote_max_inverse_slice,
+                                            int(n))
 
     def frame(self, name: str) -> Optional[Frame]:
         return self.frames.get(name)

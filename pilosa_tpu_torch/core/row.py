@@ -29,6 +29,19 @@ class Row:
         r.segments[slice_] = bitmap
         return r
 
+    @classmethod
+    def from_columns(cls, columns) -> "Row":
+        """A row of absolute column IDs (a remote leg's answer)."""
+        cols = np.unique(np.asarray(columns, dtype=np.uint64))
+        r = cls()
+        if len(cols):
+            slices = cols // np.uint64(SLICE_WIDTH)
+            bounds = np.flatnonzero(np.diff(slices)) + 1
+            for part in np.split(cols, bounds):
+                s = int(part[0]) // SLICE_WIDTH
+                r.segments[s] = Bitmap(part - np.uint64(s * SLICE_WIDTH))
+        return r
+
     def merge(self, other: "Row") -> None:
         """Union `other` into self."""
         for s, seg in other.segments.items():

@@ -1,6 +1,8 @@
 """View: one orientation of a frame ("standard" or "inverse"), or one of
 their time-quantum views ("standard_2017", ...), owning its fragments by
-slice under <view>/fragments/<slice>."""
+slice under <view>/fragments/<slice>. A fragment that opens a new
+highest slice of the view is announced to the peers (a CreateSlice
+message through the broadcaster, as the reference's view.go:236-246)."""
 
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ class View:
     def __init__(self, path: str, index: str, frame: str, name: str,
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 row_attr_store=None, wal=None, stats=None):
+                 row_attr_store=None, wal=None, stats=None,
+                 broadcaster=None):
         self.path = path
+        self.broadcaster = broadcaster  # parallel.broadcast, or None
         self.wal = wal  # core/wal.WalConfig, or None: never
         self.stats = stats  # utils.stats client, tagged view:<name>
         self.index = index
@@ -75,7 +79,18 @@ class View:
     def create_fragment_if_not_exists(self, slice_: int) -> Fragment:
         with self._create_mu:
             frag = self.fragments.get(slice_)
-            return frag if frag is not None else self._open_fragment(slice_)
+            if frag is not None:
+                return frag
+            is_new_max = (slice_ > self.max_slice() if self.fragments
+                          else slice_ > 0)
+            frag = self._open_fragment(slice_)
+        if is_new_max and self.broadcaster is not None:
+            from ..wire import CreateSliceMessage
+
+            self.broadcaster.send_async(CreateSliceMessage(
+                index=self.index, slice=slice_,
+                is_inverse=self.name.startswith(VIEW_INVERSE)))
+        return frag
 
     def set_bit(self, row_id: int, column_id: int,
                 deadline: Optional[float] = None) -> bool:

@@ -272,7 +272,12 @@ def _client(args):
 
 def _flush(client, args, rows: np.ndarray, cols: np.ndarray,
            tss: np.ndarray) -> None:
-    """One import request a slice, its bits sorted by (row, col, time)."""
+    """One import request a slice, its bits sorted by (row, col, time),
+    sent to ONE owner of the slice (GET /fragment/nodes; --host itself
+    when the node names none), which copies it to the other owners under
+    its write-consistency and hints the misses."""
+    from ..api.client import InternalClient
+
     slices = cols // np.uint64(SLICE_WIDTH)
     order = np.lexsort((tss, cols, rows, slices))
     rows, cols, tss, slices = rows[order], cols[order], tss[order], \
@@ -281,9 +286,13 @@ def _flush(client, args, rows: np.ndarray, cols: np.ndarray,
     ends = list(starts[1:]) + [len(slices)]
     for s, a, b in zip(uniq.tolist(), starts.tolist(), ends):
         ts = tss[a:b]
-        client.import_bits(args.index, args.frame, s, rows[a:b], cols[a:b],
+        nodes = client.fragment_nodes(args.index, s)
+        target = (nodes or [{"host": args.host}])[0]["host"]
+        sender = client if target == args.host else InternalClient(target)
+        sender.import_bits(args.index, args.frame, s, rows[a:b], cols[a:b],
                            ts if ts.any() else None)
-        print(f"imported {b - a} bits into slice {s} (via {args.host})",
+        print(f"imported {b - a} bits into slice {s} "
+              f"(via {target}, {len(nodes) or 1} owner(s))",
               file=sys.stderr)
 
 

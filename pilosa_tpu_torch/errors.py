@@ -41,8 +41,8 @@ class QueryError(PilosaError):
 
 
 class SliceUnavailableError(PilosaError):
-    """A slice's data cannot be read. The HTTP layer answers 500 with
-    the message."""
+    """A slice's data cannot be read, or no node is left to serve it.
+    The HTTP layer answers 500 with the message."""
 
     def __init__(self, msg: str = "slice unavailable"):
         super().__init__(msg)
@@ -63,7 +63,10 @@ class CorruptFragmentError(SliceUnavailableError):
 
 class DeadlineExceededError(PilosaError):
     """The query's deadline expired: before or during admission, while
-    queued, or between its calls. HTTP 504."""
+    queued, between its calls, or before a remote leg answered. HTTP
+    504. Not transient: another replica has no more time."""
+
+    transient = False
 
 
 class WriteBackpressureError(PilosaError):
@@ -94,3 +97,33 @@ class DeviceResourceError(PilosaError):
     def __init__(self, msg: str, reason: str = "oom"):
         super().__init__(msg)
         self.reason = reason
+
+
+class WriteConsistencyError(PilosaError):
+    """A replicated write did not reach [cluster] write-consistency:
+    rejected before any replica applied it (too few owners reachable),
+    or short of acks after the dispatch, its misses already journaled as
+    hints. HTTP 503 with Retry-After; SetBit, ClearBit and import are
+    idempotent, so a retry is safe."""
+
+    transient = True
+
+    def __init__(self, msg: str, level: str = "quorum", required: int = 0,
+                 acked: int = 0, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.level = level
+        self.required = int(required)
+        self.acked = int(acked)
+        self.retry_after_s = float(retry_after_s)
+
+
+class BroadcastError(PilosaError):
+    """A broadcast write failed on some peers: `failures` is every
+    (host, exception), `total` the peers it went to."""
+
+    def __init__(self, failures, total: int):
+        self.failures = list(failures)
+        self.total = total
+        detail = "; ".join(f"{h}: {e}" for h, e in self.failures)
+        super().__init__(f"broadcast failed on {len(self.failures)}/"
+                         f"{total} nodes: {detail}")

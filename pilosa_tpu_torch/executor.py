@@ -97,6 +97,31 @@ end)). A root Bitmap result carries the row's attrs (or the column's,
 for a column Bitmap). SetBit (with an optional timestamp) / ClearBit /
 SetValue write through the frame; SetRowAttrs / SetColumnAttrs through
 the attribute stores.
+
+The HTTP cluster (the JAX executor's mapReduce, pilosa_tpu/executor.py:
+2582-2923, with static membership): with a `cluster` of more than one
+node, a call execute() runs is split by owner (`_slices_by_node`: each
+slice's preferred_owner, UP with a closed breaker first, under one
+breaker snapshot a query). This node's share runs here, through the
+card path above as one call over the share's slices (one MeshManager
+call: K1-K4 for a Count, K5 for TopN and the BSI planes); every other
+owner's share goes out as a remote leg (`client.execute_query(node,
+index, pql, slices, True)`, the `fanout_remote` phase), which serves
+only its slices and writes only locally and never fans out again. The
+answers fold here: Counts add, rows merge (a root Bitmap's attrs are
+this node's), Sums add and extremes keep the winner, TopN runs the
+reference's two phases (each owner's top pairs over its slices, then an
+exact recount of the candidate ids). A leg's transient failure
+(`transient` True, or an unannotated error that is no QueryError)
+re-splits its slices over the other owners (`resplit` in `stats`); any
+other error fails the query; with `partial` a slice no owner can serve
+is listed in `missing_slices`. SetBit, ClearBit and SetValue go to every
+owner of their slice (`_execute_mutate_view`) and ack at
+write-consistency (`required_acks`), the misses journaled as hints when
+a HintManager is wired (CONSISTENCY_STATS keeps the outcomes); the attr
+calls apply here and go to every other node (`_broadcast_with_hints`).
+The route of a fanned-out Count or aggregate is recorded once, here,
+with tier `http`.
 """
 
 from __future__ import annotations
@@ -107,7 +132,8 @@ import os
 import threading
 import time
 from collections import Counter
-from typing import List, Optional, Sequence
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -121,9 +147,13 @@ from .core.index import DEFAULT_COLUMN_LABEL
 from .core.row import Row
 from .core.timequantum import parse_time, views_by_time_range
 from .core.view import VIEW_INVERSE, VIEW_STANDARD
-from .errors import DeadlineExceededError, DeviceResourceError, \
-    FrameNotFoundError, IndexNotFoundError, IndexRequiredError, QueryError
-from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD,
+from .errors import BroadcastError, DeadlineExceededError, \
+    DeviceResourceError, FrameNotFoundError, IndexNotFoundError, \
+    IndexRequiredError, QueryError, SliceUnavailableError, \
+    WriteConsistencyError
+from .parallel.cluster import (NODE_STATE_DOWN, SERVING_STATES, owner_tier,
+                               preferred_owner)
+from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, SliceSpace,
                             format_pool_bytes)
 from .parallel.plan import (DEFAULT_FRAME, HostCountPlan,
                             HostMaterializePlan, HostQueryCache, _lower_tree,
@@ -132,7 +162,7 @@ from .parallel.serve import mesh_config as mesh_config_check
 from .parallel.serve import sparse_shape_kind, view_stats
 from .ops.bsi import sum_from_plane_dicts
 from .pql import Call, Cond, Query
-from . import obs
+from . import fault, obs
 from .obs.flight import FlightRecorder
 from .obs.metrics import Histogram, StatMap
 
@@ -156,9 +186,17 @@ USE_DEVICE_ENV = "PILOSA_TORCH_USE_DEVICE"
 
 # Shadow verification: "checks:<backend>" / "mismatch:<backend>".
 SHADOW_STATS = StatMap()
+# Replicated writes' outcomes, "<level>:<outcome>" (/metrics
+# pilosa_write_consistency_total): ok (every owner acked), hinted (the
+# level reached, the misses journaled), below_consistency (503 after the
+# dispatch), rejected_unavailable (503 before any replica applied it).
+CONSISTENCY_STATS = StatMap()
 # Attempts of a shadow check to count card and host over one state of
 # the rows it reads, when writes keep landing between the two (_settle).
 SHADOW_TRIES = 3
+# Remote legs and replica writes in flight at once (the JAX executor's
+# max_workers).
+FANOUT_WORKERS = 8
 
 _log = logging.getLogger("pilosa_tpu_torch.executor")
 
@@ -176,17 +214,40 @@ def _call_shape(c) -> str:
     return label
 
 
+def required_acks(level: str, owners: int) -> int:
+    """The replica acks (the local apply among them) a write needs
+    before it is acked."""
+    if level == "one":
+        return 1
+    if level == "all":
+        return owners
+    return owners // 2 + 1  # quorum
+
+
 class ExecOptions:
     """Per-execute context. `deadline`: the time.monotonic() instant by
     which the whole query must finish (None: none); execute checks it
-    before each call, and a write's backpressure wait ends at it. The
-    JAX package's `partial` and `staleness` come with the cluster
-    (ROADMAP A11)."""
+    before each call, a write's backpressure wait ends at it, and a
+    remote leg gets what is left of it. `remote`: this is a remote leg
+    (it serves and writes only here and fans out no further). `partial`:
+    a slice no owner can serve is left out and listed in
+    `missing_slices` instead of failing the query. Set while it runs:
+    `used_http` (a leg went over HTTP: the route's tier) and
+    `breaker_snapshot` (the breakers' states, read once a query, so a
+    re-split sees what the first split saw). The JAX package's
+    `staleness` comes with follower reads (ROADMAP A11b)."""
 
-    __slots__ = ("deadline",)
+    __slots__ = ("deadline", "remote", "partial", "missing_slices",
+                 "used_http", "breaker_snapshot")
 
-    def __init__(self, deadline: Optional[float] = None):
+    def __init__(self, remote: bool = False,
+                 deadline: Optional[float] = None, partial: bool = False):
         self.deadline = deadline
+        self.remote = remote
+        self.partial = partial
+        self.missing_slices: List[int] = []
+        self.used_http = False
+        self.breaker_snapshot: Optional[dict] = None
 
     def deadline_left(self) -> Optional[float]:
         """Seconds left (negative once expired), None without one."""
@@ -223,8 +284,33 @@ class Executor:
                  DEFAULT_SPARSE_DENSITY_THRESHOLD,
                  mesh_config: Optional[dict] = None,
                  shadow_sample: int = 0,
-                 device_min_work: Optional[int] = None):
+                 device_min_work: Optional[int] = None,
+                 host: str = "", cluster=None, client=None):
         self.holder = holder
+        # The cluster (parallel.cluster.Cluster; None or one node: every
+        # slice is served here), this node's host in it, and the client
+        # seam of remote legs: execute_query(node, index, pql, slices,
+        # remote=True[, deadline=]) -> results (api.client.ClusterClient,
+        # or a test's fake), with breaker_state(host) when it has
+        # breakers.
+        self.host = host
+        self.cluster = cluster
+        self.client = client
+        # [cluster] prefer-local-reads: a slice this node holds a replica
+        # of is served here, not by the ring's primary.
+        self.prefer_local_reads = False
+        # [cluster] write-consistency, and the hinted handoff
+        # (parallel.hints.HintManager) a Server wires; without it a
+        # remote owner's failure fails the write.
+        self.write_consistency = "quorum"
+        self.hints = None
+        # The legs' pool; this node's share runs in the caller's thread,
+        # so no task of the pool waits on another of it.
+        self._pool = ThreadPoolExecutor(max_workers=FANOUT_WORKERS,
+                                        thread_name_prefix="fanout")
+        # (index, num, placement) -> the SliceSpace of the slices this
+        # node owns (_num_slices).
+        self._spaces: dict = {}
         self.device_min_work = device_min_work
         # Resolved once, at the first routing decision.
         self._min_work_resolved: Optional[int] = None
@@ -371,6 +457,11 @@ class Executor:
             raise IndexRequiredError()
         with obs.profile.phase("plan"):
             opt = opt or ExecOptions()
+            if opt.breaker_snapshot is None and self._clustered():
+                state = getattr(self.client, "breaker_state", None)
+                if callable(state):
+                    opt.breaker_snapshot = {n.host: state(n.host)
+                                            for n in self.cluster.nodes}
             idx = self.holder.index(index)
             need = any(c.name not in _WRITE_CALLS for c in q.calls)
             column_label = DEFAULT_COLUMN_LABEL
@@ -386,7 +477,7 @@ class Executor:
                     slices = list(range(idx.max_slice() + 1))
                     column_label = idx.column_label
         if q.calls and all(c.name == "SetRowAttrs" for c in q.calls):
-            return self._execute_bulk_set_row_attrs(index, q.calls)
+            return self._execute_bulk_set_row_attrs(index, q.calls, opt)
         results = []
         cost_ctx = obs.costs.current()
         for call in q.calls:
@@ -405,13 +496,14 @@ class Executor:
                     call_slices = (list(range(idx.max_inverse_slice() + 1))
                                    if defaulted else [])
             results.append(self._execute_call(index, call, call_slices,
-                                              opt.deadline))
+                                              opt))
         return results
 
     def _execute_call(self, index: str, c: Call, slices: List[int],
-                      deadline: Optional[float] = None):
+                      opt: ExecOptions):
+        deadline = opt.deadline
         if c.name == "Count":
-            return self._execute_count(index, c, slices)
+            return self._execute_count(index, c, slices, opt)
         if c.name == "SetBit":
             f, row_id, col_id = self._bit_args(index, c)
             ts = c.args.get("timestamp")
@@ -421,20 +513,40 @@ class Executor:
                     t = parse_time(ts)
                 except ValueError:
                     raise QueryError(f"invalid date: {ts}") from None
-            return f.set_bit(row_id, col_id, t, deadline=deadline)
+            return self._execute_mutate_view(
+                index, c, opt, col_id,
+                lambda: f.set_bit(row_id, col_id, t, deadline=deadline))
         if c.name == "ClearBit":
             f, row_id, col_id = self._bit_args(index, c)
-            return f.clear_bit(row_id, col_id, deadline=deadline)
+            return self._execute_mutate_view(
+                index, c, opt, col_id,
+                lambda: f.clear_bit(row_id, col_id, deadline=deadline))
         if c.name == "SetValue":
-            return self._execute_set_value(index, c, deadline)
+            f, fname, col_id, value = self._set_value_args(index, c)
+            return self._execute_mutate_view(
+                index, c, opt, col_id,
+                lambda: f.set_value(fname, col_id, value, deadline=deadline))
         if c.name in _BSI_AGGREGATES:
-            return self._execute_bsi_aggregate(index, c, slices)
+            return self._execute_bsi_aggregate(index, c, slices, opt)
         if c.name == "TopN":
-            return self._execute_top_n(index, c, slices)
+            return self._execute_top_n(index, c, slices, opt)
         if c.name == "SetRowAttrs":
-            return self._execute_bulk_set_row_attrs(index, [c])[0]
+            return self._execute_bulk_set_row_attrs(index, [c], opt)[0]
         if c.name == "SetColumnAttrs":
-            return self._execute_set_column_attrs(index, c)
+            return self._execute_set_column_attrs(index, c, opt)
+        if self._fans_out(opt):
+            row = self._map_reduce(
+                index, c, slices, opt,
+                lambda sl: self._bitmap_call(index, c, sl),
+                _merge_rows) or Row()
+        else:
+            row = self._bitmap_call(index, c, slices)
+        if c.name == "Bitmap":
+            row.attrs = self._bitmap_attrs(index, c)
+        return row
+
+    def _bitmap_call(self, index: str, c: Call, slices: List[int]) -> Row:
+        """A bitmap call's row over `slices`, here (no attrs)."""
         if c.name in _MATERIALIZED:
             leaves: list = []
             shape = _lower_tree(self.holder, index, c, leaves)
@@ -445,8 +557,6 @@ class Executor:
         row = Row()
         for s in slices:
             row.merge(self._bitmap_slice(index, c, s))
-        if c.name == "Bitmap":
-            row.attrs = self._bitmap_attrs(index, c)
         return row
 
     def _bitmap_attrs(self, index: str, c: Call) -> dict:
@@ -553,14 +663,42 @@ class Executor:
 
     # -- count ---------------------------------------------------------------
 
-    def _execute_count(self, index: str, c: Call, slices: List[int]) -> int:
+    def _execute_count(self, index: str, c: Call, slices: List[int],
+                       opt: Optional[ExecOptions] = None) -> int:
         if not c.children:
             raise QueryError("Count() requires an input bitmap")
         if len(c.children) > 1:
             raise QueryError("Count() only accepts a single bitmap input")
-        child = c.children[0]
         t0 = time.monotonic()
         h2d0 = self._h2d_bytes()
+        if self._fans_out(opt):
+            here: dict = {}
+
+            def local(sl):
+                n, here["route"], here["check"] = self._count_here(
+                    index, c, sl)
+                return n
+
+            n = self._map_reduce(index, c, slices, opt, local,
+                                 _add_counts) or 0
+            route = here.get("route")
+            if route is None:  # every slice went to another node
+                route = ("roaring" if _lower_tree(
+                    self.holder, index, c.children[0], []) is None
+                    else "mesh")
+            checked, mismatch = here.get("check", (False, False))
+        else:
+            n, route, (checked, mismatch) = self._count_here(index, c,
+                                                             slices)
+        self._record_route(route, t0, tier=_query_tier(opt), call=c,
+                           staged_bytes=max(0, self._h2d_bytes() - h2d0),
+                           shadow_checked=checked, shadow_mismatch=mismatch)
+        return n
+
+    def _count_here(self, index: str, c: Call, slices: List[int]):
+        """(count, route, (shadow checked, mismatch)) of a Count over
+        `slices`, on this node's card or host."""
+        child = c.children[0]
         leaves: list = []
         with obs.span("plan", call="Count", slices=len(slices)) as psp, \
                 obs.profile.phase("plan"):
@@ -594,18 +732,12 @@ class Executor:
                             self.mesh_manager().count, index, shape,
                             leaves, slices, num, sig))
                     mismatch, n = m != n, m
-                self._record_route(
-                    "mesh", t0, call=c,
-                    staged_bytes=max(0, self._h2d_bytes() - h2d0),
-                    shadow_checked=checked, shadow_mismatch=mismatch)
-                return n
+                return n, "mesh", (checked, mismatch)
         self._inc("count_host")
         n = self._count_host(index, child, slices,
                              (shape, leaves) if shape is not None else None)
-        self._record_route("host-fold" if shape is not None else "roaring",
-                           t0, call=c,
-                           staged_bytes=max(0, self._h2d_bytes() - h2d0))
-        return n
+        return (n, "host-fold" if shape is not None else "roaring",
+                (False, False))
 
     def _count_host(self, index: str, child: Call, slices: List[int],
                     lowered: Optional[tuple] = None) -> int:
@@ -811,9 +943,11 @@ class Executor:
         (`staging`), and the cost model that routed it (`cost_model`,
         `kill_switches`); for Sum / Min / Max, the route, the field's
         planes and rows and the cost model. No view stages and no counter
-        moves. Serves POST /index/{index}/query?explain=true (the JAX
-        package's Executor.explain, pilosa_tpu/executor.py:1366-1557,
-        without placement, cluster and the whole-query memo)."""
+        moves. In a cluster each call also has its `placement`
+        (_explain_placement) and a write its `consistency`. Serves POST
+        /index/{index}/query?explain=true (the JAX package's
+        Executor.explain, pilosa_tpu/executor.py:1366-1557, without the
+        whole-query memo)."""
         if not index:
             raise IndexRequiredError()
         idx = self.holder.index(index)
@@ -831,8 +965,17 @@ class Executor:
 
     def _explain_call(self, index: str, c: Call, slices: List[int]) -> dict:
         info: dict = {"call": c.name}
+        if self._clustered():
+            info["placement"] = self._explain_placement(index, slices)
         if c.name in _WRITE_CALLS:
             info["route"] = "write"
+            if self._clustered():
+                owners = self.cluster.replica_n
+                info["consistency"] = {
+                    "level": self.write_consistency, "replicas": owners,
+                    "required_acks": required_acks(self.write_consistency,
+                                                   owners),
+                    "hinted_handoff": self.hints is not None}
             return info
         if c.name in _BSI_AGGREGATES and slices:
             return self._explain_bsi_aggregate(index, c, slices, info)
@@ -1040,8 +1183,27 @@ class Executor:
                 "min_work": self._min_work(),
                 "cpu_native_routes": self._cpu_native_routes()}
 
-    def _num_slices(self, index: str, slices: List[int]) -> int:
-        return max(max(slices), self.holder.index(index).max_slice()) + 1
+    def _num_slices(self, index: str, slices: List[int]):
+        """The slice space the card stages `index`'s views over: every
+        slice below the highest asked or known, or, in a cluster, the
+        ones of them this node owns (a SliceSpace: the pools hold no
+        bytes for the rest)."""
+        num = max(max(slices), self.holder.index(index).max_slice()) + 1
+        if not self._clustered():
+            return num
+        cl = self.cluster
+        key = (index, num, self.host, tuple(cl.hosts()), cl.replica_n,
+               cl.partition_n)
+        space = self._spaces.get(key)
+        if space is None:
+            parts = cl.partitions(index, range(num))
+            mine = [p for p in range(cl.partition_n) if any(
+                n.host == self.host for n in cl.partition_nodes(p))]
+            space = SliceSpace(np.flatnonzero(np.isin(parts, mine)))
+            if len(self._spaces) >= 64:
+                self._spaces.clear()
+            self._spaces[key] = space
+        return space
 
     # -- integer-field aggregates ----------------------------------------------
 
@@ -1063,13 +1225,56 @@ class Executor:
             raise FieldNotFoundError(frame, field)
         return frame, schema
 
-    def _execute_bsi_aggregate(self, index: str, c: Call, slices: List[int]):
+    def _execute_bsi_aggregate(self, index: str, c: Call, slices: List[int],
+                               opt: Optional[ExecOptions] = None):
         """Sum / Min / Max over an integer field with an optional bitmap
         filter child. Sum answers {"value", "count"} ({0, 0} when no
         column holds a value), Min / Max the extremum and how many
-        columns hold it, or None when no column holds a value."""
+        columns hold it, or None when no column holds a value. In a
+        cluster each owner's part is reduced here: Sums add, extremes
+        keep the winner and add the counts of a tie."""
         t0 = time.monotonic()
         h2d0 = self._h2d_bytes()
+        if self._fans_out(opt):
+            self._bsi_call_schema(index, c)  # errors before any leg
+            here: dict = {}
+
+            def local(sl):
+                out, here["route"], here["check"] = self._bsi_here(
+                    index, c, sl)
+                return out
+
+            maximize = c.name == "Max"
+
+            def reduce_fn(prev, v):
+                if v is None:
+                    return prev
+                if prev is None:
+                    return v
+                a = (prev["value"], prev["count"])
+                b = (v["value"], v["count"])
+                if c.name == "Sum":
+                    s_, n = a[0] + b[0], a[1] + b[1]
+                else:
+                    s_, n = bsi_host.reduce_extremes([a, b], maximize)
+                return {"value": int(s_), "count": int(n)}
+
+            out = self._map_reduce(index, c, slices, opt, local, reduce_fn)
+            if out is None and c.name == "Sum":
+                out = {"value": 0, "count": 0}
+            route = here.get("route", "bsi-mesh")
+            checked, mismatch = here.get("check", (False, False))
+        else:
+            out, route, (checked, mismatch) = self._bsi_here(index, c,
+                                                             slices)
+        self._record_route(route, t0, tier=_query_tier(opt), call=c,
+                           staged_bytes=max(0, self._h2d_bytes() - h2d0),
+                           shadow_checked=checked, shadow_mismatch=mismatch)
+        return out
+
+    def _bsi_here(self, index: str, c: Call, slices: List[int]):
+        """(answer, route, (shadow checked, mismatch)) of a Sum / Min /
+        Max over `slices`, on this node's card or host."""
         frame, schema = self._bsi_call_schema(index, c)
         if len(c.children) > 1:
             raise QueryError(
@@ -1107,15 +1312,14 @@ class Executor:
             out = self._shadow_check_bsi(index, c, frame, schema, child,
                                          slices, out)
             mismatch = SHADOW_STATS.get("mismatch:bsi", 0) != before
-        self._record_route("bsi-mesh" if on_card else "bsi-host", t0,
-                           call=c,
-                           staged_bytes=max(0, self._h2d_bytes() - h2d0),
-                           shadow_checked=checked, shadow_mismatch=mismatch)
+        route = "bsi-mesh" if on_card else "bsi-host"
         if c.name == "Sum":
             s, n = out if out is not None else (0, 0)
-            return {"value": int(s), "count": int(n)}
-        return None if out is None else {"value": int(out[0]),
-                                         "count": int(out[1])}
+            return ({"value": int(s), "count": int(n)}, route,
+                    (checked, mismatch))
+        return (None if out is None else {"value": int(out[0]),
+                                          "count": int(out[1])},
+                route, (checked, mismatch))
 
     def _bsi_host(self, index, frame, schema, c, child, slices):
         parts = []
@@ -1210,9 +1414,25 @@ class Executor:
 
     # -- TopN --------------------------------------------------------------
 
-    def _execute_top_n(self, index: str, c: Call, slices: List[int]):
+    def _execute_top_n(self, index: str, c: Call, slices: List[int],
+                       opt: Optional[ExecOptions] = None):
         """TopN from exact per-row counts on the card (MeshManager.top_n)
-        or, when the card cannot serve its form, top_n_host."""
+        or, when the card cannot serve its form, top_n_host. In a
+        cluster, the reference's two phases: each owner's top pairs over
+        its slices (a leg's answer is its phase one), summed by id, then
+        unless ids were asked for an exact recount of those candidate ids
+        over every owner, trimmed to n. One node keeps its exact
+        one-phase answer."""
+        if self._fans_out(opt):
+            row_ids, _ = c.uint_slice_arg("ids")
+            n, _ = c.uint_arg("n")
+            pairs = self._top_n_cluster(index, c, slices, opt)
+            if not pairs or row_ids:
+                return pairs
+            other = c.clone()
+            other.args["ids"] = sorted(p[0] for p in pairs)
+            trimmed = self._top_n_cluster(index, other, slices, opt)
+            return trimmed[:n] if n and n < len(trimmed) else trimmed
         epoch = MUTATION_EPOCH.n  # before the count: _settle's witness
         pairs = (self._on_card(self._top_n_device, index, c, slices)
                  if slices else None)
@@ -1225,6 +1445,14 @@ class Executor:
             return pairs
         self._inc("topn_host")
         return self.top_n_host(index, c, slices)
+
+    def _top_n_cluster(self, index: str, c: Call, slices: List[int],
+                       opt: ExecOptions):
+        pairs = self._map_reduce(
+            index, c, slices, opt,
+            lambda sl: self._execute_top_n(index, c, sl),
+            lambda prev, v: add_to_pairs(prev or [], v))
+        return sort_pairs(pairs or [])
 
     def _top_n_device(self, index: str, c: Call, slices: List[int]):
         """MeshManager.top_n for every form of the call, or None for the
@@ -1316,10 +1544,12 @@ class Executor:
 
     # -- attribute writes ----------------------------------------------------
 
-    def _execute_bulk_set_row_attrs(self, index: str, calls) -> list:
+    def _execute_bulk_set_row_attrs(self, index: str, calls,
+                                    opt: Optional[ExecOptions] = None) -> list:
         """SetRowAttrs(frame=f, rowID=r, key=value, ...) calls, merged per
-        frame and written to each frame's row store in one
-        transaction."""
+        frame and written to each frame's row store in one transaction;
+        in a cluster then sent to every other node (with hints for the
+        ones that miss it)."""
         by_frame: dict = {}
         for c in calls:
             frame = c.args.get("frame")
@@ -1340,10 +1570,14 @@ class Executor:
         for frame, items in by_frame.items():
             self.holder.frame(index, frame).row_attr_store.set_bulk_attrs(
                 items)
+        if self._fans_out(opt):
+            self._broadcast_with_hints(index, Query(calls=list(calls)), opt)
         return [None] * len(calls)
 
-    def _execute_set_column_attrs(self, index: str, c: Call):
-        """SetColumnAttrs(id=N or <column label>=N, key=value, ...)."""
+    def _execute_set_column_attrs(self, index: str, c: Call,
+                                  opt: Optional[ExecOptions] = None):
+        """SetColumnAttrs(id=N or <column label>=N, key=value, ...), then
+        in a cluster to every other node."""
         idx = self.holder.index(index)
         if idx is None:
             raise IndexNotFoundError()
@@ -1357,15 +1591,17 @@ class Executor:
         attrs = dict(c.args)
         attrs.pop(col_name, None)
         idx.column_attr_store.set_attrs(id_, attrs)
+        if self._fans_out(opt):
+            self._broadcast_with_hints(index, Query(calls=[c]), opt)
         return None
 
     # -- writes --------------------------------------------------------------
 
-    def _execute_set_value(self, index: str, c: Call,
-                           deadline: Optional[float] = None) -> bool:
-        """SetValue(frame=f, columnID=N, <field>=V): overwrite a column's
-        integer value. Validated before anything is written: 404 for an
-        unknown field, 422 for a value outside its range."""
+    def _set_value_args(self, index: str, c: Call):
+        """(frame, field, column, value) of SetValue(frame=f, columnID=N,
+        <field>=V), which overwrites a column's integer value. Validated
+        before any replica writes: 404 for an unknown field, 422 for a
+        value outside its range."""
         idx = self.holder.index(index)
         if idx is None:
             raise IndexNotFoundError()
@@ -1391,7 +1627,7 @@ class Executor:
         if schema is None:
             raise FieldNotFoundError(frame, fname)
         schema.validate(value)
-        return f.set_value(fname, col_id, value, deadline=deadline)
+        return f, fname, col_id, value
 
     def _bit_args(self, index: str, c: Call):
         idx = self.holder.index(index)
@@ -1413,6 +1649,313 @@ class Executor:
         return f, row_id, col_id
 
 
+    # -- the cluster ---------------------------------------------------------
+
+    def _clustered(self) -> bool:
+        return self.cluster is not None and len(self.cluster.nodes) > 1
+
+    def _fans_out(self, opt: Optional[ExecOptions]) -> bool:
+        """Whether a call is split by owner: in a cluster, for a query
+        execute() runs (with its options), unless it is itself a remote
+        leg (a leg never fans out again). Without options (a node's own
+        share) it is served here."""
+        return (self._clustered() and opt is not None
+                and not opt.remote)
+
+    def _map_reduce(self, index: str, c: Call, slices: Sequence[int],
+                    opt: ExecOptions, local_fn, reduce_fn):
+        """`c` over `slices` split by owner (the reference's
+        executor.go:1103-1163): this node's share through
+        `local_fn(slices)` (its card path, one MeshManager call for the
+        share), every other owner's as a remote leg over HTTP, the
+        answers folded by `reduce_fn(prev, v)` (prev None first)."""
+        return self._mapper(list(self.cluster.nodes), index, c, slices,
+                            opt, local_fn, reduce_fn)
+
+    def _mapper(self, nodes, index: str, c: Call, slices: Sequence[int],
+                opt: ExecOptions, local_fn, reduce_fn):
+        """One split over `nodes`. The legs go out first; this node's
+        share runs in the calling thread meanwhile (its errors
+        propagate). A leg that fails transiently (_transient_error) has
+        its slices split again over the other nodes; one that fails
+        otherwise fails the query. With opt.partial a slice no node can
+        serve is listed in missing_slices."""
+        m = self._slices_by_node(nodes, index, slices, opt)
+        futures = {}
+        mine = None
+        for node, node_slices in m.items():
+            if node.host == self.host:
+                mine = node_slices
+                continue
+            opt.used_http = True
+            fut = self._pool.submit(obs.wrap_ctx(self._exec_remote_one),
+                                    node, index, c, node_slices, opt)
+            futures[fut] = (node, node_slices)
+        result = None
+        try:
+            if mine is not None:
+                result = reduce_fn(None, local_fn(mine))
+            pending = set(futures)
+            while pending:
+                left = opt.deadline_left()
+                if left is not None and left <= 0:
+                    raise DeadlineExceededError(
+                        f"fan-out wait: deadline exceeded by "
+                        f"{-left * 1e6:.0f}us")
+                done, pending = wait(pending, timeout=left,
+                                     return_when=FIRST_COMPLETED)
+                for fut in done:
+                    node, node_slices = futures[fut]
+                    try:
+                        v = fut.result()
+                    except Exception as err:
+                        if not self._transient_error(err):
+                            raise
+                        rest = [n for n in nodes if n is not node]
+                        try:
+                            with obs.span("resplit", node=node.host,
+                                          slices=len(node_slices),
+                                          resplit=1):
+                                self._inc("resplit")
+                                v = self._mapper(rest, index, c, node_slices,
+                                                 opt, local_fn, reduce_fn)
+                        except SliceUnavailableError as resplit_err:
+                            if opt.partial:
+                                opt.missing_slices.extend(node_slices)
+                                continue
+                            raise err from resplit_err
+                        if v is None:
+                            continue
+                    result = reduce_fn(result, v)
+        except BaseException:
+            for fut in futures:
+                fut.cancel()
+            raise
+        return result
+
+    @staticmethod
+    def _transient_error(err: BaseException) -> bool:
+        """Whether a leg's failure re-splits its slices: an error that
+        says (`transient`, e.g. api.client.ClientError) is taken at its
+        word; a QueryError is not (every replica would fail alike);
+        anything else unannotated is (a fake client's socket error)."""
+        transient = getattr(err, "transient", None)
+        if transient is not None:
+            return bool(transient)
+        return not isinstance(err, QueryError)
+
+    def _exec_remote(self, node, index: str, q: Query,
+                     slices: Optional[Sequence[int]],
+                     opt: ExecOptions) -> list:
+        """`q` on `node` as a remote leg through the client seam, the
+        PQL in its canonical form, with the deadline's remaining budget
+        when there is one."""
+        if self.client is None:
+            raise SliceUnavailableError(f"no client to reach {node.host}")
+        with obs.span("fanout", node=node.host,
+                      slices=len(slices) if slices else 0), \
+                obs.profile.phase("fanout_remote"):
+            fault.point("executor.fanout", node=node.host)
+            opt.check_deadline(f"fanout to {node.host}")
+            kw = {}
+            if opt.deadline is not None:
+                kw["deadline"] = opt.deadline
+            return self.client.execute_query(node, index, str(q),
+                                             slices or [], True, **kw)
+
+    def _exec_remote_one(self, node, index: str, c: Call,
+                         slices: Sequence[int], opt: ExecOptions):
+        results = self._exec_remote(node, index, Query(calls=[c]), slices,
+                                    opt)
+        return results[0] if results else None
+
+    def _breaker_callable(self, opt: Optional[ExecOptions] = None):
+        """host -> breaker state: the query's snapshot when it has one,
+        else the client's live breaker_state, else None (no breakers)."""
+        if opt is not None and opt.breaker_snapshot is not None:
+            snap = opt.breaker_snapshot
+            return lambda host: snap.get(host, "closed")
+        state = getattr(self.client, "breaker_state", None)
+        return state if callable(state) else None
+
+    def _slices_by_node(self, nodes, index: str, slices: Sequence[int],
+                        opt: Optional[ExecOptions] = None) -> dict:
+        """node -> the slices it serves, among `nodes`: each slice's
+        preferred_owner (UP with a closed breaker first; this node first
+        under prefer-local-reads). SliceUnavailableError when a slice has
+        no owner left, unless opt.partial, which lists it missing."""
+        breaker = self._breaker_callable(opt)
+        prefer = self.host if self.prefer_local_reads else None
+        slices = np.asarray(list(slices), dtype=np.int64)
+        parts = self.cluster.partitions(index, slices)
+        # A slice's owners are its partition's: one pick a partition.
+        picks = {}
+        for p in np.unique(parts).tolist():
+            owners = [o for o in self.cluster.partition_nodes(p)
+                      if o in nodes]
+            if opt is not None and opt.partial:
+                owners = [o for o in owners if o.state in SERVING_STATES]
+                if not owners:
+                    picks[p] = None
+                    continue
+            elif not owners:
+                raise SliceUnavailableError()
+            picks[p] = preferred_owner(owners, breaker, prefer=prefer)
+        m: dict = {}
+        for p, node in picks.items():
+            mine = slices[parts == p].tolist()
+            if node is None:
+                opt.missing_slices.extend(mine)
+            else:
+                m.setdefault(node, []).extend(mine)
+        for node in m:
+            m[node].sort()
+        return m
+
+    def _execute_mutate_view(self, index: str, c: Call, opt: ExecOptions,
+                             col_id: int, local_fn: Callable[[], bool]):
+        """A bit write to every owner of its slice (the JAX executor's
+        _execute_mutate_view without the epochs). Owners known DOWN or
+        behind an open breaker are counted before the local apply: a
+        write that cannot reach write-consistency is refused (503) with
+        nothing written anywhere. The other owners get it in parallel;
+        it acks once write-consistency owners (the local apply among
+        them) applied it, and every owner it missed gets a hint, on the
+        503 path too (an owner that applied must converge with the
+        rest). A remote leg writes here only."""
+        if not self._clustered():
+            return local_fn()
+        slice_ = col_id // SLICE_WIDTH
+        owners = self.cluster.fragment_nodes(index, slice_)
+        locals_ = [n for n in owners if n.host == self.host]
+        remotes = [n for n in owners if n.host != self.host]
+        if opt.remote or not remotes:
+            ret = False
+            for _ in locals_:
+                ret = local_fn() or ret
+            return ret
+        level = self.write_consistency
+        required = required_acks(level, len(owners))
+        hints = self.hints
+        down: list = []
+        live = list(remotes)
+        if hints is not None:
+            breaker = self._breaker_callable()
+            down = [n for n in remotes if n.state == NODE_STATE_DOWN
+                    or (breaker is not None and breaker(n.host) == "open")]
+            live = [n for n in remotes if n not in down]
+            if len(locals_) + len(live) < required:
+                CONSISTENCY_STATS.inc(f"{level}:rejected_unavailable")
+                raise WriteConsistencyError(
+                    f"write-consistency={level} needs {required} of "
+                    f"{len(owners)} replicas, only "
+                    f"{len(locals_) + len(live)} reachable",
+                    level=level, required=required, acked=0)
+        ret = False
+        acked = 0
+        for _ in locals_:
+            ret = local_fn() or ret
+            acked += 1
+        q = Query(calls=[c])
+        futures = [(node, self._pool.submit(obs.wrap_ctx(self._exec_remote),
+                                            node, index, q, None, opt))
+                   for node in live]
+        failures = []
+        for node, fut in futures:
+            try:
+                res = fut.result()
+                if res and res[0]:
+                    ret = True
+                acked += 1
+            except Exception as err:  # noqa: BLE001 — collected below
+                failures.append((node.host, err))
+        if hints is None:
+            if failures:
+                raise failures[0][1]
+            return ret
+        pql = str(q)
+        missed = [n.host for n in down] + [h for h, _ in failures]
+        for host in missed:
+            hints.enqueue_query(host, index, pql)
+        if acked >= required:
+            CONSISTENCY_STATS.inc(
+                f"{level}:hinted" if missed else f"{level}:ok")
+            return ret
+        CONSISTENCY_STATS.inc(f"{level}:below_consistency")
+        raise WriteConsistencyError(
+            f"write-consistency={level}: {acked} of {required} required "
+            f"replica acks ({len(failures)} failed mid-write; misses "
+            f"journaled as hints)",
+            level=level, required=required, acked=acked)
+
+    def _broadcast_query(self, index: str, q: Query, opt: ExecOptions):
+        """`q` to every other node in parallel; every answer is awaited,
+        and BroadcastError names each host that failed."""
+        nodes = [n for n in self.cluster.nodes if n.host != self.host]
+        if not nodes:
+            return
+        futures = [(node, self._pool.submit(obs.wrap_ctx(self._exec_remote),
+                                            node, index, q, None, opt))
+                   for node in nodes]
+        failures = []
+        for node, fut in futures:
+            try:
+                fut.result()
+            except Exception as err:  # noqa: BLE001 — collected below
+                failures.append((node.host, err))
+        if failures:
+            raise BroadcastError(failures, len(nodes))
+
+    def _broadcast_with_hints(self, index: str, q: Query,
+                              opt: ExecOptions) -> None:
+        """An attr write already applied here, to every other node; with
+        hinted handoff the nodes that missed it get hints and the write
+        acks, without it the BroadcastError stands."""
+        try:
+            self._broadcast_query(index, q, opt)
+        except BroadcastError as err:
+            if self.hints is None:
+                raise
+            pql = str(q)
+            for host, _e in err.failures:
+                self.hints.enqueue_query(host, index, pql)
+
+    def _explain_placement(self, index: str, slices: Sequence[int]) -> dict:
+        """explain()'s `placement` in a cluster: the picks
+        _slices_by_node would make, by host (the slice count, a sample of
+        16, the tier), the tiers' counts, the slices no node owns, and
+        every breaker's state (the JAX executor's, without its follower
+        and ICI parts)."""
+        state = self._breaker_callable()
+        prefer = self.host if self.prefer_local_reads else None
+        per_host: dict = {}
+        unowned: list = []
+        tiers = {"local": 0, "http": 0}
+        for slice_ in slices:
+            owners = self.cluster.fragment_nodes(index, slice_)
+            if not owners:
+                unowned.append(slice_)
+                continue
+            pick = preferred_owner(owners, state, prefer=prefer)
+            tier = owner_tier(pick.host, self.host)
+            tiers[tier] += 1
+            ent = per_host.setdefault(pick.host, {"slices": 0, "sample": [],
+                                                  "tier": tier})
+            ent["slices"] += 1
+            if len(ent["sample"]) < 16:
+                ent["sample"].append(slice_)
+        out = {"mode": "cluster", "nodes": per_host, "tiers": tiers,
+               "tier": "http" if tiers["http"] else "local"}
+        if unowned:
+            out["unowned_count"] = len(unowned)
+            out["unowned_sample"] = unowned[:16]
+        snap = getattr(getattr(self.client, "breakers", None), "snapshot",
+                       None)
+        if callable(snap):
+            out["breakers"] = snap()
+        return out
+
+
 class _Unstaged(Exception):
     """An aggregate the card cannot serve (a view that cannot be staged,
     a filter or tree beyond the kernels): it goes to the host folds."""
@@ -1425,3 +1968,20 @@ def _unnumber(tree, leaves, raw: list):
         raw.append(leaves[tree[1]])
         return ["leaf"]
     return [tree[0]] + [_unnumber(c, leaves, raw) for c in tree[1:]]
+
+
+def _add_counts(prev, v):
+    return (prev or 0) + v
+
+
+def _merge_rows(prev, v):
+    """Fold a share's row into the answer (each share's Row is fresh)."""
+    if prev is None:
+        return v
+    prev.merge(v)
+    return prev
+
+
+def _query_tier(opt: Optional[ExecOptions]) -> str:
+    """The route's tier: `http` once a leg went over HTTP."""
+    return "http" if opt is not None and opt.used_http else "local"

@@ -1,5 +1,5 @@
-"""Fault injection at the card's, the storage's and the request path's
-seams (a reduced copy of pilosa_tpu/fault.py, with its rule knobs and
+"""Fault injection at the card's, the storage's, the request path's and
+the cluster's seams (a reduced copy of pilosa_tpu/fault.py, with its rule knobs and
 spec syntax).
 
     mesh.stage          before a view is packed and staged on the card
@@ -27,6 +27,16 @@ spec syntax).
                         stalls admission like an overloaded scheduler;
                         an error (an AdmissionError instance) forces
                         sheds (429)
+    client.do           before each attempt of an InternalClient call
+                        (host, method, path, attempt): an error (a
+                        ConnectionError, say) is a transport failure,
+                        retried and counted by the host's breaker
+    executor.fanout     before a remote leg goes out (node): an error
+                        fails the leg, and a transient one re-splits its
+                        slices onto the other replicas
+    hints.replay        before each hint the drainer replays (target,
+                        kind): an error stops that target's log there,
+                        in order, for the next pass
     watchdog.stall      inside every registered heartbeat's beat()
                         (subsystem): a delay wedges that loop
                         mid-iteration with its heartbeat stale, the hang
@@ -82,7 +92,8 @@ from .config import parse_duration
 
 SEAMS = ("mesh.stage", "device.exec", "storage.fsync", "storage.rename",
          "storage.import_apply", "storage.corrupt", "handler.query",
-         "sched.admit", "watchdog.stall")
+         "sched.admit", "watchdog.stall", "client.do", "executor.fanout",
+         "hints.replay")
 FAULT_ENV = "PILOSA_TORCH_FAULT"
 SEED_ENV = "PILOSA_TORCH_FAULT_SEED"
 

@@ -518,15 +518,64 @@ def leaf_layout(keys_host: np.ndarray, dense_id: int) -> LeafLayout:
     return LeafLayout(idx, hit.astype(np.int32), starts, uniform, dense_id)
 
 
-def slice_mask(num_slices: int, slices: Sequence[int]) -> Optional[np.ndarray]:
-    """(S,) int64 1/0 over the staged slices, or None when a requested
-    slice is beyond them."""
-    mask = np.zeros(num_slices, dtype=np.int64)
-    idx = np.asarray(list(slices), dtype=np.int64)
-    if idx.size:
-        if int(idx.max()) >= num_slices:
+class SliceSpace:
+    """The slices a staged view's pools hold, in pool order: position p
+    of every pool's slice axis holds slice ids[p]. One node holds every
+    slice below its highest (SliceSpace.range(n), what an int num_slices
+    means); a node of a cluster holds only the slices it owns, and its
+    pools leave the others out instead of keeping empty rows for them.
+    All views a query reads share the space, so their slice axes line
+    up. Spaces compare by `key`."""
+
+    __slots__ = ("ids", "key")
+    _RANGES: dict = {}
+
+    def __init__(self, ids):
+        self.ids = np.unique(np.asarray(list(ids), dtype=np.int64))
+        self.key = ("ids", len(self.ids), self.ids.tobytes())
+
+    @classmethod
+    def range(cls, n: int) -> "SliceSpace":
+        sp = cls._RANGES.get(n)
+        if sp is None:
+            sp = cls.__new__(cls)
+            sp.ids = np.arange(n, dtype=np.int64)
+            sp.key = ("range", n)
+            sp = cls._RANGES.setdefault(n, sp)
+        return sp
+
+    @classmethod
+    def of(cls, space) -> "SliceSpace":
+        """`space` itself, or the range of an int."""
+        return space if isinstance(space, SliceSpace) else cls.range(
+            int(space))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def positions(self, slices: Sequence[int]) -> Optional[np.ndarray]:
+        """The pool positions of `slices`, or None when one is not in
+        the space."""
+        idx = np.asarray(list(slices), dtype=np.int64)
+        if not idx.size:
+            return idx
+        if self.key[0] == "range":
+            return None if int(idx.max()) >= len(self.ids) else idx
+        pos = np.searchsorted(self.ids, idx)
+        if int(pos.max()) >= len(self.ids) or (self.ids[pos] != idx).any():
             return None
-        mask[idx] = 1
+        return pos
+
+
+def slice_mask(space, slices: Sequence[int]) -> Optional[np.ndarray]:
+    """(S,) int64 1/0 over the positions of a SliceSpace (or the range
+    of an int), or None when a requested slice is not in it."""
+    space = SliceSpace.of(space)
+    pos = space.positions(slices)
+    if pos is None:
+        return None
+    mask = np.zeros(len(space), dtype=np.int64)
+    mask[pos] = 1
     return mask
 
 

@@ -137,7 +137,8 @@ from .mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, ShardedIndex,
                    kernel_read_bytes, leaf_layout, materialize_block,
                    pack_mutation_batches,
                    pick_slice_formats, resolve_row_indices, row_table,
-                   slice_format_stats, slice_mask, split_bitmaps_by_format)
+                   slice_format_stats, slice_mask, split_bitmaps_by_format,
+                   SliceSpace)
 from .plan import (PlanQuarantine, _tree_signature, format_signature,
                    plan_signature)
 
@@ -197,21 +198,23 @@ def _table_bytes(rows_dev: Optional[torch.Tensor], index_rows) -> int:
             + sum(t.numel() * 4 for t in index_rows if t is not None))
 
 
-def view_stats(holder, index: str, frame: str, view: str, num_slices: int,
+def view_stats(holder, index: str, frame: str, view: str, num_slices,
                threshold: float):
     """(stats, formats) of a view from its live fragments, without
-    packing: per slice [containers, total, max cardinality] and the
-    format a staging at `threshold` would pick (no hysteresis: no image
-    to carry it). format_pool_bytes of the pair is the staging's size."""
-    stats = np.zeros((num_slices, 3), dtype=np.int64)
-    n = np.zeros(num_slices, dtype=np.int64)
-    for s in range(num_slices):
+    packing: per position of `num_slices` (a SliceSpace, or the range of
+    an int) [containers, total, max cardinality] and the format a
+    staging at `threshold` would pick (no hysteresis: no image to carry
+    it). format_pool_bytes of the pair is the staging's size."""
+    space = SliceSpace.of(num_slices)
+    stats = np.zeros((len(space), 3), dtype=np.int64)
+    n = np.zeros(len(space), dtype=np.int64)
+    for p, s in enumerate(space.ids.tolist()):
         frag = holder.fragment(index, frame, view, s)
         if frag is None:
             continue
         with frag._mu:
-            stats[s] = slice_format_stats([frag.storage])[0]
-            n[s] = len(frag.storage.keys)
+            stats[p] = slice_format_stats([frag.storage])[0]
+            n[p] = len(frag.storage.keys)
     formats = pick_slice_formats(stats, threshold)
     # slice_format_stats stops at a slice's first container too big for
     # an array; the byte figure wants every container.
@@ -322,20 +325,23 @@ class StagedView:
     its pool so far)."""
 
     __slots__ = ("sharded", "sparse", "slice_formats", "slice_gens",
-                 "num_slices", "layouts", "sparse_layouts", "index_rows",
+                 "num_slices", "space", "layouts", "sparse_layouts", "index_rows",
                  "validated", "rows_dev", "last_stage_s", "inc_ewma_s",
                  "inc_spend_s", "inc_count", "last_used", "pins", "retired",
                  "grown", "key", "serial", "write_gen")
 
-    def __init__(self, sharded: ShardedIndex, slice_gens, num_slices: int,
+    def __init__(self, sharded: ShardedIndex, slice_gens, num_slices,
                  sparse: Optional[SparseShardedIndex] = None,
                  slice_formats: Optional[np.ndarray] = None):
+        self.space = SliceSpace.of(num_slices)
+        self.num_slices = len(self.space)
         self.sharded = sharded
         self.sparse = sparse
         self.slice_formats = (slice_formats if slice_formats is not None
-                              else np.zeros(num_slices, dtype=np.uint8))
-        self.slice_gens = slice_gens  # per slice (fragment, gen) or None
-        self.num_slices = num_slices
+                              else np.zeros(self.num_slices,
+                                            dtype=np.uint8))
+        # per position (fragment, gen) or None
+        self.slice_gens = slice_gens
         self.layouts: Dict[int, object] = {}  # dense id -> LeafLayout
         self.sparse_layouts: Dict[int, tuple] = {}  # dense id -> (idx, hit)
         # dense id -> its index_row on the pool's device (64 bytes a
@@ -689,7 +695,7 @@ class MeshManager:
         for frame, view in dict.fromkeys((f, v) for f, v, _r, _q in leaves):
             if (index, frame, view) in self._views:
                 continue  # resident: it fit when it staged
-            ck = (index, frame, view, num_slices)
+            ck = (index, frame, view, SliceSpace.of(num_slices).key)
             with self._infeasible_mu:
                 hit = self._infeasible.get(ck)
             if hit is not None and hit[0] == ep:
@@ -895,6 +901,7 @@ class MeshManager:
         staged within the budget or the card's memory. Call under _mu."""
         if self.holder.frame(index, frame) is None:
             return None
+        space = SliceSpace.of(num_slices)
         key = (index, frame, view)
         epoch = MUTATION_EPOCH.n  # read before the walk: a racing write
         sv = self._views.get(key)  # leaves the stamp behind, never ahead
@@ -902,32 +909,32 @@ class MeshManager:
             self._views.move_to_end(key)
             sv.last_used = self._use_epoch
             LEDGER.view_touched(key)
-        if sv is None or sv.num_slices != num_slices:
-            return self._stage(key, num_slices, epoch)
+        if sv is None or sv.space.key != space.key:
+            return self._stage(key, space, epoch)
         if sv.validated == epoch:
             return sv
         pending: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         new_gens = list(sv.slice_gens)
         v = self.holder.view(index, frame, view)
         frags = v.fragments if v is not None else {}
-        for s in range(num_slices):
+        for p, s in enumerate(space.ids.tolist()):
             frag = frags.get(s)
-            staged = sv.slice_gens[s]
+            staged = sv.slice_gens[p]
             if frag is None:
                 if staged is None:
                     continue
-                return self._stage(key, num_slices, epoch)  # dropped
+                return self._stage(key, space, epoch)  # dropped
             if staged is None or staged[0] is not frag:
-                return self._stage(key, num_slices, epoch)  # a new object
+                return self._stage(key, space, epoch)  # a new object
             if frag.generation == staged[1]:
                 continue  # an int read: the lock only where it moved
             with frag._mu:
                 gen = frag.generation
                 entries = frag.log_since(staged[1])
             if entries is None or any(e[2] for e in entries):
-                return self._stage(key, num_slices, epoch)
-            pending[s] = fold_log_entries(entries)
-            new_gens[s] = (frag, gen)
+                return self._stage(key, space, epoch)
+            pending[p] = fold_log_entries(entries)
+            new_gens[p] = (frag, gen)
         if not pending:
             sv.validated = epoch
             return sv
@@ -935,7 +942,7 @@ class MeshManager:
             # A sorted-array pool has no scatter (an insert shifts every
             # value after it), and it is the small one: restage.
             self._inc("refresh_pick_restage")
-            return self._stage(key, num_slices, epoch)
+            return self._stage(key, space, epoch)
         # The cost gate, per view: restage when this view's staging has
         # cost less than its scatters; probe with a restage once the
         # scatters have spent 20x a staging, which re-measures it.
@@ -952,7 +959,7 @@ class MeshManager:
                 # evidence against the scatter), so one slow scatter
                 # cannot hold the gate on restaging for good.
                 sv.inc_ewma_s = inc_est * 0.9
-            return self._stage(key, num_slices, epoch)
+            return self._stage(key, space, epoch)
         return self._scatter_pending(key, sv, pending, new_gens, epoch)
 
     def _scatter_pending(self, key, sv: StagedView, pending, new_gens,
@@ -968,7 +975,7 @@ class MeshManager:
                 sv.sharded.keys_host[s], sv.sharded.row_ids, pos, val)
                 for s, (pos, val) in pending.items()}
         except KeyError:
-            return self._stage(key, sv.num_slices, epoch)
+            return self._stage(key, sv.space, epoch)
         # K7 writes into this very pool: what was memoized from it goes.
         self._purge_memo(sv)
         sv.write_gen += 1
@@ -986,20 +993,21 @@ class MeshManager:
         self._scattered = True
         return sv
 
-    def _stage(self, key, num_slices: int, epoch: int) -> StagedView:
+    def _stage(self, key, num_slices, epoch: int) -> StagedView:
         """Stage the view whole through the OOM ladder
         (pilosa_tpu/parallel/serve.py:1025-1048): an out-of-memory error
         evicts every unpinned view and stages once more; a second raises
         DeviceResourceError("oom"). A view over the whole budget raises
         DeviceResourceError("hbm_infeasible") before a byte moves. Call
         under _mu."""
-        with obs.span("stage", view="/".join(key), slices=num_slices), \
+        with obs.span("stage", view="/".join(key),
+                      slices=len(SliceSpace.of(num_slices))), \
                 obs.profile.phase("stage_h2d"):
             return self._oom_ladder(
                 lambda: self._stage_once(key, num_slices, epoch),
                 f"staging {key}")
 
-    def _stage_once(self, key, num_slices: int, epoch: int) -> StagedView:
+    def _stage_once(self, key, num_slices, epoch: int) -> StagedView:
         """Pack the view on the host, each slice's format picked under its
         fragment's lock with the previous image's formats as the
         hysteresis input; check the budget; drop the previous image
@@ -1007,18 +1015,20 @@ class MeshManager:
         then build the pools on the card. The previous image's scatter
         estimate carries over."""
         index, frame, view = key
+        space = SliceSpace.of(num_slices)
         fault.point("mesh.stage", index=index, frame=frame, view=view,
-                    slices=num_slices)
+                    slices=len(space))
         t0 = time.monotonic()
         old = self._views.get(key)
-        prev = old.slice_formats if old is not None else None
+        prev = (old.slice_formats if old is not None
+                and old.space.key == space.key else None)
         inc_ewma_s = old.inc_ewma_s if old is not None else None
         old = None
         thr = (0.0 if key in self._dense_pins
                else float(self.sparse_density_threshold))
-        formats = np.zeros(num_slices, dtype=np.uint8)
+        formats = np.zeros(len(space), dtype=np.uint8)
         packed, gens = [], []
-        for s in range(num_slices):
+        for p, s in enumerate(space.ids.tolist()):
             frag = self.holder.fragment(index, frame, view, s)
             if frag is None:
                 packed.append(None)
@@ -1026,10 +1036,10 @@ class MeshManager:
                 continue
             with frag._mu:  # containers, format and generation from one state
                 if thr > 0:
-                    formats[s] = pick_slice_formats(
+                    formats[p] = pick_slice_formats(
                         slice_format_stats([frag.storage]), thr,
-                        prev=None if prev is None else prev[s:s + 1])[0]
-                packed.append(pack_sparse(frag.storage) if formats[s]
+                        prev=None if prev is None else prev[p:p + 1])[0]
+                packed.append(pack_sparse(frag.storage) if formats[p]
                               else pack_bitmap(frag.storage))
                 gens.append((frag, frag.generation))
         budget = self._hbm_budget_bytes()
@@ -1057,7 +1067,7 @@ class MeshManager:
             self._inc("stage_sparse_slices", int(formats.sum()))
         else:
             sharded = build_sharded_index(packed, self.device)
-        sv = StagedView(sharded, gens, num_slices, sparse, formats)
+        sv = StagedView(sharded, gens, space, sparse, formats)
         sv.validated = epoch
         sv.inc_ewma_s = inc_ewma_s
         sv.last_used = self._use_epoch
@@ -1379,7 +1389,7 @@ class MeshManager:
                             [staged[(f, v)].layout(d) for (f, v, _r, _q), d
                              in zip(leaves, dense)])}
                 key = self._memo_key(
-                    read, num_slices, mask.tobytes(),
+                    read, SliceSpace.of(num_slices).key, mask.tobytes(),
                     None if sel is None else sel.tobytes(), with_full,
                     None if src is None else (plan_signature(src[0]),
                                               tuple(src[1])))
@@ -1610,7 +1620,7 @@ class MeshManager:
                 sv, sv.layout(dense) if has_dense else None,
                 sv.sparse_layout(dense) if sv.sparse is not None else None,
                 sv.slice_formats.astype(bool) if has_dense
-                else np.ones(num_slices, dtype=bool)))
+                else np.ones(len(mask), dtype=bool)))
         legs = leg_list
         if op == "leaf":
             sv, d_lay, s_lay, fmts = legs[0]

@@ -34,13 +34,31 @@ turns 503, the scheduler releases what it queued, the watchdog stops,
 `warm` is joined before the holder closes, and the staged views leave
 the card first.
 
-The port serves one node. A config that needs a cluster (more than one
-[cluster] host, type gossip or spmd, ici-hosts) is refused with an
-error that names the key; clusters wait for ROADMAP A11.
+The HTTP cluster with static membership (the JAX server's, without
+anti-entropy, epochs, gossip and the SPMD plane): [cluster] hosts,
+replicas and partitions make the Cluster (placement by a host's
+position in `hosts`); client-timeout, retries, retry-backoff and
+breaker-* the ClusterClient, one InternalClient a peer over one breaker
+registry; with more than one host of type "http" schema changes reach
+every peer through the HTTPBroadcaster (type "static": no broadcast);
+write-consistency and prefer-local-reads go to the executor, and the
+HintManager journals under <data-dir>/.hints/ what a replicated write
+or import missed, its drainer (the critical `hint-drain` heartbeat)
+replaying every hint-drain-interval. An opening breaker marks its node
+DOWN, a closing one marks it UP and wakes the drainer
+(_breaker_change). The `status-poll` daemon (polling-interval) pulls
+each peer's /internal/status: it merges the peer's schema and max
+slices, marks an unreachable peer DOWN and a reachable one UP again,
+and wakes the drainer when a DOWN peer came back. /status and
+/internal/status answer cluster_status and local_status; /internal/
+message applies a broadcast (receive_message). Refused, with the key
+named: type "gossip" (membership change, ROADMAP A11c), type "spmd"
+and a non-empty ici-hosts (the SPMD plane, A11d).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 from typing import Optional
@@ -53,42 +71,49 @@ CACHE_FLUSH_INTERVAL = 60.0
 # line at open()).
 NOT_ACTED_ON = ("[anti-entropy]", "[rebalance]",
                 "[obs] fleet-scrape-interval",
-                "[cluster] timeouts, retries, breakers, hints and read "
-                "staleness", "[integrity] result-cache-verify-1-in")
+                "[cluster] default-read-staleness and result-cache-size",
+                "[integrity] result-cache-verify-1-in")
 
 
 def refuse_cluster(cfg: Config) -> None:
-    """Raise ValueError, naming the key, for a config that needs more
-    than one node."""
-    where = "the port serves one node; clusters wait for ROADMAP A11"
-    if len(cfg.cluster_hosts) > 1:
-        raise ValueError(f"[cluster] hosts lists {len(cfg.cluster_hosts)} "
-                         f"hosts {cfg.cluster_hosts}: {where}")
-    if cfg.cluster_type in ("gossip", "spmd"):
-        raise ValueError(f'[cluster] type = "{cfg.cluster_type}": {where}')
+    """Raise ValueError, naming the key, for a cluster the port does not
+    run yet: gossip membership, the SPMD plane, interconnect peers."""
+    if cfg.cluster_type == "gossip":
+        raise ValueError('[cluster] type = "gossip": membership change '
+                         'waits for ROADMAP A11c; use type = "http"')
+    if cfg.cluster_type == "spmd":
+        raise ValueError('[cluster] type = "spmd": the SPMD plane waits '
+                         'for ROADMAP A11d')
     if cfg.cluster_type not in ("http", "static"):
         raise ValueError(f"unknown cluster type: {cfg.cluster_type!r} "
                          "(want static, http, gossip, or spmd)")
     if cfg.cluster_ici_hosts:
         raise ValueError(f"[cluster] ici-hosts = {cfg.cluster_ici_hosts}: "
-                         f"{where}")
+                         "the SPMD plane waits for ROADMAP A11d")
 
 
 def build_handler(holder, device, sparse_density_threshold: float,
                   mesh_config: Optional[dict] = None, shadow_sample: int = 0,
-                  stats=None, tracer=None):
-    """The node's Executor and Handler over an open or opening holder;
-    frame restore reaches other nodes through api.client.InternalClient.
-    Returns the Handler (its `executor` is the Executor)."""
+                  stats=None, tracer=None, host: str = "", cluster=None,
+                  client=None):
+    """The node's Executor and Handler over an open or opening holder.
+    In a cluster (`cluster`, this node's `host`, `client` an
+    api.client.ClusterClient) the executor fans out through the client
+    and frame restore, the import's copies and the broadcasts reach the
+    peers through its per-host clients; without one, through a fresh
+    api.client.InternalClient. Returns the Handler (its `executor` is
+    the Executor)."""
     from .api.client import InternalClient
     from .api.handler import Handler
     from .executor import Executor
 
     ex = Executor(holder, device=device,
                   sparse_density_threshold=sparse_density_threshold,
-                  mesh_config=mesh_config, shadow_sample=shadow_sample)
-    return Handler(holder, ex, client_factory=InternalClient, stats=stats,
-                   tracer=tracer)
+                  mesh_config=mesh_config, shadow_sample=shadow_sample,
+                  host=host, cluster=cluster, client=client)
+    return Handler(holder, ex, client_factory=(
+        client.for_host if client is not None else InternalClient),
+        stats=stats, tracer=tracer, cluster=cluster, host=host)
 
 
 def check_card(executor) -> None:
@@ -135,18 +160,69 @@ class Server:
         self.host = cfg.host
         self.tracer = Tracer(ring=cfg.trace_ring,
                              slow_us=cfg.slow_query_threshold * 1e6)
+        self._wire_cluster()
         self.handler = build_handler(
             self.holder, cfg.device(), cfg.sparse_density_threshold(),
             mesh_config=cfg.mesh_config(),
             shadow_sample=cfg.integrity_shadow_sample, stats=self.stats,
-            tracer=self.tracer)
+            tracer=self.tracer, host=self.host, cluster=self.cluster,
+            client=self.client)
         self.handler.metrics_sample_interval = cfg.metrics_sample_interval
         self.executor = self.handler.executor
+        self.executor.write_consistency = cfg.write_consistency
+        self.executor.prefer_local_reads = cfg.prefer_local_reads
+        self.executor.hints = self.handler.hints = self.hints
+        self.handler.write_consistency = cfg.write_consistency
+        self.handler.broadcaster = self.broadcaster
+        self.handler.broadcast_handler = self
+        self.handler.status_handler = self
         self._ready = False
         self._wire_observability()
         self._api = None
         self._threads: list = []
         self._health_started = False
+        # The last NodeStatus of each peer (the status poll's).
+        self._peer_status: dict = {}
+
+    def _wire_cluster(self):
+        """[cluster] onto the Cluster, the ClusterClient, the node set
+        and broadcaster (threaded into the holder before it opens) and,
+        with more than one host, the HintManager."""
+        import os
+
+        from .api.client import ClusterClient
+        from .parallel.broadcast import (HTTPBroadcaster, NopBroadcaster,
+                                         StaticNodeSet)
+        from .parallel.cluster import Cluster, Node
+        from .parallel.hints import HintManager
+
+        cfg = self.config
+        self.cluster = Cluster(nodes=[Node(h) for h in cfg.cluster_hosts],
+                               replica_n=cfg.replica_n,
+                               partition_n=cfg.partition_n)
+        self.client = ClusterClient(
+            timeout=cfg.client_timeout, retry_max=cfg.retry_max,
+            retry_backoff=cfg.retry_backoff,
+            breaker_threshold=cfg.breaker_threshold,
+            breaker_cooldown=cfg.breaker_cooldown)
+        self.node_set = StaticNodeSet(cfg.cluster_hosts)
+        if cfg.cluster_type == "http" and len(cfg.cluster_hosts) > 1:
+            self.broadcaster = HTTPBroadcaster(
+                self.node_set, self.host, self.client.for_host,
+                logger=self.logger)
+        else:
+            self.broadcaster = NopBroadcaster()
+        self.holder.broadcaster = self.broadcaster
+        self.hints = None
+        if len(self.cluster.nodes) > 1:
+            self.hints = HintManager(
+                os.path.join(cfg.expanded_data_dir(), ".hints"),
+                client_factory=self.client.for_host,
+                breaker_state=self.client.breaker_state,
+                max_bytes=cfg.hint_max_bytes,
+                drain_interval=cfg.hint_drain_interval,
+                wal_cfg=cfg.wal_config(), stats=self.stats)
+            self.client.breakers.on_change = self._breaker_change
 
     def _wire_observability(self):
         """[obs], [sched], [slo], [health] and [cluster] query-deadline
@@ -194,7 +270,8 @@ class Server:
         reg.dossier_max_bytes = max(1024, int(cfg.health_dossier_max))
         reg.dossier_keep = max(1, int(cfg.health_dossier_keep))
         reg.dossier_dir = os.path.join(cfg.expanded_data_dir(), ".dossier")
-        reg.mark_critical("sched-dispatch", "wal", "mesh-count-batch")
+        reg.mark_critical("sched-dispatch", "wal", "hint-drain",
+                          "mesh-count-batch")
         h.ready_fn = lambda: self._ready
         reg.bundle_providers.update({
             "config": lambda: health.redact_config(vars(cfg)),
@@ -228,6 +305,12 @@ class Server:
         h, p = self._api.address
         if port == 0:
             self.host = f"{bind_host or h}:{p}"
+            node = self.cluster.node_by_host(self.config.host)
+            if node is not None:
+                node.host = self.host
+            self.executor.host = self.handler.host = self.host
+            if hasattr(self.broadcaster, "local_host"):
+                self.broadcaster.local_host = self.host
         self._api.start()
         self.logger.info("config read but not acted on yet: %s",
                          "; ".join(NOT_ACTED_ON))
@@ -236,10 +319,17 @@ class Server:
         # The watchdog before the loops it watches.
         HEALTH.start()
         self._health_started = True
+        if self.hints is not None:
+            self.hints.start()
         hb = HEALTH.register("cache-flush", interval=CACHE_FLUSH_INTERVAL)
+        poll_hb = HEALTH.register("status-poll",
+                                  interval=self.config.polling_interval)
         for name, target, args in (
                 ("cache-flush", self._loop,
                  (self.holder.flush_caches, CACHE_FLUSH_INTERVAL, hb)),
+                ("status-poll", self._loop,
+                 (self._status_poll_tick, self.config.polling_interval,
+                  poll_hb)),
                 ("warm", self.holder.warm, (self.closing,))):
             t = threading.Thread(target=target, name=name, args=args,
                                  daemon=True)
@@ -255,6 +345,7 @@ class Server:
             self.scheduler.close()
         if self._health_started:
             HEALTH.unregister("cache-flush")
+            HEALTH.unregister("status-poll")
             HEALTH.stop()
             self._health_started = False
         self.closing.set()
@@ -262,6 +353,8 @@ class Server:
         # would reopen a WAL fd on a fragment whose flock was released.
         for t in self._threads:
             t.join(timeout=10)
+        if self.hints is not None:
+            self.hints.close()
         if self._api is not None:
             self._api.close()
         try:
@@ -298,3 +391,145 @@ class Server:
                 f = idx.create_frame_if_not_exists(fr["name"], **fopts)
                 for fd in fr.get("fields", []):
                     f.create_field_if_not_exists(FieldSchema.from_dict(fd))
+
+    # -- the cluster -------------------------------------------------------------
+
+    def _breaker_change(self, host: str, state: str):
+        """An opening breaker marks its node DOWN (writes then hint it
+        instead of waiting on it); a closing one marks it UP and wakes
+        the drainer."""
+        from .api.client import BREAKER_CLOSED, BREAKER_OPEN
+
+        if state == BREAKER_OPEN:
+            if self.cluster.mark_unreachable(host):
+                self.logger.info("breaker open: marked %s DOWN", host)
+        elif state == BREAKER_CLOSED:
+            if self.cluster.mark_live(host):
+                self.logger.info("breaker closed: %s back UP", host)
+            if self.hints is not None:
+                self.hints.notify(host)
+
+    def _status_poll_tick(self):
+        """Each peer's /internal/status: its schema and max slices are
+        merged here, an unreachable peer is marked DOWN, a reachable one
+        UP, and a peer back from DOWN wakes the drainer."""
+        from .parallel.cluster import NODE_STATE_DOWN
+
+        for node in self.cluster.nodes:
+            if node.host == self.host:
+                continue
+            try:
+                status = self.client.for_host(node.host).node_status()
+            except Exception:  # noqa: BLE001 — an unreachable peer
+                node.mark_unreachable()
+                continue
+            was_down = node.state == NODE_STATE_DOWN
+            node.mark_live()
+            if was_down and self.hints is not None:
+                self.hints.notify(node.host)
+            self._peer_status[node.host] = status
+            self.handle_remote_status(status)
+
+    def receive_message(self, msg):
+        """Apply a peer's broadcast (POST /internal/message)."""
+        from . import wire
+
+        if isinstance(msg, wire.CreateSliceMessage):
+            idx = self.holder.index(msg.index)
+            if idx is None:
+                raise ValueError(f"local index not found: {msg.index}")
+            if msg.is_inverse:
+                idx.set_remote_max_inverse_slice(msg.slice)
+            else:
+                idx.set_remote_max_slice(msg.slice)
+        elif isinstance(msg, wire.CreateIndexMessage):
+            meta = msg.meta or wire.IndexMeta()
+            self.holder.create_index_if_not_exists(
+                msg.index, column_label=meta.column_label or "columnID",
+                time_quantum=meta.time_quantum)
+        elif isinstance(msg, wire.DeleteIndexMessage):
+            self.holder.delete_index(msg.index)
+            self.executor.invalidate_device_index(msg.index)
+        elif isinstance(msg, wire.CreateFrameMessage):
+            idx = self.holder.index(msg.index)
+            if idx is None:
+                raise ValueError(f"local index not found: {msg.index}")
+            self._create_frame(idx, msg.frame, msg.meta or wire.FrameMeta())
+        elif isinstance(msg, wire.DeleteFrameMessage):
+            idx = self.holder.index(msg.index)
+            if idx is not None:
+                idx.delete_frame(msg.frame)
+                self.executor.invalidate_device_index(msg.index)
+        else:
+            raise ValueError(f"unknown message: {type(msg).__name__}")
+
+    def _create_frame(self, idx, name: str, meta):
+        """A peer's frame here (idempotent), with its integer fields; a
+        field whose range differs from the one here is logged and
+        skipped (the peers disagree: an operator's problem)."""
+        from .bsi.field import FieldSchema, FieldValueError
+
+        f = idx.create_frame_if_not_exists(
+            name, row_label=meta.row_label or "rowID",
+            inverse_enabled=meta.inverse_enabled,
+            cache_type=meta.cache_type or "ranked",
+            cache_size=meta.cache_size or 50000,
+            time_quantum=meta.time_quantum)
+        for d in json.loads(meta.fields_json) if meta.fields_json else []:
+            try:
+                f.create_field_if_not_exists(FieldSchema.from_dict(d))
+            except FieldValueError as e:
+                self.logger.warning("field sync skipped for frame %r: %s",
+                                    f.name, e)
+
+    def local_status(self):
+        """This node's NodeStatus: every index with its meta, max slices
+        and frames."""
+        from . import wire
+        from .api.handler import frame_meta
+
+        ns = wire.NodeStatus(host=self.host, state="UP")
+        for _, idx in sorted(self.holder.indexes.items()):
+            ns.indexes.append(wire.IndexInfo(
+                name=idx.name, meta=wire.IndexMeta(
+                    column_label=idx.column_label,
+                    time_quantum=str(idx.time_quantum)),
+                max_slice=idx.max_slice(),
+                max_inverse_slice=idx.max_inverse_slice(),
+                frames=[wire.FrameInfo(name=f.name, meta=frame_meta(f))
+                        for _, f in sorted(idx.frames.items())]))
+        return ns
+
+    def cluster_status(self):
+        """This node's status, then each peer's last polled one (or its
+        host alone) with the state this node holds for it."""
+        from . import wire
+
+        cs = wire.ClusterStatus(nodes=[self.local_status()])
+        for node in self.cluster.nodes:
+            if node.host == self.host:
+                continue
+            st = self._peer_status.get(node.host)
+            if st is not None:
+                st = wire.NodeStatus.decode(st.encode())
+                st.state = node.state
+                cs.nodes.append(st)
+            else:
+                cs.nodes.append(wire.NodeStatus(host=node.host,
+                                                state=node.state))
+        return cs
+
+    def handle_remote_status(self, status):
+        """Merge a peer's schema: its indexes and frames made here, its
+        max slices learned."""
+        from . import wire
+
+        for ii in status.indexes:
+            meta = ii.meta or wire.IndexMeta()
+            idx = self.holder.create_index_if_not_exists(
+                ii.name, column_label=meta.column_label or "columnID",
+                time_quantum=meta.time_quantum)
+            idx.set_remote_max_slice(ii.max_slice)
+            idx.set_remote_max_inverse_slice(ii.max_inverse_slice)
+            for fr in ii.frames:
+                self._create_frame(idx, fr.name, fr.meta or wire.FrameMeta())

@@ -454,8 +454,39 @@ def fresh_shadow_stats():
         m.update(old)
 
 
-def test_metrics_of_both_handlers_after_the_same_stream(tmp_path,
-                                                        fresh_shadow_stats):
+@pytest.fixture
+def stream_group_sizes(monkeypatch):
+    """Both packages' WAL group-size histograms (process-wide) replaced
+    for the test by ones that take only the commits of the test's own
+    thread. The stream writes from that thread alone, one request after
+    another, so each of its commits is led by its writer there; a commit
+    another thread leads meanwhile (a daemon an earlier test of the same
+    worker left running) is none of the stream's, and used to show in
+    one package's buckets and not the other's under load."""
+    import pilosa_tpu.core.wal as jax_wal
+    import pilosa_tpu_torch.api.handler as port_handler
+    import pilosa_tpu_torch.core.wal as port_wal
+
+    me = threading.current_thread()
+
+    def serialised(cls):
+        class OnlyThisThread(cls):
+            __slots__ = ()
+
+            def observe(self, value, exemplar=None):
+                if threading.current_thread() is me:
+                    super().observe(value, exemplar)
+        return OnlyThisThread()
+
+    jax_h, port_h = serialised(JaxHistogram), serialised(Histogram)
+    monkeypatch.setattr(jax_wal, "GROUP_SIZE", jax_h)
+    monkeypatch.setattr(port_wal, "GROUP_SIZE", port_h)
+    monkeypatch.setattr(port_handler, "GROUP_SIZE", port_h)
+    return jax_h, port_h
+
+
+def test_metrics_of_both_handlers_after_the_same_stream(
+        tmp_path, fresh_shadow_stats, stream_group_sizes):
     jstats, pstats = JaxExpvarStats(), ExpvarStats()
     jh = JaxHolder(str(tmp_path / "jax"), stats=jstats,
                    wal=JaxWalConfig(fsync_policy="always"))
@@ -496,6 +527,8 @@ def test_metrics_of_both_handlers_after_the_same_stream(tmp_path,
     for fam in sorted(SHARED | expvar):
         assert fam in pm and fam in jm, fam
         assert pm[fam] == jm[fam], fam
+    # Every commit of the stream, in both packages' group sizes.
+    assert all(h.total > 0 for h in stream_group_sizes)
     assert pm["pilosa_storage_snapshots_total"][2][(
         "pilosa_storage_snapshots_total", (("outcome", "ok"),))] >= 1
     assert pm["pilosa_query_route_total"][2][(

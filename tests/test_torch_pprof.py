@@ -96,7 +96,10 @@ def test_route_table_is_42_of_the_jax_handlers(both):
     port, jax = both
     mine = {(r.method, r.pattern.pattern) for r in port._routes}
     theirs = {(r.method, r.pattern.pattern) for r in jax._routes}
-    assert len(port._routes) == len(mine) == 42 and len(theirs) == 52
+    # 42 before the cluster's five routes (/status, /hosts,
+    # /fragment/nodes, /internal/message, /internal/status); the test
+    # keeps its name.
+    assert len(port._routes) == len(mine) == 47 and len(theirs) == 52
     assert mine <= theirs
 
 
