@@ -4,7 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--dense-qps-of ROOT | --lone-latency-of
                           ROOT | --sparse-qps-of ROOT | --kernel-times-of ROOT
-                          | --loadgen-rates | --cluster-only]
+                          | --loadgen-rates | --cluster-only | --converge-only]
 
 Phases, each fatal on failure:
   1. the card's name and power limit, torch and CUDA versions;
@@ -86,9 +86,9 @@ Phases, each fatal on failure:
      and K1 must launch, `count_host` must not move, and torch.profiler
      measures the card's busy share of a round of Sums;
  10. time-quantum Range over HTTP: index `tq` (quantum YMD, inherited by
-     its frame `events`) of 96 slices, rows 0-3, each (row, day) of April
-     2017 a seeded random 1/64 of the columns: the 30 day views stage
-     sorted-array, the month, the year and `standard` dense. Every single
+     its frame `events`) of 48 slices (a cut), rows 0-3, each (row, day)
+     of April 2017 a seeded random 1/64 of the columns: the 30 day views
+     stage sorted-array, the month, the year and `standard` dense. Every single
      day (no launch), the month (one view), 2 days (K4), 7 days (the days
      demote to packed words: K1) and 29 days (K1's lone path), then
      timestamped SetBits seen through GET .../views and Ranges (one over
@@ -105,7 +105,7 @@ Phases, each fatal on failure:
      of phase 4 (p50 / p90 of 200 calls), then index `t`, frame `topn`
      (the repo's TopN configuration: 4096 rows, one container per row
      per slice, ~30% bitmaps of ~25% fill, the rest arrays of
-     n ~ U[1, 4096], 10% absent; 64 slices) in every form: n, threshold,
+     n ~ U[1, 4096], 10% absent; 32 slices, a cut) in every form: n, threshold,
      ids, a src Bitmap, field / filters after SetRowAttrs over HTTP on
      100 rows (and a Bitmap's attrs), tanimotoThreshold. Every answer is
      checked against numpy with the card path's semantics; the
@@ -117,7 +117,7 @@ Phases, each fatal on failure:
      busy share of a round of TopNs;
  12. writes over HTTP on frame `general` at 960 slices, under the
      holder's `group` WAL policy (the server's default; the bulk loads
-     go through Fragment.replace and write no op records): 60 rounds,
+     go through Fragment.replace and write no op records): 30 rounds,
      each a batch of 1, 16 or 256 SetBit / ClearBit calls into existing
      containers of rows 0-7 from up to 16 clients, then a Count(
      Intersect) held against numpy with the writes applied and timed
@@ -150,7 +150,7 @@ Phases, each fatal on failure:
      through the spec syntax with max_wal_ops 256: all 16 writers get
      503 with Retry-After, and the Count keeps every acked write. (3)
      Power loss, on a second directory of the same kind over the first
-     96 slices (a cut for time: every start stages them): the server as
+     24 slices (a cut for time: every start stages them): the server as
      a child process on the card with
      PILOSA_TORCH_FAULT arming SIGKILL before the 151st commit fsync,
      the 2nd snapshot fsync and the 2nd snapshot rename in turn
@@ -172,19 +172,19 @@ Phases, each fatal on failure:
      from their /debug/vars);
  14. bulk data in and out, on a new holder and a server on the card
      (frames and files through the port's HTTP routes, InternalClient
-     and ctl): (1) frame `sparse`'s rows 0-7 at slices 0-47 (~9.4M
+     and ctl): (1) frame `sparse`'s rows 0-7 at slices 0-23 (~4.7M
      bits) into index `imp` as one protobuf POST /import a slice, from 4
      InternalClient threads in a spawned process of their own (MB/s,
      bits/s, request p50), then the first Count's staging, the 28 pairs
      lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
      imported into slice 17 of that staged view: the next Count
      restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
-     import --create` of a 25,000-line CSV (rows 0-3, 96 slices,
+     import --create` of a 6,000-line CSV (rows 0-3, 96 slices,
      minutes of April 2017 as local time) into index `tqi` (quantum YMD)
      on a server of its own: one day, 7 days and the month on rows 0
      and 3 equal numpy through the same conversion, with the kernels
      each launched, and `ctl export` gives the imported set; (4) `ctl
-     backup` of index `fr`'s `general` (48 slices of the headline rows,
+     backup` of index `fr`'s `general` (24 slices of the headline rows,
      a cut for time) from a third server and `ctl restore` into index
      `rst`: every restored file equals its backed-up data member, and
      the pair (K1), the partial row (K3) and the 28 pairs from 16
@@ -209,11 +209,11 @@ Phases, each fatal on failure:
      JSON): the pair (K1, lone p50 and QPS over the 28 pairs), the
      partial row (K3), the 28 pairs spread over 16 clients, once
      (K2; 1 in 10 Counts pays a shadow fold); on cfg/f,
-     SetValue on 2,000 columns over 96 slices from 10 clients, Sum (K5),
+     SetValue on 1,000 columns over 96 slices from 10 clients, Sum (K5),
      Count(Range(val > 100)) (K3), 100 more SetValues and Sum again
      (K7 scatters them into the staged field), all against numpy; `ctl
-     bench` set-bit 1,000, intersect-count 200 (K4: rows of 1,000 bits
-     in one container stage as sorted arrays) and topn 200 over 8
+     bench` set-bit 250, intersect-count 50 (K4: rows of 1,000 bits
+     in one container stage as sorted arrays) and topn 50 over 4
      seeded rows, then the
      Count and TopN(n=10) on index `bench` against numpy over its
      export; 20 scrapes of /metrics (p50 ms), each parsed as text
@@ -294,7 +294,7 @@ Phases, each fatal on failure:
      library (ops.native, csrc/pilosa_native.cpp built with g++) and
      under PILOSA_TORCH_NO_NATIVE=1, by the Row fold and by numpy, all
      equal; the Row fold and HostCountPlan cold (a fresh HostQueryCache)
-     and warm (memo hits) timed lone, then the pair over slices 0-119
+     and warm (memo hits) timed lone, then the pair over slices 0-59
      from 16 threads at once beside one lone call (each cache's block
      and memo hits and misses printed); (2) the
      pair's plan quarantined: the next Count answers on host-fold
@@ -349,20 +349,20 @@ Phases, each fatal on failure:
      node's own K1, K3 and K5 launches and a route of tier http on each;
      each node's staged bytes (its own slices only) beside phase 4's
      one-node view; (2) the
-     lone Count p50 through one coordinator (200 Counts), the 28 pairs
+     lone Count p50 through one coordinator (100 Counts), the 28 pairs
      from 16 clients spread over the four coordinators (QPS), and a
      ?profile=true Count on each: its device_exec beside its
-     fanout_remote; (3) 2,000 seeded SetBit / ClearBit writes into row
+     fanout_remote; (3) 500 seeded SetBit / ClearBit writes into row
      3 from 8 clients through the four coordinators, every one acked,
      then Counts of row 3 exact from every coordinator, each owner of
-     50 sampled slices answering its own remote leg (remote=true, one
+     25 sampled slices answering its own remote leg (remote=true, one
      slice) exactly, and every node's K7 launches moved; (4) `ctl
      import --create` of `sparse`'s rows 0-1 in block 0 of slices
-     0-95 (a cut) against one node (the owner lookup through
+     0-23 (a cut) against one node (the owner lookup through
      /fragment/nodes, each owner copying to the others under quorum):
      the pair's Count (K4) exact from every coordinator; an ImportRequest
      to a non-owner answers 412; (5) node 3 SIGKILLed: Counts from
-     nodes 0-2 exact (their re-splits logged), 500 SetBits through
+     nodes 0-2 exact (their re-splits logged), 250 SetBits through
      nodes 0-2 acked under quorum (2 of 3) with hints for node 3; node 3
      restarted from its TOML: the status poll sees it UP, the drainers
      replay (timed until every backlog reads 0), and then every
@@ -373,7 +373,37 @@ Phases, each fatal on failure:
      dirs deleted. K0, K1, K2, K3, K4, K5 and K7 must launch on this
      path (the children's counts from their /debug/vars, node 3's
      summed over its two lives);
- 21. the on-chip probe tools (pilosa_tpu_torch/tools) through their
+ 21. replica convergence, on phase 20's four data dirs after its SIGTERM
+     step and before its `ctl check`: offline, node 1's copies of the
+     two lowest slices it leads get 60 and 2,000 flipped bits in rows
+     0-7 through the port's own Fragment (node 1 is then the minority of
+     their three replicas), and node 2's copy of a slice it leads (one
+     node 1 does not hold) is snapshotted with its footer and gets one
+     byte flipped in the middle of the file. The four nodes restart in
+     parallel with [anti-entropy] interval 20 s (every node answers
+     before a first pass), jitter 1 s and
+     [integrity] result-cache-verify-1-in 4; node 1 stages its share
+     through a remote leg as soon as it answers (its answers recorded,
+     not checked), before its first pass. Then: the planted slices'
+     /fragment/blocks equal the truth's on their three owners within
+     60 s (the seconds, each node's syncer counters and which arm ran
+     on node 1 recorded); a leg Count of the rotted slice on node 2
+     equals numpy, its `integrity` shows `repaired` 1 and the rotted
+     file sits beside it as `.corrupt`; the 28 pairs and the partial
+     row through every coordinator equal numpy (strict); 4 of them
+     from each of 16 clients over the four coordinators under
+     X-Pilosa-Staleness 5s equal numpy, with followers among pilosa_read_replica_total's
+     bounded picks; bounded Counts through coordinator 0 until the
+     result cache has hits and a verified hit with no mismatch, then a
+     SetBit through it into a slice it holds, seen by its next bounded
+     Count; at GET /internal/epochs the repaired slice's three owners
+     agree within 60 s (its owner's pass raised its peers), and no
+     slice's owners are apart but a planted one that node 1's own first
+     pass merged (its next pass, ~2 min later, raises its peers);
+     SIGTERM to all four (each exits 0), and phase 20's `ctl
+     check` covers their dirs. K0, K1, K2, K3 and K7 must launch on
+     this path (the restarted nodes' counts);
+ 22. the on-chip probe tools (pilosa_tpu_torch/tools) through their
      main(): probe_r5_bw (K1, K6 at every T, the plain static pair,
      stream_popcount and torch's sum over pools of 960 and 3072 slices),
      probe_r5 kernels / stage / readback, profile_stage and
@@ -381,8 +411,8 @@ Phases, each fatal on failure:
      stream_popcount must launch on this path, and then K6 at every T
      and both slice counts and stream_popcount are held exactly against
      their plain versions and numpy, and timed;
- 22. a `kernels` JSON line (each kernel's launches summed over the
-     serving paths 4-20, each path's counters set to 0 just before it;
+ 23. a `kernels` JSON line (each kernel's launches summed over the
+     serving paths 4-21, each path's counters set to 0 just before it;
      K6's and the stream's from the probe path, the one they serve; the
      count of each path beside it), the card line, and the final
      {"ok": true, "device": ...} line.
@@ -422,7 +452,9 @@ profile of the node under the 1-in-4 run and one Count's host fold over
 the 960 slices on the quiet node, as one JSON line.
 With --cluster-only it runs phases 1 and 2 and then phase 20 on fresh
 data (nothing of phase 4 beside it) and prints its record as one JSON
-line.
+line. With --converge-only it runs phases 1, 2, 20 and 21 and prints
+phase 21's record as one JSON line (both records in
+chiprun_out/converge.json).
 With --lone-latency-of ROOT it runs phases 1 and 2 and the lone Counts
 of phase 4 only, 56 of them as in phase 4 and then 560 more, and prints
 their latency and the collector's full passes as one JSON line.
@@ -1212,19 +1244,20 @@ class Client:
         self.conn = http.client.HTTPConnection(host, port, timeout=120)
         self.index = index
 
-    def raw(self, method: str, path: str, body: str = ""):
-        self.conn.request(method, path, body=body.encode())
+    def raw(self, method: str, path: str, body: str = "", headers=None):
+        self.conn.request(method, path, body=body.encode(),
+                          headers=headers or {})
         resp = self.conn.getresponse()
         return resp.status, json.loads(resp.read())
 
-    def call(self, method: str, path: str, body: str = ""):
-        status, doc = self.raw(method, path, body)
+    def call(self, method: str, path: str, body: str = "", headers=None):
+        status, doc = self.raw(method, path, body, headers)
         check(status == 200, (method, path, body, status, doc))
         return doc
 
-    def count(self, pql: str) -> int:
-        return self.call("POST", f"/index/{self.index}/query",
-                         pql)["results"][0]
+    def count(self, pql: str, headers=None) -> int:
+        return self.call("POST", f"/index/{self.index}/query", pql,
+                         headers)["results"][0]
 
     def close(self):
         self.conn.close()
@@ -2289,7 +2322,7 @@ def bsi_phase(holder, truth: BsiTruth, card: str, device) -> dict:
 # rows 0-3, each (row, day) of April 2017 a seeded random 1/64 of the
 # columns. The days stage sorted-array; the month, the year and
 # `standard` hold their union (~37% fill) and stage dense.
-TIME_SLICES = 96
+TIME_SLICES = 48
 TIME_ROWS = 4
 TIME_DAYS = 30
 TIME_WRITE_ROW = 5   # the row the timestamped SetBits write
@@ -2679,7 +2712,7 @@ def time_kernel_cases(truth: TimeTruth, covers: dict, k4_case, la, lb,
 # container (block 0) per row per slice, ~30% bitmaps of ~25% fill, the
 # rest sorted arrays of n ~ U[1, 4096], 10% of rows absent per slice.
 # Row 0 is a bitmap in every slice: the src of the Tanimoto query.
-TOPN_SLICES = 64
+TOPN_SLICES = 32
 TOPN_ROWS = 4096
 TOPN_N = 100
 TOPN_LONE_CALLS = 200  # lone TopN(frame=general, n=100) over HTTP
@@ -2960,7 +2993,7 @@ def topn_phase(holder, words: np.ndarray, truth: TopnTruth, card: str,
 
 # -- phase 11: writes into the staged image ------------------------------------
 
-WRITE_ROUNDS = 60
+WRITE_ROUNDS = 30
 WRITE_BATCHES = (1, 16, 256)  # SetBit / ClearBit calls a round, in turn
 WRITERS = 16                  # concurrent clients (rounds and the herd)
 WRITER_OPS = 100              # SetBits each herd client sends
@@ -3348,7 +3381,7 @@ DUR_SNAPSHOTS = 1           # background snapshots each written slice takes
 DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
 DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
 KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
-KILL_SLICES = 96            # the power-loss and rot steps' slices (a cut)
+KILL_SLICES = 24            # the power-loss and rot steps' slices (a cut)
 KILLS = (("commit fsync", "storage.fsync:kind=commit,after=150,"
           "error=SIGKILL"),
          ("snapshot fsync", "storage.fsync:kind=snapshot,after=1,"
@@ -3360,7 +3393,7 @@ SHADOW_ROUND = 1                # queries each of the clients sends
 # Clients of the 1-in-1 round: each Count pays a host fold (~0.4 s
 # alone, longer under concurrency), so the round is cut from 16.
 SHADOW_CLIENTS = 2
-SHADOW_TIMED = ((1, 5), (100, 100), (0, 100))  # (1 in N, lone Counts)
+SHADOW_TIMED = ((1, 5), (100, 50), (0, 50))  # (1 in N, lone Counts)
 DURABILITY_PATH = ("apply_writes", "coarse_count", "tree_count", "probe_ok")
 
 
@@ -4151,12 +4184,12 @@ def durability_phase(holder, words: np.ndarray, sp: "SparseRows",
 
 BULK_THREADS = 4          # import clients, as a parallel `ctl import`
 BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
-BULK_SLICES = SLICES // 20  # the slices the protobuf import loads (a cut)
+BULK_SLICES = SLICES // 40  # the slices the protobuf import loads (a cut)
 BULK_NEW_BITS = 1_000
-TQI_BITS = 25_000         # the timestamped CSV's lines (a cut)
+TQI_BITS = 6_000         # the timestamped CSV's lines (a cut)
 TQI_SLICES = 96
 TQI_ROWS = 4
-FR_SLICES = 48            # the frame restored from another node (a cut)
+FR_SLICES = 24            # the frame restored from another node (a cut)
 CSV_TIME = "%Y-%m-%dT%H:%M"  # the ctl's time column
 TQI_RANGES = (("1 day", 10, 11), ("7 days", 3, 10), ("month", 1, 31))
 BULK_PATH = ("sparse_pair_count", "pair_count", "coarse_count",
@@ -4336,7 +4369,7 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
     mark("truths")
 
     # A fragment holds two file descriptors (its flock and its append
-    # fd). The time phase's index `tq` (96 slices x 33 views) is done
+    # fd). The time phase's index `tq` (48 slices x 33 views) is done
     # with: dropping it keeps the holders below the descriptor limit.
     import resource
 
@@ -4627,7 +4660,7 @@ def bulk_phase(holder, words: np.ndarray, sp: SparseRows, tmp: str,
 
 CONFIG_PATH = ("probe_ok", "coarse_count", "coarse_count_shared", "tree_count",
                "sparse_pair_count", "pair_count", "apply_writes")
-CFG_COLUMNS = 2_000       # SetValues into cfg/f/val ...
+CFG_COLUMNS = 1_000       # SetValues into cfg/f/val ...
 CFG_SLICES = 96           # ... over these slices, in block 0 of each
 CFG_MORE = 100            # SetValues into the staged field (K7)
 CFG_RANGE = 100           # Count(Range(val > CFG_RANGE))
@@ -4635,10 +4668,10 @@ CFG_BUDGET_X = 1.5        # [mesh] hbm-budget-bytes over general's bytes
 CFG_SCRAPES = 20
 CFG_ROUNDS = 1            # rounds of the 28 pairs spread over 16 clients
 CFG_WRITERS = 10          # clients sending the SetValues into cfg/f/val
-# (op, n, extra flags): the topn bench seeds 8 rows, not 32 (a cut: its
+# (op, n, extra flags): the topn bench seeds 4 rows, not 32 (a cut: its
 # seed is ~15,000 SetBits acked one fsync at a time).
-BENCH_OPS = (("set-bit", 1000, ()), ("intersect-count", 200, ()),
-             ("topn", 200, ("--max-row-id", 8)))
+BENCH_OPS = (("set-bit", 250, ()), ("intersect-count", 50, ()),
+             ("topn", 50, ("--max-row-id", 4)))
 
 
 def ctl_run(root: Path, *argv, timeout: float = 600) -> str:
@@ -5115,7 +5148,7 @@ ADM_REQUESTS = 10         # requests each overload client sends
 ADM_DEADLINE_US = 20_000  # each overload request's X-Pilosa-Deadline-Us
 ADM_FORCED = 20           # requests shed through the sched.admit seam
 ADM_STALL_S = 6.0         # the held commit: past stall-after 4 x base 1 s
-ADM_LONE_CALLS = 200      # lone Counts a turn of the cost comparison
+ADM_LONE_CALLS = 100      # lone Counts a turn of the cost comparison
 ADM_DEBT_PROBES = 5       # requests a tenant sends to read its debt header
 
 
@@ -5799,11 +5832,11 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
 # The kernels the host fold phase's card answers launch.
 HF_PATH = ("coarse_count", "tree_count", "sparse_pair_count")
 HF_THREADS = 16       # threads folding at once ...
-HF_THREAD_SLICES = 120  # ... over slices 0-119 (a cut: over all 960 the
+HF_THREAD_SLICES = 60  # ... over slices 0-59 (a cut: over all 960 the
                         # 16 Row folds alone took 65.9 s)
 HF_SHADOW = 20        # lone pairs shadow-checked 1 in 1
 HF_OR_LEAVES = 29     # rows 0-28 of `general`; rows 10-28 hold no bit
-HF_SWEEP = ["--slices", "96", "--iters", "5",
+HF_SWEEP = ["--slices", "96", "--iters", "3",
             "--densities", "0.003,0.03,0.3"]
 HF_SWEEP_FORMATS = {"0.003": "sparse", "0.03": "sparse", "0.3": "dense"}
 
@@ -6380,8 +6413,8 @@ def probe_phase(device, seed: int) -> dict:
             ("probe_r5_kernels", probe_r5, ["kernels"]),
             ("probe_r5_stage", probe_r5, ["stage", "--reps", "2"]),
             ("probe_r5_readback", probe_r5, ["readback"]),
-            ("profile_stage", profile_stage, []),
-            ("profile_headline", profile_headline, ["--reps", "30"])]
+            ("profile_stage", profile_stage, ["--slices", "240"]),
+            ("profile_headline", profile_headline, ["--reps", "8"])]
     seconds = {}
     t_phase = time.monotonic()
     tk.reset_launches()
@@ -6468,13 +6501,13 @@ CLUSTER_PATH = ("probe_ok", "coarse_count", "coarse_count_shared",
                 "tree_count", "sparse_pair_count", "pair_count",
                 "apply_writes")
 CLUSTER_BUDGET = 8 << 30     # [mesh] hbm-budget-bytes of each node
-CLUSTER_LONE = 200           # lone Counts through coordinator 0
-CLUSTER_WRITES = 2_000       # SetBit / ClearBit writes ...
+CLUSTER_LONE = 100           # lone Counts through coordinator 0
+CLUSTER_WRITES = 500       # SetBit / ClearBit writes ...
 CLUSTER_WRITERS = 8          # ... from this many clients
-CLUSTER_SAMPLED = 50         # slices whose owners are asked one by one
-CLUSTER_IMPORT_SLICES = 96   # `ctl import` of `sparse`'s rows 0-1 ...
+CLUSTER_SAMPLED = 25         # slices whose owners are asked one by one
+CLUSTER_IMPORT_SLICES = 24   # `ctl import` of `sparse`'s rows 0-1 ...
 CLUSTER_IMPORT_BLOCKS = 1    # ... in block 0 of those slices (a cut)
-CLUSTER_DOWN_WRITES = 500    # SetBits while one node is down
+CLUSTER_DOWN_WRITES = 250    # SetBits while one node is down
 CLUSTER_DRAIN_S = 60.0       # the drain's limit after the restart
 CLUSTER_WRITE_ROW = 3        # the row the writes move (0-7 all dense)
 
@@ -6516,6 +6549,20 @@ def cl_toml(path: str, hosts, k: int) -> str:
             'hint-drain-interval = "500ms"\nbreaker-cooldown = "1s"\n')
 
 
+def slice_bitmap(words: np.ndarray, s: int):
+    """Slice s of `words` as the port's roaring Bitmap (its non-empty
+    containers in bitmap form)."""
+    from pilosa_tpu_torch.roaring import Bitmap, Container
+
+    bm = Bitmap()
+    for r in range(words.shape[1]):
+        for b in range(16):
+            if words[s, r, b].any():
+                bm.keys.append(r * 16 + b)
+                bm.containers.append(Container(bitmap=words[s, r, b]))
+    return bm
+
+
 def cl_node_dirs(words: np.ndarray, tmp: str, hosts) -> tuple:
     """A data dir a node: index `i`, frame `general` holding `words`
     (as build_holder), each fragment file written once a slice and
@@ -6524,7 +6571,6 @@ def cl_node_dirs(words: np.ndarray, tmp: str, hosts) -> tuple:
     link). (dirs, slices a node)."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.parallel.cluster import Cluster, Node
-    from pilosa_tpu_torch.roaring import Bitmap, Container
 
     cl = Cluster([Node(h) for h in hosts], replica_n=CLUSTER_REPLICAS)
     dirs = [os.path.join(tmp, f"cluster{k}") for k in range(len(hosts))]
@@ -6540,13 +6586,7 @@ def cl_node_dirs(words: np.ndarray, tmp: str, hosts) -> tuple:
         frag_dirs[-1].mkdir(parents=True, exist_ok=True)
     owned = [0] * len(hosts)
     for s in range(words.shape[0]):
-        bm = Bitmap()
-        for r in range(words.shape[1]):
-            for b in range(16):
-                if words[s, r, b].any():
-                    bm.keys.append(r * 16 + b)
-                    bm.containers.append(Container(bitmap=words[s, r, b]))
-        data = bm.to_bytes()
+        data = slice_bitmap(words, s).to_bytes()
         for n in cl.fragment_nodes("i", s):
             k = hosts.index(n.host)
             owned[k] += 1
@@ -6607,18 +6647,19 @@ def cl_leg(port: int, query: str, slices) -> list:
         None, "i", query, slices)
 
 
-def cl_spread(ports, queries, want) -> float:
+def cl_spread(ports, queries, want, headers=None, each=None) -> float:
     """CLIENTS clients, client k on coordinator k % len(ports), each
-    sending every query once from its own offset; answers checked;
-    queries per second."""
+    sending every query (or `each` of them) once from its own offset
+    (with `headers`); answers checked; queries per second."""
     errors = []
+    n = len(queries) if each is None else each
 
     def client(k):
         c = Client("127.0.0.1", ports[k % len(ports)])
         try:
-            for j in range(len(queries)):
+            for j in range(n):
                 i = (j + k) % len(queries)
-                got = c.count(queries[i])
+                got = c.count(queries[i], headers)
                 if got != want[i]:
                     errors.append((ports[k % len(ports)], queries[i], got,
                                    want[i]))
@@ -6636,7 +6677,7 @@ def cl_spread(ports, queries, want) -> float:
         t.join()
     dt = time.monotonic() - t0
     check(not errors, f"cluster answers: {errors[:5]}")
-    return CLIENTS * len(queries) / dt
+    return CLIENTS * n / dt
 
 
 def cl_import_csv(path: str, sp: SparseRows) -> tuple:
@@ -6687,9 +6728,12 @@ def slice_count(words: np.ndarray, s: int, op: str, a: int, b: int) -> int:
 
 
 def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
-                  card: str, seed: int, dense: dict) -> dict:
+                  card: str, seed: int, dense: dict,
+                  converge_into: dict = None) -> dict:
     """Phase 20 (module docstring). `dense` is phase 4's record (its
-    staged bytes and QPS, beside the cluster's; None: not run)."""
+    staged bytes and QPS, beside the cluster's; None: not run). With
+    `converge_into`, phase 21 runs on the nodes' data dirs after they
+    exited and before they are checked, its record put there."""
     import shutil
     import signal
 
@@ -6995,6 +7039,10 @@ def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
     out["stop_s"] = stops
     check(not stop_errors and len(stops) == CLUSTER_NODES,
           ("four SIGTERM exits with 0", stops, stop_errors))
+    if converge_into is not None:
+        converge_into.update(converge_phase(words, tmp, root, card, seed,
+                                            dirs, hosts, ports))
+        mark("phase 21")
     # (7) ctl check on every data dir, then they go.
     files = [sorted(str(f) for f in Path(d).glob("i/*/standard/fragments/*")
                     if f.name.isdigit()) for d in dirs]
@@ -7040,6 +7088,335 @@ def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
         f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     for k in CLUSTER_PATH:
         check(launches[k] > 0, f"kernel {k} launched on the cluster path")
+    return out
+
+
+# -- phase 21: replica convergence -----------------------------------------------
+
+
+CONVERGE_PATH = ("probe_ok", "coarse_count", "coarse_count_shared",
+                 "tree_count", "apply_writes")
+CONV_DIVERGENT = 1        # the node whose copies are planted wrong ...
+CONV_ROTTED = 2           # ... and the one whose file is rotted
+CONV_SMALL = 60           # bits flipped in one slice (the per-bit arm)
+CONV_BULK = 2_000         # bits flipped in another (the bulk arm)
+CONV_AE_INTERVAL = 20     # [anti-entropy] interval and jitter, seconds:
+CONV_AE_JITTER = 1        # every node answers before a first pass starts
+CONV_BOUNDED_EACH = 4     # bounded Counts each of the 16 clients sends
+CONV_STALENESS = "5s"     # the bounded reads' X-Pilosa-Staleness
+CONV_VERIFY_1_IN = 4      # [integrity] result-cache-verify-1-in
+CONV_WAIT_S = 60.0        # the limit of convergence, the cache's hits and
+#                           the repaired slice's epochs
+
+
+def conv_toml(path: str, hosts, k: int) -> str:
+    """Phase 20's node, with anti-entropy every CONV_AE_INTERVAL seconds
+    and every 4th result-cache hit counted again."""
+    return (cl_toml(path, hosts, k)
+            + f'[anti-entropy]\ninterval = "{CONV_AE_INTERVAL}s"\n'
+            f'jitter = "{CONV_AE_JITTER}s"\n'
+            f"[integrity]\nresult-cache-verify-1-in = {CONV_VERIFY_1_IN}\n")
+
+
+def conv_plant(path: Path, s: int, words: np.ndarray, n: int, rng) -> None:
+    """Flip n bits of rows 0-7 of slice s through the port's own Fragment
+    opened offline (inside full containers: no container comes or goes,
+    so a staged image can take the merge as a scatter)."""
+    from pilosa_tpu_torch.core.fragment import Fragment
+
+    f = Fragment(str(path), "i", "general", "standard", s)
+    f.open()
+    try:
+        for p in rng.choice(DENSE_ROWS << 20, n, replace=False).tolist():
+            r, c = p >> 20, p & ((1 << 20) - 1)
+            bit = int(words[s, r, c >> 16, (c & 0xFFFF) >> 6]) >> (c & 63) & 1
+            (f.clear_bit if bit else f.set_bit)(r, (s << 20) + c)
+    finally:
+        f.close()
+
+
+def conv_truth_blocks(words: np.ndarray, s: int) -> list:
+    """/fragment/blocks' answer for slice s of the truth."""
+    from pilosa_tpu_torch.core.fragment import bitmap_block_checksums
+
+    return [{"id": k, "checksum": v.hex()} for k, v in sorted(
+        bitmap_block_checksums(slice_bitmap(words, s)).items())]
+
+
+def conv_blocks(port: int, s: int) -> list:
+    return cl_get(port, "/fragment/blocks?index=i&frame=general&view="
+                  f"standard&slice={s}")["blocks"]
+
+
+def converge_phase(words: np.ndarray, tmp: str, root: Path, card: str,
+                   seed: int, dirs, hosts, ports) -> dict:
+    """Phase 21 (module docstring), on phase 20's data dirs after its four
+    nodes exited; `words` is the truth after phase 20's writes."""
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.monotonic() - t_phase - sum(steps.values())
+
+    placement = Cluster([Node(h) for h in hosts], replica_n=CLUSTER_REPLICAS)
+
+    def owners(s):
+        return [hosts.index(n.host) for n in placement.fragment_nodes("i", s)]
+
+    S = words.shape[0]
+    D, R = CONV_DIVERGENT, CONV_ROTTED
+    # Slices whose primary owner is D: the coordinators' strict Counts
+    # send them to D, so its staged image holds them before the merge.
+    s1, s2 = [s for s in range(S) if owners(s)[0] == D][:2]
+    s3 = next(s for s in range(S) if owners(s)[0] == R and D not in owners(s))
+    rng = np.random.default_rng([seed, 21])
+
+    def frag_path(k, s):
+        return Path(dirs[k]) / "i" / "general" / "standard" / "fragments" \
+            / str(s)
+
+    t0 = time.monotonic()
+    conv_plant(frag_path(D, s1), s1, words, CONV_SMALL, rng)
+    conv_plant(frag_path(D, s2), s2, words, CONV_BULK, rng)
+    rotted = frag_path(R, s3)
+    # A snapshot first: the file phase 20 wrote has no footer (it was
+    # serialized without one), and its ops log holds phase 20's writes;
+    # a snapshot writes the region with its footer, which the flip then
+    # breaks.
+    f = Fragment(str(rotted), "i", "general", "standard", s3)
+    f.open()
+    try:
+        f.snapshot()
+    finally:
+        f.close()
+    size = rotted.stat().st_size
+    with open(rotted, "r+b") as fh:
+        fh.seek(size // 2)
+        b = fh.read(1)
+        fh.seek(size // 2)
+        fh.write(bytes([b[0] ^ 0x5A]))
+    out["planted"] = {"node": D, "slices": [s1, s2],
+                      "bits": [CONV_SMALL, CONV_BULK], "rotted_node": R,
+                      "rotted_slice": s3, "owners": {
+                          s: owners(s) for s in (s1, s2, s3)},
+                      "seconds": time.monotonic() - t0}
+    mark("plant")
+    outs = [REPO / "chiprun_out" / f"converge{k}.out"
+            for k in range(CLUSTER_NODES)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    tomls = []
+    for k in range(CLUSTER_NODES):
+        tomls.append(Path(tmp) / f"converge{k}.toml")
+        tomls[-1].write_text(conv_toml(dirs[k], hosts, k))
+    nodes = [None] * CLUSTER_NODES
+    pairs = list(itertools.combinations(range(DENSE_ROWS), 2))
+    reads = cl_answers(words, [("and", a, b) for a, b in pairs]
+                       + [("and", PARTIAL_ROW, 0)])
+    pre = {}
+
+    def spawn(k):
+        nodes[k] = NodeChild(root, tomls[k], ports[k], outs[k])
+        if k == D:
+            # D stages its view as soon as it answers, before its first
+            # pass (CONV_AE_INTERVAL after its start) reaches s1 and s2:
+            # a merge then reaches the staged image. The answers are
+            # recorded, not checked (D's copies are wrong until then).
+            t = time.monotonic()
+            pre["got"] = [cl_leg(ports[D], q, [s1, s2])[0]
+                          for q, _ in reads[:4]]
+            pre["truth"] = [sum(slice_count(words, s, "and", a, b)
+                                for s in (s1, s2)) for a, b in pairs[:4]]
+            pre["seconds"] = time.monotonic() - t
+
+    threads = [threading.Thread(target=spawn, args=(k,))
+               for k in range(CLUSTER_NODES)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(all(nodes), "the four nodes restarted")
+    out["ready_s"] = time.monotonic() - t0
+    out["pre_merge_answers"] = pre
+    launches: Counter = Counter()
+    try:
+        cl_wait_max(ports, S - 1)
+        mark("restart")
+        # Convergence of the planted slices on their three owners.
+        t0 = time.monotonic()
+        want = {s: conv_truth_blocks(words, s) for s in (s1, s2)}
+        while True:
+            maps = {s: [conv_blocks(ports[k], s) for k in owners(s)]
+                    for s in (s1, s2)}
+            if all(m == [want[s]] * len(m) for s, m in maps.items()):
+                break
+            check(time.monotonic() - t0 < CONV_WAIT_S,
+                  ("the planted slices converge", {
+                      s: [m == want[s] for m in ms]
+                      for s, ms in maps.items()}))
+            time.sleep(0.25)
+        out["converge_s"] = time.monotonic() - t0
+        counters = ("syncer_blocks_scanned", "syncer_blocks_dirty",
+                    "syncer_blocks_merged", "syncer_peers_skipped",
+                    "syncer_epochs_reconciled", "anti_entropy")
+        vs = [cl_vars(p) for p in ports]
+        out["syncer"] = [{c: v.get(c, 0) for c in counters} for v in vs]
+        dm = vs[D].get("mesh", {})
+        # The divergent node's own pass merged (the per-bit arm for s1,
+        # the bulk arm for s2), or its peers pushed the diffs as PQL
+        # (per-bit writes): recorded, either is the reference's.
+        out["arm"] = {
+            "divergent_merged": vs[D].get("syncer_blocks_merged", 0),
+            "peers_merged": [v.get("syncer_blocks_merged", 0)
+                             for k, v in enumerate(vs) if k != D],
+            "divergent_mesh": {k: dm.get(k, 0) for k in (
+                "stage", "incremental", "refresh_pick_incremental",
+                "refresh_pick_restage")}}
+        mark("converge")
+        # Read-repair: the rotted file restored from a replica.
+        q, _ = reads[0]
+        got = cl_leg(ports[R], q, [s3])
+        check(got == [slice_count(words, s3, "and", 0, 1)],
+              ("the repaired slice's Count", got))
+        integ = cl_vars(ports[R])["integrity"]["fragments"]
+        check(integ.get("repaired", 0) == 1, ("one read-repair", integ))
+        check(Path(str(rotted) + ".corrupt").exists(),
+              "the rotted file kept aside as .corrupt")
+        out["repair"] = integ
+        mark("read-repair")
+        # Strict reads from every coordinator.
+        cl_check(ports, reads, "a strict Count after convergence")
+        mark("strict")
+        # Bounded reads from 16 clients over the four coordinators.
+        hdr = {"X-Pilosa-Staleness": CONV_STALENESS}
+        out["bounded_qps"] = cl_spread(
+            ports, [q for q, _ in reads], [w for _, w in reads], hdr,
+            each=CONV_BOUNDED_EACH)
+        picks = {}
+        for k, p in enumerate(ports):
+            m = parse_prom(http_text("127.0.0.1", p, "/metrics"))
+            picks[k] = {r: fam_sum(m, "pilosa_read_replica_total",
+                                   replica=r, staleness="bounded")
+                        for r in ("owner", "follower", "fallback_owner")}
+        check(sum(x["follower"] for x in picks.values()) > 0,
+              ("bounded reads went to followers", picks))
+        out["read_replica"] = picks
+        mark("bounded")
+        # The result cache on coordinator C: hits with no divergence,
+        # then a write through C to a slice it holds moves its epoch and
+        # the next bounded Count sees it.
+        C = 0
+        q, w = reads[0]
+        t0 = time.monotonic()
+        n = 0
+        cc = Client("127.0.0.1", ports[C])
+        while True:
+            got = cc.count(q, hdr)
+            check(got == w, ("a bounded Count", got, w))
+            n += 1
+            m = parse_prom(http_text("127.0.0.1", ports[C], "/metrics"))
+            hits = fam_sum(m, "pilosa_result_cache_events_total",
+                           event="hit")
+            checked = fam_sum(m, "pilosa_shadow_checks_total",
+                              backend="result-cache")
+            if hits >= CONV_VERIFY_1_IN and checked > 0:
+                break
+            check(time.monotonic() - t0 < CONV_WAIT_S,
+                  ("result-cache hits", hits, checked))
+        mismatch = fam_sum(m, "pilosa_shadow_mismatch_total",
+                           backend="result-cache")
+        check(mismatch == 0, ("result-cache divergences", mismatch))
+        sw = next(s for s in range(S) if C in owners(s)
+                  and s not in (s1, s2, s3))
+        both = words[sw, 1] & ~words[sw, 0]
+        b = int(np.flatnonzero(both.reshape(-1))[0])
+        bitpos = int(both.reshape(-1)[b]).bit_length() - 1
+        col = (sw << 20) + (b << 6) + bitpos
+        cc.call("POST", "/index/i/query",
+                f"SetBit(rowID=0, frame=general, columnID={col})")
+        flip_bits(words, [0], [col], np.array([True]))
+        got = cc.count(q, hdr)
+        cc.close()
+        check(got == w + 1, ("the bounded Count after a write", got, w + 1))
+        rc = cl_vars(ports[C])["result_cache"]
+        out["result_cache"] = {"repeats": n, "hits": hits,
+                               "verified": checked, "mismatch": mismatch,
+                               "write_slice": sw, "snapshot": rc}
+        mark("result cache")
+        # Epochs: every fragment a pass reconciled agrees on its three
+        # owners. The repaired slice's owner raises its peers in the pass
+        # that finds the repaired copy equal to theirs. A planted slice
+        # that node 1's own first pass merged stays ahead there until
+        # its next pass (~2 min later at 960 slices: a first pass hashes
+        # every fragment a node owns); one its peers' pushes converged
+        # before its first pass came is reconciled by that pass.
+        t0 = time.monotonic()
+        key3 = f"i/general/standard/{s3}"
+        while True:
+            digests = {k: cl_get(ports[k], "/internal/epochs")["epochs"]
+                       for k in range(CLUSTER_NODES)}
+            e3 = [digests[k].get(key3, 0) for k in owners(s3)]
+            if len(set(e3)) == 1 and e3[0] > 0:
+                break
+            check(time.monotonic() - t0 < CONV_WAIT_S,
+                  ("the repaired slice's epochs agree", e3))
+            time.sleep(0.5)
+        out["epochs_s"] = time.monotonic() - t0
+        out["epochs"] = {str(s): [digests[k].get(f"i/general/standard/{s}",
+                                                 0) for k in owners(s)]
+                         for s in (s1, s2, s3)}
+        apart = [s for s in range(S) if len({
+            digests[k].get(f"i/general/standard/{s}", 0)
+            for k in owners(s)}) > 1]
+        check(set(apart) <= {s1, s2},
+              ("only a planted slice's epochs apart", apart, out["epochs"]))
+        out["epochs_apart"] = apart
+        out["passes"] = [cl_vars(p).get("anti_entropy", 0) for p in ports]
+        mark("epochs")
+        for nd in nodes:
+            launches.update(nd.launches())
+    finally:
+        stops, stop_errors = [], []
+
+        def stop(nd):
+            try:
+                stops.append(nd.stop())
+            except Exception as e:  # noqa: BLE001 — checked below
+                stop_errors.append(repr(e))
+
+        ts = [threading.Thread(target=stop, args=(nd,)) for nd in nodes
+              if nd is not None and nd.proc.poll() is None]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    check(not stop_errors and len(stops) == CLUSTER_NODES,
+          ("four SIGTERM exits with 0", stops, stop_errors))
+    out["stop_s"] = stops
+    mark("stop")
+    launches = {k: launches.get(k, 0) for k in KERNELS}
+    wall = time.monotonic() - t_phase
+    out.update(launches=launches, stats={}, steps=steps, seconds=wall,
+               kernels={})
+    log(f"converge on {card}: node {D} planted {CONV_SMALL} + {CONV_BULK} "
+        f"bits in slices {s1}, {s2}, node {R}'s slice {s3} rotted; restart "
+        f"{out['ready_s']:.2f} s; converged in {out['converge_s']:.2f} s "
+        f"(arm {json.dumps(out['arm'])}); repair {json.dumps(out['repair'])}; "
+        f"bounded {out['bounded_qps']:.1f} QPS, picks "
+        f"{json.dumps(picks)}; the repaired slice's epochs agree after "
+        f"{out['epochs_s']:.2f} s, epochs {json.dumps(out['epochs'])}, "
+        f"apart {out['epochs_apart']}; result cache "
+        f"{json.dumps(out['result_cache'])}; syncer "
+        f"{json.dumps(out['syncer'])}")
+    log(f"converge phase launches {launches}; {wall:.1f} s, by step "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    for k in CONVERGE_PATH:
+        check(launches[k] > 0, f"kernel {k} launched on the converge path")
     return out
 
 
@@ -7314,6 +7691,23 @@ def cluster_only(root: Path, card: str, seed: int) -> int:
     return 0
 
 
+def converge_only(root: Path, card: str, seed: int) -> int:
+    """--converge-only: phases 20 and 21 on fresh data; phase 21's record
+    as one JSON line (chiprun_out/converge.json, phase 20's beside it)."""
+    words = make_words(SLICES, seed)
+    sp = SparseRows(SLICES, seed)
+    conv: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = cluster_phase(words, sp, tmp, root, card, seed, None,
+                            converge_into=conv)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "converge.json").write_text(json.dumps(
+        {"cluster": rec, "converge": conv}, indent=1))
+    print(json.dumps({k: v for k, v in conv.items() if k != "kernels"}))
+    return 0
+
+
 def save_ptxas(build_dir: Path, tag: str) -> dict:
     """Copies the build's ptxas reports (nvcc -Xptxas -v, one log per
     library) to chiprun_out/ptxas/<tag>/ and returns each library's
@@ -7362,6 +7756,10 @@ def main(argv=None) -> int:
                     help="run only phase 20, the four-node cluster, on "
                          "fresh data (no phase 4 to set beside it), and "
                          "print its record as one JSON line")
+    ap.add_argument("--converge-only", action="store_true",
+                    help="run only phases 20 and 21 (replica convergence "
+                         "on phase 20's nodes) on fresh data, and print "
+                         "phase 21's record as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -7411,6 +7809,8 @@ def main(argv=None) -> int:
         return loadgen_rates_only(root, smi, args.seed)
     if args.cluster_only:
         return cluster_only(root, card, args.seed)
+    if args.converge_only:
+        return converge_only(root, card, args.seed)
     from pilosa_tpu_torch.ops import native
 
     t0 = time.monotonic()
@@ -7525,8 +7925,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"cluster phase: the parent holds "
             f"{torch.cuda.memory_allocated()} B on the card")
-        cl = cluster_phase(words, sp, tmp, root, card, args.seed, sl)
+        conv: dict = {}
+        cl = cluster_phase(words, sp, tmp, root, card, args.seed, sl,
+                           converge_into=conv)
         done("cluster")
+        phase_s["converge"] = conv["seconds"]
+        phase_s["cluster"] -= conv["seconds"]
     probes = probe_phase(device, args.seed)
     kern.update(probes["kernels"])
     done("probes")
@@ -7540,7 +7944,7 @@ def main(argv=None) -> int:
              "time": tq, "topn": topn, "writes": writes, "durability": dur,
              "bulk": bulk, "config": node, "admission": adm,
              "loadgen": lg, "host_fold": hf, "engine": eng,
-             "cluster": cl, "probes": probes}
+             "cluster": cl, "converge": conv, "probes": probes}
     for name, r in paths.items():
         # The residency and host fold phases move the fallbacks on
         # purpose, and check them themselves.
@@ -7576,7 +7980,8 @@ def main(argv=None) -> int:
          "bsi_slice": bsi, "time_slice": tq, "topn_slice": topn,
          "write_slice": writes, "durability": dur, "bulk": bulk,
          "config_node": node, "admission": adm, "loadgen": lg,
-         "host_fold": hf, "engine": eng, "cluster": cl, "probes": probes,
+         "host_fold": hf, "engine": eng, "cluster": cl, "converge": conv,
+         "probes": probes,
          "phase_seconds": phase_s,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

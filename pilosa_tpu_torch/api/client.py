@@ -4,7 +4,10 @@ package's client (`pilosa_tpu/api/client.py`), stdlib urllib with the
 bodies of the port's wire codec: bulk data in and out (import, export,
 backup and restore, the block digests), the schema calls they need, and
 the cluster's calls (a remote leg's query over protobuf, a replica's
-import, /fragment/nodes, /internal/status, /internal/message).
+import, /fragment/nodes, /internal/status, /internal/message) and
+replica convergence's (the epoch digest and its floor-raise at
+/internal/epochs, the attr-store diffs; the block digests and block
+data take a deadline).
 
 A transient failure (connection refused or reset, a timeout, 502 or
 503, an open breaker) is retried up to `retry_max` times with a capped
@@ -351,6 +354,47 @@ class InternalClient:
                                 content_type="application/octet-stream")
         self._check(status, resp, "internal/message")
 
+    def epoch_digest(self) -> dict:
+        """GET /internal/epochs: {"host", "epochs": {fragment key:
+        epoch}, "queue_depth"}."""
+        status, data = self._do("GET", "/internal/epochs")
+        self._check(status, data, "internal/epochs")
+        return json.loads(data.decode())
+
+    def advance_epochs(self, epochs: dict) -> int:
+        """POST /internal/epochs/advance: floor-raise the node's
+        fragment epochs; returns how many it raised."""
+        body = json.dumps({"epochs": {str(k): int(v)
+                                      for k, v in epochs.items()}}).encode()
+        status, data = self._do("POST", "/internal/epochs/advance",
+                                body=body, content_type="application/json")
+        self._check(status, data, "internal/epochs/advance")
+        try:
+            return int(json.loads(data.decode()).get("applied", 0))
+        except ValueError:
+            return 0
+
+    def column_attr_diff(self, index: str,
+                         blocks: List[Tuple[int, bytes]]) -> Dict[int, dict]:
+        """The index's column attrs of the blocks where this node's
+        store differs from `blocks` (this side's checksums)."""
+        return self._attr_diff(f"/index/{index}/attr/diff", blocks)
+
+    def row_attr_diff(self, index: str, frame: str,
+                      blocks: List[Tuple[int, bytes]]) -> Dict[int, dict]:
+        return self._attr_diff(f"/index/{index}/frame/{frame}/attr/diff",
+                               blocks)
+
+    def _attr_diff(self, path: str,
+                   blocks: List[Tuple[int, bytes]]) -> Dict[int, dict]:
+        body = json.dumps({"blocks": [{"id": int(bid), "checksum": cs.hex()}
+                                      for bid, cs in blocks]}).encode()
+        status, data = self._do("POST", path, body=body,
+                                content_type="application/json")
+        self._check(status, data, "attr/diff")
+        return {int(k): v
+                for k, v in json.loads(data.decode())["attrs"].items()}
+
     # -- queries -------------------------------------------------------------
 
     def execute_query(self, index: str, query: str,
@@ -432,10 +476,13 @@ class InternalClient:
     # -- block digests ---------------------------------------------------------
 
     def fragment_blocks(self, index: str, frame: str, view: str,
-                        slice_: int) -> List[Tuple[int, bytes]]:
-        """[(block id, SHA-1)]; a fragment the node lacks reads empty."""
+                        slice_: int, deadline: Optional[float] = None
+                        ) -> List[Tuple[int, bytes]]:
+        """[(block id, SHA-1)]; a fragment the node lacks reads empty.
+        `deadline` (time.monotonic()) bounds the waits and retries."""
         status, data = self._do("GET", "/fragment/blocks", params={
-            "index": index, "frame": frame, "view": view, "slice": slice_})
+            "index": index, "frame": frame, "view": view, "slice": slice_},
+            deadline=deadline)
         if status == 404:
             return []
         self._check(status, data, "fragment/blocks")
@@ -443,14 +490,15 @@ class InternalClient:
                 for b in json.loads(data.decode())["blocks"]]
 
     def block_data(self, index: str, frame: str, view: str, slice_: int,
-                   block: int) -> Tuple[List[int], List[int]]:
+                   block: int, deadline: Optional[float] = None
+                   ) -> Tuple[List[int], List[int]]:
         """(row ids, slice-local column ids) of one block, over protobuf;
         a fragment the node lacks reads empty."""
         req = BlockDataRequest(index=index, frame=frame, view=view,
                                slice=slice_, block=block)
         status, data = self._do("GET", "/fragment/block/data",
                                 body=req.encode(), content_type=PROTOBUF_CT,
-                                accept=PROTOBUF_CT)
+                                accept=PROTOBUF_CT, deadline=deadline)
         if status == 404:
             return [], []
         self._check(status, data, "fragment/block/data")

@@ -29,7 +29,12 @@ bodies and status codes.
          runs nothing; ?profile=true adds "profile", the query's
          measured phases, bytes and roofline. Headers: X-Pilosa-Tenant
          (default "default"), X-Pilosa-Deadline-Us (the budget left, us;
-         or ?deadline=50ms; else [cluster] query-deadline). Admission
+         or ?deadline=50ms; else [cluster] query-deadline),
+         X-Pilosa-Staleness (or ?staleness=; a bare number is ms, else a
+         duration, "5s"; unparseable is 0; else [cluster]
+         default-read-staleness): > 0 makes a bounded read, which may
+         be served by an in-sync replica or the result cache; a remote
+         leg takes none. Admission
          (with a scheduler): 429 + Retry-After when shed, 504 when the
          deadline expires first; a 200 of a tenant over [obs]
          cost-debt-threshold of the device time carries
@@ -50,6 +55,16 @@ bodies and status codes.
          tag byte, then CreateSlice / CreateIndex / DeleteIndex /
          CreateFrame / DeleteFrame), applied by the server
   GET    /internal/status               this node's NodeStatus (protobuf)
+  GET    /internal/epochs               {"host", "epochs": {"i/f/view/slice":
+         replication epoch}, "queue_depth"} (Holder.fragment_epochs; the
+         scheduler's queued + in flight)
+  POST   /internal/epochs/advance       {"epochs": {key: epoch}}: each
+         known fragment's epoch floor-raised (never lowered; unknown
+         keys skipped)                 -> {"applied": fragments raised}
+  POST   /index/{index}/attr/diff       {"blocks": [{"id", "checksum"}]}:
+         the column attrs of this node's blocks that differ from the
+         sender's                      -> {"attrs": {id: {...}}}
+  POST   /index/{index}/frame/{frame}/attr/diff   the same of the row attrs
   GET    /export?index=&frame=&view=&slice=   every bit as `row,col` lines
   GET    /fragment/data?index=&frame=&view=&slice=   the fragment's tar
   POST   /fragment/data?...             restore the fragment from a tar
@@ -103,7 +118,9 @@ bodies and status codes.
          counters (Executor.host_cache_stats), "sched" (the scheduler's
          snapshot) when one is wired, and "count_calibration" (the last
          start-up check's record, ops.calibrate, K4's under "sparse")
-         once a start on a card has checked its kernels
+         once a start on a card has checked its kernels, "epochs" (the
+         EpochTracker's snapshot) and "result_cache" (the result cache's
+         size, cap, hit rate and events)
 
 GET /metrics renders one obs.prom.Registry, whose collectors bridge the
 stores at scrape time (the JAX handler's families and names): the stats
@@ -131,11 +148,13 @@ pilosa_perf_regression) and the flight recorder
 counters and pilosa_breaker_state{host,state} with a cluster client,
 pilosa_member_state{host,state} with a cluster), hinted handoff
 (pilosa_hints_queued/replayed/dropped_total{target}, pilosa_hint_bytes
-{target} with a hint manager) and the replicated writes'
-pilosa_write_consistency_total{level,outcome}. A family whose store the
-port lacks (the compile counters, the plan cache, the row caches, the
-epochs and the result cache) is left out. A collector that raises is
-skipped.
+{target} with a hint manager), the replicated writes'
+pilosa_write_consistency_total{level,outcome} and the read path's
+pilosa_read_replica_total{replica,staleness},
+pilosa_result_cache_events_total{event} and
+pilosa_result_cache_entries. A family whose store the port lacks (the
+compile counters, the plan cache, the row caches) is left out. A
+collector that raises is skipped.
 
 Every query outcome is recorded once, in _post_query, into the SLO
 recorder (shed, deadline, backpressure, client and server errors,
@@ -174,6 +193,7 @@ import numpy as np
 
 from ..bsi.field import FieldNotFoundError, FieldValueError
 from .client import ClientError
+from ..core.attr import diff_blocks
 from ..core.fragment import INTEGRITY_STATS
 from ..core.row import Row
 from ..core.timequantum import parse_time_quantum
@@ -205,6 +225,24 @@ from ..wire import (PROTOBUF_CT, BlockDataRequest, BlockDataResponse,
                     attrs_to_proto, result_to_proto, unmarshal_message)
 
 VERSION = "0.1.0"
+
+
+def parse_staleness(raw: str) -> float:
+    """X-Pilosa-Staleness / ?staleness= in seconds: a bare number is
+    milliseconds, anything else a duration ("500ms", "2s"). A value that
+    does not parse is 0, a strict read: a typo never buys a staler
+    answer."""
+    raw = raw.strip()
+    if not raw:
+        return 0.0
+    try:
+        return max(0.0, float(raw) / 1e3)
+    except ValueError:
+        pass
+    try:
+        return max(0.0, parse_duration(raw))
+    except (ValueError, KeyError):
+        return 0.0
 
 # GET /: a page that sends PQL to /index/{i}/query and shows /schema.
 _WEBUI_PAGE = """<!doctype html>
@@ -353,6 +391,9 @@ class Handler:
         # here only) and the misses journaled.
         self.hints = None
         self.write_consistency = "quorum"
+        # [cluster] default-read-staleness, seconds: the bound of a read
+        # that brings none (0: strict).
+        self.default_read_staleness = 0.0
         # The trace rings behind /debug/queries (a server passes one
         # sized by [obs]).
         self.tracer = tracer if tracer is not None else Tracer()
@@ -429,6 +470,13 @@ class Handler:
         r("GET", r"/status", self._get_status)
         r("POST", r"/internal/message", self._post_internal_message)
         r("GET", r"/internal/status", self._get_internal_status)
+        r("GET", r"/internal/epochs", self._get_internal_epochs)
+        r("POST", r"/internal/epochs/advance",
+          self._post_internal_epochs_advance)
+        r("POST", r"/index/(?P<index>[^/]+)/attr/diff",
+          self._post_index_attr_diff)
+        r("POST", r"/index/(?P<index>[^/]+)/frame/(?P<frame>[^/]+)/attr/diff",
+          self._post_frame_attr_diff)
         r("GET", r"/schema", self._get_schema)
         r("GET", r"/slices/max", self._get_slice_max)
         r("GET", r"/version", self._get_version)
@@ -525,6 +573,80 @@ class Handler:
         if self._accepts_proto(headers):
             return _proto_resp(MaxSlicesResponse(max_slices=maxes))
         return _json_resp({"maxSlices": maxes})
+
+    # -- replica convergence ------------------------------------------------------
+
+    def queue_depth(self) -> int:
+        """This node's load signal in the epoch digest: the scheduler's
+        queued queries plus those in flight (0 without one)."""
+        if self.scheduler is None:
+            return 0
+        try:
+            d = self.scheduler.snapshot()
+            return int(d.get("queued", 0)) + int(d.get("inflight", 0))
+        except Exception:  # noqa: BLE001 — a load signal only
+            return 0
+
+    def _get_internal_epochs(self, pv, params, headers, body) -> Response:
+        """The replication-epoch digest peers read on their status poll
+        (the JAX handler's, pilosa_tpu/api/handler.py:2867-2886)."""
+        return _json_resp({"host": self.host,
+                           "epochs": self.holder.fragment_epochs(),
+                           "queue_depth": self.queue_depth()})
+
+    def _post_internal_epochs_advance(self, pv, params, headers,
+                                      body) -> Response:
+        """Floor-raise the epochs of known fragments (a hint replay's or
+        anti-entropy's reconcile). Raising is the only direction, an
+        unknown fragment or a malformed entry is skipped: a push never
+        makes state."""
+        try:
+            epochs = json.loads(body or b"{}").get("epochs") or {}
+        except (ValueError, AttributeError):
+            return _json_resp({"error": "bad epoch advance body"}, 400)
+        applied = 0
+        for key, epoch in epochs.items():
+            parts = str(key).split("/")
+            if len(parts) != 4:
+                continue
+            try:
+                slice_, epoch = int(parts[3]), int(epoch)
+            except ValueError:
+                continue
+            frag = self.holder.fragment(parts[0], parts[1], parts[2], slice_)
+            if frag is None:
+                continue
+            try:
+                before = frag.epoch
+                if frag.advance_epoch(epoch) > before:
+                    applied += 1
+            except Exception:  # noqa: BLE001 — one bad fragment
+                continue
+        return _json_resp({"applied": applied})
+
+    def _post_index_attr_diff(self, pv, params, headers, body) -> Response:
+        idx = self.holder.index(pv["index"])
+        if idx is None:
+            raise IndexNotFoundError()
+        return self._attr_diff(idx.column_attr_store, body)
+
+    def _post_frame_attr_diff(self, pv, params, headers, body) -> Response:
+        f = self.holder.frame(pv["index"], pv["frame"])
+        if f is None:
+            raise FrameNotFoundError()
+        return self._attr_diff(f.row_attr_store, body)
+
+    def _attr_diff(self, store, body: bytes) -> Response:
+        """The attrs of every block of this store that the sender lacks
+        or holds otherwise, by the sender's block checksums."""
+        req = json.loads(body.decode() or "{}")
+        theirs = [(int(b["id"]), bytes.fromhex(b["checksum"]))
+                  for b in req.get("blocks", [])]
+        attrs = {}
+        for bid in diff_blocks(theirs, store.blocks()):
+            attrs.update({str(k): v
+                          for k, v in store.block_data(bid).items()})
+        return _json_resp({"attrs": attrs})
 
     # -- the cluster's routes ---------------------------------------------------
 
@@ -649,11 +771,20 @@ class Handler:
 
     def _import_replicate(self, req, coord) -> None:
         """After the local apply: the batch to the live owners in
-        parallel with ?remote=true, a hint for every owner it missed,
-        and a 503 when the acks fall short (the hints are durable
-        already, so a client's retry is safe)."""
+        parallel with ?remote=true, a hint for every owner it missed
+        (with the epochs the local apply reached, which the executor's
+        tracker observes now), and a 503 when the acks fall short (the
+        hints are durable already, so a client's retry is safe)."""
         live, down, required, level = coord
         ts = req.timestamps if len(req.timestamps) else None
+        epochs = {}
+        f = self.holder.frame(req.index, req.frame)
+        for vname, view in (list(f.views.items()) if f is not None else []):
+            frag = view.fragments.get(req.slice)
+            if frag is not None and not frag._pending_load:
+                key = f"{req.index}/{req.frame}/{vname}/{req.slice}"
+                epochs[key] = frag.epoch
+                self.executor.epochs.observe_local(key, frag.epoch)
 
         def send(node):
             self.client_factory(node.host).import_bits(
@@ -669,7 +800,8 @@ class Handler:
                 failures.append((n.host, e))
         for host in [n.host for n in down] + [h for h, _ in failures]:
             self.hints.enqueue_import(host, req.index, req.frame, req.slice,
-                                      req.row_ids, req.column_ids, ts)
+                                      req.row_ids, req.column_ids, ts,
+                                      epochs=epochs)
         acked = 1 + len(live) - len(failures)
         if acked >= required:
             CONSISTENCY_STATS.inc(
@@ -835,6 +967,8 @@ class Handler:
         cal = calibration_snapshot()
         if cal is not None:
             out["count_calibration"] = cal
+        out["epochs"] = self.executor.epochs.snapshot()
+        out["result_cache"] = self.executor.result_cache.snapshot()
         return _json_resp(out)
 
     # -- /metrics --------------------------------------------------------------
@@ -855,12 +989,48 @@ class Handler:
         for fn in (self._collect_runtime, self._collect_device,
                    self._collect_host_cache, self._collect_cluster,
                    self._collect_membership, self._collect_hints,
-                   self._collect_routes, self._collect_sched,
+                   self._collect_routes, self._collect_read_path,
+                   self._collect_sched,
                    self._collect_fragments, self._collect_storage,
                    self._collect_integrity, self._collect_slo,
                    self._collect_flight, health.families,
                    profile.STATS.families, costs.families):
             reg.register_collector(fn)
+
+    def _collect_read_path(self) -> list:
+        """The replica picks by class and the result cache's events and
+        size (the JAX handler's families)."""
+        fams = []
+        ex = self.executor
+        picks = ex.read_stats.copy()
+        if picks:
+            fam = prom.MetricFamily(
+                "pilosa_read_replica_total", "counter",
+                "Read-path slice placements by replica class (owner = "
+                "the strict ring pick, follower = spread to an in-sync "
+                "replica, fallback_owner = a bounded read with no "
+                "eligible follower) and staleness class (strict = "
+                "X-Pilosa-Staleness absent/0, bounded = a positive "
+                "budget).")
+            for k, v in sorted(picks.items()):
+                pick, _, sclass = k.partition("|")
+                fam.add(v, {"replica": pick, "staleness": sclass or "strict"})
+            fams.append(fam)
+        events = ex.result_cache.stats.copy()
+        if events:
+            fam = prom.MetricFamily(
+                "pilosa_result_cache_events_total", "counter",
+                "Epoch-keyed result cache events: hit / miss / "
+                "invalidate (an entry keyed to a superseded epoch) / "
+                "evict (LRU) / bypass (strict or uncacheable query).")
+            for k, v in sorted(events.items()):
+                fam.add(v, {"event": k})
+            fams.append(fam)
+        fams.append(prom.MetricFamily(
+            "pilosa_result_cache_entries", "gauge",
+            "Entries currently held by the epoch-keyed result "
+            "cache.").add(len(ex.result_cache)))
+        return fams
 
     def _collect_sched(self) -> list:
         """Queue depth by tenant ("all" the total), sheds by reason,
@@ -1704,12 +1874,23 @@ class Handler:
             share = costs.LEDGER.tenant_share(label)
         return f"{share:.3f}" if share > thr else None
 
+    def _read_staleness(self, params, headers, remote: bool) -> float:
+        """A read's bound: X-Pilosa-Staleness, else ?staleness=, else
+        default_read_staleness; a remote leg's is 0 (its coordinator
+        picked its replica)."""
+        if remote:
+            return 0.0
+        raw = (headers.get("x-pilosa-staleness", "")
+               or params.get("staleness", ""))
+        return parse_staleness(raw) if raw else self.default_read_staleness
+
     def _exec_options(self, params, headers, remote: bool) -> ExecOptions:
         """The query's deadline: X-Pilosa-Deadline-Us (the budget left,
         us, which a coordinator sends its legs), else ?deadline= (a
         duration, "50ms"), else, for a coordinator, the server's
         default_deadline ([cluster] query-deadline; 0: none);
-        ?partial=true leaves out the slices no owner can serve."""
+        ?partial=true leaves out the slices no owner can serve; the
+        read's staleness bound (_read_staleness)."""
         deadline = None
         hdr = headers.get("x-pilosa-deadline-us", "")
         if hdr:
@@ -1719,7 +1900,9 @@ class Handler:
         elif not remote and self.default_deadline > 0:
             deadline = time.monotonic() + self.default_deadline
         return ExecOptions(remote=remote, deadline=deadline,
-                           partial=params.get("partial") == "true")
+                           partial=params.get("partial") == "true",
+                           staleness=self._read_staleness(params, headers,
+                                                          remote))
 
     def _post_query_inner(self, pv, params, headers, body,
                           info: dict) -> Response:
@@ -1840,7 +2023,9 @@ class Handler:
                   if s != ""]
         try:
             q = parse_string(body.decode())
-            plan = self.executor.explain(index, q, slices or None)
+            plan = self.executor.explain(
+                index, q, slices or None,
+                staleness=self._read_staleness(params, headers, False))
         except (PilosaError, ParseError) as e:
             return _json_resp({"error": str(e)}, 400)
         plan = {**plan, "query": body.decode()[:1024]}

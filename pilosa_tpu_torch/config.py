@@ -14,16 +14,16 @@ Durations accept Go-style strings ("10m", "60s", "1h30m", "250ms",
 "50us", "10ns"); bare numbers are seconds.
 
 What the port's Server (server.py) acts on: data-dir, host, log-path,
-use-device, [log], [mesh], [storage], [integrity] (but
-result-cache-verify-1-in), [obs] (but fleet-scrape-interval), [sched],
-[slo], [health], [[schema.indexes]] and [cluster]'s type (http or
-static), hosts, replicas, partitions, query-deadline, client-timeout,
-retries, retry-backoff, breaker-threshold, breaker-cooldown,
-prefer-local-reads, write-consistency, hint-max-bytes,
-hint-drain-interval and polling-interval. It reads and does not act on
-yet [anti-entropy], [rebalance] and [cluster] default-read-staleness
-and result-cache-size; it refuses type gossip or spmd and a non-empty
-ici-hosts, naming the key.
+use-device, [log], [mesh], [storage], [integrity] (with
+result-cache-verify-1-in), [anti-entropy] (interval, jitter,
+block-deadline), [obs] (but fleet-scrape-interval), [sched], [slo],
+[health], [[schema.indexes]] and [cluster]'s type (http or static),
+hosts, replicas, partitions, query-deadline, client-timeout, retries,
+retry-backoff, breaker-threshold, breaker-cooldown, prefer-local-reads,
+write-consistency, hint-max-bytes, hint-drain-interval,
+polling-interval, default-read-staleness and result-cache-size. It
+reads and does not act on yet [rebalance]; it refuses type gossip or
+spmd and a non-empty ici-hosts, naming the key.
 
 Where the port departs from the JAX node, on purpose:
 

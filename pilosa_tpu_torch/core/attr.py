@@ -4,7 +4,8 @@ either package opens the other's stores.
 
 Values are str, int, bool or float; set_attrs merges into the stored
 map, and a None value deletes its key. blocks() gives a SHA-1 per block
-of 100 ids, which replicas compare to find the blocks that differ.
+of 100 ids, which replicas compare to find the blocks that differ
+(diff_blocks: the attr-diff routes and the anti-entropy attr sync).
 """
 
 from __future__ import annotations
@@ -123,3 +124,13 @@ class AttrStore:
         hi = lo + ATTR_BLOCK_SIZE
         return {id_: json.loads(data) for id_, data in self._rows()
                 if lo <= id_ < hi}
+
+
+def diff_blocks(local: List[Tuple[int, bytes]],
+                remote: List[Tuple[int, bytes]]) -> List[int]:
+    """The block ids, sorted, where `remote` differs from `local`: held
+    only remotely, or held by both with different checksums (the attr
+    diff's rule: the requester's blocks are `local`, this store's
+    `remote`)."""
+    lmap = dict(local)
+    return sorted(blk for blk, sum_ in remote if lmap.get(blk) != sum_)

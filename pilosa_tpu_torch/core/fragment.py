@@ -9,15 +9,19 @@ date (parallel/serve.py scatters the logged bits into it, or restages
 the view), the rank cache of row counts behind the host TopN (`top`),
 kept in `<fragment>.cache` as the JAX package keeps it, the 100-row
 block checksums (`blocks`, `block_data`), the bits in position order
-(`bits`, `for_each_bit`: export) and the tar of a backup
-(`write_to_tar`, `read_from_tar`).
+(`bits`, `for_each_bit`: export), the tar of a backup
+(`write_to_tar`, `read_from_tar`) and the majority merge of one block
+across replicas (`merge_block`, anti-entropy: core/syncer.py).
 
 Durability and integrity (pilosa_tpu/core/fragment.py:375-1090):
 - Lazy load: `open(lazy=True)` (the holder's directory scan) takes the
   flock and parses the file on first touch (`ensure_loaded`). A file
   that fails verification (its footer, or a damaged op record in the
-  middle of the log) raises CorruptFragmentError on every touch and
-  stays in place; the other fragments serve on.
+  middle of the log) is read-repaired from a replica through the
+  holder's IntegrityContext (`_recover_corrupt`), under the lock, so a
+  concurrent touch waits and then reads the repaired image; without a
+  verified copy it raises CorruptFragmentError on every touch and stays
+  in place; the other fragments serve on.
 - A crash mid-append leaves a torn final op record: load cuts it off
   the file before it attaches the append fd (WAL_STATS `torn_tails`).
 - Snapshots run in the background: past max_op_n ops a writer only
@@ -33,6 +37,15 @@ Durability and integrity (pilosa_tpu/core/fragment.py:375-1090):
   are shed with WriteBackpressureError after the deadline.
 - `op_n` counts the ops written since the newest snapshot's freeze
   (the main file's op log, or the side log while a snapshot runs).
+- The replication epoch (`epoch`, pilosa_tpu/core/fragment.py:294-372):
+  one bump a logged op or log reset, comparable across replicas. It is
+  kept as a base in the `<fragment>.epoch` sidecar (the JAX package's
+  bytes: the decimal base) such that epoch = base + the ops the file
+  holds past its snapshot region; the base is written before a
+  snapshot's rename, at a clean close, at a floor-raise
+  (`advance_epoch`) and after a read-repair, and is only ever raised,
+  so a crash can over-state the reloaded epoch but never regress it.
+  It is not MUTATION_EPOCH, the process-wide count the stager reads.
 
 Bit addressing: pos = rowID * SLICE_WIDTH + (columnID % SLICE_WIDTH).
 """
@@ -44,6 +57,7 @@ import fcntl
 import hashlib
 import io
 import json
+import logging
 import os
 import tarfile
 import threading
@@ -71,8 +85,24 @@ MAX_OP_N = 2000
 # Rows per checksummed block (the reference's HashBlockSize).
 HASH_BLOCK_SIZE = 100
 
-# Corrupt loads found (`corrupt`) and left in place (`unrepaired`).
+# Corrupt loads found (`corrupt`), restored from a replica (`repaired`)
+# and left in place (`unrepaired`).
 INTEGRITY_STATS = StatMap()
+
+_log = logging.getLogger("pilosa_tpu_torch.fragment")
+
+
+class IntegrityContext:
+    """The holder's read-repair wiring, shared by reference down to
+    every fragment, so a server can set the source after its cluster
+    client exists. `repair_source(fragment) -> Optional[bytes]` returns
+    a verified tar (write_to_tar's format) from a live replica, or None
+    when no replica can supply one."""
+
+    __slots__ = ("repair_source",)
+
+    def __init__(self, repair_source=None):
+        self.repair_source = repair_source
 
 
 class _MutationEpoch:
@@ -97,12 +127,38 @@ def bitmap_block_checksums(bm: Bitmap) -> Dict[int, bytes]:
     every non-empty 100-row block of a bitmap: what Fragment.blocks()
     serves, computable on a parsed file."""
     out: Dict[int, bytes] = {}
-    span = HASH_BLOCK_SIZE * SLICE_WIDTH
-    for blk in sorted({int(k) // (span >> 16) for k in bm.keys}):
-        vals = bm.slice_range(blk * span, (blk + 1) * span)
-        if len(vals):
-            out[blk] = hashlib.sha1(vals.astype("<u8").tobytes()).digest()
+    per = HASH_BLOCK_SIZE * SLICE_WIDTH >> 16  # containers a block
+    cur, h, seen = None, None, False
+    # One container at a time into the block's digest: the hash of the
+    # concatenation, without materializing the block's values (a dense
+    # 100-row block is tens of MB of them).
+    for key, c in zip(bm.keys, bm.containers):
+        blk = int(key) // per
+        if blk != cur:
+            if seen:
+                out[cur] = h.digest()
+            cur, h, seen = blk, hashlib.sha1(), False
+        v = c.values()
+        if len(v):
+            seen = True
+            vals = v.astype("<u8")
+            vals |= np.uint64(int(key) << 16)
+            h.update(vals)
+    if seen:
+        out[cur] = h.digest()
     return out
+
+
+def bitmap_from_tar(tar_bytes: bytes) -> Optional[Bitmap]:
+    """The `data` member of a write_to_tar archive, parsed with its
+    integrity footer verified (ValueError when it fails); None without
+    one."""
+    with tarfile.open(fileobj=io.BytesIO(tar_bytes), mode="r|") as tar:
+        for member in tar:
+            if member.name == "data":
+                return Bitmap.from_bytes(tar.extractfile(member).read(),
+                                         verify=True)
+    return None
 
 
 def _parse_tar_data(data: bytes) -> Bitmap:
@@ -139,7 +195,7 @@ class Fragment:
                  slice_: int, cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  row_attr_store=None, wal: Optional[WalConfig] = None,
-                 stats=None):
+                 stats=None, integrity: Optional[IntegrityContext] = None):
         self.path = path
         self.index = index
         self.frame = frame
@@ -194,6 +250,15 @@ class Fragment:
         self._blocks: List[Tuple[int, bytes]] = []
         # Wall-clock time of the scrubber's last pass over this fragment.
         self.last_scrub = 0.0
+        # Read-repair's source (None: a corrupt file stays corrupt).
+        self.integrity = integrity
+        # The replication epoch (module docstring) and the base the
+        # snapshot in flight will persist. _epoch_mu serializes sidecar
+        # writes: the snapshot worker writes without _mu, and two writers
+        # of one temp file can interleave their digits.
+        self.epoch = 0
+        self._snap_epoch_base = 0
+        self._epoch_mu = threading.Lock()
 
     @property
     def storage(self) -> Bitmap:
@@ -238,10 +303,12 @@ class Fragment:
 
     def ensure_loaded(self):
         """Parse the file, attach the WAL and load the rank cache, once.
-        Call under _mu. `_pending_load` clears only on success: a corrupt
-        file raises CorruptFragmentError on every touch and never leaves
-        the fragment looking loaded but empty, which would take writes
-        and then snapshot the empty image over the real data."""
+        Call under _mu. A file that fails verification is read-repaired
+        (_recover_corrupt). `_pending_load` clears only on success: an
+        unrepaired file raises CorruptFragmentError on every touch (each
+        one tries the repair again) and never leaves the fragment
+        looking loaded but empty, which would take writes and then
+        snapshot the empty image over the real data."""
         if not self._pending_load or self._loading:
             return
         self._loading = True
@@ -249,15 +316,7 @@ class Fragment:
             try:
                 self._load_storage()
             except ValueError as err:
-                self._storage = Bitmap()
-                self.op_n = 0
-                INTEGRITY_STATS.inc("corrupt")
-                INTEGRITY_STATS.inc("unrepaired")
-                if self.stats:
-                    self.stats.count("corruptN", 1)
-                raise CorruptFragmentError(
-                    f"fragment {self.index}/{self.frame}/{self.view}/"
-                    f"{self.slice} is corrupt ({self.path}): {err}") from err
+                self._recover_corrupt(err)
             self._load_cache()
             self._pending_load = False
         finally:
@@ -297,6 +356,141 @@ class Fragment:
         except ValueError:
             self._detach_op_file()
             raise
+        # Every op parsed past the snapshot region (the side log's
+        # included) bumped the epoch before the restart.
+        self.epoch = max(self.epoch, self._read_epoch_base() + self.op_n)
+
+    def _recover_corrupt(self, err: BaseException):
+        """Read-repair (pilosa_tpu/core/fragment.py:507-560), under _mu:
+        ask the IntegrityContext's source for a verified tar from a
+        replica and swap it in. The rotted file is moved aside as
+        `<fragment>.corrupt` only once that copy is in hand; without one
+        it stays where it is and CorruptFragmentError is raised (never
+        an empty image). A side log the crash left is replayed onto the
+        copy (its ops are absolute positions); one that is itself rotted
+        is moved aside as `.wal.corrupt`. The epoch is restored, the
+        mutation log resets (a staged image restages) and the sidecar
+        is rewritten."""
+        INTEGRITY_STATS.inc("corrupt")
+        if self.stats:
+            self.stats.count("corruptN", 1)
+        _log.error("corrupt fragment %s (%s/%s/%s/%d): %s; trying a "
+                   "read-repair from a replica", self.path, self.index,
+                   self.frame, self.view, self.slice, err)
+        self._storage = Bitmap()
+        self.op_n = 0
+        bm = None
+        src = self.integrity.repair_source if self.integrity else None
+        if src is not None:
+            try:
+                tar_bytes = src(self)
+                if tar_bytes:
+                    bm = bitmap_from_tar(tar_bytes)
+            except Exception as rerr:  # noqa: BLE001 — stays unrepaired
+                _log.error("read-repair of %s failed: %s", self.path, rerr)
+        if bm is None:
+            INTEGRITY_STATS.inc("unrepaired")
+            raise CorruptFragmentError(
+                f"fragment {self.index}/{self.frame}/{self.view}/"
+                f"{self.slice} is corrupt and no replica supplied a "
+                f"verified copy ({self.path}): {err}") from err
+        if os.path.exists(self.path):
+            os.replace(self.path, self.path + ".corrupt")
+        with open(self._tmp_path, "wb") as f:
+            bm.write_to(f, footer=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(self._tmp_path, self.path)
+        # Attached to the parsed copy: reading the new file back would
+        # put it through the bit-rot seam again.
+        self._storage = bm
+        self.op_n = bm.op_n
+        self._op_file = open(self.path, "ab", buffering=0)
+        self._wal.retarget(self._op_file)
+        self._storage.op_writer = self._wal
+        try:
+            self._replay_side_wal()
+        except ValueError as serr:
+            _log.error("side log of repaired fragment %s is rotted too "
+                       "(%s): moved aside, anti-entropy converges it",
+                       self.path, serr)
+            try:
+                os.replace(self.side_wal_path,
+                           self.side_wal_path + ".corrupt")
+            except OSError:
+                pass
+        self.epoch = max(self.epoch, self._read_epoch_base() + self.op_n)
+        self._log_reset()
+        self._write_epoch_base(self.epoch - self.op_n)
+        INTEGRITY_STATS.inc("repaired")
+        _log.warning("read-repair: %s (%s/%s/%s/%d) restored from a "
+                     "replica", self.path, self.index, self.frame,
+                     self.view, self.slice)
+
+    # -- the replication epoch -------------------------------------------------
+
+    @property
+    def epoch_path(self) -> str:
+        return self.path + ".epoch"
+
+    def _read_epoch_base(self) -> int:
+        """The sidecar's base; 0 when it is absent or unreadable."""
+        try:
+            with open(self.epoch_path, "rb") as f:
+                return max(0, int(f.read().decode().strip() or "0"))
+        except (OSError, ValueError):
+            return 0
+
+    def _write_epoch_base(self, base: int) -> None:
+        """Persist the base (temp, fsync, rename) under _epoch_mu, never
+        below the one on disk: the snapshot worker and a floor-raise then
+        commute. One the sidecar holds already is not written again (a
+        close of a fragment whose base did not move costs no fsync). A
+        failed write costs only exactness at the next load, which
+        over-states. (The JAX package writes without a lock, and two
+        writers racing on its temp file can leave a base no epoch
+        reached.)"""
+        with self._epoch_mu:
+            on_disk = self._read_epoch_base()
+            if int(base) <= on_disk and os.path.exists(self.epoch_path):
+                return
+            base = max(int(base), on_disk)
+            tmp = self.epoch_path + ".tmp"
+            try:
+                with open(tmp, "wb") as f:
+                    f.write(str(base).encode())
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, self.epoch_path)
+            except OSError:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+
+    def _file_op_n(self) -> int:
+        """The ops the main file would hold past its snapshot region
+        after a load now: the side log's, and while a snapshot runs the
+        old file's too."""
+        return self.op_n + (self._snap_base_op_n if self._snapshotting
+                            else 0)
+
+    def advance_epoch(self, to: int) -> int:
+        """Floor-raise the epoch to at least `to` (anti-entropy's
+        reconcile, a hint replay): never lowers it, and persists the new
+        base at once. Returns the epoch."""
+        with self._mu:
+            self.ensure_loaded()
+            to = int(to)
+            if to <= self.epoch:
+                return self.epoch
+            delta = to - self.epoch
+            self.epoch = to
+            if self._snapshotting:
+                # The worker persists _snap_epoch_base at its rename.
+                self._snap_epoch_base += delta
+            self._write_epoch_base(self.epoch - self._file_op_n())
+            return self.epoch
 
     def _detach_op_file(self):
         self._storage.op_writer = None
@@ -358,6 +552,10 @@ class Fragment:
                 fcntl.flock(self._lock_file, fcntl.LOCK_UN)
                 self._lock_file.close()
                 self._lock_file = None
+            # A clean close persists the exact base (a fragment never
+            # loaded has nothing truer than the sidecar on disk).
+            if not self._pending_load:
+                self._write_epoch_base(self.epoch - self.op_n)
             # A reopen parses again and reattaches the WAL.
             self._pending_load = True
 
@@ -527,6 +725,7 @@ class Fragment:
 
     def _log_append(self, op: int, pos: int, churn: bool):
         self.generation += 1
+        self.epoch += 1
         MUTATION_EPOCH.bump()
         self._log.append((op, pos, churn))
         if len(self._log) > self._log_limit:
@@ -538,6 +737,7 @@ class Fragment:
         """A whole-storage change (import, replace): consumers at any
         earlier generation must restage."""
         self.generation += 1
+        self.epoch += 1
         MUTATION_EPOCH.bump()
         self._log.clear()
         self._log_base = self.generation
@@ -615,6 +815,84 @@ class Fragment:
         self.cache = new_cache(self.cache_type, self.cache_size)
         self.rebuild_cache()
 
+    # -- anti-entropy ------------------------------------------------------------
+
+    def merge_block(self, block_id: int,
+                    data: List[Tuple[np.ndarray, np.ndarray]]):
+        """Majority merge of one 100-row block across replicas
+        (pilosa_tpu/core/fragment.py:1229-1265): `data` holds each peer's
+        (row ids, slice-local column ids) of the block. A bit is in the
+        consensus when at least half the participants, rounded up (this
+        copy among them), hold it. The consensus is applied here
+        (_apply_consensus); returns each peer's ((set rows, set cols),
+        (clear rows, clear cols)), the diff that brings it there."""
+        lo = block_id * HASH_BLOCK_SIZE * SLICE_WIDTH
+        hi = lo + HASH_BLOCK_SIZE * SLICE_WIDTH
+        width = np.uint64(SLICE_WIDTH)
+        with self._mu:
+            participants = [self.storage.slice_range(lo, hi)]
+            for rows, cols in data:
+                rows = np.asarray(rows, dtype=np.uint64)
+                cols = np.asarray(cols, dtype=np.uint64)
+                if rows.shape != cols.shape:
+                    raise ValueError("pair set mismatch")
+                pos = rows * width + cols
+                participants.append(np.unique(pos[(pos >= lo) & (pos < hi)]))
+            majority = (len(participants) + 1) // 2
+            all_pos, counts = np.unique(np.concatenate(participants),
+                                        return_counts=True)
+            consensus = all_pos[counts >= majority]
+            out = []
+            for i, mine in enumerate(participants):
+                sets = np.setdiff1d(consensus, mine, assume_unique=True)
+                clears = np.setdiff1d(mine, consensus, assume_unique=True)
+                if i == 0:
+                    self._apply_consensus(sets, clears)
+                else:
+                    out.append(((sets // width, sets % width),
+                                (clears // width, clears % width)))
+            return out
+
+    # Under this many diff bits a merge writes bit by bit: the WAL and
+    # the mutation log keep every op, and a staged image takes them as
+    # one scatter; at or over it, one bulk apply and a snapshot.
+    _CONSENSUS_BULK_MIN = 128
+
+    def _apply_consensus(self, sets: np.ndarray, clears: np.ndarray):
+        """Apply a consensus diff (storage positions), under _mu. Under
+        _CONSENSUS_BULK_MIN bits: set_bit / clear_bit each (logged,
+        WAL-durable, scattered into a staged view). Otherwise the WAL is
+        detached for add_many / remove_many, the touched rows are
+        recounted into the rank cache, the mutation log resets (a staged
+        view restages; generation moves, so no memo or host-cache entry
+        of the old bits validates) and a snapshot that covers the
+        applied bits is requested, not waited for (its splice needs the
+        lock this thread holds)."""
+        base = self.slice * SLICE_WIDTH
+        if len(sets) + len(clears) < self._CONSENSUS_BULK_MIN:
+            for p in sets.tolist():
+                self.set_bit(p // SLICE_WIDTH, base + p % SLICE_WIDTH)
+            for p in clears.tolist():
+                self.clear_bit(p // SLICE_WIDTH, base + p % SLICE_WIDTH)
+            return
+        sets = np.asarray(sets, dtype=np.uint64)
+        clears = np.asarray(clears, dtype=np.uint64)
+        self._storage.op_writer = None
+        try:
+            if sets.size:
+                self._storage.add_many(sets)
+            if clears.size:
+                self._storage.remove_many(clears)
+        finally:
+            self._storage.op_writer = self._wal
+        self._log_reset()
+        counts = self.row_counts()
+        for r in np.unique(np.concatenate([sets, clears])
+                           // np.uint64(SLICE_WIDTH)).tolist():
+            self.cache.bulk_add(int(r), counts.get(int(r), 0))
+        self.cache.invalidate()
+        self._request_snapshot_locked()
+
     def replace(self, bitmap: Bitmap):
         """Swap in a whole storage image. It lives in memory until the
         next snapshot() writes it out (bulk loaders that would take
@@ -690,14 +968,18 @@ class Fragment:
         back into the old file)."""
         with self._mu:
             self.ensure_loaded()
-            if self._snapshotting:
-                # The snapshot in flight froze before this call: chain one.
-                self._resnap = True
-                target = self._snap_gen + 2
-            else:
-                self._start_snapshot()
-                target = self._snap_gen + 1
+            target = self._request_snapshot_locked()
         self._await_snapshot(target)
+
+    def _request_snapshot_locked(self) -> int:
+        """Make sure a snapshot that covers the current state runs (one
+        in flight froze before: chain another); the snapshot generation
+        to wait for."""
+        if self._snapshotting:
+            self._resnap = True
+            return self._snap_gen + 2
+        self._start_snapshot()
+        return self._snap_gen + 1
 
     def wait_snapshot(self, timeout: Optional[float] = None) -> bool:
         """Block until no snapshot is in flight; False on timeout."""
@@ -716,7 +998,8 @@ class Fragment:
         """Durability state for /debug/vars (unlocked reads)."""
         return {"index": self.index, "frame": self.frame, "view": self.view,
                 "slice": self.slice, "loaded": not self._pending_load,
-                "op_n": self.op_n, "max_op_n": self.max_op_n,
+                "op_n": self.op_n, "epoch": self.epoch,
+                "max_op_n": self.max_op_n,
                 "snapshotting": self._snapshotting,
                 "snapshots": self._snap_gen,
                 "fsync_policy": self.wal_cfg.fsync_policy,
@@ -734,6 +1017,9 @@ class Fragment:
         self._wal.retarget(self._side_file)
         self._snap_base_op_n = self.op_n
         self.op_n = 0
+        # What the landed snapshot's sidecar holds: the ops up to the
+        # freeze are in its region.
+        self._snap_epoch_base = self.epoch
         self._snapshotting = True
         self._snap_done = threading.Event()
         self._snap_thread = threading.Thread(
@@ -757,6 +1043,9 @@ class Fragment:
                             kind="snapshot")
                 os.fsync(f.fileno())
             fault.point("storage.rename", path=self.path)
+            # The sidecar first: a crash between the two pairs the new
+            # base with the old, op-richer file, which over-states.
+            self._write_epoch_base(self._snap_epoch_base)
             os.replace(self._tmp_path, self.path)
         except BaseException as e:  # noqa: BLE001 — _finish reports it
             err = e

@@ -43,9 +43,10 @@ class Frame:
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  time_quantum: str = "",
                  fields: Optional[Sequence] = None, wal=None, stats=None,
-                 broadcaster=None):
+                 broadcaster=None, integrity=None):
         validate_name(name)
         self.path = path
+        self.integrity = integrity  # core/fragment.IntegrityContext
         self.broadcaster = broadcaster  # parallel.broadcast, or None
         self.wal = wal  # core/wal.WalConfig, or None: never
         self.stats = stats  # utils.stats client, tagged frame:<name>
@@ -153,7 +154,8 @@ class Frame:
                  self.meta["cacheType"], self.meta["cacheSize"],
                  self.row_attr_store, wal=self.wal,
                  stats=self.stats.with_tags(f"view:{name}")
-                 if self.stats else None, broadcaster=self.broadcaster)
+                 if self.stats else None, broadcaster=self.broadcaster,
+                 integrity=self.integrity)
         v.open()
         self.views = {**self.views, name: v}
         return v

@@ -4,7 +4,9 @@ snapshot threshold and the write backpressure) reaches every fragment;
 a bare Holder writes through without fsync (`never`), the server passes
 its flags (default `group`). Fragments open lazily: a start parses no
 data. With scrub_interval > 0 the integrity scrubber (core/scrub.py)
-walks the fragments in a thread from open() to close()."""
+walks the fragments in a thread from open() to close(). `integrity`
+(core/fragment.IntegrityContext) reaches every fragment by reference:
+a server sets its read-repair source once its cluster client exists."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional
 
 from ..errors import IndexExistsError
 from ..utils.stats import NopStats
-from .fragment import MUTATION_EPOCH
+from .fragment import MUTATION_EPOCH, IntegrityContext
 from .index import Index
 from .scrub import DEFAULT_SCRUB_RATE_LIMIT, Scrubber
 from .wal import WalConfig
@@ -26,9 +28,11 @@ class Holder:
     def __init__(self, path: str, wal: Optional[WalConfig] = None,
                  scrub_interval: float = 0.0,
                  scrub_rate_limit: int = DEFAULT_SCRUB_RATE_LIMIT,
-                 stats=None):
+                 stats=None, integrity: Optional[IntegrityContext] = None):
         self.path = path
         self.wal = wal
+        self.integrity = (integrity if integrity is not None
+                          else IntegrityContext())
         # The stats client (utils.stats.ExpvarStats on a server), tagged
         # index:<name> -> frame: -> view: -> slice: down to the
         # fragments; NopStats records nothing.
@@ -93,10 +97,26 @@ class Holder:
         return [frag.storage_state() for frag in self.fragments()
                 if not frag._pending_load]
 
+    def fragment_epochs(self) -> Dict[str, int]:
+        """{"index/frame/view/slice": replication epoch} of every
+        fragment with one, the GET /internal/epochs digest. A fragment
+        not loaded yet reports its sidecar's base without a parse: an
+        understatement (the ops past it are not counted), which only
+        makes this replica look staler than it is."""
+        out: Dict[str, int] = {}
+        for frag in self.fragments():
+            e = (frag._read_epoch_base() if frag._pending_load
+                 else frag.epoch)
+            if e:
+                out[f"{frag.index}/{frag.frame}/{frag.view}/"
+                    f"{frag.slice}"] = e
+        return out
+
     def _open_index(self, name: str, **options) -> Index:
         idx = Index(os.path.join(self.path, name), name, wal=self.wal,
                     stats=self.stats.with_tags(f"index:{name}"),
-                    broadcaster=self.broadcaster, **options)
+                    broadcaster=self.broadcaster,
+                    integrity=self.integrity, **options)
         idx.open()
         self.indexes = {**self.indexes, name: idx}
         return idx

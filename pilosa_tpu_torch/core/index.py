@@ -27,10 +27,11 @@ class Index:
     def __init__(self, path: str, name: str,
                  column_label: str = DEFAULT_COLUMN_LABEL,
                  time_quantum: str = "", wal=None, stats=None,
-                 broadcaster=None):
+                 broadcaster=None, integrity=None):
         validate_name(name)
         self.path = path
         self.wal = wal  # core/wal.WalConfig, or None: never
+        self.integrity = integrity  # core/fragment.IntegrityContext
         self.stats = stats  # utils.stats client, tagged index:<name>
         self.broadcaster = broadcaster  # parallel.broadcast, or None
         self.remote_max_slice = 0
@@ -85,7 +86,8 @@ class Index:
                       wal=self.wal,
                       stats=self.stats.with_tags(f"frame:{name}")
                       if self.stats else None,
-                      broadcaster=self.broadcaster, **options)
+                      broadcaster=self.broadcaster,
+                      integrity=self.integrity, **options)
         frame.open()
         self.frames = {**self.frames, name: frame}
         return frame

@@ -1,14 +1,15 @@
 """The integrity scrubber: a paced background walk over every fragment
 of one node that proves what is on disk still matches what was
-written (pilosa_tpu/core/scrub.py, reduced to one node):
+written (pilosa_tpu/core/scrub.py):
 
 1. On-disk verification: read the file again and verify its integrity
    footer and op-log checksums (through the `storage.corrupt` seam).
    Rot in a loaded fragment is repaired from memory, which is
    authoritative: a fresh snapshot rewrites the file. Rot in a fragment
-   not yet loaded stays in place and is counted `unrepaired`: the
-   fragment raises CorruptFragmentError when touched (one node has no
-   replica to repair it from).
+   not yet loaded goes through its load, which read-repairs it from a
+   replica (Fragment._recover_corrupt); with no replica to give a
+   verified copy it stays in place, is counted `unrepaired`, and the
+   fragment raises CorruptFragmentError when touched.
 2. Disk against memory: when the parse succeeds on a file without a
    footer (one written before footers, which cannot show its own rot)
    and the fragment is loaded and quiet (no snapshot in flight, no
@@ -19,8 +20,11 @@ written (pilosa_tpu/core/scrub.py, reduced to one node):
    is not diffed (at 960 slices the diff would hash 37 MB of values a
    fragment, twice).
 
-The cross-replica diff of the JAX scrubber waits for the port's cluster
-layer.
+3. Across replicas (with a `cluster` and a `client_factory`, which a
+   server sets): the fragment's block checksums against each other
+   owner's /fragment/blocks; a difference (`divergent`) hands the
+   fragment to anti-entropy's FragmentSyncer for a majority merge. In a
+   cluster a pass walks only the fragments this node owns.
 
 Pacing: `rate_limit` bytes a second over the whole pass (tokens against
 the pass's start), so a large holder scrubs without starving queries;
@@ -42,6 +46,7 @@ from ..obs.health import HEALTH
 from ..roaring import Bitmap
 from ..obs.metrics import StatMap
 from .fragment import INTEGRITY_STATS, bitmap_block_checksums
+from .syncer import FragmentSyncer
 
 SCRUB_STATS = StatMap()
 
@@ -57,6 +62,15 @@ class Scrubber:
                  rate_limit: int = DEFAULT_SCRUB_RATE_LIMIT,
                  enabled: bool = True):
         self.holder = holder
+        # The cross-replica diff's wiring, which a server sets once its
+        # cluster client exists (this node's host, the Cluster, the
+        # client factory, the stats client, the per-fetch deadline);
+        # without a cluster every fragment is owned and unreplicated.
+        self.host = ""
+        self.cluster = None
+        self.client_factory = None
+        self.stats = None
+        self.op_deadline = 0.0
         self.interval = float(interval)
         self.rate_limit = int(rate_limit)
         self.enabled = bool(enabled)
@@ -129,6 +143,9 @@ class Scrubber:
         for frag in self.holder.fragments():
             if self._closing.is_set():
                 return n
+            if self.cluster is not None and not self.cluster.owns_fragment(
+                    self.host, frag.index, frag.slice):
+                continue
             try:
                 self.scrub_fragment(frag)
             except Exception:  # noqa: BLE001 — a scrub never stops a node
@@ -147,6 +164,7 @@ class Scrubber:
         parsed = self._verify_disk(frag)
         if parsed is not None:
             self._diff_memory(frag, parsed)
+        self._diff_replicas(frag)
         frag.last_scrub = time.time()
         SCRUB_STATS.inc("fragments")
 
@@ -172,12 +190,15 @@ class Scrubber:
 
     def _repair(self, frag) -> None:
         """A loaded fragment: rewrite the file from memory with a fresh
-        snapshot. One not loaded: leave the rot for its touch to raise."""
-        if frag._pending_load:
-            SCRUB_STATS.inc("unrepaired")
-            return
+        snapshot. One not loaded: its load read-repairs it from a
+        replica, or raises (counted `unrepaired`; the next pass and the
+        next touch try again)."""
         try:
-            frag.snapshot()
+            if frag._pending_load:
+                with frag._mu:
+                    frag.ensure_loaded()
+            else:
+                frag.snapshot()
             SCRUB_STATS.inc("repairs")
         except Exception:  # noqa: BLE001 — counted; the next pass retries
             SCRUB_STATS.inc("unrepaired")
@@ -199,6 +220,40 @@ class Scrubber:
         SCRUB_STATS.inc("corrupt")
         INTEGRITY_STATS.inc("scrub_detected")
         self._repair(frag)
+
+    def _diff_replicas(self, frag) -> None:
+        """This copy's block checksums against each other owner's; on a
+        difference FragmentSyncer merges the fragment. A peer that
+        cannot be reached is anti-entropy's business, not the scrub's."""
+        if self.cluster is None or self.client_factory is None:
+            return
+        nodes = self.cluster.fragment_nodes(frag.index, frag.slice)
+        if len(nodes) < 2:
+            return
+        local = dict(frag.blocks())
+        divergent = False
+        for node in nodes:
+            if node.host == self.host or self._closing.is_set():
+                continue
+            try:
+                remote = dict(self.client_factory(node.host).fragment_blocks(
+                    frag.index, frag.frame, frag.view, frag.slice))
+            except Exception:  # noqa: BLE001 — a dead peer
+                continue
+            if remote != local:
+                divergent = True
+                break
+        if not divergent:
+            return
+        SCRUB_STATS.inc("divergent")
+        f = self.holder.frame(frag.index, frag.frame)
+        idx = self.holder.index(frag.index)
+        FragmentSyncer(frag, self.host, nodes, self.client_factory,
+                       row_label=f.row_label if f else "rowID",
+                       column_label=idx.column_label if idx else "columnID",
+                       stats=self.stats,
+                       op_deadline=self.op_deadline).sync_fragment()
+        SCRUB_STATS.inc("repairs")
 
     def oldest_scrub_age(self) -> float:
         """Seconds since the least recently scrubbed fragment was

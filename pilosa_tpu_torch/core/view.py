@@ -26,8 +26,9 @@ class View:
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
                  row_attr_store=None, wal=None, stats=None,
-                 broadcaster=None):
+                 broadcaster=None, integrity=None):
         self.path = path
+        self.integrity = integrity  # core/fragment.IntegrityContext
         self.broadcaster = broadcaster  # parallel.broadcast, or None
         self.wal = wal  # core/wal.WalConfig, or None: never
         self.stats = stats  # utils.stats client, tagged view:<name>
@@ -63,7 +64,7 @@ class View:
                         self.cache_type, self.cache_size,
                         self.row_attr_store, wal=self.wal,
                         stats=self.stats.with_tags(f"slice:{slice_}")
-                        if self.stats else None)
+                        if self.stats else None, integrity=self.integrity)
         frag.open(lazy=lazy)
         # Copy-on-write: readers iterate fragments without the lock.
         self.fragments = {**self.fragments, slice_: frag}

@@ -122,6 +122,28 @@ a HintManager is wired (CONSISTENCY_STATS keeps the outcomes); the attr
 calls apply here and go to every other node (`_broadcast_with_hints`).
 The route of a fanned-out Count or aggregate is recorded once, here,
 with tier `http`.
+
+Replica convergence's read path (the JAX executor's, pilosa_tpu/
+executor.py:319-335, 678-836, 2382-2485, 2682-2730): `epochs` (parallel.
+epochs.EpochTracker) learns the epochs of every write applied here, a
+coordinated one or a remote leg's (`_observe_write_epochs`, whose map a
+missed owner's hint carries), and each peer's digest (the server's
+status poll). A query with `staleness` > 0 (X-Pilosa-Staleness, else
+[cluster] default-read-staleness) is a bounded read: each slice may go
+to any owner that is UP, behind a closed breaker and within the bound by
+the tracker (pick_read_replica, this node first, else the shallower
+queue of two), and falls back to the strict pick otherwise; `read_stats`
+counts the picks as "owner|follower|fallback_owner" x "strict|bounded"
+(pilosa_read_replica_total). A bounded Count that fans out is served
+from `result_cache` (parallel.epochs.ResultCache) when an entry of its
+(index, PQL, slices) holds the tracker's epoch token over the slices
+(the sum of their known epochs, where the JAX executor takes the
+highest, which a write to a lower slice does not move), read before the
+count, so a write seen meanwhile stores under a stale key; every
+`result_cache_verify_1_in`-th hit is counted again and compared
+(SHADOW_STATS `checks:result-cache` / `mismatch:result-cache`, a
+mismatch drops the entry). A strict read never consults the cache
+(counted `bypass`); a remote leg neither spreads nor caches.
 """
 
 from __future__ import annotations
@@ -152,7 +174,8 @@ from .errors import BroadcastError, DeadlineExceededError, \
     IndexRequiredError, QueryError, SliceUnavailableError, \
     WriteConsistencyError
 from .parallel.cluster import (NODE_STATE_DOWN, SERVING_STATES, owner_tier,
-                               preferred_owner)
+                               pick_read_replica, preferred_owner)
+from .parallel.epochs import EpochTracker, ResultCache, fragment_key
 from .parallel.mesh import (DEFAULT_SPARSE_DENSITY_THRESHOLD, SliceSpace,
                             format_pool_bytes)
 from .parallel.plan import (DEFAULT_FRAME, HostCountPlan,
@@ -234,14 +257,18 @@ class ExecOptions:
     `missing_slices` instead of failing the query. Set while it runs:
     `used_http` (a leg went over HTTP: the route's tier) and
     `breaker_snapshot` (the breakers' states, read once a query, so a
-    re-split sees what the first split saw). The JAX package's
-    `staleness` comes with follower reads (ROADMAP A11b)."""
+    re-split sees what the first split saw). `staleness`: the read's
+    bound in seconds; > 0 lets a slice go to an in-sync replica and a
+    Count come from the result cache, 0 (the default) is a strict
+    read."""
 
     __slots__ = ("deadline", "remote", "partial", "missing_slices",
-                 "used_http", "breaker_snapshot")
+                 "used_http", "breaker_snapshot", "staleness")
 
     def __init__(self, remote: bool = False,
-                 deadline: Optional[float] = None, partial: bool = False):
+                 deadline: Optional[float] = None, partial: bool = False,
+                 staleness: float = 0.0):
+        self.staleness = max(0.0, float(staleness))
         self.deadline = deadline
         self.remote = remote
         self.partial = partial
@@ -339,6 +366,16 @@ class Executor:
         self.flight = FlightRecorder()
         # The host folds' caches (blocks, per-slice counts, matrices).
         self._host_cache = HostQueryCache()
+        # Replica convergence's read path (module docstring): the epochs
+        # known, the epoch-keyed result cache ([cluster]
+        # result-cache-size sets its cap), the share of its hits counted
+        # again ([integrity] result-cache-verify-1-in; 0: none) and the
+        # replica picks.
+        self.epochs = EpochTracker()
+        self.result_cache = ResultCache()
+        self.result_cache_verify_1_in = 16
+        self._rc_verify_counter = itertools.count(1)
+        self.read_stats = StatMap()
 
     def _inc(self, key: str) -> None:
         with self._stats_mu:
@@ -671,7 +708,25 @@ class Executor:
             raise QueryError("Count() only accepts a single bitmap input")
         t0 = time.monotonic()
         h2d0 = self._h2d_bytes()
+        rc_key = rc_epoch = rc_verify = None
         if self._fans_out(opt):
+            rc = self.result_cache
+            if opt.staleness <= 0:
+                rc.bypass()
+            else:
+                # The PQL's canonical text names the plan; the epoch
+                # token is read before the count.
+                rc_key = (index, str(c), tuple(slices))
+                rc_epoch = self.epochs.epoch_token(index, slices)
+                cached = rc.get(rc_key, rc_epoch)
+                if cached is not None:
+                    v1 = self.result_cache_verify_1_in
+                    if v1 and next(self._rc_verify_counter) % v1 == 0:
+                        rc_verify = cached
+                    else:
+                        self._record_route("result-cache", t0,
+                                           tier=_query_tier(opt), call=c)
+                        return cached
             here: dict = {}
 
             def local(sl):
@@ -690,6 +745,13 @@ class Executor:
         else:
             n, route, (checked, mismatch) = self._count_here(index, c,
                                                              slices)
+        if rc_verify is not None:
+            SHADOW_STATS.inc("checks:result-cache")
+            if int(rc_verify) != n:
+                SHADOW_STATS.inc("mismatch:result-cache")
+                self.result_cache.invalidate(rc_key)
+        elif rc_key is not None:
+            self.result_cache.put(rc_key, rc_epoch, n)
         self._record_route(route, t0, tier=_query_tier(opt), call=c,
                            staged_bytes=max(0, self._h2d_bytes() - h2d0),
                            shadow_checked=checked, shadow_mismatch=mismatch)
@@ -934,7 +996,8 @@ class Executor:
             return None
 
     def explain(self, index: str, q: Query,
-                slices: Optional[Sequence[int]] = None) -> dict:
+                slices: Optional[Sequence[int]] = None,
+                staleness: float = 0.0) -> dict:
         """The planned execution of `q`, run nowhere: for each Count, its
         route ("mesh", "host-fold" with its `route_reason`, or "roaring"
         for a tree that does not lower), its `plan` {signature,
@@ -944,7 +1007,8 @@ class Executor:
         `kill_switches`); for Sum / Min / Max, the route, the field's
         planes and rows and the cost model. No view stages and no counter
         moves. In a cluster each call also has its `placement`
-        (_explain_placement) and a write its `consistency`. Serves POST
+        (_explain_placement; a bounded read's, `staleness` > 0, with its
+        `read` section) and a write its `consistency`. Serves POST
         /index/{index}/query?explain=true (the JAX package's
         Executor.explain, pilosa_tpu/executor.py:1366-1557, without the
         whole-query memo)."""
@@ -960,13 +1024,15 @@ class Executor:
                     raise IndexNotFoundError()
                 slices = list(range(idx.max_slice() + 1))
         return {"index": index, "slices": len(slices),
-                "calls": [self._explain_call(index, c, slices)
+                "calls": [self._explain_call(index, c, slices, staleness)
                           for c in q.calls]}
 
-    def _explain_call(self, index: str, c: Call, slices: List[int]) -> dict:
+    def _explain_call(self, index: str, c: Call, slices: List[int],
+                      staleness: float = 0.0) -> dict:
         info: dict = {"call": c.name}
         if self._clustered():
-            info["placement"] = self._explain_placement(index, slices)
+            info["placement"] = self._explain_placement(index, slices,
+                                                        staleness)
         if c.name in _WRITE_CALLS:
             info["route"] = "write"
             if self._clustered():
@@ -1782,32 +1848,51 @@ class Executor:
                         opt: Optional[ExecOptions] = None) -> dict:
         """node -> the slices it serves, among `nodes`: each slice's
         preferred_owner (UP with a closed breaker first; this node first
-        under prefer-local-reads). SliceUnavailableError when a slice has
-        no owner left, unless opt.partial, which lists it missing."""
+        under prefer-local-reads), or on a bounded read the replica
+        pick_read_replica gives it. SliceUnavailableError when a slice
+        has no owner left, unless opt.partial, which lists it missing."""
         breaker = self._breaker_callable(opt)
         prefer = self.host if self.prefer_local_reads else None
+        read_bound = (opt.staleness
+                      if opt is not None and not opt.remote else 0.0)
+        sclass = "bounded" if read_bound > 0 else "strict"
         slices = np.asarray(list(slices), dtype=np.int64)
         parts = self.cluster.partitions(index, slices)
-        # A slice's owners are its partition's: one pick a partition.
-        picks = {}
+        m: dict = {}
+        # A slice's owners are its partition's: a strict read makes one
+        # pick a partition, a bounded one a pick a slice (each slice's
+        # staleness is its own).
         for p in np.unique(parts).tolist():
+            mine = slices[parts == p].tolist()
             owners = [o for o in self.cluster.partition_nodes(p)
                       if o in nodes]
             if opt is not None and opt.partial:
                 owners = [o for o in owners if o.state in SERVING_STATES]
                 if not owners:
-                    picks[p] = None
+                    opt.missing_slices.extend(mine)
                     continue
             elif not owners:
                 raise SliceUnavailableError()
-            picks[p] = preferred_owner(owners, breaker, prefer=prefer)
-        m: dict = {}
-        for p, node in picks.items():
-            mine = slices[parts == p].tolist()
-            if node is None:
-                opt.missing_slices.extend(mine)
-            else:
-                m.setdefault(node, []).extend(mine)
+            if read_bound <= 0 or len(owners) < 2:
+                self.read_stats.inc("owner|" + sclass, len(mine))
+                m.setdefault(preferred_owner(owners, breaker, prefer=prefer),
+                             []).extend(mine)
+                continue
+            for s in mine:
+                pick = pick_read_replica(
+                    owners, breaker,
+                    staleness_ok=lambda h, s=s: self.epochs
+                    .staleness_ok_slice(h, index, s, read_bound),
+                    queue_depth=self.epochs.queue_depth, prefer=self.host)
+                if pick is not None:
+                    # "follower": away from the ring's primary.
+                    self.read_stats.inc(
+                        ("follower|" if pick.host != owners[0].host
+                         else "owner|") + sclass)
+                else:
+                    self.read_stats.inc("fallback_owner|" + sclass)
+                    pick = preferred_owner(owners, breaker, prefer=prefer)
+                m.setdefault(pick, []).append(s)
         for node in m:
             m[node].sort()
         return m
@@ -1815,14 +1900,15 @@ class Executor:
     def _execute_mutate_view(self, index: str, c: Call, opt: ExecOptions,
                              col_id: int, local_fn: Callable[[], bool]):
         """A bit write to every owner of its slice (the JAX executor's
-        _execute_mutate_view without the epochs). Owners known DOWN or
+        _execute_mutate_view). Owners known DOWN or
         behind an open breaker are counted before the local apply: a
         write that cannot reach write-consistency is refused (503) with
         nothing written anywhere. The other owners get it in parallel;
         it acks once write-consistency owners (the local apply among
         them) applied it, and every owner it missed gets a hint, on the
         503 path too (an owner that applied must converge with the
-        rest). A remote leg writes here only."""
+        rest), carrying the epochs the local apply reached. A remote leg
+        writes here only."""
         if not self._clustered():
             return local_fn()
         slice_ = col_id // SLICE_WIDTH
@@ -1833,6 +1919,8 @@ class Executor:
             ret = False
             for _ in locals_:
                 ret = local_fn() or ret
+            if locals_:
+                self._observe_write_epochs(index, c, slice_)
             return ret
         level = self.write_consistency
         required = required_acks(level, len(owners))
@@ -1856,6 +1944,8 @@ class Executor:
         for _ in locals_:
             ret = local_fn() or ret
             acked += 1
+        wrote = (self._observe_write_epochs(index, c, slice_) if locals_
+                 else {})
         q = Query(calls=[c])
         futures = [(node, self._pool.submit(obs.wrap_ctx(self._exec_remote),
                                             node, index, q, None, opt))
@@ -1876,7 +1966,7 @@ class Executor:
         pql = str(q)
         missed = [n.host for n in down] + [h for h, _ in failures]
         for host in missed:
-            hints.enqueue_query(host, index, pql)
+            hints.enqueue_query(host, index, pql, epochs=wrote)
         if acked >= required:
             CONSISTENCY_STATS.inc(
                 f"{level}:hinted" if missed else f"{level}:ok")
@@ -1887,6 +1977,26 @@ class Executor:
             f"replica acks ({len(failures)} failed mid-write; misses "
             f"journaled as hints)",
             level=level, required=required, acked=acked)
+
+    def _observe_write_epochs(self, index: str, c: Call,
+                              slice_: int) -> dict:
+        """{fragment key: epoch} of each loaded fragment of the written
+        frame's views in `slice_` (a SetBit may land in standard,
+        inverse and time views), fed to the tracker now: a follower
+        missing this write ages from this moment."""
+        frame = c.args.get("frame")
+        f = self.holder.frame(index, frame if isinstance(frame, str)
+                              and frame else DEFAULT_FRAME)
+        out: dict = {}
+        if f is None:
+            return out
+        for vname, view in list(f.views.items()):
+            frag = view.fragments.get(slice_)
+            if frag is not None and not frag._pending_load:
+                key = fragment_key(index, f.name, vname, slice_)
+                self.epochs.observe_local(key, frag.epoch)
+                out[key] = frag.epoch
+        return out
 
     def _broadcast_query(self, index: str, q: Query, opt: ExecOptions):
         """`q` to every other node in parallel; every answer is awaited,
@@ -1920,32 +2030,61 @@ class Executor:
             for host, _e in err.failures:
                 self.hints.enqueue_query(host, index, pql)
 
-    def _explain_placement(self, index: str, slices: Sequence[int]) -> dict:
+    def _explain_placement(self, index: str, slices: Sequence[int],
+                           staleness: float = 0.0) -> dict:
         """explain()'s `placement` in a cluster: the picks
         _slices_by_node would make, by host (the slice count, a sample of
-        16, the tier), the tiers' counts, the slices no node owns, and
-        every breaker's state (the JAX executor's, without its follower
-        and ICI parts)."""
+        16, the tier; on a bounded read each pick's role: owner,
+        follower or fallback_owner), the tiers' counts, the slices no
+        node owns, every breaker's state and, on a bounded read, `read`
+        {staleness_s, followers, fallback_owner} (the JAX executor's,
+        without its ICI parts). The replica draw is seeded, so one
+        answer's picks are stable."""
+        import random
+
         state = self._breaker_callable()
         prefer = self.host if self.prefer_local_reads else None
+        rnd = random.Random(0)
         per_host: dict = {}
         unowned: list = []
         tiers = {"local": 0, "http": 0}
+        read = ({"staleness_s": staleness, "followers": 0,
+                 "fallback_owner": 0} if staleness > 0 else None)
         for slice_ in slices:
             owners = self.cluster.fragment_nodes(index, slice_)
             if not owners:
                 unowned.append(slice_)
                 continue
-            pick = preferred_owner(owners, state, prefer=prefer)
+            pick, role = None, "owner"
+            if read is not None and len(owners) > 1:
+                pick = pick_read_replica(
+                    owners, state,
+                    staleness_ok=lambda h, s=slice_: self.epochs
+                    .staleness_ok_slice(h, index, s, staleness),
+                    queue_depth=self.epochs.queue_depth, prefer=self.host,
+                    rnd=rnd)
+                if pick is None:
+                    role = "fallback_owner"
+                    read["fallback_owner"] += 1
+                elif pick.host != owners[0].host:
+                    role = "follower"
+                    read["followers"] += 1
+            if pick is None:
+                pick = preferred_owner(owners, state, prefer=prefer)
             tier = owner_tier(pick.host, self.host)
             tiers[tier] += 1
             ent = per_host.setdefault(pick.host, {"slices": 0, "sample": [],
                                                   "tier": tier})
             ent["slices"] += 1
+            if read is not None:
+                roles = ent.setdefault("roles", {})
+                roles[role] = roles.get(role, 0) + 1
             if len(ent["sample"]) < 16:
                 ent["sample"].append(slice_)
         out = {"mode": "cluster", "nodes": per_host, "tiers": tiers,
                "tier": "http" if tiers["http"] else "local"}
+        if read is not None:
+            out["read"] = read
         if unowned:
             out["unowned_count"] = len(unowned)
             out["unowned_sample"] = unowned[:16]

@@ -37,6 +37,9 @@ spec syntax).
     hints.replay        before each hint the drainer replays (target,
                         kind): an error stops that target's log there,
                         in order, for the next pass
+    syncer.block        before anti-entropy pulls and merges one block
+                        (index, frame, view, slice, block): an error
+                        fails that fragment's sync for this pass
     watchdog.stall      inside every registered heartbeat's beat()
                         (subsystem): a delay wedges that loop
                         mid-iteration with its heartbeat stale, the hang
@@ -93,7 +96,7 @@ from .config import parse_duration
 SEAMS = ("mesh.stage", "device.exec", "storage.fsync", "storage.rename",
          "storage.import_apply", "storage.corrupt", "handler.query",
          "sched.admit", "watchdog.stall", "client.do", "executor.fanout",
-         "hints.replay")
+         "hints.replay", "syncer.block")
 FAULT_ENV = "PILOSA_TORCH_FAULT"
 SEED_ENV = "PILOSA_TORCH_FAULT_SEED"
 

@@ -18,6 +18,7 @@ and DOWN only.
 
 from __future__ import annotations
 
+import random
 import threading
 from typing import Callable, Dict, List, Optional
 
@@ -251,3 +252,37 @@ def preferred_owner(owners: List[Node],
         return pick(up)
     leaving = [o for o in owners if o.state == NODE_STATE_LEAVING]
     return pick(leaving or owners)
+
+
+def pick_read_replica(owners: List[Node],
+                      breaker_state: Optional[Callable[[str], str]] = None,
+                      staleness_ok: Optional[Callable[[str], bool]] = None,
+                      queue_depth: Optional[Callable[[str], int]] = None,
+                      prefer: Optional[str] = None,
+                      rnd=None) -> Optional[Node]:
+    """A bounded-staleness read's replica (the JAX package's, without
+    its interconnect tie-break and peer-health filter): of the owners
+    that are UP, with a closed breaker and within the read's staleness
+    (`staleness_ok(host)`, the EpochTracker's check; `prefer` passes it
+    unasked), `prefer` (this node) wins, else the shallower queue
+    (`queue_depth(host)`) of two drawn by `rnd.sample` (power of two
+    choices; `rnd` defaults to the random module). None when no owner
+    is eligible: the caller falls back to preferred_owner."""
+    cands = [o for o in owners if o.state == NODE_STATE_UP]
+    if breaker_state is not None:
+        cands = [o for o in cands if breaker_state(o.host) == "closed"]
+    if staleness_ok is not None:
+        cands = [o for o in cands if o.host == prefer or staleness_ok(o.host)]
+    if not cands:
+        return None
+    for o in cands:
+        if o.host == prefer:
+            return o
+    if len(cands) == 1:
+        return cands[0]
+    a, b = (rnd or random).sample(cands, 2)
+    qd = queue_depth or (lambda _h: 0)
+    da, db = qd(a.host), qd(b.host)
+    if da != db:
+        return a if da < db else b
+    return a

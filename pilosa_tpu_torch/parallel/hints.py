@@ -17,10 +17,12 @@ package replays through the other. Two kinds: {"kind": "query", "host",
 "index", "pql"} replayed as a remote leg's query, and {"kind": "import",
 "host", "index", "frame", "slice", "rows", "cols", "ts"} as a remote
 import; both are idempotent, so a drainer that dies between the
-target's answer and the log's truncation only replays again. (A JAX
-log's `epochs` key, which floor-raises the target's replication epochs
-after a replay, is ignored: epochs come with replica convergence,
-ROADMAP A11b.)
+target's answer and the log's truncation only replays again. Either
+may carry `epochs` ({fragment key: the writer's epoch after the
+write}): once the replay landed, the drainer floor-raises the target's
+fragments to them (client.advance_epochs), so its epoch digest compares
+with the writer's; that step is advisory, its failure only leaves the
+target looking staler.
 
 An append goes through a core.wal.WalCommitter and returns after its
 group commit: a hint is as durable as the write it repairs. Opening a
@@ -297,21 +299,30 @@ class HintManager:
                     self.wal_cfg, max_bytes=self.max_bytes)
             return log
 
-    def enqueue_query(self, host: str, index: str, pql: str) -> None:
+    def enqueue_query(self, host: str, index: str, pql: str,
+                      epochs: Optional[dict] = None) -> None:
         """Journal a missed PQL write (SetBit, ClearBit, SetValue, the
-        attr calls) for `host`, in its canonical serialization."""
-        self._log_for(host).append({"kind": "query", "host": host,
-                                    "index": index, "pql": pql})
+        attr calls) for `host`, in its canonical serialization, with the
+        epochs it brought the writer's fragments to."""
+        payload = {"kind": "query", "host": host, "index": index,
+                   "pql": pql}
+        if epochs:
+            payload["epochs"] = {str(k): int(v) for k, v in epochs.items()}
+        self._log_for(host).append(payload)
 
     def enqueue_import(self, host: str, index: str, frame: str,
-                       slice_: int, rows, cols, ts=None) -> None:
-        self._log_for(host).append({
+                       slice_: int, rows, cols, ts=None,
+                       epochs: Optional[dict] = None) -> None:
+        payload = {
             "kind": "import", "host": host, "index": index,
             "frame": frame, "slice": int(slice_),
             "rows": [int(r) for r in rows],
             "cols": [int(c) for c in cols],
             "ts": [int(t) for t in ts] if ts is not None and len(ts)
-            else None})
+            else None}
+        if epochs:
+            payload["epochs"] = {str(k): int(v) for k, v in epochs.items()}
+        self._log_for(host).append(payload)
 
     def notify(self, host: str) -> None:
         """`host` is back (status poll, breaker close): drain now."""
@@ -384,6 +395,15 @@ class HintManager:
                                remote=True)
         else:
             raise ValueError(f"unknown hint kind: {kind!r}")
+        epochs = payload.get("epochs")
+        advance = getattr(client, "advance_epochs", None)
+        if epochs and advance is not None:
+            # After the ops landed: an epoch never vouches for bits the
+            # target does not hold yet.
+            try:
+                advance(epochs)
+            except Exception:  # noqa: BLE001 — advisory
+                pass
 
     def backlog_records(self) -> int:
         with self._mu:

@@ -173,6 +173,19 @@ class Container:
         self.normalize()
         return self.n - before
 
+    def remove_many(self, vals: np.ndarray) -> int:
+        """Bulk remove sorted, unique low-bits values; returns the number
+        cleared."""
+        before = self.n
+        self.fnv = None
+        if self.array is not None:
+            self.array = np.setdiff1d(self.array, vals.astype(_U32),
+                                      assume_unique=True).astype(_U32)
+        else:
+            self.bitmap = self.bitmap & ~values_to_bitmap_words(vals)
+            self.normalize()
+        return before - self.n
+
     def intersect(self, other: "Container") -> "Container":
         if self.is_array() and other.is_array():
             return Container(array=_native.intersect_sorted(self.array,
@@ -343,6 +356,29 @@ class Bitmap:
                         np.concatenate((bounds, [len(keys)]))):
             c = self._writable_container_for(int(keys[s]), create=True)
             total += c.add_many(low[s:e])
+        return total
+
+    def remove_many(self, values: np.ndarray) -> int:
+        """Bulk remove without WAL ops; returns the number cleared.
+        Emptied containers go."""
+        values = np.unique(np.asarray(values, dtype=_U64))
+        if values.size == 0:
+            return 0
+        keys = (values >> _U64(16)).astype(np.int64)
+        low = (values & _U64(0xFFFF)).astype(_U32)
+        bounds = np.flatnonzero(np.diff(keys)) + 1
+        total = 0
+        for s, e in zip(np.concatenate(([0], bounds)),
+                        np.concatenate((bounds, [len(keys)]))):
+            key = int(keys[s])
+            c = self._writable_container_for(key)
+            if c is None:
+                continue
+            total += c.remove_many(low[s:e])
+            if c.n == 0:
+                i = self._find_key(key)
+                del self.keys[i]
+                del self.containers[i]
         return total
 
     # -- queries -----------------------------------------------------------

@@ -35,7 +35,7 @@ turns 503, the scheduler releases what it queued, the watchdog stops,
 the card first.
 
 The HTTP cluster with static membership (the JAX server's, without
-anti-entropy, epochs, gossip and the SPMD plane): [cluster] hosts,
+gossip and the SPMD plane): [cluster] hosts,
 replicas and partitions make the Cluster (placement by a host's
 position in `hosts`); client-timeout, retries, retry-backoff and
 breaker-* the ClusterClient, one InternalClient a peer over one breaker
@@ -54,6 +54,22 @@ and wakes the drainer when a DOWN peer came back. /status and
 message applies a broadcast (receive_message). Refused, with the key
 named: type "gossip" (membership change, ROADMAP A11c), type "spmd"
 and a non-empty ici-hosts (the SPMD plane, A11d).
+
+Replica convergence (the JAX server's, pilosa_tpu/server.py:292-303,
+380, 475-477, 600-750): with more than one host the `anti-entropy`
+daemon runs a HolderSyncer pass (core/syncer.py) every [anti-entropy]
+interval, each start up to `jitter` late (-1: a tenth of the interval),
+each peer fetch bounded by block-deadline; the holder's
+IntegrityContext gets `_repair_source`, which streams a corrupt
+fragment's tar from the first UP replica whose copy verifies (its
+footer, and block checksums equal to what that replica reports); the
+scrubber gets the cluster for its cross-replica diff. The status poll
+also feeds the executor's EpochTracker: this node's own epochs first,
+then each peer's GET /internal/epochs (a peer it cannot reach is
+forgotten, so it is no follower-read target). [cluster]
+default-read-staleness is the bound of a read that brings none,
+result-cache-size the result cache's cap, and [integrity]
+result-cache-verify-1-in how many of its hits are counted again.
 """
 
 from __future__ import annotations
@@ -69,10 +85,7 @@ CACHE_FLUSH_INTERVAL = 60.0
 
 # What the port reads from a config and does not act on yet (one log
 # line at open()).
-NOT_ACTED_ON = ("[anti-entropy]", "[rebalance]",
-                "[obs] fleet-scrape-interval",
-                "[cluster] default-read-staleness and result-cache-size",
-                "[integrity] result-cache-verify-1-in")
+NOT_ACTED_ON = ("[rebalance]", "[obs] fleet-scrape-interval")
 
 
 def refuse_cluster(cfg: Config) -> None:
@@ -142,13 +155,14 @@ class Server:
 
     def __init__(self, config: Optional[Config] = None, logger=None):
         from .core.holder import Holder
+        from .core.syncer import Closing
         from .obs.trace import Tracer
         from .utils.stats import ExpvarStats
 
         self.config = cfg = config or Config()
         refuse_cluster(cfg)
         self.logger = logger or logging.getLogger("pilosa_tpu_torch.server")
-        self.closing = threading.Event()
+        self.closing = Closing()
         self.stats = ExpvarStats()
         # Before the executor: the stager reads the chunk size from env.
         cfg.apply_mesh_env()
@@ -178,6 +192,7 @@ class Server:
         self.handler.status_handler = self
         self._ready = False
         self._wire_observability()
+        self._wire_convergence()
         self._api = None
         self._threads: list = []
         self._health_started = False
@@ -282,6 +297,20 @@ class Server:
             "vars": self._bundle_endpoint("/debug/vars"),
         })
 
+    def _wire_convergence(self):
+        """The read path's settings, read-repair's source and the
+        scrubber's cross-replica diff."""
+        cfg, ex = self.config, self.executor
+        self.handler.default_read_staleness = cfg.default_read_staleness
+        ex.result_cache.cap = max(1, int(cfg.result_cache_size))
+        ex.result_cache_verify_1_in = int(cfg.result_cache_verify_1_in)
+        self.holder.integrity.repair_source = self._repair_source
+        scrub = self.holder.scrubber
+        scrub.host, scrub.cluster = self.host, self.cluster
+        scrub.client_factory = self.client.for_host
+        scrub.stats = self.stats
+        scrub.op_deadline = cfg.sync_block_deadline
+
     def _bundle_endpoint(self, path: str):
         """A dossier section: this node's own answer at `path`."""
         def provider():
@@ -309,6 +338,7 @@ class Server:
             if node is not None:
                 node.host = self.host
             self.executor.host = self.handler.host = self.host
+            self.holder.scrubber.host = self.host
             if hasattr(self.broadcaster, "local_host"):
                 self.broadcaster.local_host = self.host
         self._api.start()
@@ -324,13 +354,20 @@ class Server:
         hb = HEALTH.register("cache-flush", interval=CACHE_FLUSH_INTERVAL)
         poll_hb = HEALTH.register("status-poll",
                                   interval=self.config.polling_interval)
-        for name, target, args in (
-                ("cache-flush", self._loop,
-                 (self.holder.flush_caches, CACHE_FLUSH_INTERVAL, hb)),
-                ("status-poll", self._loop,
-                 (self._status_poll_tick, self.config.polling_interval,
-                  poll_hb)),
-                ("warm", self.holder.warm, (self.closing,))):
+        daemons = [("cache-flush", self._loop,
+                    (self.holder.flush_caches, CACHE_FLUSH_INTERVAL, hb)),
+                   ("status-poll", self._loop,
+                    (self._status_poll_tick, self.config.polling_interval,
+                     poll_hb)),
+                   ("warm", self.holder.warm, (self.closing,))]
+        ae = self.config.anti_entropy_interval
+        if len(self.cluster.nodes) > 1 and ae > 0:
+            jitter = self.config.anti_entropy_jitter
+            jitter = jitter if jitter >= 0 else 0.1 * ae
+            ae_hb = HEALTH.register("anti-entropy", interval=ae + jitter)
+            daemons.append(("anti-entropy", self._loop,
+                            (self._anti_entropy_tick, ae, ae_hb, jitter)))
+        for name, target, args in daemons:
             t = threading.Thread(target=target, name=name, args=args,
                                  daemon=True)
             t.start()
@@ -344,11 +381,11 @@ class Server:
         if self.scheduler is not None:
             self.scheduler.close()
         if self._health_started:
-            HEALTH.unregister("cache-flush")
-            HEALTH.unregister("status-poll")
+            for name in ("cache-flush", "status-poll", "anti-entropy"):
+                HEALTH.unregister(name)
             HEALTH.stop()
             self._health_started = False
-        self.closing.set()
+        self.closing.close()
         # Join warm BEFORE holder.close(): a warm mid-load after close
         # would reopen a WAL fd on a fragment whose flock was released.
         for t in self._threads:
@@ -363,13 +400,20 @@ class Server:
             self.logger.warning("view drop at close: %s", e)
         self.holder.close()
 
-    def _loop(self, fn, interval: float, hb):
+    def _loop(self, fn, interval: float, hb, jitter: float = 0.0):
+        """fn every `interval` seconds, each run up to `jitter` seconds
+        late (uniform: nodes that share a config do not run in step)."""
+        import random
+
         while not self.closing.wait(interval):
+            if jitter > 0 and self.closing.wait(random.uniform(0, jitter)):
+                return
             hb.beat()
             try:
                 fn()
             except Exception as e:  # noqa: BLE001 — daemons never die
                 self.logger.warning("daemon error: %s", e)
+            hb.beat()  # a long run is not the wait's stall
 
     def _apply_config_schema(self):
         """The declared [[schema.indexes]]: create the indexes, frames
@@ -409,12 +453,77 @@ class Server:
             if self.hints is not None:
                 self.hints.notify(host)
 
+    def _anti_entropy_tick(self):
+        """One HolderSyncer pass over the fragments this node owns, the
+        `anti-entropy` subsystem's in-flight op (visibility only: a
+        pass's wall time scales with the data, its first one hashes
+        every owned fragment)."""
+        import time
+
+        from .core.syncer import HolderSyncer
+        from .obs.health import HEALTH
+
+        if len(self.cluster.nodes) <= 1:
+            return
+        t0 = time.monotonic()
+        with HEALTH.inflight("anti-entropy", "pass"):
+            HolderSyncer(self.holder, self.host, self.cluster,
+                         self.client.for_host, self.closing,
+                         stats=self.stats,
+                         op_deadline=self.config.sync_block_deadline
+                         ).sync_holder()
+        self.stats.count("anti_entropy", 1)
+        self.logger.info("anti-entropy pass in %.2f s",
+                         time.monotonic() - t0)
+
+    def _repair_source(self, frag) -> Optional[bytes]:
+        """Read-repair's source: the fragment's tar from the first UP
+        replica whose copy verifies, its footer and its block checksums
+        against what the same replica reports at /fragment/blocks (a
+        rotted replica never becomes the donor); None when none does."""
+        from .core.fragment import bitmap_block_checksums, bitmap_from_tar
+        from .parallel.cluster import NODE_STATE_UP
+
+        for node in self.cluster.fragment_nodes(frag.index, frag.slice):
+            if node.host == self.host or node.state != NODE_STATE_UP:
+                continue
+            client = self.client.for_host(node.host)
+            try:
+                tar = client.fragment_data(frag.index, frag.frame,
+                                           frag.view, frag.slice)
+                bm = bitmap_from_tar(tar) if tar else None
+                if bm is None:
+                    continue
+                want = dict(client.fragment_blocks(
+                    frag.index, frag.frame, frag.view, frag.slice))
+                if bitmap_block_checksums(bm) != want:
+                    self.logger.warning(
+                        "read-repair: %s serves inconsistent checksums "
+                        "for %s/%s/%s/%d; skipped", node.host, frag.index,
+                        frag.frame, frag.view, frag.slice)
+                    continue
+                return tar
+            except Exception as e:  # noqa: BLE001 — the next replica
+                self.logger.warning("read-repair fetch from %s failed: %s",
+                                    node.host, e)
+        return None
+
     def _status_poll_tick(self):
         """Each peer's /internal/status: its schema and max slices are
         merged here, an unreachable peer is marked DOWN, a reachable one
-        UP, and a peer back from DOWN wakes the drainer."""
+        UP, and a peer back from DOWN wakes the drainer. The epoch
+        tracker first sees this node's own epochs (writes that passed
+        no coordinator here: replica legs, imports, repairs, replays),
+        then each reachable peer's digest; an unreachable peer is
+        forgotten (no digest: no follower read)."""
         from .parallel.cluster import NODE_STATE_DOWN
 
+        tracker = self.executor.epochs
+        try:
+            tracker.observe_digest(self.host, self.holder.fragment_epochs(),
+                                   self.handler.queue_depth())
+        except Exception:  # noqa: BLE001 — telemetry never stops a poll
+            pass
         for node in self.cluster.nodes:
             if node.host == self.host:
                 continue
@@ -422,6 +531,7 @@ class Server:
                 status = self.client.for_host(node.host).node_status()
             except Exception:  # noqa: BLE001 — an unreachable peer
                 node.mark_unreachable()
+                tracker.forget_host(node.host)
                 continue
             was_down = node.state == NODE_STATE_DOWN
             node.mark_live()
@@ -429,6 +539,13 @@ class Server:
                 self.hints.notify(node.host)
             self._peer_status[node.host] = status
             self.handle_remote_status(status)
+            try:
+                digest = self.client.for_host(node.host).epoch_digest()
+                tracker.observe_digest(node.host,
+                                       digest.get("epochs") or {},
+                                       int(digest.get("queue_depth") or 0))
+            except Exception:  # noqa: BLE001 — the digest stays absent
+                pass
 
     def receive_message(self, msg):
         """Apply a peer's broadcast (POST /internal/message)."""

@@ -767,6 +767,55 @@ def test_refresh_scatters_writes_on_the_card(card, tmp_path):
         h.close()
 
 
+@pytest.mark.cuda
+def test_merge_reaches_the_staged_view_on_the_card(card, tmp_path):
+    """Anti-entropy's merge into a staged view: the per-bit arm (under
+    128 bits, inside existing containers) reaches the card as one K7
+    launch, the bulk arm restages; after each the card's Count equals
+    the plain versions' (the same holder state counted on the CPU)."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = Holder(str(tmp_path))
+    h.open()
+    try:
+        f = h.create_index("i").create_frame("f")
+        rng = np.random.default_rng(5)
+        pos = np.unique(rng.integers(0, 4, 40000) * SLICE_WIDTH
+                        + rng.integers(0, SLICE_WIDTH, 40000))
+        f.import_bits(pos // SLICE_WIDTH, pos % SLICE_WIDTH)
+        frag = h.fragment("i", "f", "standard", 0)
+        ex = Executor(h, device=card, sparse_density_threshold=0)
+        plain = Executor(h, device="cpu", sparse_density_threshold=0)
+        pql = parse_string("Count(Intersect(Bitmap(rowID=0, frame=f), "
+                           "Bitmap(rowID=1, frame=f)))")
+        assert ex.execute("i", pql) == plain.execute("i", pql)
+        mgr = ex.mesh_manager()
+        for n, arm in ((40, "per-bit"), (600, "bulk")):
+            flip = rng.choice(pos[pos < 2 * SLICE_WIDTH], n // 2,
+                              replace=False)
+            extra = (rng.integers(0, 2, n - n // 2) * SLICE_WIDTH
+                     + rng.integers(0, SLICE_WIDTH, n - n // 2))
+            truth = np.setxor1d(pos, np.union1d(flip, extra))
+            peer = ((truth // SLICE_WIDTH).tolist(),
+                    (truth % SLICE_WIDTH).tolist())
+            k7, stage = tk.LAUNCHES["apply_writes"], mgr.stats["stage"]
+            frag.merge_block(0, [peer, peer])
+            got = ex.execute("i", pql)
+            assert got == plain.execute("i", pql), arm
+            if arm == "per-bit":
+                assert tk.LAUNCHES["apply_writes"] == k7 + 1
+                assert mgr.stats["stage"] == stage
+            else:
+                assert mgr.stats["stage"] == stage + 1
+            pos = frag.storage.slice().astype(np.int64)
+        frag.wait_snapshot(30)
+    finally:
+        h.close()
+
+
 # -- the card-memory governor --------------------------------------------------
 
 

@@ -75,6 +75,13 @@ def test_no_source_names_the_jax_package():
     assert offenders == []
 
 
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    pat = re.compile(r"\bpilosa_tpu\.|^\s*(import|from)\s+"
+                     r"(jax|pilosa_tpu)\b", re.M)
+    text = (REPO / "chip_smoke.py").read_text()
+    assert [m.group(0) for m in pat.finditer(text)] == []
+
+
 def test_cuda_without_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -509,7 +509,7 @@ def test_prob_schedule_deterministic():
     assert first == run(tfault) == run(jfault)  # one seeded schedule
     assert 0 < sum(first) < 32
     with pytest.raises(ValueError):
-        tfault.arm("syncer.block")  # replica convergence's: not ported
+        tfault.arm("rebalance.transfer")  # membership change's: not ported
 
 
 def test_stage_seam_carries_context(tmp_path):
