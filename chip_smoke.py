@@ -150,7 +150,7 @@ Phases, each fatal on failure:
      through the spec syntax with max_wal_ops 256: all 16 writers get
      503 with Retry-After, and the Count keeps every acked write. (3)
      Power loss, on a second directory of the same kind over the first
-     24 slices (a cut for time: every start stages them): the server as
+     8 slices (a cut for time: every start stages them): the server as
      a child process on the card with
      PILOSA_TORCH_FAULT arming SIGKILL before the 151st commit fsync,
      the 2nd snapshot fsync and the 2nd snapshot rename in turn
@@ -179,7 +179,7 @@ Phases, each fatal on failure:
      lone and from 16 clients (K4, sorted-array); (2) 1,000 bits
      imported into slice 17 of that staged view: the next Count
      restages (stat `stage`), exact, and TopN(n=8) on K5; (3) `ctl
-     import --create` of a 6,000-line CSV (rows 0-3, 96 slices,
+     import --create` of a 3,000-line CSV (rows 0-3, 96 slices,
      minutes of April 2017 as local time) into index `tqi` (quantum YMD)
      on a server of its own: one day, 7 days and the month on rows 0
      and 3 equal numpy through the same conversion, with the kernels
@@ -212,8 +212,8 @@ Phases, each fatal on failure:
      SetValue on 1,000 columns over 96 slices from 10 clients, Sum (K5),
      Count(Range(val > 100)) (K3), 100 more SetValues and Sum again
      (K7 scatters them into the staged field), all against numpy; `ctl
-     bench` set-bit 250, intersect-count 50 (K4: rows of 1,000 bits
-     in one container stage as sorted arrays) and topn 50 over 4
+     bench` set-bit 120, intersect-count 25 (K4: rows of 1,000 bits
+     in one container stage as sorted arrays) and topn 25 over 4
      seeded rows, then the
      Count and TopN(n=10) on index `bench` against numpy over its
      export; 20 scrapes of /metrics (p50 ms), each parsed as text
@@ -268,7 +268,8 @@ Phases, each fatal on failure:
      Count), topn 0.1 (K5), bsi_sum 0.05 (K5) and bsi_range 0.1 (K3);
      while it runs, /debug/pprof/profile?seconds=2 (its samples hold
      the batch loop), /debug/pprof/goroutine (the batch thread),
-     /debug/fleet (404 on one node) and `python -m pilosa_tpu_torch.
+     /debug/fleet (one member: the node's own cluster of one, as the
+     JAX server's) and `python -m pilosa_tpu_torch.
      tools.metrics_lint --url` (exit 0); run B open at 120 QPS with a
      mid-run 4x spike; A and B with the shadow checks set aside (a
      check's host fold over 960 slices takes seconds under 16 clients),
@@ -278,7 +279,15 @@ Phases, each fatal on failure:
      in-process server of its own with device.exec failing half the
      launches (the ladder answers every request: faults fired, no
      mismatch) and run D, a watchdog.stall delay on the scrub loop (the
-     watchdog trips and recovers). Runs A, B and S must have no failed
+     watchdog trips and recovers); then `ctl loadgen` in cluster mode,
+     three in-process nodes on the card, open loop at 40 QPS for 4 s:
+     run E at replicas 3 with the last node closed at 0.3 of the run and
+     restarted at 0.6 (hint backlog 0 after the drain, slice 0's block
+     digests equal on the restarted node and the coordinator), run F at
+     replicas 2 with a 100 ms staleness bound (no 5xx read, no stale
+     result-cache serve, the hit rate against the schedule's ceiling,
+     the followers' share of the bounded picks printed); both verdicts
+     OK with no mismatch. Runs A, B and S must have no failed
      request, no shadow mismatch and no host fold (count_host,
      bsi_host, topn_host), S some shadow checks, and A and B must
      launch K1, K3, K5 and K7; A's and B's QPS, per-tenant p50/p99 and
@@ -349,10 +358,23 @@ Phases, each fatal on failure:
      node's own K1, K3 and K5 launches and a route of tier http on each;
      each node's staged bytes (its own slices only) beside phase 4's
      one-node view; (2) the
-     lone Count p50 through one coordinator (100 Counts), the 28 pairs
+     lone Count p50 through one coordinator (50 Counts), the 28 pairs
      from 16 clients spread over the four coordinators (QPS), and a
      ?profile=true Count on each: its device_exec beside its
-     fanout_remote; (3) 500 seeded SetBit / ClearBit writes into row
+     fanout_remote; then the cluster's own record: 25 lone Counts of
+     rows 0 and 1 with ?profile=true, the coordinators in turn, each
+     equal to numpy, with one `remotes` section a remote leg (by host),
+     the peers' spans grafted under each fanout span of the
+     coordinator's trace (/debug/traces/<id>), tagged node=<peer>, with
+     the names each peer recorded for its leg, and the coordinator's
+     pilosa_tier_bytes_total{tier="http"} moved by at least the legs'
+     bodies; the split of a leg (the coordinator's fanout_remote, the
+     slowest peer's total_us, its device_exec and host_fold, and the
+     rest: fanout_remote less that total_us, transport and the codec)
+     printed at p50 and p90; /debug/fleet?force=true on coordinator 0
+     lists four members, and its merged pilosa_query_route_total and
+     pilosa_query_outcome_total equal the sums of the four nodes'
+     /metrics read right after; (3) 500 seeded SetBit / ClearBit writes into row
      3 from 8 clients through the four coordinators, every one acked,
      then Counts of row 3 exact from every coordinator, each owner of
      25 sampled slices answering its own remote leg (remote=true, one
@@ -363,7 +385,9 @@ Phases, each fatal on failure:
      the pair's Count (K4) exact from every coordinator; an ImportRequest
      to a non-owner answers 412; (5) node 3 SIGKILLed: Counts from
      nodes 0-2 exact (their re-splits logged), 250 SetBits through
-     nodes 0-2 acked under quorum (2 of 3) with hints for node 3; node 3
+     nodes 0-2 acked under quorum (2 of 3) with hints for node 3, and
+     /debug/fleet?force=true on node 0 shows node 3 DOWN or its scrape
+     failed while it is down; node 3
      restarted from its TOML: the status poll sees it UP, the drainers
      replay (timed until every backlog reads 0), and then every
      coordinator's Counts and node 3's own legs equal numpy with the
@@ -390,7 +414,7 @@ Phases, each fatal on failure:
      on node 1 recorded); a leg Count of the rotted slice on node 2
      equals numpy, its `integrity` shows `repaired` 1 and the rotted
      file sits beside it as `.corrupt`; the 28 pairs and the partial
-     row through every coordinator equal numpy (strict); 4 of them
+     row through every coordinator equal numpy (strict); 2 of them
      from each of 16 clients over the four coordinators under
      X-Pilosa-Staleness 5s equal numpy, with followers among pilosa_read_replica_total's
      bounded picks; bounded Counts through coordinator 0 until the
@@ -409,7 +433,7 @@ Phases, each fatal on failure:
      probe_r5 kernels / stage / readback, profile_stage and
      profile_headline, each record under chiprun_out/probes/; K6 and
      stream_popcount must launch on this path, and then K6 at every T
-     and both slice counts and stream_popcount are held exactly against
+     and stream_popcount over 960 slices are held exactly against
      their plain versions and numpy, and timed;
  23. a `kernels` JSON line (each kernel's launches summed over the
      serving paths 4-21, each path's counters set to 0 just before it;
@@ -523,7 +547,7 @@ BSI_PATH = ("probe_ok", "pair_count", "coarse_count", "tree_count",
             "apply_writes")
 PROBE_PATH = ("coarse_count_blocked", "stream_popcount", "probe_ok",
               "coarse_count")
-PROBE_SLICES = (SLICES, 3072)  # the bandwidth probe's sweep
+PROBE_SLICES = (SLICES,)  # K6 and the stream's pool (a cut: was 960, 3072)
 # The kernels only the probe path launches.
 PROBE_ONLY = ("coarse_count_blocked", "stream_popcount")
 # The integer field: the repo's own BSI configuration (bench.py:2079-2167).
@@ -3381,7 +3405,7 @@ DUR_SNAPSHOTS = 1           # background snapshots each written slice takes
 DUR_MAX_WAL_OPS = 256       # the backpressure step's bound
 DUR_STALL = "storage.fsync:kind=snapshot,delay=2s"
 KILL_MAX_OP_N = 500         # the killed servers' snapshot threshold
-KILL_SLICES = 24            # the power-loss and rot steps' slices (a cut)
+KILL_SLICES = 8             # the power-loss and rot steps' slices (a cut)
 KILLS = (("commit fsync", "storage.fsync:kind=commit,after=150,"
           "error=SIGKILL"),
          ("snapshot fsync", "storage.fsync:kind=snapshot,after=1,"
@@ -3393,7 +3417,7 @@ SHADOW_ROUND = 1                # queries each of the clients sends
 # Clients of the 1-in-1 round: each Count pays a host fold (~0.4 s
 # alone, longer under concurrency), so the round is cut from 16.
 SHADOW_CLIENTS = 2
-SHADOW_TIMED = ((1, 5), (100, 50), (0, 50))  # (1 in N, lone Counts)
+SHADOW_TIMED = ((1, 5), (100, 25), (0, 25))  # (1 in N, lone Counts)
 DURABILITY_PATH = ("apply_writes", "coarse_count", "tree_count", "probe_ok")
 
 
@@ -4186,7 +4210,7 @@ BULK_THREADS = 4          # import clients, as a parallel `ctl import`
 BULK_NEW_SLICE = 17       # the slice the import into a staged view hits
 BULK_SLICES = SLICES // 40  # the slices the protobuf import loads (a cut)
 BULK_NEW_BITS = 1_000
-TQI_BITS = 6_000         # the timestamped CSV's lines (a cut)
+TQI_BITS = 3_000         # the timestamped CSV's lines (a cut)
 TQI_SLICES = 96
 TQI_ROWS = 4
 FR_SLICES = 24            # the frame restored from another node (a cut)
@@ -4670,8 +4694,8 @@ CFG_ROUNDS = 1            # rounds of the 28 pairs spread over 16 clients
 CFG_WRITERS = 10          # clients sending the SetValues into cfg/f/val
 # (op, n, extra flags): the topn bench seeds 4 rows, not 32 (a cut: its
 # seed is ~15,000 SetBits acked one fsync at a time).
-BENCH_OPS = (("set-bit", 250, ()), ("intersect-count", 50, ()),
-             ("topn", 50, ("--max-row-id", 4)))
+BENCH_OPS = (("set-bit", 120, ()), ("intersect-count", 25, ()),
+             ("topn", 25, ("--max-row-id", 4)))
 
 
 def ctl_run(root: Path, *argv, timeout: float = 600) -> str:
@@ -5601,7 +5625,7 @@ LG_MIX = "read=0.6,write=0.15,topn=0.1,bsi_sum=0.05,bsi_range=0.1"
 # past the client's 10 s timeout (PERF.md, PR 16, calls 1-3).
 LG_DATA = ["--index", "i", "--frame", "general", "--rows", str(DENSE_ROWS),
            "--columns", str(SLICES << 20), "--mix", LG_MIX, "--seed", "1"]
-LG_A = ["--mode", "closed", "--concurrency", "16", "--duration", "6",
+LG_A = ["--mode", "closed", "--concurrency", "16", "--duration", "4",
         "--warmup", "2", "--qps", "100"]
 LG_B = ["--mode", "open", "--burst", "spike", "--qps", "120",
         "--duration", "4"]
@@ -5609,10 +5633,25 @@ LG_S = ["--mode", "closed", "--concurrency", "1", "--duration", "3",
         "--qps", "20", "--seed", "2"]
 LG_SHADOW = 4  # the TOML's [integrity] shadow-sample-1-in
 LG_C = ["--in-process", "--fault",
-        "device.exec:error=ResourceExhausted,prob=.5", "--duration", "5"]
+        "device.exec:error=ResourceExhausted,prob=.5", "--duration", "4"]
 LG_D = ["--in-process", "--fault", "watchdog.stall:delay=2,subsystem=scrub",
         "--duration", "6"]
 LG_DIAG_WAIT = 60.0  # seconds run A's diagnosis waits for the batch thread
+# Cluster mode, in-process nodes on the card, open loop (the churn must
+# meet traffic) at the default mix over one slice: run E kills the last
+# of three nodes at 0.3 of the run and restarts it at 0.6 (replicas 3:
+# quorum holds with one copy gone, so the writes ack and are hinted;
+# at replicas 2 quorum needs both copies, and both packages refuse the
+# writes to the gone node's slices, ROADMAP C), run F reads with a
+# 100 ms staleness bound at replicas 2. Their p99 bound is 1 s: they
+# judge convergence and bounded reads, not latency (printed; run E's
+# p99 reached 236 ms under the churn on the card, PERF.md).
+LG_CLUSTER = ["--cluster-nodes", "3", "--mode", "open", "--qps", "40",
+              "--duration", "4", "--seed", "3", "--p99-us", "1000000"]
+LG_E = LG_CLUSTER + ["--cluster-replicas", "3", "--kill-replica-at", "0.3",
+                     "--restart-replica-at", "0.6", "--hint-backlog-max",
+                     "0"]
+LG_F = LG_CLUSTER + ["--cluster-replicas", "2", "--staleness-ms", "100"]
 HOST_FOLDS = ("count_host", "bsi_host", "topn_host")
 
 
@@ -5664,7 +5703,7 @@ def lg_get(port: int, path: str):
 def lg_diagnose(port: int, root: Path, out: dict) -> None:
     """The diagnosis requests under run A's load, once the card manager's
     batch thread runs: a 2 s CPU profile whose samples hold its batch
-    loop, the thread dump naming it, /debug/fleet's 404 on one node and
+    loop, the thread dump naming it, /debug/fleet's one member and
     the port's metrics lint over the live scrape (exit 0)."""
     deadline = time.monotonic() + LG_DIAG_WAIT
     while time.monotonic() < deadline and not any(
@@ -5725,6 +5764,47 @@ def lg_summary(rep: dict) -> dict:
                          for k, v in rep["objectives"].items()}}
 
 
+def lg_cluster_run(name: str, argv: list) -> tuple:
+    """lg_run of a cluster-mode run; (report, the coordinator's replica
+    picks by class), the picks read from its executor after the run
+    (the tool closes its nodes)."""
+    from pilosa_tpu_torch.tools import loadgen
+
+    booted = []
+    start = loadgen.start_inprocess_cluster
+
+    def keep(*a, **kw):
+        booted.append(start(*a, **kw))
+        return booted[-1]
+
+    loadgen.start_inprocess_cluster = keep
+    try:
+        rep = lg_run(name, argv)
+    finally:
+        loadgen.start_inprocess_cluster = start
+    check(booted, f"run {name} booted its cluster")
+    return rep, booted[0][0][0].executor.read_stats.copy()
+
+
+def lg_cluster_summary(rep: dict, picks: dict) -> dict:
+    wc, fr = rep.get("write_churn", {}), rep.get("follower_reads", {})
+    bounded = {k.partition("|")[0]: v for k, v in picks.items()
+               if k.endswith("|bounded")}
+    out = dict(lg_summary(rep), p99_us=max(
+        (r["p99_us"] for r in rep["per_tenant"].values()), default=0.0))
+    out.update(backlog=wc.get("hint_backlog_after_drain"),
+               replica_converged=wc.get("replica_converged"),
+               killed=wc.get("killed"), restarted=wc.get("restarted"),
+               hints=wc.get("hints", {}).get("targets"), picks=picks,
+               follower_share=(bounded.get("follower", 0)
+                               / sum(bounded.values())
+                               if bounded else None),
+               hit_rate=fr.get("cache_hit_rate"),
+               hit_ceiling=fr.get("zipf_hit_ceiling"),
+               stale_serves=fr.get("stale_cache_serves"))
+    return out
+
+
 def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
     """Phase 17 (module docstring), on the config phase's directory:
     `general` at 960 slices, the headline rows and a mask row."""
@@ -5779,6 +5859,17 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
                       faults_fired=rep_c.get("faults_fired", 0)),
                D=dict(lg_summary(rep_d), watchdog=rep_d.get("watchdog")),
                cd_seconds=time.monotonic() - t0)
+    t0 = time.monotonic()
+    before = {k: tk.LAUNCHES.get(k, 0) for k in KERNELS}
+    rep_e, picks_e = lg_cluster_run("E", LG_E)
+    out["E_seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    rep_f, picks_f = lg_cluster_run("F", LG_F)
+    out["F_seconds"] = time.monotonic() - t0
+    out.update(E=lg_cluster_summary(rep_e, picks_e),
+               F=lg_cluster_summary(rep_f, picks_f),
+               ef_launches={k: tk.LAUNCHES.get(k, 0) - before[k]
+                            for k in KERNELS})
     launches = {k: tk.LAUNCHES.get(k, 0) for k in KERNELS}
     wall = time.monotonic() - t_phase
     out.update(launches=launches, stats=mesh_stats, seconds=wall,
@@ -5789,6 +5880,14 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
         sort_keys=True))
     log(f"loadgen phase runs "
         f"{json.dumps({r: out[r] for r in 'ABSCD'}, sort_keys=True)}")
+    log(f"loadgen cluster runs on {smi}: " + json.dumps(
+        {r: {k: out[r][k] for k in (
+            "qps", "p99_us", "outcomes", "verdicts", "backlog",
+            "replica_converged", "hints", "mismatch_growth",
+            "follower_share", "picks", "hit_rate", "hit_ceiling",
+            "stale_serves")} for r in "EF"}, sort_keys=True)
+        + f"; E {out['E_seconds']:.1f} s, F {out['F_seconds']:.1f} s; "
+        f"launches {out['ef_launches']}")
     log(f"loadgen phase diagnosis {json.dumps(diag, sort_keys=True)[:1500]}; "
         f"host folds {folds}, run S's shadow checks {shadow}; final state "
         f"{json.dumps(final)} in {out['final_s']:.1f} s; {wall:.1f} s")
@@ -5799,7 +5898,9 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
           and diag["goroutine"]["batch_thread"],
           f"/debug/pprof/goroutine names the batch thread: "
           f"{diag['goroutine']}")
-    check(diag["fleet"][0] == 404, f"/debug/fleet on one node: {diag['fleet']}")
+    check(diag["fleet"][0] == 200
+          and json.loads(diag["fleet"][1])["members"] == 1,
+          f"/debug/fleet on one node: {diag['fleet'][:1]}")
     check(diag["lint"]["rc"] == 0, f"metrics lint: {diag['lint']}")
     for run, rep in (("A", rep_a), ("B", rep_b), ("S", rep_s)):
         bad = {o: n for o, n in rep["outcomes"].items()
@@ -5824,6 +5925,17 @@ def loadgen_phase(root: Path, tmp: str, card: str, smi: str) -> dict:
     check(wd.get("watchdog_detection", {}).get("verdict") == "OK"
           and wd.get("watchdog_recovery", {}).get("verdict") == "OK",
           f"run D: the watchdog tripped and recovered ({out['D']})")
+    for run, rep in (("E", rep_e), ("F", rep_f)):
+        check(rep["verdict"] == "OK" and rep["rc"] == 0
+              and rep["mismatch_growth"] == 0,
+              f"run {run}: verdict OK, no mismatch ({out[run]})")
+    check(out["E"]["killed"] and out["E"]["restarted"]
+          and out["E"]["replica_converged"] is True
+          and out["E"]["backlog"] == 0,
+          f"run E: the replica came back and converged ({out['E']})")
+    check(out["F"]["stale_serves"] == 0
+          and out["F"]["follower_share"] is not None,
+          f"run F: bounded reads, no stale serve ({out['F']})")
     return out
 
 
@@ -5836,7 +5948,7 @@ HF_THREAD_SLICES = 60  # ... over slices 0-59 (a cut: over all 960 the
                         # 16 Row folds alone took 65.9 s)
 HF_SHADOW = 20        # lone pairs shadow-checked 1 in 1
 HF_OR_LEAVES = 29     # rows 0-28 of `general`; rows 10-28 hold no bit
-HF_SWEEP = ["--slices", "96", "--iters", "3",
+HF_SWEEP = ["--slices", "96", "--iters", "2",
             "--densities", "0.003,0.03,0.3"]
 HF_SWEEP_FORMATS = {"0.003": "sparse", "0.03": "sparse", "0.3": "dense"}
 
@@ -6409,7 +6521,7 @@ def probe_phase(device, seed: int) -> dict:
 
     out_dir = REPO / "chiprun_out" / "probes"
     common = ["--device", "cuda", "--out", str(out_dir)]
-    runs = [("probe_r5_bw", probe_r5_bw, ["--reps", "5"]),
+    runs = [("probe_r5_bw", probe_r5_bw, ["--reps", "3"]),
             ("probe_r5_kernels", probe_r5, ["kernels"]),
             ("probe_r5_stage", probe_r5, ["stage", "--reps", "2"]),
             ("probe_r5_readback", probe_r5, ["readback"]),
@@ -6501,7 +6613,7 @@ CLUSTER_PATH = ("probe_ok", "coarse_count", "coarse_count_shared",
                 "tree_count", "sparse_pair_count", "pair_count",
                 "apply_writes")
 CLUSTER_BUDGET = 8 << 30     # [mesh] hbm-budget-bytes of each node
-CLUSTER_LONE = 100           # lone Counts through coordinator 0
+CLUSTER_LONE = 50            # lone Counts through coordinator 0
 CLUSTER_WRITES = 500       # SetBit / ClearBit writes ...
 CLUSTER_WRITERS = 8          # ... from this many clients
 CLUSTER_SAMPLED = 25         # slices whose owners are asked one by one
@@ -6510,33 +6622,16 @@ CLUSTER_IMPORT_BLOCKS = 1    # ... in block 0 of those slices (a cut)
 CLUSTER_DOWN_WRITES = 250    # SetBits while one node is down
 CLUSTER_DRAIN_S = 60.0       # the drain's limit after the restart
 CLUSTER_WRITE_ROW = 3        # the row the writes move (0-7 all dense)
+CLUSTER_RECORD = 25          # profiled Counts, the coordinators in turn
+RECORD_FAMILIES = ("pilosa_query_route_total", "pilosa_query_outcome_total")
 
 
 def cluster_ports(n: int) -> list:
-    """n free loopback ports below the kernel's ephemeral range: once a
-    node dies, a port inside it can become the source port of a peer's
-    outgoing connection, and the node could not bind it again."""
-    import random
-    import socket
+    """n free loopback ports below the kernel's ephemeral range (a dead
+    node's port inside it can become a peer's source port)."""
+    from pilosa_tpu_torch.tools.loadgen import loopback_ports
 
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            lo = int(f.read().split()[0])
-    except (OSError, ValueError, IndexError):
-        lo = 32768
-    rng = random.Random()
-    out: list = []
-    while len(out) < n:
-        p = rng.randrange(max(1024, lo - 12000), lo)
-        if p in out:
-            continue
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", p))
-            except OSError:
-                continue
-        out.append(p)
-    return out
+    return loopback_ports(n)
 
 
 def cl_toml(path: str, hosts, k: int) -> str:
@@ -6727,6 +6822,131 @@ def slice_count(words: np.ndarray, s: int, op: str, a: int, b: int) -> int:
     return host_count(words[s:s + 1], op, a, b)
 
 
+def cl_launches(ports) -> Counter:
+    """Each kernel's launches summed over the nodes' /debug/vars."""
+    out: Counter = Counter()
+    for p in ports:
+        out.update(cl_vars(p)["kernel_launches"])
+    return out
+
+
+def cl_tier_http(port: int) -> float:
+    return fam_sum(parse_prom(http_text("127.0.0.1", port, "/metrics")),
+                   "pilosa_tier_bytes_total", tier="http")
+
+
+def cl_leg_bytes(leg: dict) -> int:
+    """The fewest bytes a Count leg's bodies can take: its QueryRequest
+    (the PQL its trace holds, its plan's slice count as one-byte ids)
+    and a Count's QueryResponse."""
+    from pilosa_tpu_torch import wire
+
+    plan = next(s for s in leg["spans"] if s["name"] == "plan")
+    req = wire.QueryRequest(query=leg["tags"]["query"],
+                            slices=[1] * plan["tags"]["slices"], remote=True)
+    resp = wire.QueryResponse(results=[wire.result_to_proto(0)])
+    return len(req.encode()) + len(resp.encode())
+
+
+def cl_under(span: dict, root_id: int, by_id: dict) -> bool:
+    while span["id"] != root_id and span["parent"] in by_id:
+        span = by_id[span["parent"]]
+    return span["id"] == root_id
+
+
+def cl_record(ports, hosts, q: str, want: int) -> dict:
+    """CLUSTER_RECORD profiled Counts of `q`, coordinator k % 4 in turn:
+    each answer, its remote sections against its fan-out, the grafted
+    spans, the http tier's bytes; the split of a leg, per query, from
+    the slowest leg's section (legs run in parallel under one
+    fanout_remote phase)."""
+    rows = []
+    for i in range(CLUSTER_RECORD):
+        k = i % len(ports)
+        port = ports[k]
+        tb0 = cl_tier_http(port)
+        c = Client("127.0.0.1", port)
+        try:
+            doc = c.call("POST", "/index/i/query?profile=true", q)
+        finally:
+            c.close()
+        tb1 = cl_tier_http(port)
+        check(doc["results"][0] == want,
+              ("profiled Count", k, doc["results"], want))
+        prof = doc["profile"]
+        tid = cl_get(port, "/debug/queries")["recent"][0]["id"]
+        tr = cl_get(port, f"/debug/traces/{tid}")
+        by_id = {s["id"]: s for s in tr["spans"]}
+        fan = [s for s in tr["spans"] if s["name"] == "fanout"]
+        peers = sorted(s["tags"]["node"] for s in fan)
+        remotes = prof.get("remotes", [])
+        check(peers and len(set(peers)) == len(peers)
+              and sorted(r["host"] for r in remotes)
+              == ["http://" + h for h in peers],
+              ("one remotes section a remote leg", k, peers,
+               [r["host"] for r in remotes]))
+        least = 0
+        for f in fan:
+            node = f["tags"]["node"]
+            mine = [s for s in tr["spans"]
+                    if s["tags"].get("node") == "http://" + node]
+            leg = cl_get(ports[hosts.index(node)], f"/debug/traces/{tid}")
+            check(any(s["parent"] == f["id"] for s in mine)
+                  and all(cl_under(s, f["id"], by_id) for s in mine)
+                  and sorted(s["name"] for s in mine)
+                  == sorted(s["name"] for s in leg["spans"]),
+                  ("the leg's spans grafted under its fanout span", k, node,
+                   [s["name"] for s in mine]))
+            least += cl_leg_bytes(leg)
+        check(tb1 - tb0 >= least,
+              ("pilosa_tier_bytes_total{tier=http} moved by the legs' "
+               "bodies", k, tb1 - tb0, least))
+        slow = max(remotes, key=lambda r: r["total_us"])
+        sph, ph = slow.get("phases_us", {}), prof["phases_us"]
+        rows.append({"coordinator": k, "legs": len(fan),
+                     "total_us": prof["total_us"],
+                     "fanout_remote_us": ph["fanout_remote"],
+                     "peer_total_us": slow["total_us"],
+                     "peer_device_exec_us": sph.get("device_exec", 0.0),
+                     "peer_host_fold_us": sph.get("host_fold", 0.0),
+                     "rest_us": ph["fanout_remote"] - slow["total_us"],
+                     "tier_http_bytes": tb1 - tb0, "leg_bytes_least": least})
+    split = {key: {"p50": pct([r[key] for r in rows], 50),
+                   "p90": pct([r[key] for r in rows], 90)}
+             for key in ("total_us", "fanout_remote_us", "peer_total_us",
+                         "peer_device_exec_us", "peer_host_fold_us",
+                         "rest_us", "tier_http_bytes")}
+    return {"n": len(rows), "split_us": split, "rows": rows}
+
+
+def cl_fleet(ports) -> dict:
+    """/debug/fleet?force=true on the first of `ports`: every member
+    scraped, and its merged query counters equal to the sums of each
+    node's /metrics read right after (no traffic between)."""
+    from pilosa_tpu_torch.obs import fleet
+
+    t0 = time.monotonic()
+    doc = cl_get(ports[0], "/debug/fleet?force=true")
+    ms = (time.monotonic() - t0) * 1e3
+    check(doc["members"] == doc["scraped"] == doc["healthy"] == len(ports),
+          ("the fleet pane lists every node", doc["members"],
+           doc["scraped"], doc["healthy"]))
+    sums: dict = {}
+    for p in ports:
+        text = http_text("127.0.0.1", p, "/metrics")
+        for (name, labels), v in fleet.parse_text(text).items():
+            if name in RECORD_FAMILIES:
+                key = fleet.sample_key(name, labels)
+                sums[key] = sums.get(key, 0.0) + v
+    merged = {k: v for k, v in doc["merged"].items()
+              if k.split("{")[0] in RECORD_FAMILIES}
+    check(sums and merged == sums,
+          ("the fleet's merged query counters", merged, sums))
+    return {"scrape_ms": ms, "members": doc["members"],
+            "requests_total": doc["requests_total"],
+            "merged": merged}
+
+
 def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
                   card: str, seed: int, dense: dict,
                   converge_into: dict = None) -> dict:
@@ -6858,6 +7078,24 @@ def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
               ("every coordinator's profile has fanout_remote", profiles))
         out["profiles"] = profiles
         mark("measured")
+        # The cluster's own record and the fleet pane, their launches
+        # summed over the four nodes.
+        kl0 = cl_launches(ports)
+        t0 = time.monotonic()
+        out["record"] = cl_record(ports, hosts, *reads[0])
+        out["record"]["seconds"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["fleet"] = cl_fleet(ports)
+        out["fleet"]["seconds"] = time.monotonic() - t0
+        kl1 = cl_launches(ports)
+        out["record_launches"] = {k: kl1.get(k, 0) - kl0.get(k, 0)
+                                  for k in KERNELS}
+        log(f"cluster record on {card}: the split of a leg, us, over "
+            f"{CLUSTER_RECORD} profiled Counts "
+            f"{json.dumps(out['record']['split_us'])}; fleet "
+            f"{json.dumps(out['fleet'])}; launches "
+            f"{out['record_launches']}")
+        mark("record and fleet")
         # (4) Writes from CLUSTER_WRITERS clients through the coordinators.
         plans, final = cl_write_plan(words, seed)
         k7_before = [cl_vars(p)["kernel_launches"].get("apply_writes", 0)
@@ -6990,8 +7228,14 @@ def cluster_phase(words: np.ndarray, sp: SparseRows, tmp: str, root: Path,
         backlog = [cl_vars(p)["hints"]["targets"].get(target, {}).get(
             "records", 0) for p in live]
         check(sum(backlog) > 0, ("hints for the dead node", backlog))
+        fdoc = cl_get(live[0], "/debug/fleet?force=true")
+        row = fdoc["nodes"][hosts[down]]
+        check(row["state"] == "DOWN" or row["error"] is not None,
+              ("the fleet pane shows the dead node", row))
         out["down"] = {"resplits": resplits, "backlog": backlog,
-                       "state_at_reads": seen}
+                       "state_at_reads": seen,
+                       "fleet_row": {"state": row["state"],
+                                     "error": row["error"]}}
         mark("failure")
         # Its restart, the drain, and its answers.
         t0 = time.monotonic()
@@ -7102,7 +7346,7 @@ CONV_SMALL = 60           # bits flipped in one slice (the per-bit arm)
 CONV_BULK = 2_000         # bits flipped in another (the bulk arm)
 CONV_AE_INTERVAL = 20     # [anti-entropy] interval and jitter, seconds:
 CONV_AE_JITTER = 1        # every node answers before a first pass starts
-CONV_BOUNDED_EACH = 4     # bounded Counts each of the 16 clients sends
+CONV_BOUNDED_EACH = 2     # bounded Counts each of the 16 clients sends
 CONV_STALENESS = "5s"     # the bounded reads' X-Pilosa-Staleness
 CONV_VERIFY_1_IN = 4      # [integrity] result-cache-verify-1-in
 CONV_WAIT_S = 60.0        # the limit of convergence, the cache's hits and

@@ -14,9 +14,16 @@ A transient failure (connection refused or reset, a timeout, 502 or
 exponential backoff and a jitter drawn from an explicit random.Random
 (`rand`), within the call's deadline when it has one; every attempt is
 gated by and reported to the host's breaker. A remote leg carries the
-deadline's remaining budget as X-Pilosa-Deadline-Us. The trace and
-profile headers come with the cross-node observability (ROADMAP
-A11c)."""
+deadline's remaining budget as X-Pilosa-Deadline-Us, and the
+coordinator's record: X-Pilosa-Trace (trace id : span id of the current
+span) and, under an active profile, X-Pilosa-Profile: 1. The leg's
+spans come back in X-Pilosa-Trace-Spans and are grafted under the
+current span, tagged node=<peer>; its profile comes back in
+X-Pilosa-Profile and goes under the profile's `remotes`. A malformed
+one of either never fails the query. Every successful call adds its
+request and response bodies to TIER_BYTES["http"] and charges them as
+net_http_bytes to the ambient cost account (the system row for
+background calls)."""
 
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ import numpy as np
 
 from .. import fault
 from ..errors import DeadlineExceededError, PilosaError
-from ..obs.metrics import StatMap
+from ..obs import costs
+from ..obs import profile as obs_profile
+from ..obs.metrics import TIER_BYTES, StatMap
+from ..obs.trace import current_span
 from ..wire import (PROTOBUF_CT, BlockDataRequest, BlockDataResponse,
                     ImportRequest, NodeStatus, QueryRequest, QueryResponse,
                     result_from_proto)
@@ -224,11 +234,14 @@ class InternalClient:
     def _do(self, method: str, path: str, params: Optional[dict] = None,
             body: bytes = b"", content_type: str = "", accept: str = "",
             headers: Optional[dict] = None,
+            resp_headers: Optional[dict] = None,
             deadline: Optional[float] = None) -> Tuple[int, bytes]:
         """(status, body) of one call; an error status is returned, not
         raised. A transient failure is retried (class docstring) and,
         once the retries are spent, raises a transient ClientError;
-        DeadlineExceededError when the deadline leaves no attempt."""
+        DeadlineExceededError when the deadline leaves no attempt. A
+        successful call's headers go into `resp_headers`, and its
+        bodies' bytes into TIER_BYTES and the cost ledger."""
         url = self.host + path
         if params:
             url += "?" + urllib.parse.urlencode(params)
@@ -256,9 +269,14 @@ class InternalClient:
                 for k, v in (headers or {}).items():
                     req.add_header(k, v)
                 with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    if resp_headers is not None:
+                        resp_headers.update(resp.headers.items())
                     data = resp.read()
                     if self.breaker is not None:
                         self.breaker.record_success()
+                    nbytes = len(body or b"") + len(data)
+                    TIER_BYTES.inc("http", nbytes)
+                    costs.LEDGER.charge("net_http_bytes", nbytes)
                     return resp.status, data
             except urllib.error.HTTPError as e:
                 data = e.read()
@@ -313,7 +331,13 @@ class InternalClient:
         non-transient ClientError: a replica would fail the same way."""
         body = QueryRequest(query=query, slices=[int(s) for s in slices],
                             remote=remote).encode()
+        cur = current_span()
+        prof = obs_profile.current()
         hdrs = {}
+        if cur is not None:
+            hdrs["X-Pilosa-Trace"] = f"{cur.trace.trace_id}:{cur.span_id}"
+        if prof is not None:
+            hdrs["X-Pilosa-Profile"] = "1"
         if deadline is not None:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -321,9 +345,26 @@ class InternalClient:
                     f"query to {self.host}: deadline exceeded by "
                     f"{-left * 1e6:.0f}us")
             hdrs["X-Pilosa-Deadline-Us"] = str(int(left * 1e6))
-        status, data = self._do("POST", f"/index/{index}/query", body=body,
-                                content_type=PROTOBUF_CT, accept=PROTOBUF_CT,
-                                headers=hdrs or None, deadline=deadline)
+        rhdrs: dict = {}
+        status, data = self._do(
+            "POST", f"/index/{index}/query", body=body,
+            content_type=PROTOBUF_CT, accept=PROTOBUF_CT,
+            headers=hdrs or None,
+            resp_headers=rhdrs if (cur is not None or prof is not None)
+            else None, deadline=deadline)
+        rh = {k.lower(): v for k, v in rhdrs.items()}
+        if cur is not None and rh.get("x-pilosa-trace-spans"):
+            try:
+                cur.trace.graft(json.loads(rh["x-pilosa-trace-spans"]),
+                                cur.span_id, node=self.host)
+            except (ValueError, KeyError, TypeError):
+                pass  # malformed remote spans never fail the query
+        if prof is not None and rh.get("x-pilosa-profile"):
+            try:
+                prof.merge_remote(self.host,
+                                  json.loads(rh["x-pilosa-profile"]))
+            except (ValueError, KeyError, TypeError):
+                pass  # a malformed remote profile never fails the query
         try:
             resp = QueryResponse.decode(data)
         except Exception:

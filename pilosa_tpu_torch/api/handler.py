@@ -88,8 +88,9 @@ bodies and status codes.
   GET    /debug/queries[?threshold_us=N]   recent and slow traces
   GET    /debug/traces/{id}             one trace's spans
   GET    /debug/queryshapes[?sort=&limit=]  the flight recorder
-  GET    /debug/fleet                   the federated fleet pane: 404 {"error":
-         "fleet view requires a cluster"} on one node, as the JAX handler
+  GET    /debug/fleet[?force=true]      the federated fleet pane over the
+         cluster's members; 404 {"error": "fleet view requires a cluster"}
+         on a handler without one, as the JAX handler
   GET    /debug/pprof[/]                the profile index, then the thread dump
   GET    /debug/pprof/profile?seconds=N   every thread's stacks sampled at
          ~100 Hz, collapsed ("frame;frame N")
@@ -208,7 +209,8 @@ from ..errors import (DeadlineExceededError, FragmentNotFoundError,
                       WriteBackpressureError, WriteConsistencyError)
 from ..executor import (CONSISTENCY_STATS, SHADOW_STATS, ExecOptions,
                         required_acks)
-from ..obs import costs, health, profile, prom, slo
+from ..obs import costs, fleet, health, profile, prom, slo
+from ..obs.metrics import TIER_BYTES
 from ..parallel.cluster import NODE_STATE_DOWN
 from ..obs import span as obs_span
 from ..obs.trace import Tracer
@@ -429,10 +431,14 @@ class Handler:
         self.metrics_sample_interval = 10.0
         self._frag_sample: Tuple[float, list] = (0.0, [])
         self._frag_sample_mu = threading.Lock()
-        # [obs] fleet-scrape-interval, seconds (a Server sets it): the
-        # fleet pane's cache, once a cluster gives /debug/fleet a ring
-        # (ROADMAP A11).
+        # The fleet pane behind /debug/fleet (obs.fleet.FleetAggregator
+        # over the cluster's members, built at its first request): its
+        # cache, [obs] fleet-scrape-interval (a Server sets it), and
+        # each peer's scrape deadline, seconds.
         self.fleet_scrape_interval = 5.0
+        self.fleet_scrape_deadline = 2.0
+        self._fleet_agg = None
+        self._fleet_mu = threading.Lock()
         # Guards /debug/pprof/heap's tracemalloc starts and stops.
         self._tracemalloc_mu = threading.Lock()
         self._tracemalloc_ours = False
@@ -988,6 +994,7 @@ class Handler:
         reg.register_collector(lambda: prom.expvar_families(self.stats))
         for fn in (self._collect_runtime, self._collect_device,
                    self._collect_host_cache, self._collect_cluster,
+                   self._collect_tiers,
                    self._collect_membership, self._collect_hints,
                    self._collect_routes, self._collect_read_path,
                    self._collect_sched,
@@ -1183,12 +1190,56 @@ class Handler:
 
     # -- diagnosis: /debug/fleet and /debug/pprof ------------------------------
 
+    def _fleet(self):
+        """The fleet aggregator, built at first use; None without a
+        cluster."""
+        if self.cluster is None:
+            return None
+        with self._fleet_mu:
+            if self._fleet_agg is None:
+                self._fleet_agg = fleet.FleetAggregator(
+                    members=self.cluster.node_states,
+                    fetch=self._fleet_fetch,
+                    interval=self.fleet_scrape_interval,
+                    deadline=self.fleet_scrape_deadline,
+                    breaker_state=self._fleet_breaker_state)
+            return self._fleet_agg
+
+    def _fleet_breaker_state(self, host: str) -> str:
+        """The breaker state of `host` in the executor's cluster client
+        ("" without one): the aggregator skips a peer whose breaker is
+        open."""
+        breakers = getattr(getattr(self.executor, "client", None),
+                           "breakers", None)
+        state = getattr(breakers, "state", None)
+        return state(host) if callable(state) else ""
+
+    def _fleet_fetch(self, host: str, path: str, timeout_s: float) -> str:
+        """One scrape: this node answers through its own handler (fresh,
+        never behind a breaker); a peer through the internal client,
+        with its retries, the deadline and its breaker."""
+        if host == self.host or self.client_factory is None:
+            resp = self.handle("GET", path)
+            if resp.status != 200:
+                raise RuntimeError(f"local {path}: status={resp.status}")
+            return resp.body.decode()
+        status, data = self.client_factory(host)._do(
+            "GET", path, deadline=time.monotonic() + timeout_s)
+        if status != 200:
+            raise RuntimeError(f"{host}{path}: status={status}")
+        return data.decode()
+
     def _get_debug_fleet(self, pv, params, headers, body) -> Response:
-        """The federated fleet pane (obs/fleet.FleetAggregator over the
-        ring's members, cached fleet_scrape_interval seconds). One node
-        has no ring: 404, as the JAX handler answers without a cluster
-        (ROADMAP A11)."""
-        return _json_resp({"error": "fleet view requires a cluster"}, 404)
+        """The federated fleet pane: every member's /metrics and
+        /debug/vars scraped (bounded concurrency, a deadline a node,
+        breaker-aware, stale-tolerant) and the cumulative families
+        merged exactly; cached fleet_scrape_interval seconds,
+        ?force=true bypasses the cache. Without a cluster: 404."""
+        agg = self._fleet()
+        if agg is None:
+            return _json_resp({"error": "fleet view requires a cluster"},
+                              404)
+        return _json_resp(agg.snapshot(force=params.get("force") == "true"))
 
     def _get_cpu_profile(self, pv, params, headers, body) -> Response:
         """Sampling CPU profile across every thread (Go's
@@ -1484,6 +1535,20 @@ class Handler:
                 f.add(order.get(state, -1), {"host": host, "state": state})
             fams.append(f)
         return fams
+
+    def _collect_tiers(self) -> list:
+        """pilosa_tier_bytes_total{tier}: bytes moved across locality
+        tiers (obs.metrics.TIER_BYTES); ici stays 0 until the SPMD
+        plane (ROADMAP A11d)."""
+        tb = TIER_BYTES.copy()
+        tier = prom.MetricFamily(
+            "pilosa_tier_bytes_total", "counter",
+            "Bytes moved across locality tiers: ici = descriptor-plane "
+            "broadcasts over the device fabric, http = node-to-node "
+            "request+response bodies.")
+        for t in ("ici", "http"):
+            tier.add(tb.get(t, 0), {"tier": t})
+        return [tier]
 
     def _collect_membership(self) -> list:
         """Each node's state (pilosa_member_state: 0 DOWN, 1 JOINING, 2
@@ -1913,7 +1978,10 @@ class Handler:
         stats). The profile starts before admission, so a queue wait is
         its sched_wait phase; its device_exec + host_fold is charged to
         the tenant's account as device time (times the sample rate on
-        the sampled path)."""
+        the sampled path). A remote leg joins the coordinator's trace id
+        (X-Pilosa-Trace, the part before ":") and answers its spans in
+        X-Pilosa-Trace-Spans; with X-Pilosa-Profile it is profiled and
+        answers its profile in X-Pilosa-Profile (compact JSON both)."""
         index = pv["index"]
         if self._sends_proto(headers):
             req = QueryRequest.decode(body)
@@ -1933,6 +2001,7 @@ class Handler:
             info["explain"] = True
             return self._explain_query(index, params, headers, body)
         want_profile = params.get("profile") == "true" and not remote
+        remote_profile = bool(remote and headers.get("x-pilosa-profile"))
         sampled = (self.profile_sample_rate > 0 and not remote
                    and next(self._profile_seq)
                    % self.profile_sample_rate == 0)
@@ -1942,12 +2011,13 @@ class Handler:
                 self._tenant_label(tenant),
                 float(self.profile_sample_rate) if sampled else 1.0)
         prof = ptoken = None
-        if want_profile or sampled:
+        if want_profile or remote_profile or sampled:
             prof = profile.QueryProfile(backend=self.executor.device.type)
-            if self.slo is not None:
+            if self.slo is not None and not remote:
                 prof.tenant = self.slo.tenant_label(tenant)
             ptoken = profile.activate(prof)
         ticket = None
+        th = ""
         try:
             if self.scheduler is not None and not remote:
                 try:
@@ -1959,12 +2029,14 @@ class Handler:
                     return self._shed_response(e, headers)
                 except DeadlineExceededError as e:
                     return self._query_error(e, headers)
-            trace = self.tracer.start("query", index=index,
-                                      query=query[:256])
+            th = headers.get("x-pilosa-trace", "") if remote else ""
+            trace = self.tracer.start(
+                "query", trace_id=th.partition(":")[0] or None,
+                index=index, query=query[:256])
             info["trace_id"] = trace.trace_id
             try:
                 with trace.root:
-                    return self._run_query(index, query, slices,
+                    resp = self._run_query(index, query, slices,
                                            column_attrs, remote, headers,
                                            opt, want_profile)
             finally:
@@ -1984,6 +2056,13 @@ class Handler:
                         + prof.phase_us("host_fold"),
                         weight=cost_ctx.weight, tenant=cost_ctx.tenant,
                         shape=cost_ctx.shape)
+        if th:
+            resp.headers["X-Pilosa-Trace-Spans"] = json.dumps(
+                trace.serialize_spans(), separators=(",", ":"))
+        if remote_profile:
+            resp.headers["X-Pilosa-Profile"] = json.dumps(
+                prof.to_dict(), separators=(",", ":"))
+        return resp
 
     def _shed_response(self, e: AdmissionError, headers=None) -> Response:
         """429 with Retry-After (whole seconds, >= 1): do not retry

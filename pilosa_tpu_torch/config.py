@@ -16,7 +16,7 @@ Durations accept Go-style strings ("10m", "60s", "1h30m", "250ms",
 What the port's Server (server.py) acts on: data-dir, host, log-path,
 use-device, [log], [mesh], [storage], [integrity] (with
 result-cache-verify-1-in), [anti-entropy] (interval, jitter,
-block-deadline), [obs] (but fleet-scrape-interval), [sched], [slo],
+block-deadline), [obs], [sched], [slo],
 [health], [[schema.indexes]] and [cluster]'s type (http or static),
 hosts, replicas, partitions, query-deadline, client-timeout, retries,
 retry-backoff, breaker-threshold, breaker-cooldown, prefer-local-reads,

@@ -1254,7 +1254,10 @@ class Executor:
         slice below the highest asked or known, or, in a cluster, the
         ones of them this node owns (a SliceSpace: the pools hold no
         bytes for the rest)."""
-        num = max(max(slices), self.holder.index(index).max_slice()) + 1
+        idx = self.holder.index(index)
+        if idx is None:  # dropped (or its holder closed) mid-query
+            raise IndexNotFoundError()
+        num = max(max(slices), idx.max_slice()) + 1
         if not self._clustered():
             return num
         cl = self.cluster

@@ -12,9 +12,9 @@ without plumbing tenants through call signatures:
     profile's device_exec + host_fold, extrapolated by the profile
     sample rate on the sampled path), HBM byte-seconds (a staged view's
     bytes x dt, amortized over the accounts that touched it), staged
-    bytes, WAL bytes, network bytes by tier (no tap in the port until
-    the cluster, ROADMAP A11) and cache-hit savings. Every dimension is
-    a cumulative counter.
+    bytes, WAL bytes, network bytes by tier (the internal client's
+    http bodies; ici 0 until the SPMD plane) and cache-hit savings.
+    Every dimension is a cumulative counter.
 
 ``WATCH``
     a `BaselineWatch` keeping EWMA + MAD bands per (shape, backend,

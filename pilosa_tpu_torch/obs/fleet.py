@@ -21,9 +21,10 @@ reads its scrapes through parse_text and hist_percentiles, so the
 operator's tools and the merge never disagree about what a scrape
 means.
 
-The handler answers GET /debug/fleet with 404 on one node: the
-aggregator's members, fetch and breakers need the cluster and its
-internal client (ROADMAP A11).
+The handler builds one aggregator over its cluster's members
+(`Cluster.node_states`), fetching its own scrapes through itself and
+the peers' through the internal client; a handler without a cluster
+answers GET /debug/fleet with 404.
 """
 
 from __future__ import annotations

@@ -166,3 +166,10 @@ class StatMap(dict):
     def copy(self) -> dict:
         with self._mu:
             return dict(self)
+
+
+# Bytes moved across locality tiers, keyed by tier: "http" for
+# node-to-node request and response bodies (api/client.py), "ici" for
+# the SPMD plane's broadcasts (ROADMAP A11d; 0 until then). The handler
+# exports it as pilosa_tier_bytes_total{tier}.
+TIER_BYTES = StatMap()

@@ -179,6 +179,14 @@ class QueryProfile:
             self.tags.update(kv)
         return self
 
+    def merge_remote(self, host: str, section: Dict[str, Any]) -> None:
+        """Attach a remote leg's profile (its X-Pilosa-Profile response
+        header) as {"host": host, **section} under `remotes`. Its phases
+        are never folded into this profile's: the coordinator's
+        fanout_remote phase already brackets the leg's wall time."""
+        with self._mu:
+            self.remotes.append({"host": host, **section})
+
     # -- lifecycle and output --------------------------------------------
 
     def finish(self) -> None:

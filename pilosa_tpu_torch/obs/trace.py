@@ -1,7 +1,9 @@
 """Per-query tracing: monotonic-clock spans collected into traces,
 retained in bounded rings, and carried across threads (contextvars).
-The JAX package's obs/trace.py, with its names; the cross-node header
-handling waits for the cluster (ROADMAP A11).
+The JAX package's obs/trace.py, with its names. A coordinator's remote
+leg joins its trace (X-Pilosa-Trace), and the leg's spans come back as
+a response header and are grafted under the fan-out span
+(`Trace.graft`).
 
 Design constraints, in order:
 
@@ -175,7 +177,31 @@ class Trace:
         return (end - self.start_ns) / 1e3
 
     def serialize_spans(self) -> List[Dict[str, Any]]:
+        """Span dicts with trace-relative times: the wire form a remote
+        leg sends back in X-Pilosa-Trace-Spans."""
         return [sp.to_dict() for sp in self.spans]
+
+    def graft(self, span_dicts: List[Dict[str, Any]], parent_id: int,
+              **extra_tags) -> None:
+        """Attach spans a remote node serialized under `parent_id`.
+        Remote ids are remapped into this trace's; a remote parent that
+        is not among them maps to `parent_id`. Remote times are relative
+        to the remote trace's start on its clock, so they are anchored
+        at the local parent span's start (the fan-out span brackets the
+        remote work), or at the root's when `parent_id` names no span
+        here. `extra_tags` go on every grafted span."""
+        parent = next((s for s in self.spans if s.span_id == parent_id),
+                      self.root)
+        base_ns = parent.start_ns
+        idmap = {d.get("id"): next(self._ids) for d in span_dicts}
+        for d in span_dicts:
+            sp = Span(self, idmap[d.get("id")],
+                      idmap.get(d.get("parent"), parent_id),
+                      d.get("name", "remote"), d.get("tags"))
+            sp.start_ns = base_ns + int(d.get("start_us", 0) * 1e3)
+            sp.end_ns = sp.start_ns + int(d.get("duration_us", 0) * 1e3)
+            sp.tags.update(extra_tags)
+            self.spans.append(sp)
 
     def summary(self) -> Dict[str, Any]:
         return {

@@ -85,7 +85,7 @@ CACHE_FLUSH_INTERVAL = 60.0
 
 # What the port reads from a config and does not act on yet (one log
 # line at open()).
-NOT_ACTED_ON = ("[rebalance]", "[obs] fleet-scrape-interval")
+NOT_ACTED_ON = ("[rebalance]",)
 
 
 def refuse_cluster(cfg: Config) -> None:
@@ -249,8 +249,8 @@ class Server:
         cfg, h, ex = self.config, self.handler, self.executor
         h.profile_sample_rate = cfg.profile_sample_rate
         h.default_deadline = cfg.query_deadline
-        # Set as the JAX server sets it; acted on once /debug/fleet has
-        # a ring to scrape (ROADMAP A11; NOT_ACTED_ON until then).
+        # The fleet pane's cache (/debug/fleet over the cluster's
+        # members).
         h.fleet_scrape_interval = cfg.fleet_scrape_interval
         ex.flight.ring = max(1, int(cfg.queryshape_ring))
         self.scheduler = None

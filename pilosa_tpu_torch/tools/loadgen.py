@@ -26,7 +26,10 @@ rates, the mismatch growth, a verdict per objective and the server's
 own SLO judgment. It exits 1 on any VIOLATED objective.
 
 `--in-process` boots a throwaway `server.Server` on a loopback port,
-on the card unless $PILOSA_TORCH_USE_DEVICE says `off` (the CPU).
+on the card unless $PILOSA_TORCH_USE_DEVICE says `off` (the CPU);
+`--cluster-nodes N` boots N of them as one cluster (`--cluster-replicas`
+copies of each slice; the JAX tool's nodes default to `off`, the port's
+to the card) and sends the traffic to node 0.
 `--fault` arms a fault.py spec in that server mid-run (at `--fault-at`
 of the run): `device.exec:error=ResourceExhausted,prob=.5` drives the
 evict, retry, host-fold and quarantine ladder under live traffic (the
@@ -34,11 +37,15 @@ bar: no wrong answer); a `watchdog.stall` spec (say
 `watchdog.stall:delay=2,subsystem=scrub`) shrinks the scrub and sweep
 cadence and judges the watchdog's trip and recovery.
 
-The port serves one node: the cluster flags (`--cluster-nodes`,
-`--cluster-replicas`, `--kill-replica-at`, `--restart-replica-at`,
-`--hint-backlog-max`, `--staleness-ms` > 0, `--partial`) are refused
-with exit code 2 until the cluster comes (ROADMAP A11). They stay in
-the parser, so `--help` lists the JAX loadgen's options.
+Cluster mode's write churn: `--kill-replica-at F` closes the last node
+at F of the run and `--restart-replica-at F` reopens it on its data dir;
+after the run the coordinator's hints must drain to at most
+`--hint-backlog-max` records and the restarted replica's block digests
+of slice 0 must equal the coordinator's (anti-entropy is off, so only
+the hint replay can converge it). `--staleness-ms` sends
+X-Pilosa-Staleness on every request and judges the bounded reads (no
+5xx, no stale result-cache serve, the cache's hit rate against the
+schedule's ceiling); `--partial` sends ?partial=true.
 """
 
 from __future__ import annotations
@@ -59,10 +66,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional
 
 DEFAULT_MIX = "read=0.65,write=0.20,topn=0.15,range=0.0"
-
-# Why the cluster flags are refused.
-CLUSTER_WAIT = ("the port serves one node; clusters wait for ROADMAP "
-                "A11")
 
 # Fixed Range() window: the schedule must be seed-deterministic, so no
 # wall-clock reads anywhere in generation.
@@ -198,12 +201,19 @@ class HTTPTransport:
     the SLO math judges."""
 
     def __init__(self, host: str, index: str = "loadgen",
-                 timeout: float = 10.0, deadline: str = ""):
+                 timeout: float = 10.0, partial: bool = False,
+                 deadline: str = "", staleness_ms: float = 0.0):
         self.base = host if "://" in host else "http://" + host
         self.index = index
         self.timeout = timeout
+        self.staleness_ms = float(staleness_ms)
+        params = []
+        if partial:
+            params.append("partial=true")
+        if deadline:
+            params.append(f"deadline={deadline}")
         self.query_path = (f"/index/{index}/query"
-                           + (f"?deadline={deadline}" if deadline else ""))
+                           + ("?" + "&".join(params) if params else ""))
         # X-Pilosa-Cost-Debt sightings, tenant -> count (the cost_skew
         # judge gates on the header firing for the whale and only it).
         self.debt_by_tenant: Dict[str, int] = {}
@@ -212,12 +222,14 @@ class HTTPTransport:
     def do(self, entry: Dict[str, Any]) -> tuple:
         """-> (status, partial flag). A transport failure is 599, an
         error outcome, never an exception."""
+        headers = {"X-Pilosa-Tenant": entry["tenant"],
+                   "Content-Type": "text/plain"}
+        if self.staleness_ms > 0:
+            # Writes ignore the bound, so it rides every request.
+            headers["X-Pilosa-Staleness"] = f"{self.staleness_ms:g}ms"
         req = urllib.request.Request(
-            self.base + self.query_path,
-            data=entry["pql"].encode(),
-            headers={"X-Pilosa-Tenant": entry["tenant"],
-                     "Content-Type": "text/plain"},
-            method="POST")
+            self.base + self.query_path, data=entry["pql"].encode(),
+            headers=headers, method="POST")
         try:
             with urllib.request.urlopen(req, timeout=self.timeout) as r:
                 body = r.read()
@@ -480,6 +492,24 @@ def run(spec: Dict[str, Any], transport,
 # -- in-process server ----------------------------------------------------
 
 
+def _node_config(spec: Dict[str, Any], use_device: Optional[str] = None):
+    """An in-process node's Config: on the card unless `use_device` or
+    $PILOSA_TORCH_USE_DEVICE says `off`, the spec's tenants declared in
+    [sched] tenant-weights, 1 in 4 reads shadow-verified and the spec's
+    objectives as [slo]."""
+    from ..config import Config
+
+    cfg = Config()
+    cfg.use_device = use_device or os.environ.get(
+        "PILOSA_TORCH_USE_DEVICE", "on")
+    cfg.sched_tenant_weights = {t: 1.0 for t in spec["tenants"]}
+    cfg.integrity_shadow_sample = 4
+    for k in ("availability", "latency_target", "shed_rate_max"):
+        setattr(cfg, "slo_" + k, float(spec["objectives"][k]))
+    cfg.slo_p99_us = float(spec["objectives"]["p99_us"])
+    return cfg
+
+
 def start_inprocess(spec: Dict[str, Any], log,
                     watchdog_drill: bool = False,
                     use_device: Optional[str] = None) -> tuple:
@@ -493,33 +523,262 @@ def start_inprocess(spec: Dict[str, Any], log,
     watchdog.stall delay on the scrub loop (one node has no hint
     drainer) trips and recovers within a short run. Returns (server,
     host)."""
-    from ..config import Config
     from ..server import Server
 
-    cfg = Config()
+    cfg = _node_config(spec, use_device)
     if watchdog_drill:
         cfg.integrity_scrub_interval = 0.5
         cfg.health_sweep_interval = 0.2
     cfg.data_dir = tempfile.mkdtemp(prefix="pilosa-loadgen-")
     cfg.host = "127.0.0.1:0"
     cfg.cluster_hosts = [cfg.host]
-    cfg.use_device = use_device or os.environ.get(
-        "PILOSA_TORCH_USE_DEVICE", "on")
-    cfg.sched_tenant_weights = {t: 1.0 for t in spec["tenants"]}
-    cfg.integrity_shadow_sample = 4   # every 4th read shadow-verified
     if spec.get("cost_skew"):
         # The cost judge needs device_us attribution, which only the
         # profiler produces: sample 1 in 2 (the ledger extrapolates by
         # the sample rate, so shares stay unbiased).
         cfg.profile_sample_rate = 2
-    for k in ("availability", "latency_target", "shed_rate_max"):
-        setattr(cfg, "slo_" + k, float(spec["objectives"][k]))
-    cfg.slo_p99_us = float(spec["objectives"]["p99_us"])
     srv = Server(cfg)
     srv.open(port=0)
     log(f"in-process server at {srv.host} (data {cfg.data_dir}, "
         f"use-device {cfg.use_device})")
     return srv, srv.host
+
+
+def loopback_ports(n: int) -> List[int]:
+    """n free loopback ports below the kernel's ephemeral range: a
+    closed node's port inside it can become the source port of a peer's
+    outgoing connection, and the node could not bind it again."""
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        lo = 32768
+    rng = random.Random()
+    out: List[int] = []
+    while len(out) < n:
+        p = rng.randrange(max(1024, lo - 12000), lo)
+        if p in out:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", p))
+            except OSError:
+                continue
+        out.append(p)
+    return out
+
+
+def start_inprocess_cluster(spec: Dict[str, Any], nodes: int,
+                            replicas: int, log) -> tuple:
+    """Boot an N-node cluster of in-process Servers on loopback ports,
+    the target of the write-churn run (a replica killed mid-run and
+    restarted, judged on the hint drain's convergence). Traffic goes to
+    node 0; the last node is the one killed, so the coordinator and its
+    quorum partner live. Each node serves on the card unless
+    $PILOSA_TORCH_USE_DEVICE says `off`. Anti-entropy and the status
+    poll run every hour: convergence must come from the hint replay.
+    Returns (servers, configs, hosts)."""
+    from ..server import Server
+
+    hosts = [f"127.0.0.1:{p}" for p in loopback_ports(nodes)]
+    base = tempfile.mkdtemp(prefix="pilosa-loadgen-cluster-")
+    servers, configs = [], []
+    for i, h in enumerate(hosts):
+        cfg = _node_config(spec)
+        cfg.data_dir = os.path.join(base, f"node{i}")
+        cfg.host = h
+        cfg.cluster_hosts = list(hosts)
+        cfg.replica_n = replicas
+        cfg.anti_entropy_interval = 3600
+        cfg.polling_interval = 3600
+        srv = Server(cfg)
+        srv.open()
+        servers.append(srv)
+        configs.append(cfg)
+    log(f"in-process cluster: {nodes} nodes, replica_n={replicas}, "
+        f"coordinator {hosts[0]} (data {base}, use-device "
+        f"{configs[0].use_device})")
+    return servers, configs, hosts
+
+
+def run_replica_churn(servers, configs, duration: float,
+                      kill_at: float, restart_at: float, log,
+                      state: Dict[str, Any]):
+    """Close the last node at `kill_at` x duration and reopen it on its
+    data dir at `restart_at` x duration, paced by the wall clock: the
+    write stream must keep acking while the replica is really gone."""
+    from ..server import Server
+
+    victim = len(servers) - 1
+    time.sleep(max(0.0, kill_at * duration))
+    log(f"churn: stopping replica {configs[victim].host}")
+    servers[victim].close()
+    state["killed"] = True
+    if restart_at > kill_at:
+        time.sleep(max(0.0, (restart_at - kill_at) * duration))
+        log(f"churn: restarting replica {configs[victim].host}")
+        srv = Server(configs[victim])
+        srv.open()
+        servers[victim] = srv
+        state["restarted"] = True
+
+
+def _judge_write_churn(report: Dict[str, Any], servers, configs,
+                       churn_state: Dict[str, Any], args, log) -> None:
+    """Cluster mode's verdict: the coordinator's breaker to the
+    restarted replica is closed (the production path: breaker close ->
+    mark_live -> the drainer's wake-up, without the cooldown's wait),
+    the hints get a bounded window to drain, and the run is judged on
+    the backlog left (at most --hint-backlog-max) and on slice 0's block
+    digests on the restarted replica against the coordinator's. Folded
+    into the report's verdict."""
+    from ..api.client import InternalClient
+
+    coord = servers[0]
+    victim_host = configs[-1].host
+    drained = True
+    if churn_state.get("restarted") and coord.hints is not None:
+        coord.client.breakers.for_host(victim_host).record_success()
+        drained = coord.hints.wait_drained(timeout=max(30.0, args.duration))
+    backlog = coord.hints.backlog_records() \
+        if coord.hints is not None else 0
+    hint_snap = coord.hints.snapshot() if coord.hints is not None else {}
+
+    converged = None
+    if churn_state.get("restarted"):
+        try:
+            blocks = [InternalClient(c.host).fragment_blocks(
+                args.index, args.frame, "standard", 0)
+                for c in (configs[0], configs[-1])]
+            converged = blocks[0] == blocks[1]
+        except Exception as e:  # noqa: BLE001 — judged, not raised
+            log(f"churn: convergence probe failed: {e}")
+            converged = False
+
+    report["write_churn"] = {
+        "nodes": len(servers),
+        "replica_n": args.cluster_replicas,
+        "killed": bool(churn_state.get("killed")),
+        "restarted": bool(churn_state.get("restarted")),
+        "hint_backlog_after_drain": backlog,
+        "hints": hint_snap,
+        "replica_converged": converged,
+    }
+    ok = (drained and backlog <= args.hint_backlog_max
+          and converged is not False)
+    report["objectives"]["hint_backlog"] = {
+        "target": args.hint_backlog_max,
+        "measured": backlog,
+        "verdict": "OK" if ok else "VIOLATED",
+    }
+    if not ok:
+        report["verdict"] = "VIOLATED"
+    log(f"churn: backlog={backlog} converged={converged} "
+        f"-> {'OK' if ok else 'VIOLATED'}")
+
+
+def _metric_value(metrics_text: str, prefix: str) -> float:
+    """The sum of every sample whose name and labels start with
+    `prefix` (say 'pilosa_result_cache_events_total{event="hit"}')."""
+    total = 0.0
+    for line in metrics_text.splitlines():
+        if line.startswith(prefix):
+            try:
+                total += float(line.rsplit(None, 1)[1])
+            except (ValueError, IndexError):
+                pass
+    return total
+
+
+def _judge_follower_reads(report: Dict[str, Any], transport,
+                          spec: Dict[str, Any], args, log) -> None:
+    """The verdict of a bounded-staleness run (--staleness-ms > 0):
+
+    - read availability: no 5xx on the read stream (a bounded read
+      always has a rung: a fresher replica, the owner, partial);
+    - staleness: the result cache's shadow mismatches
+      (backend="result-cache") stay 0;
+    - the cache's hit rate at least the schedule's ceiling less 10
+      points, judged once the cache saw 20 lookups;
+    - with churn, the last decile's ok-rate at least
+      --qps-recovery-min of the first's.
+
+    The ceiling replays the schedule through a perfect epoch-keyed
+    cache (no bound, free lookups): a write clears it, since a Count's
+    key moves with any touched slice's epoch, so only the zipf repeats
+    between writes can hit."""
+    cached: set = set()
+    possible_hits = read_n = 0
+    for e in build_schedule(spec):
+        if e["phase"] != "run":
+            continue
+        if e["op"] == "write":
+            cached.clear()
+        elif e["op"] in ("read", "zipf_read"):
+            read_n += 1
+            if e["pql"] in cached:
+                possible_hits += 1
+            else:
+                cached.add(e["pql"])
+    ceiling = possible_hits / read_n if read_n else 0.0
+
+    metrics = transport.get_text("/metrics")
+    hits = _metric_value(
+        metrics, 'pilosa_result_cache_events_total{event="hit"}')
+    misses = _metric_value(
+        metrics, 'pilosa_result_cache_events_total{event="miss"}')
+    probes = hits + misses
+    hit_rate = hits / probes if probes else 0.0
+    stale_served = _metric_value(
+        metrics, 'pilosa_shadow_mismatch_total{backend="result-cache"}')
+
+    read_5xx = int(report.get("read_5xx", 0))
+    report["follower_reads"] = {
+        "staleness_ms": spec.get("staleness_ms", 0.0),
+        "read_total": report.get("read_total", 0),
+        "read_5xx": read_5xx,
+        "cache_hits": hits,
+        "cache_misses": misses,
+        "cache_hit_rate": round(hit_rate, 4),
+        "zipf_hit_ceiling": round(ceiling, 4),
+        "stale_cache_serves": stale_served,
+    }
+
+    obj = report["objectives"]
+    obj["read_availability"] = {
+        "target": 0, "measured": read_5xx,
+        "verdict": "OK" if read_5xx == 0 else "VIOLATED"}
+    obj["staleness"] = {
+        "target": 0, "measured": stale_served,
+        "verdict": "OK" if stale_served == 0 else "VIOLATED"}
+    target = max(0.0, ceiling - 0.10)
+    obj["cache_hit_rate"] = {
+        "target": round(target, 4), "measured": round(hit_rate, 4),
+        # Under 20 lookups the rate is reported, not judged.
+        "verdict": "OK" if probes < 20 or hit_rate >= target
+        else "VIOLATED"}
+
+    if args.kill_replica_at >= 0:
+        okd, totd = report["ok_by_decile"], report["total_by_decile"]
+        first = okd[0] / totd[0] if totd[0] else 1.0
+        last = okd[9] / totd[9] if totd[9] else 0.0
+        ratio = last / first if first > 0 else 1.0
+        report["follower_reads"]["qps_recovery_ratio"] = round(ratio, 4)
+        obj["qps_recovery"] = {
+            "target": args.qps_recovery_min, "measured": round(ratio, 4),
+            "verdict": ("OK" if ratio >= args.qps_recovery_min
+                        else "VIOLATED")}
+
+    bad = [k for k in ("read_availability", "staleness",
+                       "cache_hit_rate", "qps_recovery")
+           if obj.get(k, {}).get("verdict") == "VIOLATED"]
+    if bad:
+        report["verdict"] = "VIOLATED"
+    log(f"follower-reads: 5xx={read_5xx} hit_rate={hit_rate:.3f} "
+        f"(ceiling {ceiling:.3f}) stale={stale_served:g} "
+        f"-> {'VIOLATED: ' + ','.join(bad) if bad else 'OK'}")
 
 
 def _judge_watchdog(report: Dict[str, Any], transport, args,
@@ -708,14 +967,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--burst", choices=("none", "diurnal", "spike"),
                    default="none")
     p.add_argument("--partial", action="store_true",
-                   help="send ?partial=true (graceful degradation; "
-                        f"refused: {CLUSTER_WAIT})")
+                   help="send ?partial=true (graceful degradation)")
     p.add_argument("--deadline", default="",
                    help='per-query deadline (Go duration, e.g. "50ms")')
     p.add_argument("--staleness-ms", type=float, default=0.0,
                    help="send X-Pilosa-Staleness on every request "
-                        "(bounded-staleness follower reads; > 0 "
-                        f"refused: {CLUSTER_WAIT})")
+                        "(bounded-staleness follower reads) and judge "
+                        "them")
     p.add_argument("--qps-recovery-min", type=float, default=0.5,
                    help="churn runs: final-decile ok-rate must recover "
                         "to this fraction of the first decile's")
@@ -739,19 +997,18 @@ def make_parser() -> argparse.ArgumentParser:
                    help="arm --fault at this fraction of the run")
     p.add_argument("--cluster-nodes", type=int, default=0,
                    help="boot an N-node in-process cluster instead of "
-                        f"a single node (refused: {CLUSTER_WAIT})")
-    p.add_argument("--cluster-replicas", type=int, default=None,
-                   help=f"replica_n for --cluster-nodes (refused: "
-                        f"{CLUSTER_WAIT})")
+                        "a single node (implies --in-process)")
+    p.add_argument("--cluster-replicas", type=int, default=3,
+                   help="replica_n for --cluster-nodes")
     p.add_argument("--kill-replica-at", type=float, default=-1.0,
                    help="close one (non-coordinator) replica at this "
-                        f"fraction of the run (refused: {CLUSTER_WAIT})")
+                        "fraction of the run (cluster mode)")
     p.add_argument("--restart-replica-at", type=float, default=-1.0,
                    help="restart the killed replica at this fraction "
-                        f"of the run (refused: {CLUSTER_WAIT})")
-    p.add_argument("--hint-backlog-max", type=int, default=None,
+                        "of the run, on the same data dir")
+    p.add_argument("--hint-backlog-max", type=int, default=0,
                    help="max hint records left after the post-run "
-                        f"drain window (refused: {CLUSTER_WAIT})")
+                        "drain window (judged)")
     p.add_argument("--report", default="",
                    help="report path (default LOADGEN_<seed>.json)")
     p.add_argument("--print-schedule", action="store_true",
@@ -789,25 +1046,8 @@ def spec_from_args(args) -> Dict[str, Any]:
     }
 
 
-def cluster_flags(args) -> List[str]:
-    """The cluster flags `args` set (the port refuses each)."""
-    return [flag for flag, on in (
-        ("--cluster-nodes", args.cluster_nodes > 0),
-        ("--cluster-replicas", args.cluster_replicas is not None),
-        ("--kill-replica-at", args.kill_replica_at >= 0),
-        ("--restart-replica-at", args.restart_replica_at >= 0),
-        ("--hint-backlog-max", args.hint_backlog_max is not None),
-        ("--staleness-ms", args.staleness_ms > 0),
-        ("--partial", args.partial)) if on]
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = make_parser().parse_args(argv)
-    refused = cluster_flags(args)
-    if refused:
-        print(f"loadgen: {', '.join(refused)}: {CLUSTER_WAIT}",
-              file=sys.stderr)
-        return 2
     log = (lambda s: None) if args.quiet else \
         (lambda s: print(f"loadgen: {s}", file=sys.stderr))
     spec = spec_from_args(args)
@@ -820,20 +1060,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .. import fault
 
     srv = None
+    servers: list = []
+    configs: list = []
+    churn_state: Dict[str, Any] = {}
+    churn_thread = None
     host = args.host
-    if args.in_process:
+    if args.cluster_nodes > 0:
+        servers, configs, hosts = start_inprocess_cluster(
+            spec, args.cluster_nodes, args.cluster_replicas, log)
+        host = hosts[0]
+        if args.kill_replica_at >= 0:
+            churn_thread = threading.Thread(
+                target=run_replica_churn,
+                args=(servers, configs, args.duration,
+                      args.kill_replica_at, args.restart_replica_at,
+                      log, churn_state),
+                daemon=True)
+    elif args.in_process:
         srv, host = start_inprocess(
             spec, log,
             watchdog_drill="watchdog.stall" in (args.fault or ""))
-    transport = HTTPTransport(host, index=args.index,
-                              deadline=args.deadline)
+    transport = HTTPTransport(host, index=args.index, partial=args.partial,
+                              deadline=args.deadline,
+                              staleness_ms=args.staleness_ms)
 
     fault_cb = None
     fault_rules: list = []
     if args.fault:
-        if not args.in_process:
-            log("--fault requires --in-process (seams live in the server "
-                "process); ignoring")
+        if not (args.in_process or args.cluster_nodes > 0):
+            log("--fault requires --in-process or --cluster-nodes (seams "
+                "live in the server process); ignoring")
         else:
             def fault_cb():
                 fault_rules.extend(fault.load_spec(args.fault))
@@ -846,7 +1102,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         n = len(build_schedule(spec))
         log(f"running {n} requests over ~{args.duration:.0f}s "
             f"({args.mode}-loop, seed {args.seed})")
+        if churn_thread is not None:
+            churn_thread.start()
         report = run(dict(spec), transport, log=log, fault_cb=fault_cb)
+        if churn_thread is not None:
+            churn_thread.join(timeout=max(30.0, args.duration))
+        if servers:
+            _judge_write_churn(report, servers, configs, churn_state,
+                               args, log)
+        if args.staleness_ms > 0:
+            _judge_follower_reads(report, transport, spec, args, log)
         if args.cost_skew:
             _judge_cost_skew(report, transport, spec, args, log)
         if fault_rules and "watchdog.stall" in (args.fault or ""):
@@ -877,6 +1142,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         if srv is not None:
             srv.close()
+        for s in servers:
+            try:
+                s.close()
+            except Exception:  # noqa: BLE001 — the victim, closed
+                pass
 
     path = args.report or f"LOADGEN_{args.seed}.json"
     with open(path, "w") as f:

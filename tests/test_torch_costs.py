@@ -9,8 +9,8 @@ EWMA + MAD regression watch (a 3x slowdown through the device.exec
 seam flips it, recovery clears it, 10k clean observations never do),
 /debug/costs, WAL bytes charged to the tenant, the observe-only
 X-Pilosa-Cost-Debt header, ?explain=true's cost block, /metrics, and
-the `ctl costs` panel; the network-tier and fleet tests wait for the
-cluster (ROADMAP A11, A9b). Equal between the packages: the ledger's
+the `ctl costs` panel; the network-tier conservation test runs on live
+clusters in tests/test_torch_cluster_record.py. Equal between the packages: the ledger's
 snapshot() and families after one seeded charge sequence, and the
 watch's bands after one seeded observation stream. Port only: the
 Server's [obs] wiring, and the governor's taps (a staged view's bytes x

@@ -7,8 +7,9 @@ four FleetAggregator cases of tests/test_fleet.py (stale tolerance,
 breaker skips, a member leaving, the interval cache) on both modules; a
 merge of frozen scrapes, whose expected sums are taken in sorted host
 order, the order snapshot() merges in, so float sums agree to the last
-bit; render_fleet of the same documents; /debug/fleet's 404 on one
-node; the lint's violations on the texts of tests/test_fleet.py; and
+bit; render_fleet of the same documents; /debug/fleet's 404 on a handler
+without a cluster, and `ctl fleet`'s panel of a one-node server; the
+lint's violations on the texts of tests/test_fleet.py; and
 the JAX lint over the port's live scrape (none). The port's modules
 import nothing of the JAX package: the cross-checks are here only.
 """
@@ -316,24 +317,34 @@ def test_debug_fleet_404_on_one_node(tmp_path):
 
 
 def test_ctl_fleet_against_one_node(tmp_path, capsys):
-    """`ctl fleet` against a port node: the 404 exits 1, as the JAX ctl
-    against a node without a cluster."""
+    """`ctl fleet` against a one-node server of each package: a Server
+    always builds its cluster, so the pane answers its one member (the
+    config's default host, unscraped here), and both ctls exit 0 with
+    the same panel."""
+    from pilosa_tpu.config import Config as JaxConfig
+    from pilosa_tpu.server import Server as JaxServer
     from pilosa_tpu_torch.config import Config
     from pilosa_tpu_torch.server import Server
 
-    c = Config()
-    c.data_dir = str(tmp_path / "d")
-    c.host = "127.0.0.1:0"
-    c.use_device = "off"
-    srv = Server(c)
-    srv.open(port=0)
-    try:
-        assert srv.handler.fleet_scrape_interval == c.fleet_scrape_interval
-        rc = port_ctl.main(["fleet", "--host", srv.host, "-n", "1"])
-        assert rc == 1
-        assert "HTTP Error 404" in capsys.readouterr().err
-    finally:
-        srv.close()
+    panels = {}
+    for name, cfg_cls, srv_cls, ctl in (
+            ("jax", JaxConfig, JaxServer, jax_ctl),
+            ("torch", Config, Server, port_ctl)):
+        c = cfg_cls()
+        c.data_dir = str(tmp_path / name)
+        c.host = "127.0.0.1:0"
+        c.use_device = "off"
+        srv = srv_cls(c)
+        srv.open(port=0)
+        try:
+            assert srv.handler.fleet_scrape_interval == \
+                c.fleet_scrape_interval
+            assert ctl.main(["fleet", "--host", srv.host, "-n", "1"]) == 0
+            panels[name] = capsys.readouterr().out.replace(srv.host, "H")
+        finally:
+            srv.close()
+    assert "members 1" in panels["torch"]
+    assert panels["torch"] == panels["jax"]
 
 
 # -- the lint ---------------------------------------------------------------------

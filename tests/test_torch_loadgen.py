@@ -8,7 +8,11 @@ tallies, verdicts; latencies are not compared); a real in-process run
 against a port server on the CPU and against a JAX server (verdict OK,
 no mismatch growth, the same request counts), with --fault device.exec
 and --fault watchdog.stall fired and judged in both packages. The
-cluster flags are refused with exit code 2. A watchdog.stall delay on a
+cluster flags route as in the JAX tool: with --cluster-nodes to an
+in-process cluster of that many nodes and replicas, without it to the
+one-node transport with the same ?partial= and X-Pilosa-Staleness
+(cluster runs themselves: tests/test_torch_loadgen_cluster.py). A
+watchdog.stall delay on a
 `scrub` heartbeat trips each package's watchdog and recovers, and
 fault.log() records the same fired faults in both.
 """
@@ -148,19 +152,61 @@ def test_stub_run_reports_equal(seed, mode, fn):
     assert port["verdict"] == ("OK" if fn is None else "VIOLATED")
 
 
+class _Reached(Exception):
+    """Where a tool's main() went: the call that ends its set-up."""
+
+
+def _route(mod, argv, monkeypatch, tmp_path) -> tuple:
+    """(exit code or None, where main() went) for `argv`: the cluster's
+    start and the transport are stubbed, and the first request path
+    (prepare_index) stops the run, so nothing is served."""
+    def cluster(spec, nodes, replicas, log):
+        raise _Reached(("cluster", nodes, replicas))
+
+    class Transport:
+        def __init__(self, host, **kw):
+            self.kw = dict(host=host, **kw)
+
+    def prepare(host, index, frame, log, **kw):
+        raise _Reached(("one node", seen[-1].kw))
+
+    seen = []
+    monkeypatch.setattr(mod, "start_inprocess_cluster", cluster)
+    monkeypatch.setattr(mod, "HTTPTransport",
+                        lambda host, **kw: seen.append(
+                            Transport(host, **kw)) or seen[-1])
+    monkeypatch.setattr(mod, "prepare_index", prepare)
+    try:
+        rc = mod.main([*argv, "--quiet",
+                       "--report", str(tmp_path / "r.json")])
+    except _Reached as e:
+        return None, e.args[0]
+    return rc, None
+
+
 @pytest.mark.parametrize("argv", [
     ["--cluster-nodes", "3"], ["--cluster-replicas", "2"],
     ["--kill-replica-at", "0.3"], ["--restart-replica-at", "0.6"],
     ["--hint-backlog-max", "5"], ["--staleness-ms", "100"], ["--partial"],
     ["--cluster-nodes", "3", "--kill-replica-at", "0.2", "--partial"],
 ])
-def test_cluster_flags_are_refused(argv, capsys, tmp_path):
-    report = tmp_path / "r.json"
-    assert port_lg.main([*argv, "--report", str(report)]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP A11" in err and argv[0] in err
-    assert not report.exists()
-    assert port_ctl.main(["loadgen", *argv]) == 2
+def test_cluster_flags_route_as_the_jax_tool(argv, monkeypatch, tmp_path):
+    """Each flag set is accepted and reaches the same place with the
+    same arguments in both tools: --cluster-nodes N boots N nodes at
+    --cluster-replicas (3 by default), the others go to the one-node
+    transport with the JAX tool's partial / staleness options."""
+    port = _route(port_lg, argv, monkeypatch, tmp_path)
+    jax = _route(jax_lg, argv, monkeypatch, tmp_path)
+    assert port == jax
+    rc, where = port
+    assert rc is None
+    if "--cluster-nodes" in argv:
+        assert where == ("cluster", 3, 3)
+    else:
+        assert where[0] == "one node"
+        assert where[1]["partial"] == ("--partial" in argv)
+        assert where[1]["staleness_ms"] == (
+            100.0 if "--staleness-ms" in argv else 0.0)
 
 
 # -- real runs on the CPU, against a port server and a JAX server ---------------
